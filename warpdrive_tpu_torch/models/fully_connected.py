@@ -1,0 +1,139 @@
+"""
+Policy/value network: the port's counterpart of
+``warpdrive_tpu/models/fully_connected.py:FullyConnected``.
+
+``FullyConnected`` is an MLP trunk followed by one logit head per action
+component and a value head.  The heads run as ONE fused matmul: their
+weights are concatenated at call time, so the hidden activations are read
+once, while each head keeps its own parameters.  Box action spaces use a
+deterministic ``tanh * scale + bias`` head instead.  Models return LOGITS;
+``apply_logit_mask`` gives masked actions a huge negative logit.
+
+Submodule names follow flax's (``Dense_0``, ``Dense_1``, ...,
+``policy_head_{i}``, ``vf_head``, or ``policy_head`` in deterministic mode),
+so :func:`params_from_flax` maps a JAX parameter tree onto the
+``state_dict`` one name at a time.  Compute is float32 only; the JAX
+model's bf16 compute option is ROADMAP queue 1, item 3.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+_LARGE_NEG_NUM = -1e20
+
+
+def apply_logit_mask(logits: torch.Tensor, mask: torch.Tensor = None):
+    """Mask==1 keeps a logit; mask==0 drives it to -1e20."""
+    if mask is None:
+        return logits
+    return logits + (1.0 - mask) * _LARGE_NEG_NUM
+
+
+def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator = None):
+    """flax's default kernel init: truncated normal (at 2 std) with variance
+    1/fan_in, corrected for the truncation."""
+    fan_in = weight.shape[1]
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+
+
+class FullyConnected(nn.Module):
+    """MLP trunk + per-action-component policy heads + value head."""
+
+    def __init__(
+        self,
+        in_features: int,
+        fc_dims: Sequence[int],
+        output_dims: Sequence[int],
+        is_deterministic: bool = False,
+        action_scale: float = 1.0,
+        action_bias: float = 0.0,
+        include_value_head: bool = True,
+        generator: torch.Generator = None,
+        device=None,
+    ):
+        super().__init__()
+        self.fc_dims = tuple(int(d) for d in fc_dims)
+        self.output_dims = tuple(int(d) for d in output_dims)
+        self.is_deterministic = bool(is_deterministic)
+        self.action_scale = float(action_scale)
+        self.action_bias = float(action_bias)
+        self.include_value_head = bool(include_value_head)
+
+        def dense(name, fan_in, fan_out):
+            layer = nn.Linear(fan_in, fan_out, device=device)
+            _lecun_normal_(layer.weight, generator)
+            nn.init.zeros_(layer.bias)
+            self.add_module(name, layer)
+
+        width = int(in_features)
+        for idx, out in enumerate(self.fc_dims):
+            dense(f"Dense_{idx}", width, out)
+            width = out
+        if self.is_deterministic:
+            dense("policy_head", width, len(self.output_dims))
+        else:
+            for idx, dim in enumerate(self.output_dims):
+                dense(f"policy_head_{idx}", width, dim)
+        if self.include_value_head:
+            dense("vf_head", width, 1)
+
+    def forward(self, obs: torch.Tensor, action_mask: torch.Tensor = None):
+        """:returns: ``(heads, value)``: a list of per-component logits (or,
+        deterministic, of ``(..., 1)`` actions) and the value ``(...)`` or
+        None."""
+        x = obs
+        for idx in range(len(self.fc_dims)):
+            x = F.relu(getattr(self, f"Dense_{idx}")(x))
+
+        if self.is_deterministic:
+            raw = self.policy_head(x)
+            combined = self.action_scale * torch.tanh(raw) + self.action_bias
+            heads = [combined[..., i : i + 1]
+                     for i in range(len(self.output_dims))]
+            value = self.vf_head(x)[..., 0] if self.include_value_head else None
+            return heads, value
+
+        layers = [getattr(self, f"policy_head_{i}")
+                  for i in range(len(self.output_dims))]
+        if self.include_value_head:
+            layers.append(self.vf_head)
+        weight = torch.cat([layer.weight for layer in layers], dim=0)
+        bias = torch.cat([layer.bias for layer in layers], dim=0)
+        fused = F.linear(x, weight, bias)
+        heads = []
+        start = 0
+        for dim in self.output_dims:
+            mask = None
+            if action_mask is not None:
+                mask = action_mask[..., start : start + dim]
+            heads.append(apply_logit_mask(fused[..., start : start + dim], mask))
+            start += dim
+        value = fused[..., start] if self.include_value_head else None
+        return heads, value
+
+
+def params_from_flax(tree: dict) -> dict:
+    """A ``FullyConnected`` ``state_dict`` from the JAX model's parameter
+    tree (``{"params": {name: {"kernel", "bias"}}}`` or the inner dict),
+    given as numpy arrays.  A flax ``Dense`` stores ``kernel (in, out)``;
+    ``nn.Linear`` stores ``weight (out, in)``."""
+    params = tree.get("params", tree)
+    state = {}
+    for name, leaf in params.items():
+        state[f"{name}.weight"] = torch.from_numpy(
+            np.asarray(leaf["kernel"], np.float32).T.copy()
+        )
+        state[f"{name}.bias"] = torch.from_numpy(
+            np.array(leaf["bias"], np.float32)
+        )
+    return state

@@ -1,0 +1,152 @@
+"""
+The flagship system: the port's counterpart of ``warpdrive_tpu/presets.py``.
+
+TagContinuous with 5 taggers and 100 runners, k = 10 neighbour observations
+and two ``FullyConnected`` policies (runner and tagger), built as functions
+over batched tensors:
+
+* ``env_only_step((state, checksum), generator)`` -- random actions, then
+  observe, physics and auto-reset (the env simulation rate);
+* ``full_loop_step(models, state, generator)`` -- observe, the two policy
+  forward passes, categorical sampling, physics and auto-reset.
+
+Each step runs the kNN observation once, so on a CUDA device each launches
+the kNN kernel once.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from warpdrive_tpu_torch.models.fully_connected import FullyConnected
+from warpdrive_tpu_torch.sampling.samplers import sample_from_logits
+from warpdrive_tpu_torch.utils.constants import Constants
+from warpdrive_tpu_torch.utils.device import resolve_device
+
+_OBS = Constants.OBSERVATIONS
+
+FLAGSHIP_ENV_KWARGS = dict(
+    num_taggers=5,
+    num_runners=100,
+    grid_length=20.0,
+    episode_length=500,
+    max_acceleration=0.1,
+    min_acceleration=-0.1,
+    max_turn=2.35619449,
+    min_turn=-2.35619449,
+    num_acceleration_levels=10,
+    num_turn_levels=10,
+    skill_level_runner=1.0,
+    skill_level_tagger=1.0,
+    max_speed=1.0,
+    use_full_observation=False,
+    num_other_agents_observed=10,
+    runner_exits_game_after_tagged=True,
+    tag_reward_for_tagger=10.0,
+    tag_penalty_for_runner=-10.0,
+    end_of_game_reward_for_runner=1.0,
+    tagging_distance=0.02,
+)
+
+
+def build_flagship(num_envs: int = 64, fc_dims=(256, 256), seed: int = 0,
+                   knn_algorithm: str | None = None, device="cuda"):
+    """
+    Build the flagship TagContinuous system on ``device``.
+
+    :returns: dict with ``engine``, ``env``, ``models`` (per-policy
+        ``FullyConnected``), ``params`` (their ``state_dict``s), ``state``
+        (the batched rollout state), ``policy_ids``, the step functions
+        ``full_loop_step(models, state, generator)`` and
+        ``env_only_step((state, checksum), generator)``, ``num_envs`` and
+        ``num_agents``.
+    """
+    from warpdrive_tpu_torch.envs import register_all_envs
+    from warpdrive_tpu_torch.envs.engine import EnvEngine
+    from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
+
+    device = resolve_device(device)
+    register_all_envs()
+    kwargs = dict(FLAGSHIP_ENV_KWARGS)
+    # seed the env too: the tagger set and the starting layout are drawn at
+    # construction, so two builds with one seed observe alike
+    kwargs["seed"] = seed
+    kwargs["knn_algorithm"] = knn_algorithm or "pallas_flat_exact"
+    env = TorchTagContinuous(**kwargs)
+    engine = EnvEngine(env_obj=env, num_envs=num_envs, seed=seed,
+                       device=device)
+
+    policy_ids = {
+        "runner": np.where(env.agent_types == 0)[0].astype(np.int32),
+        "tagger": np.where(env.agent_types == 1)[0].astype(np.int32),
+    }
+    heads = [int(n) for n in env.action_space[0].nvec]  # (accel, turn)
+    obs_dim = engine.state[_OBS].shape[-1]
+
+    init_gen = torch.Generator(device=device)
+    init_gen.manual_seed(seed)
+    models = {
+        tag: FullyConnected(obs_dim, fc_dims, heads, generator=init_gen,
+                            device=device)
+        for tag in sorted(policy_ids)
+    }
+    n_agents = engine.n_agents
+    ids_t = {t: torch.as_tensor(v, dtype=torch.long, device=device)
+             for t, v in policy_ids.items()}
+
+    # the rollout carries only the physical state: observations are computed
+    # from it each step, and actions are passed to the physics directly
+    assert engine.env.has_split_step
+    rollout_state = {
+        k: v
+        for k, v in engine.state.items()
+        if k not in (_OBS, Constants.ACTIONS)
+    }
+
+    def _policy_actions(models, obs_all, generator):
+        actions = torch.zeros((num_envs, n_agents, len(heads)),
+                              dtype=torch.int32, device=device)
+        for tag in sorted(ids_t):
+            ids = ids_t[tag]
+            logits_list, _ = models[tag](obs_all[:, ids])
+            cols = [sample_from_logits(logits, generator)
+                    for logits in logits_list]
+            actions[:, ids, :] = torch.stack(cols, dim=-1)
+        return actions
+
+    @torch.no_grad()
+    def full_loop_step(models, state, generator):
+        """One full loop step: obs + policy + sample + step + reset."""
+        obs_all = engine.observe(state)
+        actions = _policy_actions(models, obs_all, generator)
+        state = engine.step_physics(state, actions)
+        return engine.auto_reset(state, generator)
+
+    @torch.no_grad()
+    def env_only_step(carry, generator):
+        """Random-action env step + observation + auto-reset.  The obs
+        checksum keeps the observation an output of the step."""
+        state, checksum = carry
+        actions = torch.stack(
+            [torch.randint(0, n, (num_envs, n_agents), generator=generator,
+                           device=device, dtype=torch.int32)
+             for n in heads],
+            dim=-1,
+        )
+        checksum = checksum + engine.observe(state).sum()
+        state = engine.step_physics(state, actions)
+        return engine.auto_reset(state, generator), checksum
+
+    return {
+        "engine": engine,
+        "env": env,
+        "models": models,
+        "params": {t: m.state_dict() for t, m in models.items()},
+        "state": rollout_state,
+        "policy_ids": policy_ids,
+        "full_loop_step": full_loop_step,
+        "env_only_step": env_only_step,
+        "num_envs": num_envs,
+        "num_agents": n_agents,
+    }
