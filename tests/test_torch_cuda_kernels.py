@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each kernel against its plain PyTorch
-version, and the flagship loops launching it once per step.
+version, the flagship loops launching K1 once per step, and the training
+rollout launching K2 once per step.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The file imports no JAX,
 so on a machine with a card and no JAX it runs without the repo's
@@ -15,6 +16,8 @@ import torch
 from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
 from warpdrive_tpu_torch.ops import knn_obs
 from warpdrive_tpu_torch.presets import build_flagship
+from warpdrive_tpu_torch.training.scripts.train import setup_trainer_and_train
+from warpdrive_tpu_torch.utils.config import load_run_config
 
 
 @pytest.fixture
@@ -83,6 +86,53 @@ def test_flagship_loops_launch_the_kernel_once_per_step(card):
         state, checksum = system["env_only_step"]((state, checksum), gen)
         state = system["full_loop_step"](system["models"], state, gen)
     torch.cuda.synchronize()
-    assert knn_obs.LAUNCH_COUNTS == {"knn_obs_flat_exact": 6}
+    assert knn_obs.LAUNCH_COUNTS == {"knn_obs_flat_exact": 6,
+                                     "knn_obs_mxu": 0}
     assert torch.isfinite(checksum)
     assert state["loc_x"].device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["mxu_exact", "mxu"])
+@pytest.mark.parametrize("E,N,k", [(100, 110, 10), (1024, 105, 10),
+                                   (8, 128, 16), (6, 15, 4), (3, 33, 16)])
+def test_single_tile_kernel_matches_plain_on_card(card, variant, E, N, k):
+    """Bit for bit in both tie-break modes, including N=128, k=16, whose
+    staged rows need more than 48 KB of shared memory."""
+    args = _knn_args(N, k, E, seed=N + k, device=card)
+    before = knn_obs.LAUNCH_COUNTS["knn_obs_mxu"]
+    out = knn_obs.knn_observation(*args, n_agents=N, k=k, variant=variant)
+    assert knn_obs.LAUNCH_COUNTS["knn_obs_mxu"] == before + 1
+    plain = knn_obs.knn_observation_reference(*args, n_agents=N, k=k,
+                                              packed=variant == "mxu")
+    torch.cuda.synchronize()
+    assert out.shape == (E, N, 8 * k + 1)
+    assert torch.equal(out, plain)
+
+
+@pytest.mark.cuda
+def test_single_tile_kernel_refuses_its_limits(card):
+    before = dict(knn_obs.LAUNCH_COUNTS)
+    for N, k, match in ((129, 10, "at most 128 agents"), (40, 17, "k <= 16")):
+        args = _knn_args(N, k, 2, seed=1, device=card)
+        for variant in ("mxu", "mxu_exact"):
+            with pytest.raises(ValueError, match=match):
+                knn_obs.knn_observation(*args, n_agents=N, k=k,
+                                        variant=variant)
+    assert knn_obs.LAUNCH_COUNTS == before
+
+
+@pytest.mark.cuda
+def test_training_rollout_launches_k2_once_per_step(card, tmp_path):
+    cfg = load_run_config("tag_continuous")
+    cfg["trainer"].update({"num_envs": 8, "train_batch_size": 400,
+                           "num_episodes": 1, "seed": 1})
+    for policy in ("runner", "tagger"):
+        cfg["policy"][policy]["model"]["fc_dims"] = [32, 32]
+    knn_obs.reset_launch_counts()
+    trainer = setup_trainer_and_train(cfg, verbose=False,
+                                      results_dir=str(tmp_path))
+    torch.cuda.synchronize()
+    assert trainer.iters_completed == 1
+    assert knn_obs.LAUNCH_COUNTS == {"knn_obs_flat_exact": 0,
+                                     "knn_obs_mxu": 50}

@@ -195,8 +195,9 @@ def test_wrapper_rejects_bad_inputs_and_unported_variants():
         bad = list(args)
         bad[1] = f(N, E).t()
         knn_obs.knn_observation(*bad, n_agents=N, k=k)
-    with pytest.raises(NotImplementedError, match="K2"):
-        knn_obs.knn_observation(*args, n_agents=N, k=k, variant="mxu_exact")
+    with pytest.raises(NotImplementedError, match="K4"):
+        knn_obs.knn_observation(*args, n_agents=N, k=k,
+                                variant="flat_mxudist_exact")
     with pytest.raises(NotImplementedError, match="K3"):
         TorchTagContinuous(**_env_kwargs(15, 4), knn_algorithm="pallas_flat")
     with pytest.raises(NotImplementedError, match="queue 1"):

@@ -1,0 +1,221 @@
+"""
+A2C and PPO losses.
+
+The port's counterpart of ``warpdrive_tpu/algos/policygradient.py``:
+
+* discounted returns with done masking, optional return/advantage
+  normalization over (env, agent), entropy and value-loss coefficient
+  schedules;
+* single-epoch PPO with the clipped surrogate against detached log-probs;
+* negative/positive env downsampling on done==2 success markers as per-env
+  Bernoulli keep-weights (:func:`env_selection_weights`), whose uniform
+  draws a caller may pass in so a test can feed both sides the same draws.
+
+Batches are time-major: actions (T, E, A, C), rewards (T, E, A), dones
+(T, E), logits a list of C tensors (T, E, A, n_c), values (T, E, A).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.nn import functional as F
+
+from warpdrive_tpu_torch.algos.returns import (
+    discounted_returns,
+    normalize_across_env_agents,
+)
+from warpdrive_tpu_torch.training.param_scheduler import ParamScheduler
+
+_EPSILON = 1e-10
+
+
+def env_selection_weights(
+    done_flags_batch: torch.Tensor,  # (T, E)
+    negative_positive_ratio: float,
+    generator: torch.Generator = None,
+    uniform: torch.Tensor = None,
+) -> torch.Tensor:
+    """
+    Per-env keep weights for success-based downsampling: keep every env
+    that hit done==2 ("positive"), keep each other env with probability
+    ``pos_count * ratio / neg_count`` (everything when there is no
+    positive).  ``uniform`` (E,) in [0, 1) replaces the draw from
+    ``generator``.  Returns (E,) float32 weights in {0, 1}.
+    """
+    E = done_flags_batch.shape[1]
+    positives = (done_flags_batch == 2).any(dim=0)
+    pos_count = positives.sum().to(torch.float32)
+    neg_count = torch.clamp(E - pos_count, min=1.0)
+    keep_prob = torch.clamp(
+        pos_count * negative_positive_ratio / neg_count, max=1.0
+    )
+    keep_prob = torch.where(pos_count > 0, keep_prob, 1.0)
+    if uniform is None:
+        uniform = torch.rand((E,), generator=generator,
+                             device=done_flags_batch.device)
+    return (positives | (uniform < keep_prob)).to(torch.float32)
+
+
+def _wmean(x: torch.Tensor, env_weights: torch.Tensor) -> torch.Tensor:
+    """Mean over all elements, with per-env weights broadcast on axis 1."""
+    w = env_weights.reshape((1, -1) + (1,) * (x.ndim - 2))
+    denom = torch.clamp(w.sum() * x.numel() / x.shape[1], min=_EPSILON)
+    return (x * w).sum() / denom
+
+
+def _logp_and_entropy(logits_list, actions):
+    """Sum of per-component log-probs (T, E, A) and the per-component
+    entropies stacked (C, T, E, A)."""
+    log_prob = 0.0
+    entropies = []
+    for idx, logits in enumerate(logits_list):
+        logp = F.log_softmax(logits, dim=-1)
+        probs = torch.exp(logp)
+        entropies.append(-(probs * logp).sum(dim=-1))
+        log_prob = log_prob + logp.gather(
+            -1, actions[..., idx : idx + 1].long()
+        )[..., 0]
+    return log_prob, torch.stack(entropies, dim=0)
+
+
+class A2C:
+    """Advantage Actor-Critic."""
+
+    def __init__(
+        self,
+        discount_factor_gamma=1.0,
+        normalize_advantage=False,
+        normalize_return=False,
+        vf_loss_coeff=0.01,
+        entropy_coeff=0.01,
+    ):
+        assert 0 <= discount_factor_gamma <= 1
+        self.discount_factor_gamma = float(discount_factor_gamma)
+        self.normalize_advantage = bool(normalize_advantage)
+        self.normalize_return = bool(normalize_return)
+        self.vf_loss_coeff_schedule = ParamScheduler(vf_loss_coeff)
+        self.entropy_coeff_schedule = ParamScheduler(entropy_coeff)
+
+    # PPO overrides this hook
+    def _policy_loss(self, log_prob, advantages, env_weights):
+        return _wmean(-log_prob * advantages, env_weights)
+
+    def compute_loss_and_metrics(
+        self,
+        timestep,
+        actions_batch,  # (T, E, A, C) int32
+        rewards_batch,  # (T, E, A) float32
+        done_flags_batch,  # (T, E) int32
+        logits_batch,  # list of C tensors (T, E, A, n_c)
+        value_functions_batch,  # (T, E, A) float32, in the graph
+        negative_positive_ratio: float = -1.0,
+        generator: torch.Generator = None,
+        downsample_uniform: torch.Tensor = None,
+    ):
+        """:returns: ``(loss, metrics)``, both tensors; reading a metric
+        value waits for the device, so callers read them at log points
+        only."""
+        values_detached = value_functions_batch.detach()
+
+        if negative_positive_ratio > 0:
+            env_w = env_selection_weights(
+                done_flags_batch, negative_positive_ratio, generator,
+                uniform=downsample_uniform,
+            )
+        else:
+            env_w = torch.ones((rewards_batch.shape[1],), dtype=torch.float32,
+                               device=rewards_batch.device)
+
+        returns = discounted_returns(
+            rewards_batch, done_flags_batch, values_detached,
+            self.discount_factor_gamma,
+        )
+        norm_returns = normalize_across_env_agents(returns,
+                                                   self.normalize_return)
+
+        vf_loss = _wmean((norm_returns - value_functions_batch) ** 2, env_w)
+
+        advantages = norm_returns - values_detached
+        norm_advantages = normalize_across_env_agents(
+            advantages, self.normalize_advantage
+        )
+
+        log_prob, entropy = _logp_and_entropy(logits_batch, actions_batch)
+        mean_entropy = sum(
+            _wmean(entropy[c], env_w) for c in range(entropy.shape[0])
+        )
+
+        policy_loss = self._policy_loss(log_prob, norm_advantages, env_w)
+
+        vf_coeff_t = float(self.vf_loss_coeff_schedule.value_at(timestep))
+        ent_coeff_t = float(self.entropy_coeff_schedule.value_at(timestep))
+        loss = policy_loss + vf_coeff_t * vf_loss - ent_coeff_t * mean_entropy
+
+        with torch.no_grad():
+            variance_explained = torch.clamp(
+                1.0 - norm_advantages.var(correction=0)
+                / (norm_returns.var(correction=0) + _EPSILON),
+                min=-1.0,
+            )
+            actions_f = actions_batch.to(torch.float32)
+            metrics = {
+                "VF loss coefficient": vf_coeff_t,
+                "Entropy coefficient": ent_coeff_t,
+                "Total loss": loss.detach(),
+                "Policy loss": policy_loss.detach(),
+                "Value function loss": vf_loss.detach(),
+                "Mean rewards": rewards_batch.mean(),
+                "Max. rewards": rewards_batch.max(),
+                "Min. rewards": rewards_batch.min(),
+                "Mean value function": values_detached.mean(),
+                "Mean advantages": advantages.mean(),
+                "Mean (norm.) advantages": norm_advantages.mean(),
+                "Mean (discounted) returns": returns.mean(),
+                "Mean normalized returns": norm_returns.mean(),
+                "Mean entropy": mean_entropy.detach(),
+                "Variance explained by the value function":
+                    variance_explained,
+                "Std. of action over agents":
+                    actions_f.std(dim=2, correction=0).mean(),
+                "Std. of action over envs":
+                    actions_f.std(dim=1, correction=0).mean(),
+                "Std. of action over time":
+                    actions_f.std(dim=0, correction=0).mean(),
+            }
+            if negative_positive_ratio > 0:
+                metrics["Num of Sampled Envs"] = env_w.sum()
+        return loss, metrics
+
+
+class PPO(A2C):
+    """Single-epoch PPO with the clipped surrogate: the old log-probs are
+    the detached current ones, so the ratio is 1 in value and gradients
+    flow through the unclipped branch."""
+
+    def __init__(
+        self,
+        discount_factor_gamma=1.0,
+        clip_param=0.1,
+        normalize_advantage=False,
+        normalize_return=False,
+        vf_loss_coeff=0.01,
+        entropy_coeff=0.01,
+    ):
+        super().__init__(
+            discount_factor_gamma=discount_factor_gamma,
+            normalize_advantage=normalize_advantage,
+            normalize_return=normalize_return,
+            vf_loss_coeff=vf_loss_coeff,
+            entropy_coeff=entropy_coeff,
+        )
+        assert 0 <= clip_param <= 1
+        self.clip_param = float(clip_param)
+
+    def _policy_loss(self, log_prob, advantages, env_weights):
+        ratio = torch.exp(log_prob - log_prob.detach())
+        surr1 = ratio * advantages
+        surr2 = (
+            torch.clamp(ratio, 1.0 - self.clip_param, 1.0 + self.clip_param)
+            * advantages
+        )
+        return _wmean(-torch.minimum(surr1, surr2), env_weights)

@@ -35,15 +35,15 @@
 // __fmul_rn / __fadd_rn (and the library is built with -fmad=false) so no
 // FMA contraction moves a distance by an ulp and flips a near-tie.
 // Known cost left for later: each thread writes its own (8k+1)-float row,
-// so the output stores are uncoalesced.
+// so the output stores are uncoalesced.  The staging, distance, sorted list
+// and row emission are shared with knn_obs_mxu.cu through knn_common.cuh.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-namespace {
+#include "knn_common.cuh"
 
-constexpr int kChannels = 6;        // 5 features + type
-constexpr float kValidMax = 1e18f;  // candidates at d2 >= this are invalid
+namespace {
 
 template <int K_MAX>
 __global__ void knn_obs_flat_exact_kernel(
@@ -52,104 +52,29 @@ __global__ void knn_obs_flat_exact_kernel(
     const float* __restrict__ still_f, const float* __restrict__ t_norm,
     float* __restrict__ out, int n, int k) {
   extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + n;
-  float* salive = sy + n;
-  float* sf = salive + n;  // kChannels * n, channel-major
-
   const int e = blockIdx.x;
-  const long long env_base = static_cast<long long>(e) * n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    sx[j] = loc_x[env_base + j];
-    sy[j] = loc_y[env_base + j];
-    salive[j] = still_f[env_base + j] >= 0.5f ? 1.0f : 0.0f;
-#pragma unroll
-    for (int c = 0; c < 5; ++c) {
-      sf[c * n + j] = feats[(env_base * 5) + static_cast<long long>(c) * n + j];
-    }
-    sf[5 * n + j] = types_f[j];
-  }
-  __syncthreads();
+  const knn::EnvTile t =
+      knn::stage_env(smem, loc_x, loc_y, feats, types_f, still_f, e, n);
 
   const int i = blockIdx.y * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int row_len = 8 * k + 1;
-  float* row = out + (env_base + i) * row_len;
-
-  if (salive[i] == 0.0f) {
-    for (int f = 0; f < row_len; ++f) row[f] = 0.0f;
+  float* row = out + (static_cast<long long>(e) * n + i) * row_len;
+  if (t.alive[i] == 0.0f) {
+    knn::zero_row(row, row_len);
     return;
   }
 
-  float bd[K_MAX];
-  int bj[K_MAX];
-#pragma unroll
-  for (int s = 0; s < K_MAX; ++s) {
-    bd[s] = CUDART_INF_F;
-    bj[s] = 0;
-  }
-  float worst = CUDART_INF_F;  // bd[k - 1]: a candidate must beat it
+  knn::SortedList<K_MAX, float> list(CUDART_INF_F);
   int n_valid = 0;
-
-  const float xi = sx[i];
-  const float yi = sy[i];
   for (int j = 0; j < n; ++j) {
-    if (j == i || salive[j] == 0.0f) continue;
-    const float dx = __fsub_rn(sx[j], xi);
-    const float dy = __fsub_rn(sy[j], yi);
-    const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-    if (!(d2 < kValidMax)) continue;
+    if (j == i || t.alive[j] == 0.0f) continue;
+    const float d2 = knn::sq_dist(t, j, i);
+    if (!(d2 < knn::kValidMax)) continue;
     ++n_valid;
-    if (!(d2 < worst)) continue;
-    // insert (d2, j): slots from the first one it beats shift down by one
-    float cd = d2;
-    int cj = j;
-    bool shifting = false;
-#pragma unroll
-    for (int s = 0; s < K_MAX; ++s) {
-      const bool take = shifting || cd < bd[s];
-      const float td = bd[s];
-      const int tj = bj[s];
-      if (take) {
-        bd[s] = cd;
-        bj[s] = cj;
-        cd = td;
-        cj = tj;
-      }
-      shifting = take;
-    }
-#pragma unroll
-    for (int s = 0; s < K_MAX; ++s) {
-      if (s == k - 1) worst = bd[s];
-    }
+    list.insert(d2, j, k);
   }
-
-  float own[5];
-#pragma unroll
-  for (int c = 0; c < 5; ++c) own[c] = sf[c * n + i];
-
-  // every index into bd/bj is a compile-time constant after unrolling, so
-  // the lists stay in registers
-#pragma unroll
-  for (int s = 0; s < K_MAX; ++s) {
-    if (s < k) {
-      float* slot = row + 8 * s;
-      if (s < n_valid) {
-        const int j = bj[s];
-#pragma unroll
-        for (int c = 0; c < 5; ++c) {
-          slot[c] = __fsub_rn(sf[c * n + j], own[c]);
-        }
-        slot[5] = sf[5 * n + j];
-        slot[6] = 1.0f;
-        slot[7] = 1.0f;
-      } else {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) slot[c] = 0.0f;
-      }
-    }
-  }
-  row[8 * k] = t_norm[e];
+  knn::emit_row(row, list, n_valid, k, t, i, t_norm[e]);
 }
 
 template <int K_MAX>
@@ -159,7 +84,8 @@ cudaError_t launch(const float* loc_x, const float* loc_y, const float* feats,
                    cudaStream_t stream) {
   const int threads = n >= 128 ? 128 : ((n + 31) / 32) * 32;
   const dim3 grid(e, (n + threads - 1) / threads);
-  const size_t smem = static_cast<size_t>(3 + kChannels) * n * sizeof(float);
+  const size_t smem =
+      static_cast<size_t>(3 + knn::kChannels) * n * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         knn_obs_flat_exact_kernel<K_MAX>,

@@ -12,7 +12,8 @@ split-step path.  It
   returning a dict of batched tensors without touching its input,
 * offers the gym-like conveniences ``reset_all_envs``,
   ``reset_only_done_envs`` and ``step_all_envs``, which keep the engine's
-  own ``state``.
+  own ``state``,
+* and ``rewards_of``, the all-agent rewards a trainer records.
 
 Envs without the split-step contract, separate per-policy placeholders,
 Dict observations and reset pools (which need the post-reset observation
@@ -124,6 +125,10 @@ class EnvEngine:
         )
         self.state = self.store.state
         self._first_reset_done = False
+
+    def rewards_of(self, state: dict) -> torch.Tensor:
+        """All-agent rewards ``(envs, agents)`` of a state."""
+        return state[_REWARDS]
 
     # ------------------------------------------------------- split-step path
     def _as_actions(self, actions) -> torch.Tensor:

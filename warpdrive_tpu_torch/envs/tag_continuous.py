@@ -9,8 +9,8 @@ The port's counterpart of ``warpdrive_tpu/envs/tag_continuous.py``:
 * ``TorchTagContinuous`` adds the batched device step: ``physics_fn`` over
   ``(envs, agents)`` tensors, ``observe_fn`` (the exact ``passes`` and
   ``ladder`` kNN algorithms in plain PyTorch) and ``observe_batch_fn``,
-  which sends ``knn_algorithm="pallas_flat_exact"`` to the port's kNN
-  kernel (``ops/knn_obs.py``).
+  which sends ``knn_algorithm="pallas_flat_exact"``, ``"pallas_mxu_exact"``
+  and ``"pallas_mxu"`` to the port's kNN kernels (``ops/knn_obs.py``).
 
 Game rules:
 
@@ -34,7 +34,11 @@ import numpy as np
 import torch
 
 from warpdrive_tpu_torch.envs.base import TorchEnvironmentContext
-from warpdrive_tpu_torch.ops.knn_obs import check_variant, knn_observation
+from warpdrive_tpu_torch.ops.knn_obs import (
+    check_variant,
+    knn_observation,
+    knn_observation_reference,
+)
 from warpdrive_tpu_torch.utils.constants import Constants
 from warpdrive_tpu_torch.utils.data_feed import DataFeed
 from warpdrive_tpu_torch.utils.env_registrar import env_registrar
@@ -440,9 +444,13 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
 
     ``knn_algorithm`` (kNN observation mode only):
 
-    * ``"pallas_flat_exact"`` -- :meth:`observe_batch_fn` calls the port's
-      kNN kernel (``ops/knn_obs.py``); :meth:`observe_fn` runs ``passes``,
-      the exact algorithm of the same selection;
+    * ``"pallas_flat_exact"`` and, up to 128 agents, ``"pallas_mxu_exact"``
+      and ``"pallas_mxu"`` -- :meth:`observe_batch_fn` calls the port's kNN
+      kernels (``ops/knn_obs.py``); :meth:`observe_fn` runs ``passes``, the
+      exact algorithm of the same selection, or for ``"pallas_mxu"`` the
+      plain version of its packed-key order.  Above 128 agents the ``mxu``
+      names route to ``pallas_tiled[_exact]``, as in the JAX package, which
+      is not ported yet;
     * ``"passes"`` and ``"ladder"`` -- plain PyTorch;
     * every other name raises ``NotImplementedError`` naming its ROADMAP
       item.  ``knn_select`` is accepted and ignored: the port always picks
@@ -616,9 +624,9 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
         return feats, still_f, t_norm
 
     def observe_batch_fn(self, state: dict) -> torch.Tensor:
-        """Batched kNN observation ``(envs, agents, 8k+1)``: the kNN kernel
-        for ``pallas_flat_exact``, else :meth:`observe_fn`."""
-        if self.knn_algorithm != "pallas_flat_exact":
+        """Batched kNN observation ``(envs, agents, 8k+1)``: a kNN kernel
+        for a ``pallas_*`` name the port runs, else :meth:`observe_fn`."""
+        if self.knn_algorithm not in _KNN_VARIANTS:
             return self.observe_fn(state)
         feats, still_f, t_norm = self._knn_inputs(state)
         return knn_observation(
@@ -630,6 +638,7 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
             t_norm,
             n_agents=self.num_agents,
             k=self.num_other_agents_observed,
+            variant=_KNN_VARIANTS[self.knn_algorithm],
         )
 
     def observe_fn(self, state: dict) -> torch.Tensor:
@@ -637,7 +646,16 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
         the exact ``passes`` algorithm (k rounds of min, lowest-index argmin,
         select, mask), or the ``ladder`` (slot s takes the least entry
         lexicographically after slot s-1's (min, argmin)).  Both give the
-        same selection and tie-breaks."""
+        same selection and tie-breaks.  ``pallas_mxu`` runs the plain
+        version of its packed-key order instead, on any device."""
+        if self.knn_algorithm == "pallas_mxu":
+            feats, still_f, t_norm = self._knn_inputs(state)
+            return knn_observation_reference(
+                state["loc_x"], state["loc_y"], feats,
+                self._consts(feats.device)["types_f"], still_f, t_norm,
+                n_agents=self.num_agents, k=self.num_other_agents_observed,
+                packed=True,
+            )
         c = self._consts(state["loc_x"].device)
         k = self.num_other_agents_observed
         loc_x = state["loc_x"]

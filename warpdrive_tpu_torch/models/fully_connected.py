@@ -137,3 +137,20 @@ def params_from_flax(tree: dict) -> dict:
             np.array(leaf["bias"], np.float32)
         )
     return state
+
+
+def adam_state_from_optax(opt_state) -> dict:
+    """The port's optimizer state (``training/trainer_a2c.py:ClippedAdam``)
+    from the JAX trainer's per-policy optax state, given as numpy arrays:
+    the ``scale_by_adam`` entry of the chain (the one with ``count``,
+    ``mu`` and ``nu``) becomes ``{"count": int, "mu": state_dict, "nu":
+    state_dict}``, each moment laid out as :func:`params_from_flax` lays out
+    the parameters."""
+    for entry in opt_state:
+        if all(hasattr(entry, name) for name in ("count", "mu", "nu")):
+            return {
+                "count": int(np.asarray(entry.count)),
+                "mu": params_from_flax(entry.mu),
+                "nu": params_from_flax(entry.nu),
+            }
+    raise ValueError("the optimizer state holds no scale_by_adam entry")

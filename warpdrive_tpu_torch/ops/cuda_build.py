@@ -4,8 +4,9 @@ Build and load the port's CUDA kernels.
 Every kernel source lives in ``warpdrive_tpu_torch/csrc/<name>.cu`` and
 exports a plain C interface.  At first use, ``nvcc`` compiles it for Hopper
 (``sm_90a``) into ``warpdrive_tpu_torch/_build/lib<name>-<digest>.so``, where
-the digest covers the source and the flags, so an edited source is rebuilt;
-``ctypes`` loads the library.  Nothing is compiled when a module is imported.
+the digest covers the source, every shared header ``csrc/*.cuh`` and the
+flags, so an edited source or header is rebuilt; ``ctypes`` loads the
+library.  Nothing is compiled when a module is imported.
 """
 
 from __future__ import annotations
@@ -50,11 +51,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict:

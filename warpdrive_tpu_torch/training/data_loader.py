@@ -2,10 +2,12 @@
 Observation / action / reward placeholder creation.
 
 The port's counterpart of ``create_and_push_data_placeholders`` in
-``warpdrive_tpu/training/data_loader.py``, for the one mode the engine of
-this slice needs: shared placeholders with Box observations stored
+``warpdrive_tpu/training/data_loader.py``, for the one mode the engine and
+trainer of the port need: shared placeholders with Box observations stored
 agent-dim-first.  The helpers stack the env's first-reset per-agent
-observations into named arrays on the engine's :class:`StateStore`.
+observations into named arrays on the engine's :class:`StateStore`;
+:func:`policy_agent_groups` splits the shared placeholders' agents among
+the policies that a trainer drives.
 
 Separate per-policy placeholders, Dict observations and the agent-dim-last
 layout raise ``NotImplementedError``; they arrive with ROADMAP queue 1,
@@ -73,6 +75,31 @@ def _action_spec(space):
         )
         return int(space.shape[0]), np.float32
     raise NotImplementedError(repr(space))
+
+
+def policy_agent_groups(policy_tag_to_agent_id_map: dict, num_agents: int,
+                        observation_space: dict, action_space: dict) -> dict:
+    """The shared-placeholder policy grouping: each policy's agent ids as a
+    sorted int32 array.
+
+    :raises ValueError: unless every agent maps to exactly one policy.
+    Agents of one policy must share their observation and action spaces,
+    since one model reads them all.
+    """
+    groups = {
+        tag: np.asarray(sorted(int(i) for i in ids), dtype=np.int32)
+        for tag, ids in policy_tag_to_agent_id_map.items()
+    }
+    covered = np.concatenate(list(groups.values())).tolist()
+    if sorted(covered) != list(range(num_agents)):
+        raise ValueError(
+            f"every one of the {num_agents} agents must map to exactly one "
+            f"policy; the map covers {sorted(covered)}"
+        )
+    for ids in groups.values():
+        if len(ids) > 1:
+            validate_obs_action_spaces(ids, observation_space, action_space)
+    return groups
 
 
 def create_and_push_data_placeholders(

@@ -1,0 +1,141 @@
+"""
+Training CLI: the port's counterpart of
+``warpdrive_tpu/training/scripts/train.py``.
+
+    python -m warpdrive_tpu_torch.training.scripts.train -e tag_continuous
+
+``-e`` names a run config under the port's ``training/run_configs`` (or is
+a path to one); ``--num_episodes`` and ``--num_envs`` override the config,
+``--results_dir`` sets where metrics and checkpoints go, and ``--device``
+(default ``cuda``) where the run happens.  The TagContinuous two-policy
+config is ported; the device mesh (``-n``), the auto-scaler (``-a``) and the
+multi-host flags raise ``NotImplementedError`` naming their ROADMAP items.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from warpdrive_tpu_torch.envs import register_all_envs
+from warpdrive_tpu_torch.envs.engine import EnvEngine
+from warpdrive_tpu_torch.training.trainer_base import not_ported
+from warpdrive_tpu_torch.utils.config import load_run_config
+from warpdrive_tpu_torch.utils.env_registrar import env_registrar
+
+# run-config name -> (registered env name, policy-map kind); the port
+# trains them with TrainerA2C
+_ENV_SETUPS = {
+    "tag_continuous": ("TagContinuous", "tag_continuous"),
+}
+
+# the JAX package's other run configs, with the ROADMAP item that ports each
+_NOT_PORTED = {
+    "single_cartpole": "6", "single_mountain_car": "6",
+    "single_acrobot": "6", "single_pendulum": "7",
+    "single_continuous_mountain_car": "7",
+    "tag_gridworld": "5", "tag_gridworld_with_reset_pool": "5",
+    "asymmetric_pursuit": "8",
+}
+
+
+def build_policy_map(kind: str, env) -> dict:
+    if kind == "tag_continuous":
+        # two policies keyed on agent type
+        taggers = [i for i in range(env.num_agents) if env.agent_type[i] == 1]
+        runners = [i for i in range(env.num_agents) if env.agent_type[i] == 0]
+        return {"tagger": taggers, "runner": runners}
+    raise NotImplementedError(kind)
+
+
+def setup_trainer(
+    run_config: dict,
+    num_devices: int = 1,
+    results_dir: str = None,
+    verbose: bool = True,
+    device="cuda",
+):
+    """Build engine and trainer from a merged run config (no training)."""
+    register_all_envs()
+    name = run_config.get("name")
+    if name in _NOT_PORTED:
+        raise not_ported(f"run config {name!r}", _NOT_PORTED[name])
+    env_name, policy_kind = _ENV_SETUPS[name]
+
+    env_cls = env_registrar.get(env_name, backend="torch")
+    env = env_cls(**run_config.get("env", {}))
+    policy_map = build_policy_map(policy_kind, env)
+    engine = EnvEngine(
+        env_obj=env,
+        num_envs=run_config["trainer"]["num_envs"],
+        seed=int(run_config["trainer"].get("seed", 0)),
+        device=device,
+    )
+
+    from warpdrive_tpu_torch.training.trainer_a2c import TrainerA2C
+
+    return TrainerA2C(
+        env_wrapper=engine,
+        config=run_config,
+        policy_tag_to_agent_id_map=policy_map,
+        num_devices=num_devices,
+        results_dir=results_dir,
+        verbose=verbose,
+    )
+
+
+def setup_trainer_and_train(
+    run_config: dict,
+    num_devices: int = 1,
+    results_dir: str = None,
+    verbose: bool = True,
+    device="cuda",
+):
+    """Build engine and trainer from a merged run config and train."""
+    trainer = setup_trainer(
+        run_config, num_devices=num_devices, results_dir=results_dir,
+        verbose=verbose, device=device,
+    )
+    trainer.train()
+    return trainer
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="warpdrive-tpu-torch training")
+    parser.add_argument("-e", "--env", required=True,
+                        help="run config name or path")
+    parser.add_argument("-n", "--num_devices", type=int, default=1,
+                        help="devices in the mesh (not ported: 1 only)")
+    parser.add_argument("-a", "--auto_scale", action="store_true",
+                        help="auto-scaler (not ported)")
+    parser.add_argument("--num_episodes", type=int, default=None)
+    parser.add_argument("--num_envs", type=int, default=None)
+    parser.add_argument("--results_dir", type=str, default=None)
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device (default cuda; cpu runs the plain "
+                             "versions of the kernels)")
+    for flag in ("--coordinator", "--num_processes", "--process_id"):
+        parser.add_argument(flag, type=str, default=None,
+                            help="multi-host bring-up (not ported)")
+    args = parser.parse_args(argv)
+
+    if args.num_devices > 1:
+        raise not_ported("-n/--num_devices > 1", "11")
+    if args.auto_scale:
+        raise not_ported("-a/--auto_scale", "12")
+    if args.coordinator or args.num_processes or args.process_id:
+        raise not_ported("multi-host training", "11")
+
+    logging.basicConfig(level=logging.INFO)
+    run_config = load_run_config(args.env)
+    if args.num_episodes is not None:
+        run_config["trainer"]["num_episodes"] = args.num_episodes
+    if args.num_envs is not None:
+        run_config["trainer"]["num_envs"] = args.num_envs
+    return setup_trainer_and_train(
+        run_config, results_dir=args.results_dir, device=args.device
+    )
+
+
+if __name__ == "__main__":
+    main()

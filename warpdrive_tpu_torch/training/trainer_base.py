@@ -1,0 +1,414 @@
+"""
+TrainerBase: shared training infrastructure.
+
+The port's counterpart of ``warpdrive_tpu/training/trainer_base.py`` for the
+path ``train()`` runs:
+
+* config unpack and batch algebra: ``training_batch_size_per_env =
+  train_batch_size // num_envs`` and ``num_iters = num_episodes *
+  episode_length // train_batch_size``;
+* the policy -> agent-id map, ``policies_to_train`` and seeding (one
+  ``torch.Generator`` on the engine's device in place of the PRNG key);
+* the results directory with ``run_config.json`` and ``results.json``,
+  :class:`Metrics`, :class:`PerfStats` and the ``train()`` loop;
+* per-policy checkpoints as torch ``state_dict`` files whose names carry
+  the timestep.
+
+The JAX package compiles a metrics-free twin of its iteration for XLA's
+sake; here one eager iteration always builds the metric tensors and the
+loop reads them (which waits for the device) at log points only.
+
+Left out, each raising ``NotImplementedError`` that names its ROADMAP item:
+separate per-policy placeholders, the agent-dim-last layout and action
+masks (queue 1, item 8), the evaluator, episode fetching and logging and
+full-state checkpoints (item 9), ``num_devices > 1`` (item 11), the eager
+host-env backend (item 12) and ``profile_phases`` (item 2, the port's bench).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from warpdrive_tpu_torch.training.data_loader import policy_agent_groups
+from warpdrive_tpu_torch.utils.constants import Constants
+from warpdrive_tpu_torch.utils.spaces import Box, Discrete, MultiDiscrete
+
+_OBS = Constants.OBSERVATIONS
+_ACTIONS = Constants.ACTIONS
+
+
+def not_ported(what: str, item: str):
+    """The error a left-out feature raises."""
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP queue 1, item {item}"
+    )
+
+
+class Metrics:
+    """Pretty-printing of metric dicts."""
+
+    @staticmethod
+    def pretty_print(metrics: dict):
+        for policy, metric_dict in metrics.items():
+            print("=" * 60)
+            print(f"Metrics for policy '{policy}'")
+            print("=" * 60)
+            for key, value in metric_dict.items():
+                print(f"{key:50}: {value:10.5f}")
+        print("=" * 60, flush=True)
+
+
+class PerfStats:
+    """
+    Iteration timing and throughput, window-based as in the JAX package:
+    the trainer adds a window at each log point, after waiting for the
+    device, so every second counted is device-complete.  Per-phase times
+    (rollout, update) come from marks on the device's own clock.
+    """
+
+    def __init__(self):
+        self.iters = 0
+        self.steps = 0
+        self.total_time = 0.0
+        self.phase_ms = {"rollout": 0.0, "update": 0.0}
+
+    def add_window(self, iters: int, steps: int, elapsed: float,
+                   phase_ms: dict):
+        self.iters += iters
+        self.steps += steps
+        self.total_time += elapsed
+        for phase, ms in phase_ms.items():
+            self.phase_ms[phase] += ms
+
+    def get_perf_stats(self) -> dict:
+        if self.iters == 0:
+            return {}
+        return {
+            "Mean total time per iter (ms)": 1000.0 * self.total_time / self.iters,
+            "Mean steps per sec (total)": self.steps / max(self.total_time, 1e-9),
+            "Rollout time per iter (ms)": self.phase_ms["rollout"] / self.iters,
+            "Update time per iter (ms)": self.phase_ms["update"] / self.iters,
+        }
+
+    def pretty_print(self):
+        print("=" * 60)
+        print("Speed performance stats")
+        print("=" * 60)
+        for k, v in self.get_perf_stats().items():
+            print(f"{k:50}: {v:10.2f}")
+        print("=" * 60, flush=True)
+
+
+class DeviceClock:
+    """Time marks on the device's own clock: CUDA events on a card (read
+    after the device has caught up), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+
+    def mark(self):
+        if self.cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+        return time.perf_counter()
+
+    def ms(self, start, stop) -> float:
+        if self.cuda:
+            return start.elapsed_time(stop)
+        return 1e3 * (stop - start)
+
+
+class TrainerBase:
+    """Common trainer machinery; an algorithm subclass provides
+    ``_iteration(timestep)``."""
+
+    def __init__(
+        self,
+        env_wrapper=None,
+        config=None,
+        policy_tag_to_agent_id_map=None,
+        create_separate_placeholders_for_each_policy=False,
+        obs_dim_corresponding_to_num_agents="first",
+        num_devices=1,
+        device_id=0,
+        results_dir=None,
+        verbose=True,
+    ):
+        assert env_wrapper is not None and config is not None
+        if create_separate_placeholders_for_each_policy:
+            raise not_ported("separate per-policy placeholders", "8")
+        if obs_dim_corresponding_to_num_agents != "first":
+            raise not_ported("obs_dim_corresponding_to_num_agents='last'", "8")
+        if int(num_devices) > 1:
+            raise not_ported("training on more than one device", "11")
+        self.engine = env_wrapper
+        self.device = self.engine.device
+        self.config = config
+        self.verbose = verbose
+        self.device_id = int(device_id)
+
+        # ---------------- config unpack and batch algebra -------------------
+        trainer_cfg = config["trainer"]
+        if trainer_cfg.get("evaluator", False):
+            raise not_ported("the evaluator", "9")
+        if trainer_cfg.get("env_backend") in ("cpu", "cpp"):
+            raise not_ported("the eager host-env backend", "12")
+        self.num_envs = int(trainer_cfg["num_envs"])
+        assert self.num_envs == self.engine.n_envs
+        self.num_episodes = int(trainer_cfg["num_episodes"])
+        self.train_batch_size = int(trainer_cfg["train_batch_size"])
+        self.neg_pos_env_ratio = float(trainer_cfg.get("neg_pos_env_ratio", -1))
+
+        self.episode_length = self.engine.episode_length
+        self.training_batch_size_per_env = self.train_batch_size // self.num_envs
+        assert self.training_batch_size_per_env > 0, (
+            "train_batch_size must be >= num_envs"
+        )
+        total_timesteps = self.num_episodes * self.episode_length
+        self.num_iters = int(total_timesteps // self.train_batch_size)
+        if self.num_iters == 0:
+            raise ValueError(
+                "Not enough episodes to even perform a single training "
+                "iteration; increase num_episodes."
+            )
+
+        # ---------------- policies ------------------------------------------
+        self.policies = sorted(config["policy"].keys())
+        self.policies_to_train = [
+            p for p in self.policies if config["policy"][p].get("to_train", False)
+        ]
+        if policy_tag_to_agent_id_map is None:
+            assert len(self.policies) == 1, (
+                "multiple policies need an explicit policy_tag_to_agent_id_map"
+            )
+            policy_tag_to_agent_id_map = {
+                self.policies[0]: list(range(self.engine.n_agents))
+            }
+        self.policy_tag_to_agent_id_map = policy_agent_groups(
+            policy_tag_to_agent_id_map, self.engine.n_agents,
+            self.engine.observation_space, self.engine.action_space,
+        )
+        self._agent_ids = {
+            tag: torch.as_tensor(ids, dtype=torch.long, device=self.device)
+            for tag, ids in self.policy_tag_to_agent_id_map.items()
+        }
+        if Constants.ACTION_MASK in self.engine.state:
+            raise not_ported("action masks", "8")
+        self.obs_space = {}
+        self.act_space = {}
+        for tag, ids in self.policy_tag_to_agent_id_map.items():
+            first = int(ids[0])
+            self.obs_space[tag] = self.engine.observation_space[first]
+            self.act_space[tag] = self.engine.action_space[first]
+
+        # ---------------- seeding --------------------------------------------
+        seed = trainer_cfg.get("seed")
+        seed = int(np.random.randint(10_000_000) if seed is None else seed)
+        self.seed = seed + self.device_id
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.seed)
+
+        # ---------------- saving / metrics ----------------------------------
+        saving_cfg = config["saving"]
+        self.metrics_log_freq = int(saving_cfg.get("metrics_log_freq", 100))
+        self.model_params_save_freq = int(
+            saving_cfg.get("model_params_save_freq", 1000)
+        )
+        if results_dir is None:
+            results_dir = os.path.join(
+                saving_cfg.get("basedir", "/tmp"),
+                saving_cfg.get("name", "default"),
+                saving_cfg.get("tag", "experiment"),
+                str(int(time.time())),
+            )
+        self.save_dir = results_dir
+        os.makedirs(self.save_dir, exist_ok=True)
+        with open(os.path.join(self.save_dir, "run_config.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(config, f, indent=2, default=str)
+
+        self.perf_stats = PerfStats()
+        self.metrics = Metrics()
+        self.clock = DeviceClock(self.device)
+        # (rollout start, rollout end, update end) marks of the iterations
+        # since the last log point, and every iteration's resolved
+        # (rollout ms, update ms)
+        self._pending_marks = []
+        self.phase_ms = []
+        self.current_timestep = 0
+        self.iters_completed = 0
+        self.models = {}
+
+        logging.info(
+            "TrainerBase: %d envs x %d agents, batch/env=%d, iters=%d, seed=%d",
+            self.num_envs, self.engine.n_agents,
+            self.training_batch_size_per_env, self.num_iters, self.seed,
+        )
+
+    # ------------------------------------------------------------ utilities
+    def _rollout_env_state(self) -> dict:
+        """The env state carried through the rollout: observations are
+        recomputed from it each step and actions are handed to the physics,
+        so neither placeholder is carried."""
+        return {
+            k: v for k, v in self.engine.state.items()
+            if k not in (_OBS, _ACTIONS)
+        }
+
+    def _action_heads(self, tag: str):
+        """Per-component head sizes, dtype and whether the space is Box."""
+        space = self.act_space[tag]
+        if isinstance(space, Discrete):
+            return [space.n], torch.int32, False
+        if isinstance(space, MultiDiscrete):
+            return [int(n) for n in space.nvec], torch.int32, False
+        if isinstance(space, Box):
+            return [1] * int(space.shape[0]), torch.float32, True
+        raise NotImplementedError(repr(space))
+
+    def _scatter_actions(self, per_policy_actions: dict) -> torch.Tensor:
+        """Merge per-policy ``(E, A_p, C)`` action blocks into the
+        ``(E, N, C)`` all-agent tensor."""
+        num_c = max(a.shape[-1] for a in per_policy_actions.values())
+        first = next(iter(per_policy_actions.values()))
+        actions = torch.zeros((self.num_envs, self.engine.n_agents, num_c),
+                              dtype=first.dtype, device=self.device)
+        for tag, acts in per_policy_actions.items():
+            actions[:, self._agent_ids[tag], : acts.shape[-1]] = acts
+        return actions
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------- training
+    def _iteration(self, timestep):  # pragma: no cover - subclass detail
+        raise NotImplementedError
+
+    def train(self):
+        """``num_iters`` iterations, metrics every ``metrics_log_freq``,
+        checkpoints every ``model_params_save_freq`` and at the end."""
+        steps_per_iter = self.training_batch_size_per_env * self.num_envs
+        window_start = time.perf_counter()
+        window_iters = 0
+        for iteration in range(self.iters_completed, self.num_iters):
+            log_now = (
+                (iteration + 1) % self.metrics_log_freq == 0
+                or iteration == self.num_iters - 1
+            )
+            metrics = self._iteration(self.current_timestep)
+            self.current_timestep += steps_per_iter
+            self.iters_completed += 1
+            window_iters += 1
+
+            if log_now:
+                metrics_host = {
+                    tag: {key: float(v) for key, v in m.items()}
+                    for tag, m in metrics.items()
+                }
+                self._sync()
+                self.perf_stats.add_window(
+                    window_iters, window_iters * steps_per_iter,
+                    time.perf_counter() - window_start,
+                    self._resolve_phase_marks(),
+                )
+                self._log_metrics(metrics_host)
+                if self.verbose:
+                    print(f"Iteration {iteration + 1}/{self.num_iters} | "
+                          f"timestep {self.current_timestep:,}")
+                    self.metrics.pretty_print(metrics_host)
+                    self.perf_stats.pretty_print()
+
+            saved = (iteration + 1) % self.model_params_save_freq == 0
+            if saved:
+                self.save_model_checkpoint(self.current_timestep)
+            if log_now or saved:
+                # logging and checkpoints stay out of the next window; a
+                # checkpoint without a log discards its window
+                if not log_now:
+                    self._resolve_phase_marks()
+                window_start = time.perf_counter()
+                window_iters = 0
+
+        self._sync()
+        self.save_model_checkpoint(self.current_timestep)
+        logging.info("Trainer exits gracefully")
+
+    def _resolve_phase_marks(self) -> dict:
+        """Per-phase ms summed over the iterations marked since the last
+        call (the device has caught up with them by now)."""
+        self._sync()
+        total = {"rollout": 0.0, "update": 0.0}
+        for start, mid, stop in self._pending_marks:
+            rollout, update = self.clock.ms(start, mid), self.clock.ms(mid, stop)
+            self.phase_ms.append((rollout, update))
+            total["rollout"] += rollout
+            total["update"] += update
+        self._pending_marks = []
+        return total
+
+    def _log_metrics(self, metrics: dict):
+        """Append one record to ``results.json``."""
+        record = {
+            "iterations completed": self.iters_completed,
+            "num timesteps": self.current_timestep,
+            "metrics": metrics,
+            "speed performance stats": self.perf_stats.get_perf_stats(),
+        }
+        with open(os.path.join(self.save_dir, "results.json"), "a",
+                  encoding="utf-8") as f:
+            f.write(json.dumps(record) + "\n")
+
+    # --------------------------------------------------------- checkpoints
+    def _ckpt_path(self, policy: str, timestep: int) -> str:
+        return os.path.join(self.save_dir, f"{policy}_{timestep}.state_dict")
+
+    def save_model_checkpoint(self, timestep: int = None):
+        """One ``state_dict`` file per trained policy."""
+        timestep = self.current_timestep if timestep is None else timestep
+        for policy in self.policies_to_train:
+            state = {k: v.detach().cpu()
+                     for k, v in self.models[policy].state_dict().items()}
+            torch.save(state, self._ckpt_path(policy, timestep))
+
+    def load_model_checkpoint(self, ckpt_filepaths: dict):
+        """Restore per-policy parameters from files whose names encode the
+        saved timestep, and resume the schedules from it."""
+        timesteps = set()
+        for policy, path in ckpt_filepaths.items():
+            if not path:
+                continue
+            state = torch.load(path, map_location=self.device,
+                               weights_only=True)
+            self.models[policy].load_state_dict(state)
+            stem = os.path.basename(path).split(".")[0]
+            timesteps.add(int(stem.split("_")[-1]))
+        if timesteps:
+            assert len(timesteps) == 1, "checkpoints disagree on the timestep"
+            self.current_timestep = timesteps.pop()
+
+    # ------------------------------------------- left out (ROADMAP queue 1)
+    def evaluate_episodes(self, use_argmax: bool = True):
+        raise not_ported("evaluate_episodes", "9")
+
+    def fetch_episode_states(self, *args, **kwargs):
+        raise not_ported("fetch_episode_states", "9")
+
+    def fetch_logged_episode(self, env_id: int = 0):
+        raise not_ported("fetch_logged_episode", "9")
+
+    def save_full_state(self, path: str = None):
+        raise not_ported("full-state checkpoints", "9")
+
+    def load_full_state(self, path: str):
+        raise not_ported("full-state checkpoints", "9")
+
+    def profile_phases(self, repeats: int = 3):
+        raise not_ported("profile_phases (the port's bench)", "2")
