@@ -8,14 +8,23 @@ Phases, each of which raises (and so exits non-zero) on a failure:
 
 1. the card: name and power limit from ``nvidia-smi``, torch and CUDA
    versions, compute capability (must be 9.0, the kernels' ``sm_90a``);
-2. build every kernel in ``warpdrive_tpu_torch/csrc/`` with ``nvcc``;
+2. build every kernel in ``warpdrive_tpu_torch/csrc/`` with ``nvcc``, one
+   process per source, all started together;
 3. hold each kernel against its plain PyTorch version on the card: K1
    (``knn_obs_flat_exact``) on random states and on a state rolled 100
    flagship steps (0 slot mismatches and a max abs diff <= 1e-6 required);
    K2 (``knn_obs_mxu``) in both tie-break modes on random states at four
    shapes, an exact-tie lattice and a state rolled 100 steps by the training
-   env (0 mismatches and max abs diff 0 required); and the CUDA flagship
-   step against the same step on the CPU from the same states;
+   env; K3 (``knn_obs_flat``) on random states, a packed-bits near-tie and
+   the ``pallas_flat`` flagship rolled 100 steps; K4
+   (``knn_obs_flat_mxudist``) in both modes and K5 (``knn_obs_tiled``) in
+   its four on random states and on the 1024-agent configuration rolled
+   100 steps (K2-K5: 0 mismatches and max abs diff 0 required); then the
+   CUDA step against the same step on the CPU from the same states, for
+   the flagship and for the 1024-agent configuration with
+   ``pallas_flat_exact``, ``pallas_tiled_exact`` (obs <= 1e-6) and
+   ``pallas_flat_mxudist`` (under 2e-3 of the entries off by more than
+   8e-6: the CPU and the card centre on means summed in other orders);
 4. drive the main paths, each with the kernels' launch counts set to 0 just
    before and read just after:
    a. the flagship rollout at 1024 envs x 105 agents with ``fc_dims=(256,
@@ -28,14 +37,21 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       be finite, parameters must move and each policy must leave a
       checkpoint; then one update on the card against the same update on
       the CPU;
+   c. the 1024-agent configuration (``build_many_agents``: 256 envs x 1024
+      agents) with ``pallas_flat_exact``, ``pallas_flat_mxudist`` and
+      ``pallas_tiled_exact``: 100 ``env_only_step`` steps each, launching
+      K1, K4 or K5 exactly once per step and no other kernel;
+   d. the ``pallas_flat`` flagship ``env_only_step`` at 1024 envs x 105
+      agents, 200 steps: exactly one K3 launch per step;
 5. time each kernel and its plain version at the main paths' shapes, beside
    the kernel's bound.
 
 The last three lines are the card (``nvidia-smi``'s name and power limit),
 one JSON object with a record per kernel, and the result line
 ``{"ok": true, "device": {...}}``.  ``--profile`` adds a ``torch.profiler``
-table of device time by kernel for a few steps of each loop and for one
-training iteration, with the device's idle share.
+table of device time by kernel for a few steps of each loop (the
+1024-agent ones included) and for one training iteration, with the
+device's idle share.
 """
 
 from __future__ import annotations
@@ -65,6 +81,20 @@ MAX_ABS_TOL = 1e-6
 # K2 and its plain version make the same float32 operations: bit for bit
 K2_MAX_ABS_TOL = 0.0
 K2_SHAPES = ((100, 110, 10), (1024, 105, 10), (8, 128, 16), (6, 15, 4))
+# K3, K4 and K5 make the same float32 operations as their plain versions
+EXACT_TOL = 0.0
+K4_SHAPES = ((8, 1024, 10), (1024, 105, 10), (6, 15, 4))
+K5_SHAPES = ((8, 1024, 10), (3, 300, 10), (3, 200, 6), (8, 128, 16))
+MANY_AGENT_ENVS = 256
+MANY_AGENT_STEPS = 100
+# the 1024-agent loops, each with the kernel its steps launch
+MANY_AGENT_LOOPS = (("pallas_flat_exact", "knn_obs_flat_exact"),
+                    ("pallas_flat_mxudist", "knn_obs_flat_mxudist"),
+                    ("pallas_tiled_exact", "knn_obs_tiled"))
+PLAIN_MAX_ENVS_AT_1024 = 8  # plain compares at N = 1024 stay small
+# the MXU-distance class between devices (tests/test_knn_obs_kernel.py)
+SWAP_ATOL = 8e-6
+SWAP_SHARE = 2e-3
 # the card's update against the CPU's on the same batch slice and state:
 # float32 GEMMs and reductions sum in other orders on the two devices
 # (relative gradient differences of about 1e-6), and Adam's normalized step
@@ -147,8 +177,8 @@ def _compare_knn(label, args, n_agents, k, variant="flat_exact",
 
     out = knn_obs.knn_observation(*args, n_agents=n_agents, k=k,
                                   variant=variant)
-    plain = knn_obs.knn_observation_reference(*args, n_agents=n_agents, k=k,
-                                              packed=variant == "mxu")
+    plain = knn_obs.knn_observation_plain(*args, n_agents=n_agents, k=k,
+                                          variant=variant)
     torch.cuda.synchronize()
     E, N = args[0].shape
     slots = out[..., :-1].reshape(E, N, k, 8)
@@ -228,28 +258,30 @@ def _check_k2(run_config):
     return max_abs, rolled
 
 
-def _check_step_against_cpu(steps: int = 60):
-    """One-step parity of the CUDA flagship step (kernel observation) with
-    the CPU step (plain observation) from the same states, along a CUDA
-    rollout of ``steps`` steps with numpy-drawn actions."""
+def _check_step_against_cpu(gpu, cpu, label, steps=60, swap_class=False):
+    """One-step parity of the CUDA step (kernel observation) with the CPU
+    step (plain observation) from the same states, along a CUDA rollout of
+    ``steps`` steps with numpy-drawn actions; ``gpu`` and ``cpu`` are one
+    system built on each device.  Observations agree to 1e-6, or with
+    ``swap_class`` in all but a share below 2e-3 of their entries."""
     import numpy as np
     import torch
 
-    from warpdrive_tpu_torch.presets import build_flagship
-
-    gpu = build_flagship(num_envs=4, fc_dims=(8, 8), seed=5, device=DEVICE)
-    cpu = build_flagship(num_envs=4, fc_dims=(8, 8), seed=5, device="cpu")
     eg, ec = gpu["engine"], cpu["engine"]
+    E = eg.n_envs
     nvec = gpu["env"].action_space[0].nvec
     rng = np.random.RandomState(5)
     state = gpu["state"]
-    worst = {"obs": 0.0, "physics": 0.0}
+    worst = {"obs": 0.0, "physics": 0.0, "obs swap share": 0.0}
     for t in range(steps):
         host = {k: v.cpu() for k, v in state.items()}
         obs_g, obs_c = eg.observe(state).cpu(), ec.observe(host)
         worst["obs"] = max(worst["obs"], float((obs_g - obs_c).abs().max()))
+        off = ~torch.isclose(obs_g, obs_c, rtol=1e-5, atol=SWAP_ATOL)
+        worst["obs swap share"] = max(worst["obs swap share"],
+                                      float(off.float().mean()))
         actions = np.stack(
-            [rng.randint(0, n, (4, eg.n_agents)) for n in nvec], -1
+            [rng.randint(0, n, (E, eg.n_agents)) for n in nvec], -1
         ).astype(np.int32)
         nxt_g = eg.step_physics(state, torch.from_numpy(actions).to(DEVICE))
         nxt_c = ec.step_physics(host, torch.from_numpy(actions))
@@ -261,10 +293,127 @@ def _check_step_against_cpu(steps: int = 60):
             else:
                 assert torch.equal(got, value), f"{name} differs at t={t}"
         state = eg.auto_reset(nxt_g)
-    print(f"CUDA step vs CPU step, {steps} states: max abs diff obs "
-          f"{worst['obs']:.3g}, physics {worst['physics']:.3g}")
-    assert worst["obs"] <= MAX_ABS_TOL, worst
+    print(f"CUDA step vs CPU step [{label}], {steps} states: max abs diff "
+          f"obs {worst['obs']:.3g} (largest share of entries off by more "
+          f"than {SWAP_ATOL}: {worst['obs swap share']:.3g}), physics "
+          f"{worst['physics']:.3g}")
+    if swap_class:
+        assert worst["obs swap share"] < SWAP_SHARE, worst
+    else:
+        assert worst["obs"] <= MAX_ABS_TOL, worst
     assert worst["physics"] <= 1e-5, worst  # CUDA vs CPU cos/sin/sqrt ulps
+
+
+def _near_tie_inputs(device):
+    """One env of 15 agents where agent 1 lies a few ulps farther from
+    observer 0 than agent 2, inside the 7-bit packed tie window and outside
+    the 4-bit one that the v9 kernel packs at N = 15."""
+    import numpy as np
+    import torch
+
+    f32 = np.float32
+    x0 = f32(10.0)
+    for a in np.arange(1.30, 1.40, 0.001, dtype=np.float32):
+        xa, xb = f32(x0 + a), f32(x0 + a)
+        found = False
+        for _ in range(3):
+            xb = np.nextafter(xb, f32(0))
+            ka, kb = np.array([(xa - x0) * (xa - x0), (xb - x0) * (xb - x0)],
+                              np.float32).view(np.int32)
+            if kb < ka and ka & ~127 == kb & ~127 and ka & ~15 != kb & ~15:
+                found = True
+                break
+        if found:
+            break
+    assert found, "no near-tie found"
+    args, n, k = _random_knn_inputs(1, 15, 2, seed=4, device=device)
+    loc_x = args[0].clone()
+    loc_y = args[1].clone()
+    loc_x[0, :3] = torch.tensor([x0, xa, xb])
+    loc_y[0, :3] = 10.0
+    loc_x[0, 3:] = torch.linspace(1.0, 19.0, 12)  # far from the three
+    loc_y[0, 3:] = 2.0
+    still_f = torch.ones_like(args[4])
+    return (loc_x, loc_y, args[2], args[3], still_f, args[5]), n, k
+
+
+def _check_k3():
+    """K3 vs plain: random states, the N = 15 near-tie, and the
+    ``pallas_flat`` flagship rolled 100 steps.  Returns the largest abs
+    diff and the flagship system with its rolled state's inputs."""
+    import torch
+
+    from warpdrive_tpu_torch.presets import build_flagship
+
+    max_abs = 0.0
+    for E, N, k in ((NUM_ENVS, 105, 10), (6, 15, 4)):
+        args, n, kk = _random_knn_inputs(E, N, k, seed=N + 3, device=DEVICE)
+        max_abs = max(max_abs, _compare_knn("random", args, n, kk, "flat",
+                                            tol=EXACT_TOL))
+    args, n, k = _near_tie_inputs(DEVICE)
+    max_abs = max(max_abs, _compare_knn("packed-bits near-tie", args, n, k,
+                                        "flat", tol=EXACT_TOL))
+    from warpdrive_tpu_torch.ops import knn_obs
+
+    out = knn_obs.knn_observation(*args, n_agents=n, k=k, variant="flat")
+    # 4 index bits at N = 15 keep the nearer agent 2 first
+    assert float(out[0, 0, 0]) == float(args[2][0, 0, 2] - args[2][0, 0, 0])
+    system = build_flagship(num_envs=NUM_ENVS, fc_dims=FC_DIMS, seed=0,
+                            knn_algorithm="pallas_flat", device=DEVICE)
+    generator = torch.Generator(device=DEVICE).manual_seed(1)
+    state, checksum = system["state"], torch.zeros((), device=DEVICE)
+    for _ in range(ROLLED_STEPS):
+        state, checksum = system["env_only_step"]((state, checksum),
+                                                  generator)
+    system["state"] = state
+    rolled = _knn_args(system["env"], state)
+    max_abs = max(max_abs, _compare_knn(
+        f"pallas_flat flagship rolled {ROLLED_STEPS} steps", *rolled, "flat",
+        tol=EXACT_TOL))
+    return max_abs, system, generator, rolled
+
+
+def _rolled_many_agents(num_envs, algo, steps, seed):
+    """The 1024-agent configuration on the card rolled ``steps`` steps."""
+    import torch
+
+    from warpdrive_tpu_torch.presets import build_many_agents
+
+    system = build_many_agents(num_envs=num_envs, seed=seed,
+                               knn_algorithm=algo, device=DEVICE)
+    generator = torch.Generator(device=DEVICE).manual_seed(seed)
+    state, checksum = system["state"], torch.zeros((), device=DEVICE)
+    for _ in range(steps):
+        state, checksum = system["env_only_step"]((state, checksum),
+                                                  generator)
+    return system["env"], state
+
+
+def _check_k4_k5():
+    """K4 in both modes and K5 in its four vs plain: random states, and the
+    1024-agent configuration rolled 100 steps at 8 envs.  Returns each
+    kernel's largest abs diff."""
+    env, state = _rolled_many_agents(PLAIN_MAX_ENVS_AT_1024,
+                                     "pallas_flat_mxudist", ROLLED_STEPS,
+                                     seed=3)
+    rolled = _knn_args(env, state)
+    label = f"1024 agents rolled {ROLLED_STEPS} steps"
+    max_abs = {"knn_obs_flat_mxudist": 0.0, "knn_obs_tiled": 0.0}
+    for name, shapes, variants in (
+        ("knn_obs_flat_mxudist", K4_SHAPES,
+         ("flat_mxudist", "flat_mxudist_exact")),
+        ("knn_obs_tiled", K5_SHAPES,
+         ("tiled", "tiled_exact", "tiled_mxudist", "tiled_mxudist_exact")),
+    ):
+        cases = [("random",) + _random_knn_inputs(E, N, k, seed=N + k + 5,
+                                                  device=DEVICE)
+                 for E, N, k in shapes]
+        cases.append((label,) + rolled)
+        for case, args, n, k in cases:
+            for variant in variants:
+                max_abs[name] = max(max_abs[name], _compare_knn(
+                    case, args, n, k, variant, tol=EXACT_TOL))
+    return max_abs
 
 
 def _drive_main_path(system, generator):
@@ -307,14 +456,84 @@ def _drive_main_path(system, generator):
             "launches_after": dict(knn_obs.LAUNCH_COUNTS),
         }
     launches = dict(knn_obs.LAUNCH_COUNTS)
+    _check_loop_state(state, checksum,
+                      (system["num_envs"], system["num_agents"]))
+    return result, launches, state
+
+
+def _check_loop_state(state, checksum, shape):
+    import torch
 
     assert torch.isfinite(checksum), "non-finite observation checksum"
     for name in ("loc_x", "loc_y", "speed", "direction", "acceleration",
                  "rewards"):
         assert torch.isfinite(state[name]).all(), f"non-finite {name}"
-    assert state["loc_x"].shape == (system["num_envs"], system["num_agents"])
+    assert tuple(state["loc_x"].shape) == shape
     assert bool(((state["_done_"] == 0) | (state["_done_"] == 1)).all())
-    return result, launches, state
+
+
+def _time_env_only(system, generator, steps, warmup=5):
+    """``warmup`` then ``steps`` env-only steps; the launch counts are set
+    to 0 after the warm-up and read after the timed steps.  Returns the
+    timings, the counts and the final state."""
+    import torch
+
+    from warpdrive_tpu_torch.ops import knn_obs
+
+    step = system["env_only_step"]
+    state = system["state"]
+    checksum = torch.zeros((), device=state["loc_x"].device)
+    for _ in range(warmup):
+        state, checksum = step((state, checksum), generator)
+    torch.cuda.synchronize()
+    knn_obs.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        state, checksum = step((state, checksum), generator)
+    stop.record()
+    stop.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = dict(knn_obs.LAUNCH_COUNTS)
+    _check_loop_state(state, checksum,
+                      (system["num_envs"], system["num_agents"]))
+    ms = start.elapsed_time(stop) / steps
+    return {"ms_per_step": ms,
+            "env_steps_per_s": system["num_envs"] / (ms / 1e3),
+            "agent_steps_per_s": system["num_envs"] * system["num_agents"]
+            / (ms / 1e3),
+            "host_s": host_s}, launches, state
+
+
+def _drive_many_agents():
+    """The 1024-agent env-only loop at 256 envs for each of
+    ``MANY_AGENT_LOOPS``, each launching exactly one of its kernel per step
+    and no other.  Returns the systems, timings and launches by algorithm."""
+    import torch
+
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.presets import build_many_agents
+
+    systems, results, launches = {}, {}, {}
+    for algo, kernel in MANY_AGENT_LOOPS:
+        system = build_many_agents(num_envs=MANY_AGENT_ENVS, seed=0,
+                                   knn_algorithm=algo, device=DEVICE)
+        generator = torch.Generator(device=DEVICE).manual_seed(0)
+        r, counts, state = _time_env_only(system, generator, MANY_AGENT_STEPS)
+        system["state"], system["generator"] = state, generator
+        print(f"1024-agent env_only_step [{algo}]: {r['ms_per_step']:.4f} "
+              f"ms/step, {r['env_steps_per_s']:.0f} env-steps/s, "
+              f"{r['agent_steps_per_s']:.0f} agent-steps/s at "
+              f"{MANY_AGENT_ENVS} envs x {system['num_agents']} agents "
+              f"({MANY_AGENT_STEPS} steps, host {r['host_s']:.3f} s); "
+              f"launches {counts}")
+        expected = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
+        expected[kernel] = MANY_AGENT_STEPS
+        assert counts == expected, f"launches {counts}, expected {expected}"
+        systems[algo], results[algo], launches[algo] = system, r, counts
+    return systems, results, launches
 
 
 def _drive_training(run_config):
@@ -413,15 +632,16 @@ def _update_card_vs_cpu(trainer):
     return worst
 
 
-def _knn_bound_ms(E, N, k, d2_pairs):
+def _knn_bound_ms(E, N, k, d2_pairs, flops_per_pair=5):
     """Least time for the kNN function on the card: each input read once and
-    the output written once at the HBM rate, or the distance arithmetic
-    (2 sub, 2 mul, 1 add per pair) at the float32 rate, whichever is
-    larger."""
+    the output written once at the HBM rate, or the distance arithmetic at
+    the float32 rate, whichever is larger.  A pair costs 5 flops in the
+    difference form (2 sub, 2 mul, 1 add) and 23 in the scalar MXU
+    expansion (12 mul, 11 add)."""
     bytes_in = 4 * (3 * E * N + 5 * E * N + N + E)
     bytes_out = 4 * E * N * (8 * k + 1)
     t_bytes = (bytes_in + bytes_out) / _PEAK_BYTES_PER_S
-    t_ops = 5 * d2_pairs / _PEAK_F32_FLOPS
+    t_ops = flops_per_pair * d2_pairs / _PEAK_F32_FLOPS
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     return 1e3 * max(t_bytes, t_ops), bound_by, bytes_in + bytes_out
 
@@ -435,18 +655,21 @@ def _device_ms(prof) -> float:
                if e.device_type == DeviceType.CUDA) / 1e3
 
 
-def _profile(system, generator, trainer, wall_ms, steps=10):
-    """Kernel tables of ``steps`` steps of each flagship loop and of one
-    training iteration under ``torch.profiler``, and each window's device
-    idle share: 1 - device time / the wall time of the same work measured
-    without the profiler (``wall_ms``: per step, or per iteration), since
-    the profiler slows the host."""
+def _profile(system, generator, trainer, many, wall_ms, steps=10):
+    """Kernel tables of ``steps`` steps of each flagship loop and of each
+    1024-agent loop (``many``: systems by algorithm) and of one training
+    iteration under ``torch.profiler``, and each window's device idle share:
+    1 - device time / the wall time of the same work measured without the
+    profiler (``wall_ms``: per step, or per iteration), since the profiler
+    slows the host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     state = system["state"]
     checksum = torch.zeros((), device=state["loc_x"].device)
-    for loop in ("env_only_step", "full_loop_step", "training iteration"):
+    loops = ["env_only_step", "full_loop_step", "training iteration"]
+    loops += [f"1024-agent {algo}" for algo in many]
+    for loop in loops:
         n = 1 if loop == "training iteration" else steps
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -457,9 +680,13 @@ def _profile(system, generator, trainer, wall_ms, steps=10):
                 elif loop == "env_only_step":
                     state, checksum = system["env_only_step"](
                         (state, checksum), generator)
-                else:
+                elif loop == "full_loop_step":
                     state = system["full_loop_step"](
                         system["models"], state, generator)
+                else:
+                    m = many[loop.split()[-1]]
+                    m["state"], checksum = m["env_only_step"](
+                        (m["state"], checksum), m["generator"])
             torch.cuda.synchronize()
         device_ms = _device_ms(prof) / n
         unit = "iteration" if loop == "training iteration" else "step"
@@ -471,9 +698,11 @@ def _profile(system, generator, trainer, wall_ms, steps=10):
                                         row_limit=25))
 
 
-def _time_knn(name, args, n_agents, k, variant, packed, label):
+def _time_knn(name, args, n_agents, k, variant, label, plain_repeats=11,
+              plain_inner=5):
     """Kernel and plain times on one input (median of 21 x 50 back-to-back
-    launches, so the inputs stay in L2; plain 11 x 5), beside the bound."""
+    launches, so the inputs stay in L2; plain ``plain_repeats`` x
+    ``plain_inner``), beside the bound."""
     import torch
 
     from warpdrive_tpu_torch.ops import knn_obs
@@ -485,13 +714,14 @@ def _time_knn(name, args, n_agents, k, variant, packed, label):
         repeats=21, inner=50,
     )
     plain_ms = _cuda_ms(
-        lambda: knn_obs.knn_observation_reference(*args, n_agents=n_agents,
-                                                  k=k, packed=packed),
-        repeats=11, inner=5,
+        lambda: knn_obs.knn_observation_plain(*args, n_agents=n_agents, k=k,
+                                              variant=variant),
+        repeats=plain_repeats, inner=plain_inner,
     )
     alive = (args[4] >= 0.5).sum(dim=1).to(torch.float64)
     d2_pairs = float((alive * (alive - 1)).sum())  # pairs of live agents
-    bound_ms, bound_by, nbytes = _knn_bound_ms(E, N, k, d2_pairs)
+    bound_ms, bound_by, nbytes = _knn_bound_ms(
+        E, N, k, d2_pairs, flops_per_pair=23 if "mxudist" in variant else 5)
     print(f"{name} [{variant}, {label}] at E={E} N={N} k={k}: kernel "
           f"{kernel_ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
           f"{bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, {d2_pairs:.0f} "
@@ -513,7 +743,7 @@ def main(argv=None) -> int:
                          "this script needs an NVIDIA GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from warpdrive_tpu_torch.ops import cuda_build, knn_obs
-    from warpdrive_tpu_torch.presets import build_flagship
+    from warpdrive_tpu_torch.presets import build_flagship, build_many_agents
     from warpdrive_tpu_torch.utils.config import load_run_config
 
     # 1. the card
@@ -562,8 +792,23 @@ def main(argv=None) -> int:
     run_config = load_run_config("tag_continuous")
     run_config["trainer"]["seed"] = 0
     max_abs["knn_obs_mxu"], train_rolled = _check_k2(run_config)
-    _check_step_against_cpu()
+    max_abs["knn_obs_flat"], fast, fast_gen, fast_rolled = _check_k3()
+    max_abs.update(_check_k4_k5())
+    _check_step_against_cpu(
+        build_flagship(num_envs=4, fc_dims=(8, 8), seed=5, device=DEVICE),
+        build_flagship(num_envs=4, fc_dims=(8, 8), seed=5, device="cpu"),
+        "flagship")
+    for algo in ("pallas_flat_exact", "pallas_tiled_exact",
+                 "pallas_flat_mxudist"):
+        _check_step_against_cpu(
+            build_many_agents(num_envs=4, seed=5, knn_algorithm=algo,
+                              device=DEVICE),
+            build_many_agents(num_envs=4, seed=5, knn_algorithm=algo,
+                              device="cpu"),
+            f"1024 agents, {algo}", steps=20,
+            swap_class=algo == "pallas_flat_mxudist")
 
+    no_launches = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
     # 4a. the flagship rollout, counts from 0
     system["state"] = rolled
     loops, launches, _ = _drive_main_path(system, generator)
@@ -573,18 +818,16 @@ def main(argv=None) -> int:
               f"x {system['num_agents']} agents ({MAIN_PATH_STEPS} steps, "
               f"host {r['host_s']:.3f} s); launches so far "
               f"{r['launches_after']}")
-    expected = {"knn_obs_flat_exact": 2 * MAIN_PATH_STEPS, "knn_obs_mxu": 0}
+    expected = dict(no_launches, knn_obs_flat_exact=2 * MAIN_PATH_STEPS)
     assert launches == expected, f"launches {launches}, expected {expected}"
-    assert loops["env_only_step"]["launches_after"] == {
-        "knn_obs_flat_exact": MAIN_PATH_STEPS, "knn_obs_mxu": 0
-    }
+    assert loops["env_only_step"]["launches_after"] == dict(
+        no_launches, knn_obs_flat_exact=MAIN_PATH_STEPS)
 
     # 4b. the training path, counts from 0
     trainer, train_launches, train_times = _drive_training(run_config)
     steps_per_iter = trainer.training_batch_size_per_env * trainer.num_envs
-    expected = {"knn_obs_flat_exact": 0,
-                "knn_obs_mxu": trainer.num_iters
-                * trainer.training_batch_size_per_env}
+    expected = dict(no_launches, knn_obs_mxu=trainer.num_iters
+                    * trainer.training_batch_size_per_env)
     print(f"training: {trainer.num_iters} iterations of {steps_per_iter} "
           f"env-steps at {trainer.num_envs} envs x {trainer.engine.n_agents} "
           f"agents in {train_times['train_s']:.3f} s (setup "
@@ -599,36 +842,89 @@ def main(argv=None) -> int:
           f"{roll_ms + upd_ms:.3f} ms, "
           f"{steps_per_iter / ((roll_ms + upd_ms) / 1e3):.0f} env-steps/s")
     _update_card_vs_cpu(trainer)
+
+    # 4c. the 1024-agent loops, counts from 0 before each
+    many, many_loops, many_launches = _drive_many_agents()
+
+    # 4d. the pallas_flat flagship env-only loop, counts from 0
+    fast_loop, fast_launches, _ = _time_env_only(fast, fast_gen,
+                                                 MAIN_PATH_STEPS)
+    print(f"pallas_flat env_only_step: {fast_loop['ms_per_step']:.4f} "
+          f"ms/step, {fast_loop['env_steps_per_s']:.0f} env-steps/s at "
+          f"{NUM_ENVS} envs x {fast['num_agents']} agents "
+          f"({MAIN_PATH_STEPS} steps, host {fast_loop['host_s']:.3f} s); "
+          f"launches {fast_launches}")
+    expected = dict(no_launches, knn_obs_flat=MAIN_PATH_STEPS)
+    assert fast_launches == expected, \
+        f"launches {fast_launches}, expected {expected}"
+
     if args.profile:
-        _profile(system, generator, trainer, {
+        _profile(system, generator, trainer, many, {
             "env_only_step": loops["env_only_step"]["ms_per_step"],
             "full_loop_step": loops["full_loop_step"]["ms_per_step"],
             "training iteration": roll_ms + upd_ms,
+            **{f"1024-agent {algo}": r["ms_per_step"]
+               for algo, r in many_loops.items()},
         })
 
     # 5. kernel and plain times at the main paths' shapes
+    many_args = _knn_args(many["pallas_flat_exact"]["env"],
+                          many["pallas_flat_exact"]["state"])
+    big = dict(plain_repeats=3, plain_inner=2)  # plain at 256 x 1024: ~GiB
+    many_label = f"1024-agent state, {MANY_AGENT_ENVS} envs"
     timed = {
         "knn_obs_flat_exact": _time_knn(
-            "knn_obs_flat_exact", rolled_args, n, kk, "flat_exact", False,
+            "knn_obs_flat_exact", rolled_args, n, kk, "flat_exact",
             "flagship state"),
         "knn_obs_mxu": _time_knn(
-            "knn_obs_mxu", *train_rolled, "mxu_exact", False,
-            "training state"),
+            "knn_obs_mxu", *train_rolled, "mxu_exact", "training state"),
+        "knn_obs_flat": _time_knn(
+            "knn_obs_flat", *fast_rolled, "flat", "pallas_flat flagship "
+            "state"),
+        "knn_obs_flat_mxudist": _time_knn(
+            "knn_obs_flat_mxudist", *many_args, "flat_mxudist", many_label,
+            **big),
+        "knn_obs_tiled": _time_knn(
+            "knn_obs_tiled", *many_args, "tiled_exact", many_label, **big),
     }
-    _time_knn("knn_obs_mxu", rolled_args, n, kk, "mxu_exact", False,
+    _time_knn("knn_obs_mxu", rolled_args, n, kk, "mxu_exact",
               "flagship state")
-    _time_knn("knn_obs_mxu", *train_rolled, "mxu", True, "training state")
+    _time_knn("knn_obs_mxu", *train_rolled, "mxu", "training state")
+    at_1024 = {
+        "knn_obs_flat_exact": _time_knn(
+            "knn_obs_flat_exact", *many_args, "flat_exact", many_label,
+            **big),
+        "knn_obs_flat_mxudist": timed["knn_obs_flat_mxudist"],
+        "knn_obs_tiled": timed["knn_obs_tiled"],
+    }
+    _time_knn("knn_obs_flat_mxudist", *many_args, "flat_mxudist_exact",
+              many_label, **big)
+    _time_knn("knn_obs_tiled", *many_args, "tiled_mxudist", many_label,
+              **big)
     env_only_ms = loops["env_only_step"]["ms_per_step"]
     rollout_step_ms = roll_ms / trainer.training_batch_size_per_env
     print(f"knn_obs_flat_exact share of env_only_step "
           f"{100 * timed['knn_obs_flat_exact']['ms'] / env_only_ms:.1f}%; "
           f"knn_obs_mxu share of a training rollout step "
-          f"{100 * timed['knn_obs_mxu']['ms'] / rollout_step_ms:.1f}%")
+          f"{100 * timed['knn_obs_mxu']['ms'] / rollout_step_ms:.1f}%; "
+          f"knn_obs_flat share of the pallas_flat env_only_step "
+          f"{100 * timed['knn_obs_flat']['ms'] / fast_loop['ms_per_step']:.1f}"
+          "%")
+    for algo, kernel in MANY_AGENT_LOOPS:
+        step_ms = many_loops[algo]["ms_per_step"]
+        print(f"{kernel} share of the 1024-agent {algo} step "
+              f"{100 * at_1024[kernel]['ms'] / step_ms:.1f}% "
+              f"({at_1024[kernel]['ms']:.5f} of {step_ms:.4f} ms)")
 
-    all_launches = {"knn_obs_flat_exact": launches["knn_obs_flat_exact"],
-                    "knn_obs_mxu": train_launches["knn_obs_mxu"]}
+    # launches on the main paths: 4a and 4c for K1, 4b for K2, 4d for K3,
+    # 4c for K4 and K5
+    all_launches = {name: launches[name] + train_launches[name]
+                    + fast_launches[name]
+                    + sum(c[name] for c in many_launches.values())
+                    for name in knn_obs.LAUNCH_COUNTS}
     kernels = []
     for name, info in knn_obs.KERNELS.items():
+        assert all_launches[name] > 0, f"{name} never launched on a path"
         kernels.append({
             "name": name,
             "route": info["route"],

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain PyTorch
-version, the flagship loops launching K1 once per step, and the training
-rollout launching K2 once per step.
+version, the flagship loops launching K1 (K3 with ``pallas_flat``) once per
+step, the 1024-agent loops launching K1, K4 or K5 once per step, and the
+training rollout launching K2 once per step.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The file imports no JAX,
 so on a machine with a card and no JAX it runs without the repo's
@@ -15,9 +16,12 @@ import torch
 
 from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
 from warpdrive_tpu_torch.ops import knn_obs
-from warpdrive_tpu_torch.presets import build_flagship
+from warpdrive_tpu_torch.presets import build_flagship, build_many_agents
 from warpdrive_tpu_torch.training.scripts.train import setup_trainer_and_train
 from warpdrive_tpu_torch.utils.config import load_run_config
+
+
+_NO_LAUNCHES = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
 
 
 @pytest.fixture
@@ -86,8 +90,7 @@ def test_flagship_loops_launch_the_kernel_once_per_step(card):
         state, checksum = system["env_only_step"]((state, checksum), gen)
         state = system["full_loop_step"](system["models"], state, gen)
     torch.cuda.synchronize()
-    assert knn_obs.LAUNCH_COUNTS == {"knn_obs_flat_exact": 6,
-                                     "knn_obs_mxu": 0}
+    assert knn_obs.LAUNCH_COUNTS == dict(_NO_LAUNCHES, knn_obs_flat_exact=6)
     assert torch.isfinite(checksum)
     assert state["loc_x"].device.type == "cuda"
 
@@ -103,8 +106,8 @@ def test_single_tile_kernel_matches_plain_on_card(card, variant, E, N, k):
     before = knn_obs.LAUNCH_COUNTS["knn_obs_mxu"]
     out = knn_obs.knn_observation(*args, n_agents=N, k=k, variant=variant)
     assert knn_obs.LAUNCH_COUNTS["knn_obs_mxu"] == before + 1
-    plain = knn_obs.knn_observation_reference(*args, n_agents=N, k=k,
-                                              packed=variant == "mxu")
+    plain = knn_obs.knn_observation_plain(*args, n_agents=N, k=k,
+                                          variant=variant)
     torch.cuda.synchronize()
     assert out.shape == (E, N, 8 * k + 1)
     assert torch.equal(out, plain)
@@ -134,5 +137,79 @@ def test_training_rollout_launches_k2_once_per_step(card, tmp_path):
                                       results_dir=str(tmp_path))
     torch.cuda.synchronize()
     assert trainer.iters_completed == 1
-    assert knn_obs.LAUNCH_COUNTS == {"knn_obs_flat_exact": 0,
-                                     "knn_obs_mxu": 50}
+    assert knn_obs.LAUNCH_COUNTS == dict(_NO_LAUNCHES, knn_obs_mxu=50)
+
+
+_KERNEL_OF = {"flat": "knn_obs_flat", "flat_mxudist": "knn_obs_flat_mxudist",
+              "flat_mxudist_exact": "knn_obs_flat_mxudist",
+              "tiled": "knn_obs_tiled", "tiled_exact": "knn_obs_tiled",
+              "tiled_mxudist": "knn_obs_tiled",
+              "tiled_mxudist_exact": "knn_obs_tiled"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["flat", "flat_mxudist",
+                                     "flat_mxudist_exact"])
+@pytest.mark.parametrize("E,N,k", [(1024, 105, 10), (8, 1024, 10),
+                                   (6, 15, 4), (2, 2000, 32)])
+def test_v9_packed_and_mxu_distance_kernels_match_plain_on_card(card, variant,
+                                                                E, N, k):
+    """K3 and K4 bit for bit, including the K_MAX=32 instantiation and N
+    whose staging needs more than 48 KB of shared memory."""
+    args = _knn_args(N, k, E, seed=N + 1, device=card)
+    name = _KERNEL_OF[variant]
+    before = knn_obs.LAUNCH_COUNTS[name]
+    out = knn_obs.knn_observation(*args, n_agents=N, k=k, variant=variant)
+    assert knn_obs.LAUNCH_COUNTS[name] == before + 1
+    plain = knn_obs.knn_observation_plain(*args, n_agents=N, k=k,
+                                          variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["tiled", "tiled_exact", "tiled_mxudist",
+                                     "tiled_mxudist_exact"])
+@pytest.mark.parametrize("E,N,k", [(8, 1024, 10), (3, 300, 10), (3, 200, 6),
+                                   (8, 128, 16)])
+def test_tiled_kernel_matches_plain_on_card(card, variant, E, N, k):
+    args = _knn_args(N, k, E, seed=N + 2, device=card)
+    before = knn_obs.LAUNCH_COUNTS["knn_obs_tiled"]
+    out = knn_obs.knn_observation(*args, n_agents=N, k=k, variant=variant)
+    assert knn_obs.LAUNCH_COUNTS["knn_obs_tiled"] == before + 1
+    plain = knn_obs.knn_observation_plain(*args, n_agents=N, k=k,
+                                          variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,name", [
+    ("pallas_flat_exact", "knn_obs_flat_exact"),
+    ("pallas_flat_mxudist", "knn_obs_flat_mxudist"),
+    ("pallas_tiled_exact", "knn_obs_tiled"),
+    ("pallas_mxu_exact", "knn_obs_tiled"),
+])
+def test_many_agent_loop_launches_one_kernel_per_step(card, algo, name):
+    system = build_many_agents(num_envs=4, knn_algorithm=algo)
+    gen = torch.Generator(device=card).manual_seed(0)
+    state, checksum = system["state"], torch.zeros((), device=card)
+    knn_obs.reset_launch_counts()
+    for _ in range(3):
+        state, checksum = system["env_only_step"]((state, checksum), gen)
+    torch.cuda.synchronize()
+    assert knn_obs.LAUNCH_COUNTS == dict(_NO_LAUNCHES, **{name: 3})
+    assert torch.isfinite(checksum)
+
+
+@pytest.mark.cuda
+def test_flagship_packed_loop_launches_k3_once_per_step(card):
+    system = build_flagship(num_envs=16, fc_dims=(32, 32), seed=2,
+                            knn_algorithm="pallas_flat")
+    gen = torch.Generator(device=card).manual_seed(0)
+    state, checksum = system["state"], torch.zeros((), device=card)
+    knn_obs.reset_launch_counts()
+    for _ in range(3):
+        state, checksum = system["env_only_step"]((state, checksum), gen)
+    torch.cuda.synchronize()
+    assert knn_obs.LAUNCH_COUNTS == dict(_NO_LAUNCHES, knn_obs_flat=3)

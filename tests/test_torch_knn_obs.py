@@ -128,6 +128,41 @@ def test_plain_algorithms_equal_kernel_plain_version(algo):
     np.testing.assert_array_equal(obs, _port_knn(env, state))
 
 
+@pytest.mark.parametrize("lattice", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("num_agents,k", [(15, 4), (105, 10)])
+@pytest.mark.parametrize("algo", ["topk", "packed", "approx"])
+def test_xla_algorithms_match_jax_observe_fn(algo, num_agents, k, lattice):
+    """``topk``, ``approx`` and the b-bit ``packed`` ladder of the port's
+    ``observe_fn`` against the JAX env's per-state ``observe_fn`` (exact
+    float32 features on both sides), on random states and on an integer
+    lattice where exact distance ties are everywhere.  On the lattice,
+    ``approx`` is held to JAX's ``topk``: XLA's CPU ``approx_min_k``
+    returns tied candidates in no fixed order, while the TPU's, and the
+    order the JAX env documents and the port keeps, is lowest index
+    first."""
+    kwargs = _env_kwargs(num_agents, k)
+    penv = TorchTagContinuous(**kwargs, knn_algorithm=algo)
+    jenv = TpuTagContinuous(
+        **kwargs, knn_algorithm="topk" if algo == "approx" and lattice
+        else algo)
+    state = _build_state(num_agents, 4, seed=num_agents + k)
+    if lattice:
+        rng = np.random.RandomState(k)
+        side = int(np.ceil(np.sqrt(num_agents)))
+        grid = np.stack(np.meshgrid(np.arange(side), np.arange(side)),
+                        -1).reshape(-1, 2)
+        for e in range(4):
+            cells = grid[rng.permutation(len(grid))[:num_agents]]
+            state["loc_x"][e] = cells[:, 0].astype(np.float32) * 1.5
+            state["loc_y"][e] = cells[:, 1].astype(np.float32) * 1.5
+    out = penv.observe_fn(_torch_state(state)).numpy()
+    ref = np.asarray(jax.vmap(jenv.observe_fn)(_jax_state(state)))
+    slots = out[..., :-1].reshape(4, num_agents, k, 8)
+    ref_slots = ref[..., :-1].reshape(4, num_agents, k, 8)
+    np.testing.assert_array_equal(slots[..., 5:], ref_slots[..., 5:])
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+
+
 def test_equidistant_candidates_take_lowest_index():
     """Four agents at exactly squared distance 1 from agent 0 and one at 4:
     k=3 must pick the three lowest indices among the ties."""
@@ -195,10 +230,10 @@ def test_wrapper_rejects_bad_inputs_and_unported_variants():
         bad = list(args)
         bad[1] = f(N, E).t()
         knn_obs.knn_observation(*bad, n_agents=N, k=k)
-    with pytest.raises(NotImplementedError, match="K4"):
-        knn_obs.knn_observation(*args, n_agents=N, k=k,
-                                variant="flat_mxudist_exact")
-    with pytest.raises(NotImplementedError, match="K3"):
-        TorchTagContinuous(**_env_kwargs(15, 4), knn_algorithm="pallas_flat")
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        TorchTagContinuous(**_env_kwargs(15, 4), knn_algorithm="topk")
+    with pytest.raises(NotImplementedError, match="K6"):
+        knn_obs.knn_observation(*args, n_agents=N, k=k, variant="packed")
+    with pytest.raises(NotImplementedError, match="K8"):
+        TorchTagContinuous(**_env_kwargs(15, 4),
+                           knn_algorithm="pallas_twolevel_exact")
+    with pytest.raises(ValueError, match="unknown kNN variant"):
+        knn_obs.knn_observation(*args, n_agents=N, k=k, variant="flat_fast")

@@ -149,12 +149,35 @@ def test_packed_order_follows_jax_on_a_near_tie():
 
 
 def test_observe_fn_runs_each_variants_plain_order():
-    kwargs = _env_kwargs(40, 6)
-    state = {k: torch.from_numpy(v) for k, v in _state(40, 3, seed=2).items()}
-    for algo in ("pallas_mxu_exact", "pallas_mxu"):
+    """The per-state ``observe_fn`` runs the exact ``passes`` for every
+    ``pallas_*`` name, as the JAX package's does: on the near-tie state, the
+    packed names' per-state observation is the exact one, equal to JAX's."""
+    xa, xb = _near_tie_offsets()
+    N, k = 6, 2
+    kwargs = _env_kwargs(N, k)
+    state = _state(N, 1, seed=1)
+    state["loc_x"][0] = np.array([10.0, xa, xb, 2.0, 18.0, 2.0], np.float32)
+    state["loc_y"][0] = np.array([10.0, 10.0, 10.0, 2.0, 2.0, 18.0],
+                                 np.float32)
+    state["still_in_the_game"][:] = 1
+    jstate = {name: jnp.asarray(v) for name, v in state.items()}
+    exact = None
+    for algo in ("pallas_mxu", "pallas_flat", "pallas_tiled",
+                 "pallas_mxudist", "pallas_flat_mxudist", "pallas_mxu_exact"):
         env = TorchTagContinuous(**kwargs, knn_algorithm=algo)
-        np.testing.assert_array_equal(env.observe_fn(state).numpy(),
-                                      env.observe_batch_fn(state).numpy())
+        out = env.observe_fn(
+            {name: torch.from_numpy(v.copy()) for name, v in state.items()}
+        ).numpy()
+        jenv = TpuTagContinuous(**kwargs, knn_algorithm=algo)
+        ref = np.asarray(jax.vmap(jenv.observe_fn)(jstate))
+        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+        exact = out if exact is None else exact
+        np.testing.assert_array_equal(out, exact)
+    # the batched kernel path keeps the packed order, which differs here
+    batched = TorchTagContinuous(**kwargs, knn_algorithm="pallas_mxu")
+    assert not np.array_equal(batched.observe_batch_fn(
+        {name: torch.from_numpy(v.copy()) for name, v in state.items()}
+    ).numpy(), exact)
 
 
 def test_single_tile_limits_and_the_many_agent_route():
@@ -170,8 +193,8 @@ def test_single_tile_limits_and_the_many_agent_route():
             knn_obs.knn_observation(*args, n_agents=N, k=17, variant=variant)
         assert knn_obs.knn_observation(
             *args, n_agents=N, k=16, variant=variant).shape == (2, N, 129)
-    # above 128 agents the JAX package routes the names to its multi-tile
-    # kernel, K5, which is not ported yet
+    # above 128 agents the names route to the multi-tile kernel, K5, as in
+    # the JAX package (tests/test_torch_knn_obs_tiled.py holds it to JAX)
     for algo in ("pallas_mxu", "pallas_mxu_exact"):
-        with pytest.raises(NotImplementedError, match="K5"):
-            TorchTagContinuous(**_env_kwargs(200, 10), knn_algorithm=algo)
+        env = TorchTagContinuous(**_env_kwargs(200, 10), knn_algorithm=algo)
+        assert env.knn_algorithm == algo.replace("mxu", "tiled")

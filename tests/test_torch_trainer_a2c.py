@@ -127,8 +127,7 @@ def test_rollout_replays_jax_actions(jax_run, tmp_path):
         actions[:, :, ids] = batch[f"actions_{tag}"]
     knn_obs.reset_launch_counts()
     got = port._rollout(torch.from_numpy(actions))
-    assert knn_obs.LAUNCH_COUNTS == {"knn_obs_flat_exact": 0,
-                                     "knn_obs_mxu": 0}
+    assert knn_obs.LAUNCH_COUNTS == dict.fromkeys(knn_obs.KERNELS, 0)
     np.testing.assert_array_equal(got["done"].numpy(), batch["done"])
     assert (batch["done"] > 0).any()  # the replay crosses an auto-reset
     for tag in port.policies:

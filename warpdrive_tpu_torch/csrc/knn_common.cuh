@@ -1,7 +1,9 @@
-// Device helpers shared by the k-nearest-neighbour observation kernels
-// (knn_obs.cu, knn_obs_mxu.cu): staging one env's inputs in shared memory,
-// the difference-form squared distance, a register-resident sorted list of
-// the k best candidates, and the emission of one observation row.
+// Device code shared by the k-nearest-neighbour observation kernels
+// (knn_obs.cu, knn_obs_mxu.cu, knn_obs_tiled.cu): staging one env's inputs
+// in shared memory, the two squared-distance forms, the two selection keys,
+// a register-resident sorted list of the k best candidates, the emission
+// of one observation row, and the multi-tile scan kernel that K1, K3, K4
+// and K5 instantiate.
 //
 // Contract (see warpdrive_tpu_torch/ops/knn_obs.py): inputs loc_x, loc_y
 // (E, N), feats (E, 5, N), types_f (N,), still_f (E, N), t_norm (E,), all
@@ -9,15 +11,53 @@
 //   [feat_j[c] - feat_i[c] for c in 0..4, type_j, 1, 1]
 // (zeros past the number of valid candidates), then t_norm[e].  A dead
 // observer's row is all zeros.
+//
+// Invalid candidates.  The TPU kernels push self, dead and padded
+// candidates to d2 >= 1e20 (the v9 kernels by adding BIG, the v7 ones by
+// writing it) and gate slot s of observer i by "i has more than s valid
+// candidates" (a pre-ladder count in v9, a per-slot m2 < 1e18 in v7).  The
+// kernels here skip those candidates and count the valid ones instead.  The
+// two agree in every mode: an invalid entry's key, exact or packed, lies
+// above every valid key, so the ladder takes all valid candidates before
+// any invalid one, and the gate zeroes every slot from n_valid on.
 
 #pragma once
 
+#include <climits>
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace knn {
 
 constexpr int kChannels = 6;        // 5 features + type
 constexpr float kValidMax = 1e18f;  // candidates at d2 >= this are invalid
+constexpr int kTerms = 12;          // terms of the MXU distance expansion
+// the card's dynamic shared memory per block (227 KB)
+constexpr size_t kMaxSharedBytes = 232448;
+
+// Everything a kNN kernel reads and writes.  amat and bmat are the MXU
+// distance operands (ExpansionDist only, else null).
+struct KnnArgs {
+  const float* loc_x;
+  const float* loc_y;
+  const float* feats;
+  const float* types_f;
+  const float* still_f;
+  const float* t_norm;
+  const __nv_bfloat16* amat;  // (E, N, 12): candidate-side expansion
+  const __nv_bfloat16* bmat;  // (E, 12, N): observer-side expansion
+  float* out;
+  int n;
+  int k;
+};
+
+// Floats of stage_env's staging, rounded up to a 16-byte multiple so that
+// what follows it can be read with float4 loads.
+__host__ __device__ inline int env_floats(int n) {
+  return (((3 + kChannels) * n) + 3) & ~3;
+}
 
 // One env's inputs in shared memory: x, y, alive flag (1 or 0) and the six
 // selectable channels, channel-major.  (3 + kChannels) * n floats.
@@ -53,13 +93,116 @@ __device__ __forceinline__ EnvTile stage_env(
   return EnvTile{sx, sy, salive, sf, n};
 }
 
-// d2 = (x_j - x_i)^2 + (y_j - y_i)^2 with every operation rounded on its
-// own: no FMA contraction moves a distance by an ulp and flips a near-tie.
-__device__ __forceinline__ float sq_dist(const EnvTile& t, int j, int i) {
-  const float dx = __fsub_rn(t.x[j], t.x[i]);
-  const float dy = __fsub_rn(t.y[j], t.y[i]);
-  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-}
+// ---------------------------------------------------------------- distances
+// Each distance is a functor built for one observer i; dist(j) is the
+// squared distance of candidate j.  stage() runs before any thread leaves
+// (it may synchronise the block) and returns what the functor reads from
+// shared memory.
+
+// The difference form d2 = (x_j - x_i)^2 + (y_j - y_i)^2 on raw float32
+// coordinates, every operation rounded on its own: no FMA contraction
+// moves a distance by an ulp and flips a near-tie.
+struct DiffDist {
+  static size_t extra_floats(int) { return 0; }
+  __device__ static const float* stage(float*, const KnnArgs&, int, int) {
+    return nullptr;
+  }
+
+  const float* x;
+  const float* y;
+  float xi;
+  float yi;
+
+  __device__ __forceinline__ DiffDist(const EnvTile& t, const float*,
+                                      const KnnArgs&, int, int i)
+      : x(t.x), y(t.y), xi(t.x[i]), yi(t.y[i]) {}
+
+  __device__ __forceinline__ float operator()(int j) const {
+    const float dx = __fsub_rn(x[j], xi);
+    const float dy = __fsub_rn(y[j], yi);
+    return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+  }
+};
+
+// The TPU's MXU distance (warpdrive_tpu/ops/knn_obs.py:1176-1205): on
+// per-env centred coordinates, d2 = sum over t of amat[j, t] * bmat[t, i],
+// the 12-term bf16 hi/lo expansion of |p_j|^2 + |p_i|^2 - 2 p_j.p_i, then
+// max(d2, 0) + 0.0 (the v9 kernel's mask add, which also turns a -0 into
+// +0).  Each product of two bf16 values is exact in float32, and the sum
+// runs in the fixed order t = 0..11 with __fadd_rn, as the plain version
+// sums it, so the two agree bit for bit on one device.  The candidates'
+// amat rows are staged in shared memory as float32 (48 B per agent); the
+// observer's bmat column sits in registers.
+struct ExpansionDist {
+  static size_t extra_floats(int n) {
+    return static_cast<size_t>(kTerms) * n;
+  }
+  __device__ static const float* stage(float* smem, const KnnArgs& a, int e,
+                                       int n) {
+    const __nv_bfloat16* src =
+        a.amat + static_cast<long long>(e) * kTerms * n;
+    for (int q = threadIdx.x; q < kTerms * n; q += blockDim.x) {
+      smem[q] = __bfloat162float(src[q]);
+    }
+    __syncthreads();
+    return smem;
+  }
+
+  const float* a;  // (n, 12) in shared memory, 16-byte aligned rows
+  float b[kTerms];
+
+  __device__ __forceinline__ ExpansionDist(const EnvTile&, const float* staged,
+                                           const KnnArgs& args, int e, int i)
+      : a(staged) {
+    const __nv_bfloat16* col =
+        args.bmat + static_cast<long long>(e) * kTerms * args.n + i;
+#pragma unroll
+    for (int t = 0; t < kTerms; ++t) {
+      b[t] = __bfloat162float(col[static_cast<long long>(t) * args.n]);
+    }
+  }
+
+  __device__ __forceinline__ float operator()(int j) const {
+    const float4* row = reinterpret_cast<const float4*>(a + kTerms * j);
+    const float4 r0 = row[0], r1 = row[1], r2 = row[2];
+    const float av[kTerms] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y,
+                              r1.z, r1.w, r2.x, r2.y, r2.z, r2.w};
+    float d = __fmul_rn(av[0], b[0]);
+#pragma unroll
+    for (int t = 1; t < kTerms; ++t) d = __fadd_rn(d, __fmul_rn(av[t], b[t]));
+    return __fadd_rn(fmaxf(d, 0.0f), 0.0f);
+  }
+};
+
+// --------------------------------------------------------------------- keys
+// A key maps a candidate's (d2, j) to its sort key and says whether the
+// candidate is valid.
+
+// Exact order: the float d2 itself, lowest index first among equal d2 (the
+// sorted list's strict "<" and the ascending scan); valid iff d2 < 1e18.
+struct ExactKey {
+  using Type = float;
+  __device__ static Type sentinel() { return CUDART_INF_F; }
+  __device__ __forceinline__ bool operator()(float d2, int, Type* key) const {
+    *key = d2;
+    return d2 < kValidMax;
+  }
+};
+
+// Packed order: the int32 key (bits(d2) & clear) | j, the TPU kernels'
+// packed index.  clear = ~(2^b - 1) with b = 7 for v3 (_CLEAR_MASK) and
+// b = bit_length(SUBn - 1) for v7/v9 (knn_obs.py:654, :810): distances
+// that differ only in their low b mantissa bits order by index.  Keys are
+// unique, so the list needs no tie rule; valid iff key < bits(1e18).
+struct PackedKey {
+  using Type = int;
+  int clear;
+  __device__ static Type sentinel() { return INT_MAX; }
+  __device__ __forceinline__ bool operator()(float d2, int j, Type* key) const {
+    *key = (__float_as_int(d2) & clear) | j;
+    return *key < __float_as_int(kValidMax);
+  }
+};
 
 // The k smallest (key, index) pairs seen so far, ascending.  Candidates are
 // offered in ascending index and enter with a strict "<", so among equal
@@ -141,6 +284,91 @@ __device__ __forceinline__ void emit_row(float* row,
 
 __device__ __forceinline__ void zero_row(float* row, int row_len) {
   for (int f = 0; f < row_len; ++f) row[f] = 0.0f;
+}
+
+// Live observer i: scan the candidates in ascending j, keep the k best
+// valid keys, count the valid ones, and emit the row.
+template <int K_MAX, typename KeyOf, typename Dist>
+__device__ __forceinline__ void select_and_emit(float* row, const EnvTile& t,
+                                                const KeyOf& key_of,
+                                                const Dist& dist, int i, int k,
+                                                float t_norm) {
+  SortedList<K_MAX, typename KeyOf::Type> list(KeyOf::sentinel());
+  int n_valid = 0;
+  for (int j = 0; j < t.n; ++j) {
+    if (j == i || t.alive[j] == 0.0f) continue;
+    typename KeyOf::Type key;
+    if (!key_of(dist(j), j, &key)) continue;
+    ++n_valid;
+    list.insert(key, j, k);
+  }
+  emit_row(row, list, n_valid, k, t, i, t_norm);
+}
+
+// The multi-tile scan: one block per (env, tile of up to 128 observers),
+// one thread per observer.  The block stages its env's inputs (and the
+// distance's operands) in dynamic shared memory; each thread selects and
+// writes its own row.
+template <int K_MAX, typename KeyOf, typename Dist>
+__global__ void scan_kernel(KnnArgs a, KeyOf key_of) {
+  extern __shared__ __align__(16) float knn_smem[];
+  const int e = blockIdx.x;
+  const int n = a.n;
+  const EnvTile t = stage_env(knn_smem, a.loc_x, a.loc_y, a.feats, a.types_f,
+                              a.still_f, e, n);
+  const float* staged = Dist::stage(knn_smem + env_floats(n), a, e, n);
+
+  const int i = blockIdx.y * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int row_len = 8 * a.k + 1;
+  float* row = a.out + (static_cast<long long>(e) * n + i) * row_len;
+  if (t.alive[i] == 0.0f) {
+    zero_row(row, row_len);
+    return;
+  }
+  const Dist dist(t, staged, a, e, i);
+  select_and_emit<K_MAX>(row, t, key_of, dist, i, a.k, a.t_norm[e]);
+}
+
+// Dynamic shared memory of scan_kernel for n agents.
+template <typename Dist>
+size_t scan_smem_bytes(int n) {
+  return (static_cast<size_t>(env_floats(n)) + Dist::extra_floats(n)) *
+         sizeof(float);
+}
+
+// Launch scan_kernel over e envs.  Returns cudaErrorInvalidValue when the
+// staging exceeds the card's shared memory, else the launch's error.
+template <int K_MAX, typename KeyOf, typename Dist>
+cudaError_t launch_scan(const KnnArgs& a, int e, KeyOf key_of,
+                        cudaStream_t stream) {
+  const int n = a.n;
+  const int threads = n >= 128 ? 128 : ((n + 31) / 32) * 32;
+  const dim3 grid(e, (n + threads - 1) / threads);
+  const size_t smem = scan_smem_bytes<Dist>(n);
+  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        scan_kernel<K_MAX, KeyOf, Dist>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  scan_kernel<K_MAX, KeyOf, Dist><<<grid, threads, smem, stream>>>(a, key_of);
+  return cudaGetLastError();
+}
+
+// b-bit packed key for b in [1, 22] covering every index below n, or an
+// all-ones mask (exact) for b = 0; false for a b that does not fit.
+inline bool packed_clear(int packed_bits, int n, int* clear) {
+  if (packed_bits == 0) {
+    *clear = -1;
+    return true;
+  }
+  if (packed_bits < 1 || packed_bits > 22 || n > (1 << packed_bits)) {
+    return false;
+  }
+  *clear = ~((1 << packed_bits) - 1);
+  return true;
 }
 
 }  // namespace knn

@@ -1,120 +1,164 @@
-// Exact k-nearest-neighbour observation for TagContinuous, for Hopper (sm_90a).
+// The v9 flat k-nearest-neighbour observation kernels for TagContinuous,
+// for Hopper (sm_90a): one templated scan (knn_common.cuh:scan_kernel)
+// and three entry points, one per TPU kernel it replaces.
 //
-// Replaces the TPU kernel warpdrive_tpu/ops/knn_obs.py:_knn_obs_kernel_v9,
-// i.e. _v9_body(exact=True, dist_mxu=False), which _knn_observation_flat
-// dispatches for knn_algorithm="pallas_flat_exact".  Same contract as the
-// Python wrapper warpdrive_tpu_torch/ops/knn_obs.py:knn_observation:
+//   knn_obs_flat_exact    K1  _knn_obs_kernel_v9 (knn_obs.py:711), i.e.
+//                             _v9_body(exact=True, dist_mxu=False):
+//                             knn_algorithm="pallas_flat_exact"
+//   knn_obs_flat          K3  the same with exact=False (packed ties):
+//                             "pallas_flat"
+//   knn_obs_flat_mxudist  K4  _knn_obs_kernel_v9_mxu (knn_obs.py:720),
+//                             _v9_body(dist_mxu=True), exact or packed:
+//                             "pallas_flat_mxudist[_exact]"
+//
+// All three are dispatched by _knn_observation_flat on the TPU and by the
+// Python wrapper warpdrive_tpu_torch/ops/knn_obs.py:knn_observation here,
+// with its contract:
 //
 //   inputs  loc_x, loc_y (E, N), feats (E, 5, N), types_f (N,),
 //           still_f (E, N), t_norm (E,)            all float32, contiguous
+//           amat (E, N, 12), bmat (E, 12, N)       bfloat16 (K4 only: the
+//           MXU distance operands, built by the wrapper's mxudist_operands)
 //   output  out (E, N, 8k+1) float32
 //
 // For env e and observer i, the candidates j are every other agent that is
-// alive (still_j >= 0.5) and whose squared distance dx*dx + dy*dy (raw f32
-// coordinates, difference form) is below 1e18 -- the TPU kernel's
-// _VALID_MAX.  The k nearest, in ascending d2 with the lowest index first
-// among equal distances, fill the k slots
+// alive (still_j >= 0.5).  Distance: K1/K3 the difference form dx*dx +
+// dy*dy on raw f32 coordinates; K4 the 12-term expansion on centred
+// coordinates, max(., 0) (knn_common.cuh:ExpansionDist).  Order: exact
+// (K1, K4 exact) ascending d2, lowest index first among equal d2, valid iff
+// d2 < 1e18 (the TPU's _VALID_MAX); packed (K3, K4 packed) ascending
+// (bits(d2) & ~(2^b - 1)) | j with b = bit_length(SUBn - 1), SUBn =
+// ceil(N/8)*8, passed at launch (10 bits at N = 1024, 7 at N = 105), valid
+// iff the key < bits(1e18).  The k first valid candidates fill slots
 //   [feat_j[c] - feat_i[c] for c in 0..4, type_j, 1, 1];
-// slots past the number of candidates, and every row of a dead observer,
-// are zeros.  The row ends with t_norm[e] for a live observer, else 0.
+// slots past the number of valid candidates, and every row of a dead
+// observer, are zeros (the TPU's n_valid gate: see knn_common.cuh on why
+// skipping invalid candidates equals pushing them to 1e20).  The row ends
+// with t_norm[e] for a live observer, else 0.
 //
-// What bounds it: bytes.  At the flagship shape (E=1024, N=105, k=10) it
-// writes 34.8 MB and reads 3.4 MB, about 11 us at 3.35 TB/s, while the
-// distance work (11.3 M pairs, a few flops each) needs under 1 us.
+// What bounds them.  Bytes for K1 and K3: at the flagship shape (E=1024,
+// N=105, k=10) 38.3 MB (3.4 MB read, 34.8 MB written), 11.4 us at 3.35
+// TB/s; at (256, 1024, 10) 93.3 MB, 27.9 us.  The difference form is 5
+// flops a pair, 20 us for the 268 M pairs at (256, 1024, 10) at 67 TFLOP/s.
+// K4's scalar expansion is 23 flops a pair (12 mul, 11 add), so at
+// (256, 1024, 10) it needs 6.17 GFLOP, 92 us at the float32 rate: K4 is
+// bound by operations and, in this form, slower than K1 on this card.
+// The TPU runs the expansion on its matrix unit; a tensor-core form
+// (mma.sync / wgmma) sums in its own order, so kernel and plain would then
+// differ by near-tie swaps -- that is the later redesign.
 //
 // Design (correct first, simple): one block per (env, tile of up to 128
 // observers), one thread per observer.  The block stages its env's x, y,
-// alive flag and the six selectable channels (5 features + type) in
-// dynamic shared memory (36 B per agent, so any N up to the card's shared
-// memory).  Each thread scans the candidates in ascending j and keeps a
-// sorted list of (d2, j) in registers; a candidate enters with a strict
-// "<", so among equal distances the earlier (lower) index stays first --
-// the TPU ladder's order.  The list holds K_MAX entries (the kernel is
-// templated on K_MAX and the insertion fully unrolled, so it stays in
-// registers); only its first k are emitted.  Every d2 is formed with
-// __fmul_rn / __fadd_rn (and the library is built with -fmad=false) so no
-// FMA contraction moves a distance by an ulp and flips a near-tie.
-// Known cost left for later: each thread writes its own (8k+1)-float row,
-// so the output stores are uncoalesced.  The staging, distance, sorted list
-// and row emission are shared with knn_obs_mxu.cu through knn_common.cuh.
+// alive flag and the six selectable channels in dynamic shared memory (36 B
+// per agent), and for K4 each candidate's 12 expansion terms as float32
+// (48 B more per agent: 86 KB at N = 1024, above the default 48 KB, so the
+// launch raises the limit; the wrapper refuses an N past the card's 227
+// KB).  Each thread scans the candidates in ascending j and keeps a sorted
+// list of (key, j) in registers; a candidate enters with a strict "<", so
+// among equal exact keys the lower index stays first -- the TPU ladder's
+// order (packed keys are unique).  The list holds K_MAX entries (16 or 32,
+// unrolled so it stays in registers); only its first k are emitted.  Every
+// d2 is formed with __fmul_rn / __fadd_rn (and the library is built with
+// -fmad=false), in the plain version's order, so kernel and plain agree bit
+// for bit.  Known cost left for later: each thread writes its own
+// (8k+1)-float row, so the output stores are uncoalesced.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
 #include "knn_common.cuh"
 
 namespace {
 
-template <int K_MAX>
-__global__ void knn_obs_flat_exact_kernel(
-    const float* __restrict__ loc_x, const float* __restrict__ loc_y,
-    const float* __restrict__ feats, const float* __restrict__ types_f,
-    const float* __restrict__ still_f, const float* __restrict__ t_norm,
-    float* __restrict__ out, int n, int k) {
-  extern __shared__ float smem[];
-  const int e = blockIdx.x;
-  const knn::EnvTile t =
-      knn::stage_env(smem, loc_x, loc_y, feats, types_f, still_f, e, n);
+constexpr int kMaxK = 32;  // the largest K_MAX instantiation
 
-  const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int row_len = 8 * k + 1;
-  float* row = out + (static_cast<long long>(e) * n + i) * row_len;
-  if (t.alive[i] == 0.0f) {
-    knn::zero_row(row, row_len);
-    return;
-  }
-
-  knn::SortedList<K_MAX, float> list(CUDART_INF_F);
-  int n_valid = 0;
-  for (int j = 0; j < n; ++j) {
-    if (j == i || t.alive[j] == 0.0f) continue;
-    const float d2 = knn::sq_dist(t, j, i);
-    if (!(d2 < knn::kValidMax)) continue;
-    ++n_valid;
-    list.insert(d2, j, k);
-  }
-  knn::emit_row(row, list, n_valid, k, t, i, t_norm[e]);
+knn::KnnArgs make_args(const float* loc_x, const float* loc_y,
+                       const float* feats, const float* types_f,
+                       const float* still_f, const float* t_norm,
+                       const void* amat, const void* bmat, float* out, int n,
+                       int k) {
+  return knn::KnnArgs{loc_x,
+                      loc_y,
+                      feats,
+                      types_f,
+                      still_f,
+                      t_norm,
+                      static_cast<const __nv_bfloat16*>(amat),
+                      static_cast<const __nv_bfloat16*>(bmat),
+                      out,
+                      n,
+                      k};
 }
 
-template <int K_MAX>
-cudaError_t launch(const float* loc_x, const float* loc_y, const float* feats,
-                   const float* types_f, const float* still_f,
-                   const float* t_norm, float* out, int e, int n, int k,
+template <typename KeyOf, typename Dist>
+cudaError_t launch(const knn::KnnArgs& a, int e, KeyOf key_of,
                    cudaStream_t stream) {
-  const int threads = n >= 128 ? 128 : ((n + 31) / 32) * 32;
-  const dim3 grid(e, (n + threads - 1) / threads);
-  const size_t smem =
-      static_cast<size_t>(3 + knn::kChannels) * n * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        knn_obs_flat_exact_kernel<K_MAX>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  knn_obs_flat_exact_kernel<K_MAX><<<grid, threads, smem, stream>>>(
-      loc_x, loc_y, feats, types_f, still_f, t_norm, out, n, k);
-  return cudaGetLastError();
+  return a.k <= 16 ? knn::launch_scan<16, KeyOf, Dist>(a, e, key_of, stream)
+                   : knn::launch_scan<32, KeyOf, Dist>(a, e, key_of, stream);
+}
+
+bool bad_shape(int e, int n, int k) {
+  return e <= 0 || n <= 0 || k < 1 || k > kMaxK || k > n;
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  Returns a cudaError_t: 0 on a launch
-// that was accepted, cudaErrorInvalidValue for a k the kernel does not
-// take (1 <= k <= 32).
+// Plain C entry points for ctypes.  Each returns a cudaError_t: 0 on a
+// launch that was accepted, cudaErrorInvalidValue for a shape or a packed
+// bit count the kernel does not take (1 <= k <= min(32, n); packed_bits in
+// [1, 22] with n <= 2^packed_bits, or 0 for exact where allowed) or an N
+// whose staging exceeds the card's shared memory.
+
+// K1: exact order, difference-form distance.
 extern "C" int knn_obs_flat_exact(const float* loc_x, const float* loc_y,
                                   const float* feats, const float* types_f,
                                   const float* still_f, const float* t_norm,
                                   float* out, int e, int n, int k,
                                   void* stream) {
-  if (e <= 0 || n <= 0 || k < 1 || k > 32) {
+  if (bad_shape(e, n, k)) return static_cast<int>(cudaErrorInvalidValue);
+  const knn::KnnArgs a = make_args(loc_x, loc_y, feats, types_f, still_f,
+                                   t_norm, nullptr, nullptr, out, n, k);
+  return static_cast<int>(launch<knn::ExactKey, knn::DiffDist>(
+      a, e, knn::ExactKey{}, static_cast<cudaStream_t>(stream)));
+}
+
+// K3: packed order (packed_bits >= 1), difference-form distance.
+extern "C" int knn_obs_flat(const float* loc_x, const float* loc_y,
+                            const float* feats, const float* types_f,
+                            const float* still_f, const float* t_norm,
+                            float* out, int e, int n, int k, int packed_bits,
+                            void* stream) {
+  int clear = 0;
+  if (bad_shape(e, n, k) || packed_bits == 0 ||
+      !knn::packed_clear(packed_bits, n, &clear)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const knn::KnnArgs a = make_args(loc_x, loc_y, feats, types_f, still_f,
+                                   t_norm, nullptr, nullptr, out, n, k);
+  return static_cast<int>(launch<knn::PackedKey, knn::DiffDist>(
+      a, e, knn::PackedKey{clear}, static_cast<cudaStream_t>(stream)));
+}
+
+// K4: MXU-expansion distance, exact order (packed_bits == 0) or packed.
+extern "C" int knn_obs_flat_mxudist(const float* loc_x, const float* loc_y,
+                                    const float* feats, const float* types_f,
+                                    const float* still_f, const float* t_norm,
+                                    const void* amat, const void* bmat,
+                                    float* out, int e, int n, int k,
+                                    int packed_bits, void* stream) {
+  int clear = 0;
+  if (bad_shape(e, n, k) || amat == nullptr || bmat == nullptr ||
+      !knn::packed_clear(packed_bits, n, &clear)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const knn::KnnArgs a = make_args(loc_x, loc_y, feats, types_f, still_f,
+                                   t_norm, amat, bmat, out, n, k);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      k <= 16 ? launch<16>(loc_x, loc_y, feats, types_f, still_f, t_norm, out,
-                           e, n, k, st)
-              : launch<32>(loc_x, loc_y, feats, types_f, still_f, t_norm, out,
-                           e, n, k, st);
+      packed_bits == 0
+          ? launch<knn::ExactKey, knn::ExpansionDist>(a, e, knn::ExactKey{},
+                                                      st)
+          : launch<knn::PackedKey, knn::ExpansionDist>(
+                a, e, knn::PackedKey{clear}, st);
   return static_cast<int>(err);
 }

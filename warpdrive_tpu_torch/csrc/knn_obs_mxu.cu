@@ -36,7 +36,8 @@
 // observer (N <= 128, so the block holds the whole tile, rounded up to a
 // warp multiple).  The block stages its env's x, y, alive flag and six
 // selectable channels in shared memory; each thread scans the candidates
-// in ascending j into a register-resident sorted list (knn_common.cuh),
+// in ascending j into a register-resident sorted list (knn_common.cuh:
+// select_and_emit with DiffDist and ExactKey, or PackedKey with 7 bits),
 // whose strict "<" gives the lowest-index tie-break in exact mode (packed
 // keys are unique).  The rows are staged in shared memory too -- at most
 // N * (8k+1) * 4 B = 66 KB at N=128, k=16, which needs the dynamic
@@ -45,11 +46,9 @@
 // Distances use __fmul_rn / __fadd_rn and the library is built with
 // -fmad=false, so they round as the plain PyTorch versions round them.
 
-#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
 #include "knn_common.cuh"
 
@@ -77,30 +76,16 @@ __global__ void knn_obs_mxu_kernel(
     float* row = stage + i * row_len;
     if (t.alive[i] == 0.0f) {
       knn::zero_row(row, row_len);
-    } else if (PACKED) {
-      const int valid_max = __float_as_int(knn::kValidMax);
-      knn::SortedList<K_MAX, int> list(INT_MAX);
-      int n_valid = 0;
-      for (int j = 0; j < n; ++j) {
-        if (j == i || t.alive[j] == 0.0f) continue;
-        const int key =
-            (__float_as_int(knn::sq_dist(t, j, i)) & kClearMask) | j;
-        if (!(key < valid_max)) continue;
-        ++n_valid;
-        list.insert(key, j, k);
-      }
-      knn::emit_row(row, list, n_valid, k, t, i, t_norm[e]);
     } else {
-      knn::SortedList<K_MAX, float> list(CUDART_INF_F);
-      int n_valid = 0;
-      for (int j = 0; j < n; ++j) {
-        if (j == i || t.alive[j] == 0.0f) continue;
-        const float d2 = knn::sq_dist(t, j, i);
-        if (!(d2 < knn::kValidMax)) continue;
-        ++n_valid;
-        list.insert(d2, j, k);
+      const knn::KnnArgs unused{};
+      const knn::DiffDist dist(t, nullptr, unused, e, i);
+      if (PACKED) {
+        knn::select_and_emit<K_MAX>(row, t, knn::PackedKey{kClearMask}, dist,
+                                    i, k, t_norm[e]);
+      } else {
+        knn::select_and_emit<K_MAX>(row, t, knn::ExactKey{}, dist, i, k,
+                                    t_norm[e]);
       }
-      knn::emit_row(row, list, n_valid, k, t, i, t_norm[e]);
     }
   }
   __syncthreads();

@@ -7,10 +7,10 @@ The port's counterpart of ``warpdrive_tpu/envs/tag_continuous.py``:
   implementation (the engine's host-side ``reset()`` and the data feed need
   it, and the port imports nothing of the JAX package);
 * ``TorchTagContinuous`` adds the batched device step: ``physics_fn`` over
-  ``(envs, agents)`` tensors, ``observe_fn`` (the exact ``passes`` and
-  ``ladder`` kNN algorithms in plain PyTorch) and ``observe_batch_fn``,
-  which sends ``knn_algorithm="pallas_flat_exact"``, ``"pallas_mxu_exact"``
-  and ``"pallas_mxu"`` to the port's kNN kernels (``ops/knn_obs.py``).
+  ``(envs, agents)`` tensors, ``observe_fn`` (the ``passes``, ``ladder``,
+  ``topk``, ``approx`` and ``packed`` kNN algorithms in plain PyTorch) and
+  ``observe_batch_fn``, which sends every ported ``pallas_*`` name to the
+  port's kNN kernels (``ops/knn_obs.py``).
 
 Game rules:
 
@@ -35,9 +35,10 @@ import torch
 
 from warpdrive_tpu_torch.envs.base import TorchEnvironmentContext
 from warpdrive_tpu_torch.ops.knn_obs import (
+    _VALID_MAX_PACKED,
     check_variant,
     knn_observation,
-    knn_observation_reference,
+    packed_keys,
 )
 from warpdrive_tpu_torch.utils.constants import Constants
 from warpdrive_tpu_torch.utils.data_feed import DataFeed
@@ -444,16 +445,19 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
 
     ``knn_algorithm`` (kNN observation mode only):
 
-    * ``"pallas_flat_exact"`` and, up to 128 agents, ``"pallas_mxu_exact"``
-      and ``"pallas_mxu"`` -- :meth:`observe_batch_fn` calls the port's kNN
-      kernels (``ops/knn_obs.py``); :meth:`observe_fn` runs ``passes``, the
-      exact algorithm of the same selection, or for ``"pallas_mxu"`` the
-      plain version of its packed-key order.  Above 128 agents the ``mxu``
-      names route to ``pallas_tiled[_exact]``, as in the JAX package, which
-      is not ported yet;
-    * ``"passes"`` and ``"ladder"`` -- plain PyTorch;
-    * every other name raises ``NotImplementedError`` naming its ROADMAP
-      item.  ``knn_select`` is accepted and ignored: the port always picks
+    * ``"pallas_flat_exact"``, ``"pallas_flat"``,
+      ``"pallas_flat_mxudist[_exact]"``, ``"pallas_tiled[_exact]"``,
+      ``"pallas_mxudist[_exact]"`` and, up to 128 agents,
+      ``"pallas_mxu[_exact]"`` -- :meth:`observe_batch_fn` calls the port's
+      kNN kernels (``ops/knn_obs.py``: K1, K3, K4, K5 and K2).  Above 128
+      agents the ``mxu`` names route to ``pallas_tiled[_exact]``, as in the
+      JAX package.  :meth:`observe_fn`, the per-state observation, runs
+      ``passes`` for every ``pallas_*`` name, as the JAX package's does;
+    * ``"passes"``, ``"ladder"``, ``"topk"``, ``"approx"`` and ``"packed"``
+      -- plain PyTorch;
+    * the ``pallas_*`` names of kernels not ported yet raise
+      ``NotImplementedError`` naming their ROADMAP queue 2 row.
+      ``knn_select`` is accepted and ignored: the port always picks
       neighbour features as exact float32.
     """
 
@@ -464,14 +468,8 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
                 "full-observation mode is not ported yet: ROADMAP queue 1, "
                 "item 1"
             )
-        algo = self.knn_algorithm
-        if algo in _KNN_VARIANTS:
-            check_variant(_KNN_VARIANTS[algo])
-        elif algo not in ("passes", "ladder"):
-            raise NotImplementedError(
-                f"knn_algorithm={algo!r} is not ported yet: ROADMAP queue 1, "
-                "item 1"
-            )
+        if self.knn_algorithm in _KNN_VARIANTS:
+            check_variant(_KNN_VARIANTS[self.knn_algorithm])
         self._consts_by_device = {}
 
     def _consts(self, device: torch.device) -> dict:
@@ -642,20 +640,17 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
         )
 
     def observe_fn(self, state: dict) -> torch.Tensor:
-        """kNN observation of the current batched state in plain PyTorch:
-        the exact ``passes`` algorithm (k rounds of min, lowest-index argmin,
-        select, mask), or the ``ladder`` (slot s takes the least entry
-        lexicographically after slot s-1's (min, argmin)).  Both give the
-        same selection and tie-breaks.  ``pallas_mxu`` runs the plain
-        version of its packed-key order instead, on any device."""
-        if self.knn_algorithm == "pallas_mxu":
-            feats, still_f, t_norm = self._knn_inputs(state)
-            return knn_observation_reference(
-                state["loc_x"], state["loc_y"], feats,
-                self._consts(feats.device)["types_f"], still_f, t_norm,
-                n_agents=self.num_agents, k=self.num_other_agents_observed,
-                packed=True,
-            )
+        """kNN observation of the current batched state in plain PyTorch,
+        by the env's algorithm: the exact ``passes`` (k rounds of min,
+        lowest-index argmin, select, mask), run for every ``pallas_*`` name
+        as in the JAX package; the ``ladder`` (slot s takes the least entry
+        lexicographically after slot s-1's (min, argmin)); ``topk`` and
+        ``approx`` (a stable sort of the distances cut to k: JAX's
+        ``approx_min_k`` at ``recall_target=1.0`` is exact off the TPU).
+        All of them give the same selection and tie-breaks.  ``packed``
+        sorts the keys ``(bits(d2) & ~(2^b - 1)) | j`` with b =
+        bit_length(N - 1), so distances within its tie window order by
+        index."""
         c = self._consts(state["loc_x"].device)
         k = self.num_other_agents_observed
         loc_x = state["loc_x"]
@@ -678,8 +673,25 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
         def pick(am):  # (E, N) neighbour index -> (E, N, 7) its channels
             return src7.gather(2, am[:, None, :].expand(E, 7, N)).transpose(1, 2)
 
+        algo = self.knn_algorithm
+        if algo.startswith("pallas"):
+            algo = "passes"
         slots = []
-        if self.knn_algorithm == "ladder":
+        if algo in ("topk", "approx", "packed"):
+            if algo == "packed":
+                key = packed_keys(d2, max(1, (N - 1).bit_length()))
+                vals, order = torch.sort(key, dim=2)  # the keys are unique
+                valid = vals[..., :k] < _VALID_MAX_PACKED
+            else:
+                vals, order = torch.sort(d2, dim=2, stable=True)
+                valid = vals[..., :k] < big
+            for s in range(k):
+                v = valid[..., s].to(torch.float32)[..., None]
+                nbr = pick(order[..., s])
+                slots.append(torch.cat(
+                    [(nbr[..., :5] - own) * v, nbr[..., 5:6] * v, v, v], dim=2
+                ))
+        elif algo == "ladder":
             col_j = torch.arange(N, device=loc_x.device)
             prev_m = torch.full((E, N, 1), -1.0, device=loc_x.device)
             prev_am = torch.full((E, N, 1), -1, device=loc_x.device)

@@ -2,31 +2,47 @@
 Batched k-nearest-neighbour observation (TagContinuous kNN mode).
 
 The port's counterpart of ``warpdrive_tpu/ops/knn_obs.py:knn_observation``
-for the variants the port runs: ``"flat_exact"`` (the flagship system's
-``knn_algorithm="pallas_flat_exact"``) and the single-tile ``"mxu_exact"``
-and ``"mxu"`` (``"pallas_mxu_exact"``, the shipped training config, and
-``"pallas_mxu"``).  Contract:
+for the variants the port runs.  Contract:
 
     knn_observation(loc_x, loc_y, feats, types_f, still_f, t_norm,
-                    n_agents, k) -> (E, N, 8k+1) float32
+                    n_agents, k, variant) -> (E, N, 8k+1) float32
 
 with ``loc_x``, ``loc_y``, ``still_f`` ``(E, N)``, ``feats`` ``(E, 5, N)``,
 ``types_f`` ``(N,)`` and ``t_norm`` ``(E,)``, all float32.  For each observer,
-the k nearest live others in ascending squared distance (lowest index first
-among equal distances) fill slots
+the k nearest live others fill slots
 ``[rel_x, rel_y, rel_speed, rel_acc, rel_dir, type, 1, 1]``; the row ends
-with ``t_norm``.  Missing slots and dead observers are zeros.  ``"mxu"``
-orders by the TPU kernel's packed key instead, ``(bits(d2) & ~127) | j``:
-distances that differ only in their low 7 mantissa bits order by index.
+with ``t_norm``.  Missing slots and dead observers are zeros.
 
-On a CUDA tensor the wrapper launches a hand-written kernel or raises:
-``knn_obs_flat_exact`` (``csrc/knn_obs.cu``) for ``"flat_exact"``,
-``knn_obs_mxu`` (``csrc/knn_obs_mxu.cu``, N <= 128, k <= 16) for the two
-``mxu`` variants; each source's header gives its design and bound.  On a
-CPU tensor it runs the plain PyTorch version,
-:func:`knn_observation_reference`.  Unlike the TPU kernels, the port
-gathers exact float32 features (no bf16 hi/lo pairs) and emits the contract
-layout directly.
+Each variant is a distance and an order:
+
+* distance: the difference form ``dx*dx + dy*dy`` on raw coordinates, or
+  for the ``mxudist`` variants the TPU's MXU expansion, the 12-term bf16
+  hi/lo product ``amat . bmat`` on per-env centred coordinates
+  (:func:`mxudist_operands`), clamped at 0;
+* order: ``_exact`` variants (and ``flat_exact``) ascending d2, lowest index
+  first among equal distances; the others the TPU kernels' packed key
+  ``(bits(d2) & ~(2^b - 1)) | j`` (:func:`packed_keys`), so distances that
+  differ only in their low b mantissa bits order by index.  ``b`` is 7 for
+  ``mxu`` (the v3 kernel's ``_CLEAR_MASK``) and ``bit_length(SUBn - 1)``,
+  ``SUBn = ceil(N/8)*8``, for ``flat`` and ``tiled`` (v7/v9): 4 at N = 15,
+  7 at N = 105, 10 at N = 1024 (:func:`packed_bits`).
+
+| variant | kernel (``LAUNCH_COUNTS`` key) | source | limits |
+|---|---|---|---|
+| ``flat_exact`` | ``knn_obs_flat_exact`` (K1) | ``csrc/knn_obs.cu`` | k <= 32 |
+| ``flat`` | ``knn_obs_flat`` (K3) | ``csrc/knn_obs.cu`` | k <= 32 |
+| ``flat_mxudist[_exact]`` | ``knn_obs_flat_mxudist`` (K4) | ``csrc/knn_obs.cu`` | k <= 32 |
+| ``tiled[_exact]``, ``tiled_mxudist[_exact]`` | ``knn_obs_tiled`` (K5) | ``csrc/knn_obs_tiled.cu`` | k <= 16 |
+| ``mxu[_exact]`` | ``knn_obs_mxu`` (K2) | ``csrc/knn_obs_mxu.cu`` | N <= 128, k <= 16 |
+
+The tiled and ``mxu`` limits are the TPU kernels' own and hold on every
+device; K1, K3, K4 and K5 also refuse an N whose staged operands exceed
+the card's 227 KB of shared memory.  On a CUDA tensor the wrapper launches
+the variant's hand-written kernel or raises; each source's header gives
+its design and bound.  On a CPU tensor it runs the plain PyTorch version,
+:func:`knn_observation_plain`.  Unlike the TPU kernels, the port gathers
+exact float32 features (no bf16 hi/lo pairs) and emits the contract layout
+directly.
 
 ``LAUNCH_COUNTS`` counts kernel launches, one per call that launched it.
 """
@@ -42,13 +58,18 @@ from warpdrive_tpu_torch.ops import cuda_build
 
 # the TPU kernel's valid-candidate limit (_VALID_MAX): d2 >= 1e18 is invalid
 _VALID_MAX = 1e18
-# its packed-key constants (warpdrive_tpu/ops/knn_obs.py:51-54): the low 7
-# mantissa bits of a squared distance give way to the candidate index
 _BIG = np.float32(1e20)
-_CLEAR_MASK = np.int32(~127)
 _VALID_MAX_PACKED = int(np.float32(_VALID_MAX).view(np.int32))
+# the v3 kernel's packed index bits (warpdrive_tpu/ops/knn_obs.py:51-54)
+_MXU_PACKED_BITS = 7
 
-LAUNCH_COUNTS = {"knn_obs_flat_exact": 0, "knn_obs_mxu": 0}
+LAUNCH_COUNTS = {
+    "knn_obs_flat_exact": 0,
+    "knn_obs_mxu": 0,
+    "knn_obs_flat": 0,
+    "knn_obs_flat_mxudist": 0,
+    "knn_obs_tiled": 0,
+}
 
 # what chip_smoke.py reports for each kernel of this module
 KERNELS = {
@@ -62,32 +83,54 @@ KERNELS = {
         "source": "warpdrive_tpu_torch/csrc/knn_obs_mxu.cu",
         "replaces": "warpdrive_tpu/ops/knn_obs.py:217",
     },
+    "knn_obs_flat": {
+        "route": "cuda",
+        "source": "warpdrive_tpu_torch/csrc/knn_obs.cu",
+        "replaces": "warpdrive_tpu/ops/knn_obs.py:731",
+    },
+    "knn_obs_flat_mxudist": {
+        "route": "cuda",
+        "source": "warpdrive_tpu_torch/csrc/knn_obs.cu",
+        "replaces": "warpdrive_tpu/ops/knn_obs.py:720",
+    },
+    "knn_obs_tiled": {
+        "route": "cuda",
+        "source": "warpdrive_tpu_torch/csrc/knn_obs_tiled.cu",
+        "replaces": "warpdrive_tpu/ops/knn_obs.py:536",
+    },
 }
 
 # the variants the port runs, and the kernel each launches on the card
 _PORTED = {
     "flat_exact": "knn_obs_flat_exact",
+    "flat": "knn_obs_flat",
+    "flat_mxudist": "knn_obs_flat_mxudist",
+    "flat_mxudist_exact": "knn_obs_flat_mxudist",
+    "tiled": "knn_obs_tiled",
+    "tiled_exact": "knn_obs_tiled",
+    "tiled_mxudist": "knn_obs_tiled",
+    "tiled_mxudist_exact": "knn_obs_tiled",
     "mxu": "knn_obs_mxu",
     "mxu_exact": "knn_obs_mxu",
 }
 
 # the JAX variants not ported yet, with the ROADMAP queue 2 row of each
 _UNPORTED = {
-    "flat": "K3",
-    "flat_mxudist": "K4", "flat_mxudist_exact": "K4",
-    "tiled": "K5", "tiled_exact": "K5",
-    "tiled_mxudist": "K5", "tiled_mxudist_exact": "K5",
     "packed": "K6",
     "onehot": "K7",
     "twolevel": "K8", "twolevel_exact": "K8",
     "envlanes": "K9", "envlanes_exact": "K9",
 }
 
-_K_LIMIT = 32  # knn_obs_flat_exact's largest K_MAX instantiation
-# the single-tile kernel's limits, as the TPU kernel asserts them
-# (warpdrive_tpu/ops/knn_obs.py:980, :1042)
+_K_LIMIT = 32  # the flat kernels' largest K_MAX instantiation
+# the TPU kernels' limits (warpdrive_tpu/ops/knn_obs.py:980, :1042, :1314)
 _MXU_MAX_AGENTS = 128
-_MXU_MAX_K = 16
+_SMALL_K_LIMIT = 16
+# the card's dynamic shared memory per block, and what the scan kernels
+# stage per agent: x, y, alive and six channels, plus 12 expansion terms
+# for the MXU distance (csrc/knn_common.cuh)
+_MAX_SHARED_BYTES = 232448
+_EXPANSION_TERMS = 12
 
 
 def reset_launch_counts():
@@ -137,103 +180,220 @@ def check_variant(variant: str):
     )
 
 
+def _check_limits(variant: str, n_agents: int, k: int):
+    """The TPU kernels' own limits, on every device."""
+    kernel = _PORTED[variant]
+    if kernel == "knn_obs_mxu" and (
+        n_agents > _MXU_MAX_AGENTS or k > _SMALL_K_LIMIT
+    ):
+        raise ValueError(
+            f"variant {variant!r} is the single-tile kernel: it takes at "
+            f"most {_MXU_MAX_AGENTS} agents and k <= {_SMALL_K_LIMIT}, got "
+            f"n_agents={n_agents}, k={k}"
+        )
+    if kernel == "knn_obs_tiled" and k > _SMALL_K_LIMIT:
+        raise ValueError(
+            f"variant {variant!r} is the multi-tile v7 kernel: it takes "
+            f"k <= {_SMALL_K_LIMIT}, got k={k}"
+        )
+
+
+def staged_bytes(variant: str, n_agents: int) -> int:
+    """Shared memory one block of the variant's scan kernel stages: 36 B
+    per agent (x, y, alive, six channels, rounded to 16 B), plus 48 B per
+    agent for the MXU distance's candidate terms."""
+    floats = ((9 * n_agents) + 3) & ~3
+    if "mxudist" in variant:
+        floats += _EXPANSION_TERMS * n_agents
+    return 4 * floats
+
+
+def check_kernel_limits(variant: str, n_agents: int, k: int):
+    """Raise ``ValueError`` for a shape the variant's CUDA kernel does not
+    take: k above its list size, or staged operands above the card's
+    shared memory."""
+    _check_limits(variant, n_agents, k)
+    if _PORTED[variant] == "knn_obs_mxu":
+        return
+    if k > _K_LIMIT:
+        raise ValueError(f"the kernel takes k <= {_K_LIMIT}, got k={k}")
+    need = staged_bytes(variant, n_agents)
+    if need > _MAX_SHARED_BYTES:
+        raise ValueError(
+            f"variant {variant!r} at n_agents={n_agents} stages {need} bytes "
+            f"per block, above the card's {_MAX_SHARED_BYTES} bytes of shared "
+            "memory"
+        )
+
+
+def packed_bits(variant: str, n_agents: int) -> int:
+    """Index bits of the variant's packed key, 0 for an exact order."""
+    if variant.endswith("_exact"):
+        return 0
+    if variant == "mxu":
+        return _MXU_PACKED_BITS
+    sub_n = ((n_agents + 7) // 8) * 8  # the TPU kernels' candidate sublanes
+    return max((sub_n - 1).bit_length(), 1)
+
+
+def packed_keys(d2: torch.Tensor, bits: int) -> torch.Tensor:
+    """The packed int32 keys ``(bits(d2) & ~(2^bits - 1)) | j`` of
+    non-negative float32 distances ``d2`` ``(..., N)``, candidate j on the
+    last axis: unique, and in float order up to the low ``bits`` bits."""
+    col = torch.arange(d2.shape[-1], dtype=torch.int32, device=d2.device)
+    return (d2.contiguous().view(torch.int32) & ~((1 << bits) - 1)) | col
+
+
+def expansion_operands(xc: torch.Tensor, yc: torch.Tensor):
+    """The MXU distance operands of centred coordinates ``xc``, ``yc``
+    ``(E, N)``, as ``warpdrive_tpu/ops/knn_obs.py:1181-1205`` builds them:
+    ``amat (E, N, 12)`` = ``[xh, xh, xl, xl, yh, yh, yl, yl, nh, nl, 1, 1]``
+    and ``bmat (E, 12, N)`` = ``[-2xh, -2xl, -2xh, -2xl, -2yh, -2yl, -2yh,
+    -2yl, 1, 1, nh, nl]``, bfloat16, where ``(h, l)`` is the bf16 hi/lo pair
+    of a value and ``n = xc*xc + yc*yc`` (separate multiplies and an add:
+    no fused multiply-add)."""
+    def pair(v):
+        hi = v.to(torch.bfloat16)
+        return hi, (v - hi.to(torch.float32)).to(torch.bfloat16)
+
+    xh, xl = pair(xc)
+    yh, yl = pair(yc)
+    xx = xc * xc
+    yy = yc * yc
+    nh, nl = pair(xx + yy)
+    ones = torch.ones_like(nh)
+    amat = torch.stack([xh, xh, xl, xl, yh, yh, yl, yl, nh, nl, ones, ones],
+                       dim=2)
+    two = -2.0
+    bmat = torch.stack(
+        [xh * two, xl * two, xh * two, xl * two,
+         yh * two, yl * two, yh * two, yl * two,
+         ones, ones, nh, nl],
+        dim=1,
+    )
+    return amat.contiguous(), bmat.contiguous()
+
+
+def mxudist_operands(loc_x: torch.Tensor, loc_y: torch.Tensor):
+    """``(amat, bmat)`` of :func:`expansion_operands` on the coordinates
+    centred on each env's mean over its N agents (the TPU's centring bounds
+    the expansion's cancellation error)."""
+    xc = loc_x - loc_x.mean(dim=1, keepdim=True)
+    yc = loc_y - loc_y.mean(dim=1, keepdim=True)
+    return expansion_operands(xc, yc)
+
+
 def knn_observation(loc_x, loc_y, feats, types_f, still_f, t_norm,
                     n_agents: int, k: int, variant: str = "flat_exact"):
     """Batched fused kNN observation: returns (E, N, 8*k + 1) float32.
 
     CUDA tensors go through the variant's kernel; CPU tensors through
-    :func:`knn_observation_reference`.  The ``mxu`` variants take at most
-    128 agents and k <= 16 on every device, as the single-tile TPU kernel
-    does.
+    :func:`knn_observation_plain`.  The ``mxu`` variants take at most 128
+    agents and k <= 16, the ``tiled`` ones k <= 16, on every device, as the
+    TPU kernels do.
     """
     check_variant(variant)
     _check_inputs(loc_x, loc_y, feats, types_f, still_f, t_norm, n_agents, k)
-    packed = variant == "mxu"
-    if _PORTED[variant] == "knn_obs_mxu" and (
-        n_agents > _MXU_MAX_AGENTS or k > _MXU_MAX_K
-    ):
-        raise ValueError(
-            f"variant {variant!r} is the single-tile kernel: it takes at "
-            f"most {_MXU_MAX_AGENTS} agents and k <= {_MXU_MAX_K}, got "
-            f"n_agents={n_agents}, k={k}"
-        )
+    _check_limits(variant, n_agents, k)
     if loc_x.device.type == "cpu":
-        return knn_observation_reference(
-            loc_x, loc_y, feats, types_f, still_f, t_norm, n_agents, k,
-            packed=packed,
-        )
+        return knn_observation_plain(loc_x, loc_y, feats, types_f, still_f,
+                                     t_norm, n_agents, k, variant)
     if loc_x.device.type != "cuda":
         raise ValueError(f"unsupported device {loc_x.device}")
-    if variant != "flat_exact":
-        return _launch_mxu(loc_x, loc_y, feats, types_f, still_f, t_norm, k,
-                           packed)
-    if k > _K_LIMIT:
-        raise ValueError(f"the kernel takes k <= {_K_LIMIT}, got k={k}")
-    return _launch_flat_exact(loc_x, loc_y, feats, types_f, still_f, t_norm, k)
-
-
-def _launch_flat_exact(loc_x, loc_y, feats, types_f, still_f, t_norm, k):
-    lib = cuda_build.load("knn_obs")
-    fn = lib.knn_obs_flat_exact
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    check_kernel_limits(variant, n_agents, k)
+    name = _PORTED[variant]
+    bits = packed_bits(variant, n_agents)
+    mxu_dist = "mxudist" in variant
     E, N = loc_x.shape
     out = torch.empty((E, N, 8 * k + 1), dtype=torch.float32,
                       device=loc_x.device)
+    ptr, num = ctypes.c_void_p, ctypes.c_int
+    if mxu_dist:
+        amat, bmat = mxudist_operands(loc_x, loc_y)
+        operands = [(amat.data_ptr(), ptr), (bmat.data_ptr(), ptr)]
+    else:
+        operands = [(None, ptr), (None, ptr)]
+    # each entry point's C arguments after its six input pointers
+    shape = [(out.data_ptr(), ptr), (E, num), (N, num), (k, num)]
+    if name == "knn_obs_flat_exact":
+        lib, tail = "knn_obs", shape
+    elif name == "knn_obs_flat":
+        lib, tail = "knn_obs", shape + [(bits, num)]
+    elif name == "knn_obs_flat_mxudist":
+        lib, tail = "knn_obs", operands + shape + [(bits, num)]
+    elif name == "knn_obs_tiled":
+        lib, tail = "knn_obs_tiled", operands + shape + [
+            (bits, num), (int(mxu_dist), num)]
+    else:
+        lib, tail = "knn_obs_mxu", shape + [(int(bits > 0), num)]
     with torch.cuda.device(loc_x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            loc_x.data_ptr(), loc_y.data_ptr(), feats.data_ptr(),
-            types_f.data_ptr(), still_f.data_ptr(), t_norm.data_ptr(),
-            out.data_ptr(), E, N, k, stream,
+        call = (
+            [(t.data_ptr(), ptr)
+             for t in (loc_x, loc_y, feats, types_f, still_f, t_norm)]
+            + tail + [(stream, ptr)]
         )
+        fn = getattr(cuda_build.load(lib), name)
+        fn.argtypes = [ctype for _, ctype in call]
+        fn.restype = ctypes.c_int
+        err = fn(*(value for value, _ in call))
     if err != 0:
-        raise RuntimeError(f"knn_obs_flat_exact launch failed: cudaError {err}")
-    LAUNCH_COUNTS["knn_obs_flat_exact"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCH_COUNTS[name] += 1
     return out
 
 
-def _launch_mxu(loc_x, loc_y, feats, types_f, still_f, t_norm, k, packed):
-    lib = cuda_build.load("knn_obs_mxu")
-    fn = lib.knn_obs_mxu
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    E, N = loc_x.shape
-    out = torch.empty((E, N, 8 * k + 1), dtype=torch.float32,
-                      device=loc_x.device)
-    with torch.cuda.device(loc_x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            loc_x.data_ptr(), loc_y.data_ptr(), feats.data_ptr(),
-            types_f.data_ptr(), still_f.data_ptr(), t_norm.data_ptr(),
-            out.data_ptr(), E, N, k, int(packed), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"knn_obs_mxu launch failed: cudaError {err}")
-    LAUNCH_COUNTS["knn_obs_mxu"] += 1
-    return out
+def knn_observation_plain(loc_x, loc_y, feats, types_f, still_f, t_norm,
+                          n_agents: int, k: int, variant: str = "flat_exact"):
+    """The plain PyTorch version of ``variant`` on any device: the same
+    operands (:func:`mxudist_operands`), packed bits and float32 operations
+    as its kernel, so the two agree bit for bit on one device."""
+    check_variant(variant)
+    operands = (mxudist_operands(loc_x, loc_y) if "mxudist" in variant
+                else None)
+    return knn_observation_reference(
+        loc_x, loc_y, feats, types_f, still_f, t_norm, n_agents, k,
+        packed_bits=packed_bits(variant, n_agents), operands=operands,
+    )
+
+
+def expansion_sq_dist(amat: torch.Tensor, bmat: torch.Tensor) -> torch.Tensor:
+    """``d2[e, i, j] = max(sum_t amat[e, j, t] * bmat[e, t, i], 0) + 0.0``
+    in float32, summed in the order t = 0..11 (each bf16 x bf16 product is
+    exact in float32); the ``+ 0.0`` is the v9 kernel's mask add for a valid
+    candidate, which also turns a -0 into +0."""
+    a = amat.to(torch.float32)
+    b = bmat.to(torch.float32)
+    d2 = a[:, None, :, 0] * b[:, 0, :, None]
+    for t in range(1, _EXPANSION_TERMS):
+        d2 = d2 + a[:, None, :, t] * b[:, t, :, None]
+    return torch.clamp(d2, min=0.0) + 0.0
 
 
 def knn_observation_reference(loc_x, loc_y, feats, types_f, still_f, t_norm,
-                              n_agents: int, k: int, packed: bool = False):
+                              n_agents: int, k: int, packed_bits: int = 0,
+                              operands=None):
     """Plain PyTorch version of the kernels: the same selection and the
-    same float32 operations for every emitted value, so kernel and plain
-    agree bit for bit.  The selection is a stable sort of the masked squared
-    distances, or with ``packed`` (variant ``"mxu"``) a sort of the TPU
-    kernel's packed int32 keys."""
+    same float32 operations for every emitted value.  The distance is the
+    difference form, or with ``operands = (amat, bmat)`` the MXU expansion
+    (:func:`expansion_sq_dist`).  The selection is a stable sort of the
+    masked squared distances, or with ``packed_bits`` > 0 a sort of the TPU
+    kernels' packed int32 keys with that many index bits."""
     E, N = loc_x.shape
-    dx = loc_x[:, None, :] - loc_x[:, :, None]  # [e, i, j] = x_j - x_i
-    dy = loc_y[:, None, :] - loc_y[:, :, None]
-    d2 = dx * dx + dy * dy
+    if operands is None:
+        dx = loc_x[:, None, :] - loc_x[:, :, None]  # [e, i, j] = x_j - x_i
+        dy = loc_y[:, None, :] - loc_y[:, :, None]
+        d2 = dx * dx + dy * dy
+    else:
+        d2 = expansion_sq_dist(*operands)
     alive = still_f >= 0.5  # (E, N)
     not_self = ~torch.eye(N, dtype=torch.bool, device=loc_x.device)
     candidate = alive[:, None, :] & not_self  # (E, i, j)
-    if packed:
-        # self and dead candidates carry 1e20, as in the TPU kernel, so
+    if packed_bits:
+        # self and dead candidates carry 1e20, as in the TPU kernels, so
         # their packed keys lie above the valid limit
-        col_j = torch.arange(N, dtype=torch.int32, device=loc_x.device)
-        bits = torch.where(candidate, d2, float(_BIG)).view(torch.int32)
-        key = (bits & int(_CLEAR_MASK)) | col_j
+        key = packed_keys(torch.where(candidate, d2, float(_BIG)),
+                          packed_bits)
         valid = key < _VALID_MAX_PACKED
     else:
         valid = candidate & (d2 < _VALID_MAX)

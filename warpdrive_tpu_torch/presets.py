@@ -12,6 +12,11 @@ over batched tensors:
 
 Each step runs the kNN observation once, so on a CUDA device each launches
 the kNN kernel once.
+
+``build_many_agents`` is the 1024-agent configuration of the JAX package's
+bench (``bench.py:576-598``): the flagship's settings with 20 taggers and
+1004 runners on a 60-unit square, no policies, and the same
+``env_only_step``.
 """
 
 from __future__ import annotations
@@ -48,6 +53,46 @@ FLAGSHIP_ENV_KWARGS = dict(
     end_of_game_reward_for_runner=1.0,
     tagging_distance=0.02,
 )
+
+# the JAX bench's 1024-agent stage (bench.py:578-582)
+MANY_AGENT_ENV_KWARGS = dict(
+    FLAGSHIP_ENV_KWARGS, num_taggers=20, num_runners=1004, grid_length=60.0
+)
+
+
+def _rollout_state(engine):
+    """The rollout carries only the physical state: observations are
+    computed from it each step, and actions are passed to the physics
+    directly."""
+    assert engine.env.has_split_step
+    return {
+        k: v
+        for k, v in engine.state.items()
+        if k not in (_OBS, Constants.ACTIONS)
+    }
+
+
+def _env_only_step_fn(engine, heads, device):
+    """``env_only_step((state, checksum), generator)`` over every replica
+    of ``engine``."""
+    num_envs, n_agents = engine.n_envs, engine.n_agents
+
+    @torch.no_grad()
+    def env_only_step(carry, generator):
+        """Random-action env step + observation + auto-reset.  The obs
+        checksum keeps the observation an output of the step."""
+        state, checksum = carry
+        actions = torch.stack(
+            [torch.randint(0, n, (num_envs, n_agents), generator=generator,
+                           device=device, dtype=torch.int32)
+             for n in heads],
+            dim=-1,
+        )
+        checksum = checksum + engine.observe(state).sum()
+        state = engine.step_physics(state, actions)
+        return engine.auto_reset(state, generator), checksum
+
+    return env_only_step
 
 
 def build_flagship(num_envs: int = 64, fc_dims=(256, 256), seed: int = 0,
@@ -95,14 +140,7 @@ def build_flagship(num_envs: int = 64, fc_dims=(256, 256), seed: int = 0,
     ids_t = {t: torch.as_tensor(v, dtype=torch.long, device=device)
              for t, v in policy_ids.items()}
 
-    # the rollout carries only the physical state: observations are computed
-    # from it each step, and actions are passed to the physics directly
-    assert engine.env.has_split_step
-    rollout_state = {
-        k: v
-        for k, v in engine.state.items()
-        if k not in (_OBS, Constants.ACTIONS)
-    }
+    rollout_state = _rollout_state(engine)
 
     def _policy_actions(models, obs_all, generator):
         actions = torch.zeros((num_envs, n_agents, len(heads)),
@@ -123,20 +161,7 @@ def build_flagship(num_envs: int = 64, fc_dims=(256, 256), seed: int = 0,
         state = engine.step_physics(state, actions)
         return engine.auto_reset(state, generator)
 
-    @torch.no_grad()
-    def env_only_step(carry, generator):
-        """Random-action env step + observation + auto-reset.  The obs
-        checksum keeps the observation an output of the step."""
-        state, checksum = carry
-        actions = torch.stack(
-            [torch.randint(0, n, (num_envs, n_agents), generator=generator,
-                           device=device, dtype=torch.int32)
-             for n in heads],
-            dim=-1,
-        )
-        checksum = checksum + engine.observe(state).sum()
-        state = engine.step_physics(state, actions)
-        return engine.auto_reset(state, generator), checksum
+    env_only_step = _env_only_step_fn(engine, heads, device)
 
     return {
         "engine": engine,
@@ -149,4 +174,36 @@ def build_flagship(num_envs: int = 64, fc_dims=(256, 256), seed: int = 0,
         "env_only_step": env_only_step,
         "num_envs": num_envs,
         "num_agents": n_agents,
+    }
+
+
+def build_many_agents(num_envs: int = 256, seed: int = 0,
+                      knn_algorithm: str = "pallas_flat_exact",
+                      device="cuda"):
+    """
+    Build the 1024-agent TagContinuous configuration on ``device``
+    (:data:`MANY_AGENT_ENV_KWARGS`, env and engine seeded with ``seed``).
+
+    :returns: dict with ``engine``, ``env``, ``state`` (the batched rollout
+        state), ``env_only_step((state, checksum), generator)``,
+        ``num_envs`` and ``num_agents``.
+    """
+    from warpdrive_tpu_torch.envs import register_all_envs
+    from warpdrive_tpu_torch.envs.engine import EnvEngine
+    from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
+
+    device = resolve_device(device)
+    register_all_envs()
+    env = TorchTagContinuous(**MANY_AGENT_ENV_KWARGS, seed=seed,
+                             knn_algorithm=knn_algorithm)
+    engine = EnvEngine(env_obj=env, num_envs=num_envs, seed=seed,
+                       device=device)
+    heads = [int(n) for n in env.action_space[0].nvec]
+    return {
+        "engine": engine,
+        "env": env,
+        "state": _rollout_state(engine),
+        "env_only_step": _env_only_step_fn(engine, heads, device),
+        "num_envs": num_envs,
+        "num_agents": engine.n_agents,
     }
