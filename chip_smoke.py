@@ -43,8 +43,10 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       K1, K4 or K5 exactly once per step and no other kernel;
    d. the ``pallas_flat`` flagship ``env_only_step`` at 1024 envs x 105
       agents, 200 steps: exactly one K3 launch per step;
-5. time each kernel and its plain version at the main paths' shapes, beside
-   the kernel's bound.
+5. at the main paths' shapes -- (1024, 105, 10) for K1 and K3, (100, 110,
+   10) for K2, (256, 1024, 10) for K1, K4 in both modes and K5 in its four
+   -- hold each kernel against its plain version once more (0 mismatches
+   and max abs diff 0), and time both beside the kernel's bound.
 
 The last three lines are the card (``nvidia-smi``'s name and power limit),
 one JSON object with a record per kernel, and the result line
@@ -636,8 +638,9 @@ def _knn_bound_ms(E, N, k, d2_pairs, flops_per_pair=5):
     """Least time for the kNN function on the card: each input read once and
     the output written once at the HBM rate, or the distance arithmetic at
     the float32 rate, whichever is larger.  A pair costs 5 flops in the
-    difference form (2 sub, 2 mul, 1 add) and 23 in the scalar MXU
-    expansion (12 mul, 11 add)."""
+    difference form (2 sub, 2 mul, 1 add) and 19 in the scalar MXU
+    expansion: 8 mul and 11 add, since its terms 8-11 multiply by the
+    constant 1 and need only the adds."""
     bytes_in = 4 * (3 * E * N + 5 * E * N + N + E)
     bytes_out = 4 * E * N * (8 * k + 1)
     t_bytes = (bytes_in + bytes_out) / _PEAK_BYTES_PER_S
@@ -700,13 +703,15 @@ def _profile(system, generator, trainer, many, wall_ms, steps=10):
 
 def _time_knn(name, args, n_agents, k, variant, label, plain_repeats=11,
               plain_inner=5):
-    """Kernel and plain times on one input (median of 21 x 50 back-to-back
-    launches, so the inputs stay in L2; plain ``plain_repeats`` x
-    ``plain_inner``), beside the bound."""
+    """Kernel vs plain on one input (0 mismatches, max abs diff 0), then
+    their times there (median of 21 x 50 back-to-back launches, so the
+    inputs stay in L2; plain ``plain_repeats`` x ``plain_inner``), beside
+    the bound."""
     import torch
 
     from warpdrive_tpu_torch.ops import knn_obs
 
+    max_abs = _compare_knn(label, args, n_agents, k, variant, tol=EXACT_TOL)
     E, N = args[0].shape
     kernel_ms = _cuda_ms(
         lambda: knn_obs.knn_observation(*args, n_agents=n_agents, k=k,
@@ -721,13 +726,13 @@ def _time_knn(name, args, n_agents, k, variant, label, plain_repeats=11,
     alive = (args[4] >= 0.5).sum(dim=1).to(torch.float64)
     d2_pairs = float((alive * (alive - 1)).sum())  # pairs of live agents
     bound_ms, bound_by, nbytes = _knn_bound_ms(
-        E, N, k, d2_pairs, flops_per_pair=23 if "mxudist" in variant else 5)
+        E, N, k, d2_pairs, flops_per_pair=19 if "mxudist" in variant else 5)
     print(f"{name} [{variant}, {label}] at E={E} N={N} k={k}: kernel "
           f"{kernel_ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
           f"{bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, {d2_pairs:.0f} "
           f"live pairs); {100 * bound_ms / kernel_ms:.1f}% of bound")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    return {"max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def main(argv=None) -> int:
@@ -867,11 +872,12 @@ def main(argv=None) -> int:
                for algo, r in many_loops.items()},
         })
 
-    # 5. kernel and plain times at the main paths' shapes
+    # 5. kernel vs plain and their times at the main paths' shapes
     many_args = _knn_args(many["pallas_flat_exact"]["env"],
                           many["pallas_flat_exact"]["state"])
     big = dict(plain_repeats=3, plain_inner=2)  # plain at 256 x 1024: ~GiB
     many_label = f"1024-agent state, {MANY_AGENT_ENVS} envs"
+    # the main paths' modes first: they fill the kernels line
     timed = {
         "knn_obs_flat_exact": _time_knn(
             "knn_obs_flat_exact", rolled_args, n, kk, "flat_exact",
@@ -887,9 +893,6 @@ def main(argv=None) -> int:
         "knn_obs_tiled": _time_knn(
             "knn_obs_tiled", *many_args, "tiled_exact", many_label, **big),
     }
-    _time_knn("knn_obs_mxu", rolled_args, n, kk, "mxu_exact",
-              "flagship state")
-    _time_knn("knn_obs_mxu", *train_rolled, "mxu", "training state")
     at_1024 = {
         "knn_obs_flat_exact": _time_knn(
             "knn_obs_flat_exact", *many_args, "flat_exact", many_label,
@@ -897,10 +900,22 @@ def main(argv=None) -> int:
         "knn_obs_flat_mxudist": timed["knn_obs_flat_mxudist"],
         "knn_obs_tiled": timed["knn_obs_tiled"],
     }
-    _time_knn("knn_obs_flat_mxudist", *many_args, "flat_mxudist_exact",
-              many_label, **big)
-    _time_knn("knn_obs_tiled", *many_args, "tiled_mxudist", many_label,
-              **big)
+    others = [
+        ("knn_obs_mxu", _time_knn("knn_obs_mxu", rolled_args, n, kk,
+                                  "mxu_exact", "flagship state")),
+        ("knn_obs_mxu", _time_knn("knn_obs_mxu", *train_rolled, "mxu",
+                                  "training state")),
+        ("knn_obs_flat_mxudist", _time_knn(
+            "knn_obs_flat_mxudist", *many_args, "flat_mxudist_exact",
+            many_label, **big)),
+        ("knn_obs_tiled", _time_knn("knn_obs_tiled", *many_args,
+                                    "tiled_mxudist", many_label, **big)),
+    ]
+    for name, r in [*timed.items(), *at_1024.items(), *others]:
+        max_abs[name] = max(max_abs[name], r["max_abs_err"])
+    for variant in ("tiled", "tiled_mxudist_exact"):  # K5's other modes
+        max_abs["knn_obs_tiled"] = max(max_abs["knn_obs_tiled"], _compare_knn(
+            many_label, *many_args, variant, tol=EXACT_TOL))
     env_only_ms = loops["env_only_step"]["ms_per_step"]
     rollout_step_ms = roll_ms / trainer.training_batch_size_per_env
     print(f"knn_obs_flat_exact share of env_only_step "
@@ -932,7 +947,8 @@ def main(argv=None) -> int:
             "replaces": info["replaces"],
             "launches": all_launches[name],
             "max_abs_err": max_abs[name],
-            **timed[name],
+            **{key: timed[name][key]
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
         })
     print(card)

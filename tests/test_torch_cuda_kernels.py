@@ -66,7 +66,7 @@ def test_knn_kernel_matches_plain_on_card(card, E, N, k):
     before = knn_obs.LAUNCH_COUNTS["knn_obs_flat_exact"]
     out = knn_obs.knn_observation(*args, n_agents=N, k=k)
     assert knn_obs.LAUNCH_COUNTS["knn_obs_flat_exact"] == before + 1
-    plain = knn_obs.knn_observation_reference(*args, n_agents=N, k=k)
+    plain = knn_obs.knn_observation_plain(*args, n_agents=N, k=k)
     torch.cuda.synchronize()
     assert out.shape == (E, N, 8 * k + 1)
     assert torch.equal(out, plain)

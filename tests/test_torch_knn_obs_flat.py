@@ -195,11 +195,20 @@ def test_mxudist_operands_match_the_jax_formula(N, box):
                                   np.asarray(bmat.astype(jnp.float32)))
 
     tx, ty = torch.from_numpy(loc_x), torch.from_numpy(loc_y)
-    port_xc = (tx - tx.mean(dim=1, keepdim=True)).numpy()
-    np.testing.assert_allclose(port_xc, np.asarray(xc), rtol=0,
-                               atol=2 * np.spacing(np.float32(box)))
+    centred = knn_obs.centred_coords(tx, ty)
+    assert centred.shape == (3, 2, N) and centred.is_contiguous()
+    for port_c, jax_c in ((centred[:, 0], xc), (centred[:, 1], yc)):
+        np.testing.assert_allclose(port_c.numpy(), np.asarray(jax_c), rtol=0,
+                                   atol=2 * np.spacing(np.float32(box)))
+    amat_only, none = knn_obs.expansion_operands(centred[:, 0], centred[:, 1],
+                                                 with_bmat=False)
+    assert none is None
 
-    d2 = knn_obs.expansion_sq_dist(*knn_obs.mxudist_operands(tx, ty))
+    d2 = knn_obs.expansion_sq_dist(
+        *knn_obs.expansion_operands(centred[:, 0], centred[:, 1]))
+    assert torch.equal(amat_only,
+                       knn_obs.expansion_operands(centred[:, 0],
+                                                  centred[:, 1])[0])
     diff = ((tx[:, None, :] - tx[:, :, None]) ** 2
             + (ty[:, None, :] - ty[:, :, None]) ** 2)
     assert (d2 >= 0).all()

@@ -37,8 +37,10 @@ constexpr int kTerms = 12;          // terms of the MXU distance expansion
 // the card's dynamic shared memory per block (227 KB)
 constexpr size_t kMaxSharedBytes = 232448;
 
-// Everything a kNN kernel reads and writes.  amat and bmat are the MXU
-// distance operands (ExpansionDist only, else null).
+// Everything a kNN kernel reads and writes.  amat, bmat and centred are
+// the MXU distance's operands (ExpansionDist only, else null): amat always,
+// and the observer side either as bmat (v9, K4) or as the centred
+// coordinates it is formed from in the kernel (v7, K5).
 struct KnnArgs {
   const float* loc_x;
   const float* loc_y;
@@ -48,10 +50,44 @@ struct KnnArgs {
   const float* t_norm;
   const __nv_bfloat16* amat;  // (E, N, 12): candidate-side expansion
   const __nv_bfloat16* bmat;  // (E, 12, N): observer-side expansion
+  const float* centred;       // (E, 2, N): per-env centred x, y
   float* out;
   int n;
   int k;
 };
+
+// The common C signature of the kNN entry points (knn_obs.cu,
+// knn_obs_mxu.cu, knn_obs_tiled.cu), so that the Python wrapper makes one
+// ctypes call for every kernel.  iside is the MXU distance's observer-side
+// operand: bmat for K4, the centred coordinates for K5, else null.
+#define KNN_ENTRY(name)                                                     \
+  extern "C" int name(const float* loc_x, const float* loc_y,               \
+                      const float* feats, const float* types_f,             \
+                      const float* still_f, const float* t_norm,            \
+                      const void* amat, const void* iside, float* out,      \
+                      int e, int n, int k, int packed_bits, int mxu_dist,   \
+                      void* stream)
+
+// KnnArgs of an entry point's arguments, with iside as bmat (v9) or as the
+// centred coordinates (v7).
+inline KnnArgs make_args(const float* loc_x, const float* loc_y,
+                         const float* feats, const float* types_f,
+                         const float* still_f, const float* t_norm,
+                         const void* amat, const void* bmat,
+                         const void* centred, float* out, int n, int k) {
+  return KnnArgs{loc_x,
+                 loc_y,
+                 feats,
+                 types_f,
+                 still_f,
+                 t_norm,
+                 static_cast<const __nv_bfloat16*>(amat),
+                 static_cast<const __nv_bfloat16*>(bmat),
+                 static_cast<const float*>(centred),
+                 out,
+                 n,
+                 k};
+}
 
 // Floats of stage_env's staging, rounded up to a 16-byte multiple so that
 // what follows it can be read with float4 loads.
@@ -132,7 +168,10 @@ struct DiffDist {
 // runs in the fixed order t = 0..11 with __fadd_rn, as the plain version
 // sums it, so the two agree bit for bit on one device.  The candidates'
 // amat rows are staged in shared memory as float32 (48 B per agent); the
-// observer's bmat column sits in registers.
+// observer's 12 terms sit in registers, where ObserverTerms::load(args, e,
+// i, b) puts them: read from bmat (v9 hoists them out of its kernel) or
+// formed from the centred coordinates (v7 forms them in its body).
+template <typename ObserverTerms>
 struct ExpansionDist {
   static size_t extra_floats(int n) {
     return static_cast<size_t>(kTerms) * n;
@@ -154,12 +193,7 @@ struct ExpansionDist {
   __device__ __forceinline__ ExpansionDist(const EnvTile&, const float* staged,
                                            const KnnArgs& args, int e, int i)
       : a(staged) {
-    const __nv_bfloat16* col =
-        args.bmat + static_cast<long long>(e) * kTerms * args.n + i;
-#pragma unroll
-    for (int t = 0; t < kTerms; ++t) {
-      b[t] = __bfloat162float(col[static_cast<long long>(t) * args.n]);
-    }
+    ObserverTerms::load(args, e, i, b);
   }
 
   __device__ __forceinline__ float operator()(int j) const {

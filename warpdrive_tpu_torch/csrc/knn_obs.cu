@@ -18,7 +18,7 @@
 //   inputs  loc_x, loc_y (E, N), feats (E, 5, N), types_f (N,),
 //           still_f (E, N), t_norm (E,)            all float32, contiguous
 //           amat (E, N, 12), bmat (E, 12, N)       bfloat16 (K4 only: the
-//           MXU distance operands, built by the wrapper's mxudist_operands)
+//           MXU distance operands, built by the wrapper's expansion_operands)
 //   output  out (E, N, 8k+1) float32
 //
 // For env e and observer i, the candidates j are every other agent that is
@@ -40,9 +40,12 @@
 // N=105, k=10) 38.3 MB (3.4 MB read, 34.8 MB written), 11.4 us at 3.35
 // TB/s; at (256, 1024, 10) 93.3 MB, 27.9 us.  The difference form is 5
 // flops a pair, 20 us for the 268 M pairs at (256, 1024, 10) at 67 TFLOP/s.
-// K4's scalar expansion is 23 flops a pair (12 mul, 11 add), so at
-// (256, 1024, 10) it needs 6.17 GFLOP, 92 us at the float32 rate: K4 is
-// bound by operations and, in this form, slower than K1 on this card.
+// K4's scalar expansion needs 19 flops a pair: 8 mul and 11 add (the
+// products with the constant 1, terms 8-11, are adds only), so at
+// (256, 1024, 10) it needs 5.10 GFLOP for all 268 M pairs, 76 us at the
+// float32 rate, and about 28 us for the live pairs of a rolled state, just
+// above the byte bound: K4 is bound by operations and, in this form, slower
+// than K1 on this card (the kernel itself runs all 12 multiplies).
 // The TPU runs the expansion on its matrix unit; a tensor-core form
 // (mma.sync / wgmma) sums in its own order, so kernel and plain would then
 // differ by near-tie swaps -- that is the later redesign.
@@ -72,23 +75,21 @@ namespace {
 
 constexpr int kMaxK = 32;  // the largest K_MAX instantiation
 
-knn::KnnArgs make_args(const float* loc_x, const float* loc_y,
-                       const float* feats, const float* types_f,
-                       const float* still_f, const float* t_norm,
-                       const void* amat, const void* bmat, float* out, int n,
-                       int k) {
-  return knn::KnnArgs{loc_x,
-                      loc_y,
-                      feats,
-                      types_f,
-                      still_f,
-                      t_norm,
-                      static_cast<const __nv_bfloat16*>(amat),
-                      static_cast<const __nv_bfloat16*>(bmat),
-                      out,
-                      n,
-                      k};
-}
+// v9's observer-side MXU operand, hoisted out of the kernel: observer i's
+// column of bmat (E, 12, N).
+struct BmatTerms {
+  __device__ __forceinline__ static void load(const knn::KnnArgs& a, int e,
+                                              int i, float* b) {
+    const __nv_bfloat16* col =
+        a.bmat + static_cast<long long>(e) * knn::kTerms * a.n + i;
+#pragma unroll
+    for (int t = 0; t < knn::kTerms; ++t) {
+      b[t] = __bfloat162float(col[static_cast<long long>(t) * a.n]);
+    }
+  }
+};
+
+using BmatDist = knn::ExpansionDist<BmatTerms>;
 
 template <typename KeyOf, typename Dist>
 cudaError_t launch(const knn::KnnArgs& a, int e, KeyOf key_of,
@@ -97,68 +98,71 @@ cudaError_t launch(const knn::KnnArgs& a, int e, KeyOf key_of,
                    : knn::launch_scan<32, KeyOf, Dist>(a, e, key_of, stream);
 }
 
-bool bad_shape(int e, int n, int k) {
-  return e <= 0 || n <= 0 || k < 1 || k > kMaxK || k > n;
+template <typename Dist>
+cudaError_t launch_keyed(const knn::KnnArgs& a, int e, int packed_bits,
+                         int clear, cudaStream_t stream) {
+  return packed_bits == 0
+             ? launch<knn::ExactKey, Dist>(a, e, knn::ExactKey{}, stream)
+             : launch<knn::PackedKey, Dist>(a, e, knn::PackedKey{clear},
+                                            stream);
+}
+
+// The checks all three entry points share: the shape, and a packed bit
+// count the key takes (its clear mask in *clear).
+bool bad_call(int e, int n, int k, int packed_bits, int* clear) {
+  return e <= 0 || n <= 0 || k < 1 || k > kMaxK || k > n ||
+         !knn::packed_clear(packed_bits, n, clear);
 }
 
 }  // namespace
 
-// Plain C entry points for ctypes.  Each returns a cudaError_t: 0 on a
-// launch that was accepted, cudaErrorInvalidValue for a shape or a packed
-// bit count the kernel does not take (1 <= k <= min(32, n); packed_bits in
-// [1, 22] with n <= 2^packed_bits, or 0 for exact where allowed) or an N
-// whose staging exceeds the card's shared memory.
+// Plain C entry points for ctypes, with the common signature
+// (knn_common.cuh:KNN_ENTRY).  Each returns a cudaError_t: 0 on a launch
+// that was accepted, cudaErrorInvalidValue for a call the kernel does not
+// take (1 <= k <= min(32, n); packed_bits in [1, 22] with n <=
+// 2^packed_bits, or 0 for the exact order where the entry allows it; the
+// distance the entry computes) or an N whose staging exceeds the card's
+// shared memory.
 
-// K1: exact order, difference-form distance.
-extern "C" int knn_obs_flat_exact(const float* loc_x, const float* loc_y,
-                                  const float* feats, const float* types_f,
-                                  const float* still_f, const float* t_norm,
-                                  float* out, int e, int n, int k,
-                                  void* stream) {
-  if (bad_shape(e, n, k)) return static_cast<int>(cudaErrorInvalidValue);
-  const knn::KnnArgs a = make_args(loc_x, loc_y, feats, types_f, still_f,
-                                   t_norm, nullptr, nullptr, out, n, k);
-  return static_cast<int>(launch<knn::ExactKey, knn::DiffDist>(
-      a, e, knn::ExactKey{}, static_cast<cudaStream_t>(stream)));
+// K1: exact order (packed_bits == 0), difference-form distance.
+KNN_ENTRY(knn_obs_flat_exact) {
+  int clear = 0;
+  if (bad_call(e, n, k, packed_bits, &clear) || packed_bits != 0 ||
+      mxu_dist != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const knn::KnnArgs a = knn::make_args(loc_x, loc_y, feats, types_f,
+                                        still_f, t_norm, nullptr, nullptr,
+                                        nullptr, out, n, k);
+  return static_cast<int>(launch_keyed<knn::DiffDist>(
+      a, e, 0, clear, static_cast<cudaStream_t>(stream)));
 }
 
 // K3: packed order (packed_bits >= 1), difference-form distance.
-extern "C" int knn_obs_flat(const float* loc_x, const float* loc_y,
-                            const float* feats, const float* types_f,
-                            const float* still_f, const float* t_norm,
-                            float* out, int e, int n, int k, int packed_bits,
-                            void* stream) {
+KNN_ENTRY(knn_obs_flat) {
   int clear = 0;
-  if (bad_shape(e, n, k) || packed_bits == 0 ||
-      !knn::packed_clear(packed_bits, n, &clear)) {
+  if (bad_call(e, n, k, packed_bits, &clear) || packed_bits == 0 ||
+      mxu_dist != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const knn::KnnArgs a = make_args(loc_x, loc_y, feats, types_f, still_f,
-                                   t_norm, nullptr, nullptr, out, n, k);
-  return static_cast<int>(launch<knn::PackedKey, knn::DiffDist>(
-      a, e, knn::PackedKey{clear}, static_cast<cudaStream_t>(stream)));
+  const knn::KnnArgs a = knn::make_args(loc_x, loc_y, feats, types_f,
+                                        still_f, t_norm, nullptr, nullptr,
+                                        nullptr, out, n, k);
+  return static_cast<int>(launch_keyed<knn::DiffDist>(
+      a, e, packed_bits, clear, static_cast<cudaStream_t>(stream)));
 }
 
-// K4: MXU-expansion distance, exact order (packed_bits == 0) or packed.
-extern "C" int knn_obs_flat_mxudist(const float* loc_x, const float* loc_y,
-                                    const float* feats, const float* types_f,
-                                    const float* still_f, const float* t_norm,
-                                    const void* amat, const void* bmat,
-                                    float* out, int e, int n, int k,
-                                    int packed_bits, void* stream) {
+// K4: MXU-expansion distance (mxu_dist != 0, iside = bmat), exact order
+// (packed_bits == 0) or packed.
+KNN_ENTRY(knn_obs_flat_mxudist) {
   int clear = 0;
-  if (bad_shape(e, n, k) || amat == nullptr || bmat == nullptr ||
-      !knn::packed_clear(packed_bits, n, &clear)) {
+  if (bad_call(e, n, k, packed_bits, &clear) || mxu_dist == 0 ||
+      amat == nullptr || iside == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const knn::KnnArgs a = make_args(loc_x, loc_y, feats, types_f, still_f,
-                                   t_norm, amat, bmat, out, n, k);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      packed_bits == 0
-          ? launch<knn::ExactKey, knn::ExpansionDist>(a, e, knn::ExactKey{},
-                                                      st)
-          : launch<knn::PackedKey, knn::ExpansionDist>(
-                a, e, knn::PackedKey{clear}, st);
-  return static_cast<int>(err);
+  const knn::KnnArgs a = knn::make_args(loc_x, loc_y, feats, types_f,
+                                        still_f, t_norm, amat, iside, nullptr,
+                                        out, n, k);
+  return static_cast<int>(launch_keyed<BmatDist>(
+      a, e, packed_bits, clear, static_cast<cudaStream_t>(stream)));
 }

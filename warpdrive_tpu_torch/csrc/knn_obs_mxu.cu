@@ -54,7 +54,8 @@
 
 namespace {
 
-constexpr int kClearMask = ~127;  // the TPU kernel's _CLEAR_MASK (7 bits)
+constexpr int kPackedBits = 7;  // the TPU kernel's _CLEAR_MASK clears 7 bits
+constexpr int kClearMask = ~((1 << kPackedBits) - 1);
 constexpr int kMaxAgents = 128;
 constexpr int kMaxK = 16;
 
@@ -133,23 +134,22 @@ cudaError_t launch(const float* loc_x, const float* loc_y, const float* feats,
 
 }  // namespace
 
-// Plain C entry point for ctypes.  ``packed`` != 0 selects the packed
-// tie-break.  Returns a cudaError_t: 0 on a launch that was accepted,
-// cudaErrorInvalidValue for a shape the kernel does not take
-// (1 <= n <= 128, 1 <= k <= 16).
-extern "C" int knn_obs_mxu(const float* loc_x, const float* loc_y,
-                           const float* feats, const float* types_f,
-                           const float* still_f, const float* t_norm,
-                           float* out, int e, int n, int k, int packed,
-                           void* stream) {
-  if (e <= 0 || n <= 0 || n > kMaxAgents || k < 1 || k > kMaxK) {
+// Plain C entry point for ctypes, with the common signature (knn_common.cuh:
+// KNN_ENTRY).  packed_bits is 0 (exact) or 7 (the packed tie-break); the
+// MXU-distance operands are not used (mxu_dist must be 0).  Returns a
+// cudaError_t: 0 on a launch that was accepted, cudaErrorInvalidValue for
+// a shape the kernel does not take (1 <= n <= 128, 1 <= k <= 16) or other
+// packed bits.
+KNN_ENTRY(knn_obs_mxu) {
+  if (e <= 0 || n <= 0 || n > kMaxAgents || k < 1 || k > kMaxK ||
+      (packed_bits != 0 && packed_bits != kPackedBits) || mxu_dist != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      packed ? launch<true>(loc_x, loc_y, feats, types_f, still_f, t_norm,
-                            out, e, n, k, st)
-             : launch<false>(loc_x, loc_y, feats, types_f, still_f, t_norm,
-                             out, e, n, k, st);
+      packed_bits ? launch<true>(loc_x, loc_y, feats, types_f, still_f,
+                                 t_norm, out, e, n, k, st)
+                  : launch<false>(loc_x, loc_y, feats, types_f, still_f,
+                                  t_norm, out, e, n, k, st);
   return static_cast<int>(err);
 }

@@ -17,8 +17,8 @@ Each variant is a distance and an order:
 
 * distance: the difference form ``dx*dx + dy*dy`` on raw coordinates, or
   for the ``mxudist`` variants the TPU's MXU expansion, the 12-term bf16
-  hi/lo product ``amat . bmat`` on per-env centred coordinates
-  (:func:`mxudist_operands`), clamped at 0;
+  hi/lo product ``amat . bmat`` (:func:`expansion_operands`) on per-env
+  centred coordinates (:func:`centred_coords`), clamped at 0;
 * order: ``_exact`` variants (and ``flat_exact``) ascending d2, lowest index
   first among equal distances; the others the TPU kernels' packed key
   ``(bits(d2) & ~(2^b - 1)) | j`` (:func:`packed_keys`), so distances that
@@ -50,6 +50,7 @@ directly.
 from __future__ import annotations
 
 import ctypes
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -244,14 +245,24 @@ def packed_keys(d2: torch.Tensor, bits: int) -> torch.Tensor:
     return (d2.contiguous().view(torch.int32) & ~((1 << bits) - 1)) | col
 
 
-def expansion_operands(xc: torch.Tensor, yc: torch.Tensor):
+def centred_coords(loc_x: torch.Tensor, loc_y: torch.Tensor) -> torch.Tensor:
+    """``(E, 2, N)`` float32: ``loc_x`` and ``loc_y`` centred on each env's
+    mean over its N agents, as the TPU centres them for the MXU distance
+    (the centring bounds the expansion's cancellation error).  The K5
+    kernel forms the observer-side terms from these in its body."""
+    return torch.stack([loc_x - loc_x.mean(dim=1, keepdim=True),
+                        loc_y - loc_y.mean(dim=1, keepdim=True)], dim=1)
+
+
+def expansion_operands(xc: torch.Tensor, yc: torch.Tensor,
+                       with_bmat: bool = True):
     """The MXU distance operands of centred coordinates ``xc``, ``yc``
     ``(E, N)``, as ``warpdrive_tpu/ops/knn_obs.py:1181-1205`` builds them:
     ``amat (E, N, 12)`` = ``[xh, xh, xl, xl, yh, yh, yl, yl, nh, nl, 1, 1]``
     and ``bmat (E, 12, N)`` = ``[-2xh, -2xl, -2xh, -2xl, -2yh, -2yl, -2yh,
-    -2yl, 1, 1, nh, nl]``, bfloat16, where ``(h, l)`` is the bf16 hi/lo pair
-    of a value and ``n = xc*xc + yc*yc`` (separate multiplies and an add:
-    no fused multiply-add)."""
+    -2yl, 1, 1, nh, nl]`` (None unless ``with_bmat``), bfloat16, where ``(h,
+    l)`` is the bf16 hi/lo pair of a value and ``n = xc*xc + yc*yc``
+    (separate multiplies and an add: no fused multiply-add)."""
     def pair(v):
         hi = v.to(torch.bfloat16)
         return hi, (v - hi.to(torch.float32)).to(torch.bfloat16)
@@ -263,7 +274,9 @@ def expansion_operands(xc: torch.Tensor, yc: torch.Tensor):
     nh, nl = pair(xx + yy)
     ones = torch.ones_like(nh)
     amat = torch.stack([xh, xh, xl, xl, yh, yh, yl, yl, nh, nl, ones, ones],
-                       dim=2)
+                       dim=2).contiguous()
+    if not with_bmat:
+        return amat, None
     two = -2.0
     bmat = torch.stack(
         [xh * two, xl * two, xh * two, xl * two,
@@ -271,16 +284,7 @@ def expansion_operands(xc: torch.Tensor, yc: torch.Tensor):
          ones, ones, nh, nl],
         dim=1,
     )
-    return amat.contiguous(), bmat.contiguous()
-
-
-def mxudist_operands(loc_x: torch.Tensor, loc_y: torch.Tensor):
-    """``(amat, bmat)`` of :func:`expansion_operands` on the coordinates
-    centred on each env's mean over its N agents (the TPU's centring bounds
-    the expansion's cancellation error)."""
-    xc = loc_x - loc_x.mean(dim=1, keepdim=True)
-    yc = loc_y - loc_y.mean(dim=1, keepdim=True)
-    return expansion_operands(xc, yc)
+    return amat, bmat.contiguous()
 
 
 def knn_observation(loc_x, loc_y, feats, types_f, still_f, t_norm,
@@ -302,38 +306,32 @@ def knn_observation(loc_x, loc_y, feats, types_f, still_f, t_norm,
         raise ValueError(f"unsupported device {loc_x.device}")
     check_kernel_limits(variant, n_agents, k)
     name = _PORTED[variant]
-    bits = packed_bits(variant, n_agents)
     mxu_dist = "mxudist" in variant
+    amat = iside = None
+    if mxu_dist:
+        centred = centred_coords(loc_x, loc_y)
+        tiled = name == "knn_obs_tiled"  # v7 forms bmat in its body
+        amat, bmat = expansion_operands(centred[:, 0], centred[:, 1],
+                                        with_bmat=not tiled)
+        iside = centred if tiled else bmat
     E, N = loc_x.shape
     out = torch.empty((E, N, 8 * k + 1), dtype=torch.float32,
                       device=loc_x.device)
     ptr, num = ctypes.c_void_p, ctypes.c_int
-    if mxu_dist:
-        amat, bmat = mxudist_operands(loc_x, loc_y)
-        operands = [(amat.data_ptr(), ptr), (bmat.data_ptr(), ptr)]
-    else:
-        operands = [(None, ptr), (None, ptr)]
-    # each entry point's C arguments after its six input pointers
-    shape = [(out.data_ptr(), ptr), (E, num), (N, num), (k, num)]
-    if name == "knn_obs_flat_exact":
-        lib, tail = "knn_obs", shape
-    elif name == "knn_obs_flat":
-        lib, tail = "knn_obs", shape + [(bits, num)]
-    elif name == "knn_obs_flat_mxudist":
-        lib, tail = "knn_obs", operands + shape + [(bits, num)]
-    elif name == "knn_obs_tiled":
-        lib, tail = "knn_obs_tiled", operands + shape + [
-            (bits, num), (int(mxu_dist), num)]
-    else:
-        lib, tail = "knn_obs_mxu", shape + [(int(bits > 0), num)]
     with torch.cuda.device(loc_x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        # the common signature of every entry point (knn_common.cuh)
         call = (
             [(t.data_ptr(), ptr)
              for t in (loc_x, loc_y, feats, types_f, still_f, t_norm)]
-            + tail + [(stream, ptr)]
+            + [(None if t is None else t.data_ptr(), ptr)
+               for t in (amat, iside)]
+            + [(out.data_ptr(), ptr), (E, num), (N, num), (k, num),
+               (packed_bits(variant, n_agents), num), (int(mxu_dist), num),
+               (stream, ptr)]
         )
-        fn = getattr(cuda_build.load(lib), name)
+        lib = cuda_build.load(Path(KERNELS[name]["source"]).stem)
+        fn = getattr(lib, name)
         fn.argtypes = [ctype for _, ctype in call]
         fn.restype = ctypes.c_int
         err = fn(*(value for value, _ in call))
@@ -341,20 +339,6 @@ def knn_observation(loc_x, loc_y, feats, types_f, still_f, t_norm,
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     LAUNCH_COUNTS[name] += 1
     return out
-
-
-def knn_observation_plain(loc_x, loc_y, feats, types_f, still_f, t_norm,
-                          n_agents: int, k: int, variant: str = "flat_exact"):
-    """The plain PyTorch version of ``variant`` on any device: the same
-    operands (:func:`mxudist_operands`), packed bits and float32 operations
-    as its kernel, so the two agree bit for bit on one device."""
-    check_variant(variant)
-    operands = (mxudist_operands(loc_x, loc_y) if "mxudist" in variant
-                else None)
-    return knn_observation_reference(
-        loc_x, loc_y, feats, types_f, still_f, t_norm, n_agents, k,
-        packed_bits=packed_bits(variant, n_agents), operands=operands,
-    )
 
 
 def expansion_sq_dist(amat: torch.Tensor, bmat: torch.Tensor) -> torch.Tensor:
@@ -370,30 +354,34 @@ def expansion_sq_dist(amat: torch.Tensor, bmat: torch.Tensor) -> torch.Tensor:
     return torch.clamp(d2, min=0.0) + 0.0
 
 
-def knn_observation_reference(loc_x, loc_y, feats, types_f, still_f, t_norm,
-                              n_agents: int, k: int, packed_bits: int = 0,
-                              operands=None):
-    """Plain PyTorch version of the kernels: the same selection and the
-    same float32 operations for every emitted value.  The distance is the
-    difference form, or with ``operands = (amat, bmat)`` the MXU expansion
-    (:func:`expansion_sq_dist`).  The selection is a stable sort of the
-    masked squared distances, or with ``packed_bits`` > 0 a sort of the TPU
-    kernels' packed int32 keys with that many index bits."""
+def knn_observation_plain(loc_x, loc_y, feats, types_f, still_f, t_norm,
+                          n_agents: int, k: int, variant: str = "flat_exact"):
+    """The plain PyTorch version of ``variant`` on any device: the same
+    selection and the same float32 operations for every emitted value as
+    its kernel, so the two agree bit for bit on one device.  The distance
+    is the difference form, or for the ``mxudist`` variants the MXU
+    expansion (:func:`expansion_sq_dist`) of the same operands.  The
+    selection is a stable sort of the masked squared distances, or for a
+    packed variant a sort of the TPU kernels' packed int32 keys with
+    :func:`packed_bits` index bits."""
+    check_variant(variant)
     E, N = loc_x.shape
-    if operands is None:
+    if "mxudist" in variant:
+        centred = centred_coords(loc_x, loc_y)
+        d2 = expansion_sq_dist(*expansion_operands(centred[:, 0],
+                                                   centred[:, 1]))
+    else:
         dx = loc_x[:, None, :] - loc_x[:, :, None]  # [e, i, j] = x_j - x_i
         dy = loc_y[:, None, :] - loc_y[:, :, None]
         d2 = dx * dx + dy * dy
-    else:
-        d2 = expansion_sq_dist(*operands)
     alive = still_f >= 0.5  # (E, N)
     not_self = ~torch.eye(N, dtype=torch.bool, device=loc_x.device)
     candidate = alive[:, None, :] & not_self  # (E, i, j)
-    if packed_bits:
+    bits = packed_bits(variant, n_agents)
+    if bits:
         # self and dead candidates carry 1e20, as in the TPU kernels, so
         # their packed keys lie above the valid limit
-        key = packed_keys(torch.where(candidate, d2, float(_BIG)),
-                          packed_bits)
+        key = packed_keys(torch.where(candidate, d2, float(_BIG)), bits)
         valid = key < _VALID_MAX_PACKED
     else:
         valid = candidate & (d2 < _VALID_MAX)
