@@ -19,12 +19,19 @@ Phases, each of which raises (and so exits non-zero) on a failure:
    the ``pallas_flat`` flagship rolled 100 steps; K4
    (``knn_obs_flat_mxudist``) in both modes and K5 (``knn_obs_tiled``) in
    its four on random states and on the 1024-agent configuration rolled
-   100 steps (K2-K5: 0 mismatches and max abs diff 0 required); then the
-   CUDA step against the same step on the CPU from the same states, for
-   the flagship and for the 1024-agent configuration with
-   ``pallas_flat_exact``, ``pallas_tiled_exact`` (obs <= 1e-6) and
-   ``pallas_flat_mxudist`` (under 2e-3 of the entries off by more than
-   8e-6: the CPU and the card centre on means summed in other orders);
+   100 steps; K6 (``knn_obs_packed``), K7 (``knn_obs_onehot``), K8
+   (``knn_obs_twolevel``, both modes) and K9 (``knn_obs_envlanes``, both
+   modes) on random states, an exact-tie lattice, the packed-bits near-tie
+   (7 bits for K6 and K8, 4 for K9 at N = 15) and the flagship rolled 100
+   steps with each of their names (K2-K9: 0 mismatches and max abs diff 0
+   required); then the CUDA step against the same step on the CPU from the
+   same states, for the flagship with ``pallas_flat_exact``,
+   ``pallas_onehot``, ``pallas_twolevel_exact`` and
+   ``pallas_envlanes_exact`` and for the 1024-agent configuration with
+   ``pallas_flat_exact``, ``pallas_tiled_exact``, ``pallas_envlanes_exact``
+   (obs <= 1e-6) and ``pallas_flat_mxudist`` (under 2e-3 of the entries
+   off by more than 8e-6: the CPU and the card centre on means summed in
+   other orders);
 4. drive the main paths, each with the kernels' launch counts set to 0 just
    before and read just after:
    a. the flagship rollout at 1024 envs x 105 agents with ``fc_dims=(256,
@@ -38,15 +45,23 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       checkpoint; then one update on the card against the same update on
       the CPU;
    c. the 1024-agent configuration (``build_many_agents``: 256 envs x 1024
-      agents) with ``pallas_flat_exact``, ``pallas_flat_mxudist`` and
-      ``pallas_tiled_exact``: 100 ``env_only_step`` steps each, launching
-      K1, K4 or K5 exactly once per step and no other kernel;
+      agents) with ``pallas_flat_exact``, ``pallas_flat_mxudist``,
+      ``pallas_tiled_exact`` and ``pallas_envlanes_exact``: 100
+      ``env_only_step`` steps each, launching K1, K4, K5 or K9 exactly once
+      per step and no other kernel;
    d. the ``pallas_flat`` flagship ``env_only_step`` at 1024 envs x 105
       agents, 200 steps: exactly one K3 launch per step;
-5. at the main paths' shapes -- (1024, 105, 10) for K1 and K3, (100, 110,
-   10) for K2, (256, 1024, 10) for K1, K4 in both modes and K5 in its four
-   -- hold each kernel against its plain version once more (0 mismatches
-   and max abs diff 0), and time both beside the kernel's bound.
+   e. the flagship at 1024 envs x 105 agents with ``pallas`` (K6),
+      ``pallas_onehot`` (K7), ``pallas_twolevel_exact`` (K8) and
+      ``pallas_envlanes_exact`` (K9): ``env_only_step`` then
+      ``full_loop_step``, 200 steps each; with ``pallas_twolevel`` and
+      ``pallas_envlanes``: ``env_only_step``, 200 steps; each step must
+      launch its name's kernel exactly once and no other;
+5. at the main paths' shapes -- (1024, 105, 10) for K1, K3, K6, K7, K8 in
+   both modes and K9 in both, (100, 110, 10) for K2, (256, 1024, 10) for
+   K1, K4 in both modes, K5 in its four and K9 exact -- hold each kernel
+   against its plain version once more (0 mismatches and max abs diff 0),
+   and time both beside the kernel's bound.
 
 The last three lines are the card (``nvidia-smi``'s name and power limit),
 one JSON object with a record per kernel, and the result line
@@ -92,7 +107,21 @@ MANY_AGENT_STEPS = 100
 # the 1024-agent loops, each with the kernel its steps launch
 MANY_AGENT_LOOPS = (("pallas_flat_exact", "knn_obs_flat_exact"),
                     ("pallas_flat_mxudist", "knn_obs_flat_mxudist"),
-                    ("pallas_tiled_exact", "knn_obs_tiled"))
+                    ("pallas_tiled_exact", "knn_obs_tiled"),
+                    ("pallas_envlanes_exact", "knn_obs_envlanes"))
+# the flagship loops of K6-K9: the name, the kernel its steps launch, and
+# whether full_loop_step is driven beside env_only_step
+FLAGSHIP_KNN_LOOPS = (("pallas", "knn_obs_packed", True),
+                      ("pallas_onehot", "knn_obs_onehot", True),
+                      ("pallas_twolevel_exact", "knn_obs_twolevel", True),
+                      ("pallas_envlanes_exact", "knn_obs_envlanes", True),
+                      ("pallas_twolevel", "knn_obs_twolevel", False),
+                      ("pallas_envlanes", "knn_obs_envlanes", False))
+# K6-K8 take one 128-agent tile; K9 any N and E (130: an env tail)
+LADDER_SHAPES = ((NUM_ENVS, 105, 10), (100, 110, 10), (8, 128, 16),
+                 (6, 15, 4))
+ENVLANES_SHAPES = ((NUM_ENVS, 105, 10), (130, 15, 4), (3, 200, 6),
+                   (8, 1024, 10))
 PLAIN_MAX_ENVS_AT_1024 = 8  # plain compares at N = 1024 stay small
 # the MXU-distance class between devices (tests/test_knn_obs_kernel.py)
 SWAP_ATOL = 8e-6
@@ -418,6 +447,82 @@ def _check_k4_k5():
     return max_abs
 
 
+def _check_k6_k9():
+    """K6-K9 vs plain in every mode: random states at each kernel's shapes,
+    an exact-tie lattice, the N = 15 packed near-tie (where the 7-bit
+    orders of K6 and K8 take agent 1, K9's 4-bit and the exact orders the
+    nearer agent 2), and the flagship rolled 100 steps with each name of
+    ``FLAGSHIP_KNN_LOOPS``.  Returns each kernel's largest abs diff and, by
+    name, the rolled flagship system, its generator and its rolled
+    inputs."""
+    import torch
+
+    from warpdrive_tpu_torch.envs.tag_continuous import _KNN_VARIANTS
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.presets import build_flagship
+
+    max_abs, rolled = {}, {}
+    near, n15, k15 = _near_tie_inputs(DEVICE)
+    for algo, kernel, _ in FLAGSHIP_KNN_LOOPS:
+        variant = _KNN_VARIANTS[algo]
+        shapes = (ENVLANES_SHAPES if kernel == "knn_obs_envlanes"
+                  else LADDER_SHAPES)
+        cases = [("random",) + _random_knn_inputs(E, N, k, seed=N + k + 7,
+                                                  device=DEVICE)
+                 for E, N, k in shapes]
+        cases += [("lattice",) + _lattice_knn_inputs(E, N, k, seed=k + 9,
+                                                     device=DEVICE)
+                  for E, N, k in shapes[:2]]
+        cases.append(("packed-bits near-tie", near, n15, k15))
+        system = build_flagship(num_envs=NUM_ENVS, fc_dims=FC_DIMS, seed=0,
+                                knn_algorithm=algo, device=DEVICE)
+        generator = torch.Generator(device=DEVICE).manual_seed(1)
+        state, checksum = system["state"], torch.zeros((), device=DEVICE)
+        for _ in range(ROLLED_STEPS):
+            state, checksum = system["env_only_step"]((state, checksum),
+                                                      generator)
+        system["state"] = state
+        rolled[algo] = (system, generator, _knn_args(system["env"], state))
+        cases.append((f"{algo} flagship rolled {ROLLED_STEPS} steps",)
+                     + rolled[algo][2])
+        for label, args, n, k in cases:
+            max_abs[kernel] = max(max_abs.get(kernel, 0.0), _compare_knn(
+                label, args, n, k, variant, tol=EXACT_TOL))
+        out = knn_obs.knn_observation(*near, n_agents=n15, k=k15,
+                                      variant=variant)
+        first = 1 if knn_obs.packed_bits(variant, n15) == 7 else 2
+        assert float(out[0, 0, 0]) == float(near[2][0, 0, first]
+                                            - near[2][0, 0, 0]), variant
+    return max_abs, rolled
+
+
+def _drive_knn_loops(rolled):
+    """The flagship loops of ``FLAGSHIP_KNN_LOOPS`` at 1024 envs from each
+    name's rolled state, ``MAIN_PATH_STEPS`` steps of each loop, with the
+    counts set to 0 just before and read just after: each step must launch
+    exactly one of its name's kernel and no other.  Returns the timings
+    and the counts by (name, loop)."""
+    from warpdrive_tpu_torch.ops import knn_obs
+
+    results, launches = {}, {}
+    for algo, kernel, full in FLAGSHIP_KNN_LOOPS:
+        system, generator, _ = rolled[algo]
+        loops = ("env_only_step", "full_loop_step") if full else (
+            "env_only_step",)
+        for loop in loops:
+            r, counts, system["state"] = _time_loop(system, generator,
+                                                    MAIN_PATH_STEPS, loop)
+            print(f"{loop} [{algo}]: {r['ms_per_step']:.4f} ms/step, "
+                  f"{r['env_steps_per_s']:.0f} env-steps/s at {NUM_ENVS} "
+                  f"envs x {system['num_agents']} agents ({MAIN_PATH_STEPS} "
+                  f"steps, host {r['host_s']:.3f} s); launches {counts}")
+            expected = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
+            expected[kernel] = MAIN_PATH_STEPS
+            assert counts == expected, f"launches {counts}, expected {expected}"
+            results[algo, loop], launches[algo, loop] = r, counts
+    return results, launches
+
+
 def _drive_main_path(system, generator):
     """Both loops at full width; returns per-loop timings and launches."""
     import torch
@@ -474,19 +579,26 @@ def _check_loop_state(state, checksum, shape):
     assert bool(((state["_done_"] == 0) | (state["_done_"] == 1)).all())
 
 
-def _time_env_only(system, generator, steps, warmup=5):
-    """``warmup`` then ``steps`` env-only steps; the launch counts are set
-    to 0 after the warm-up and read after the timed steps.  Returns the
-    timings, the counts and the final state."""
+def _time_loop(system, generator, steps, loop="env_only_step", warmup=5):
+    """``warmup`` then ``steps`` steps of ``loop`` (``env_only_step`` or
+    ``full_loop_step``); the launch counts are set to 0 after the warm-up
+    and read after the timed steps.  Returns the timings, the counts and
+    the final state."""
     import torch
 
     from warpdrive_tpu_torch.ops import knn_obs
 
-    step = system["env_only_step"]
+    step = system[loop]
     state = system["state"]
     checksum = torch.zeros((), device=state["loc_x"].device)
+
+    def advance(state, checksum):
+        if loop == "env_only_step":
+            return step((state, checksum), generator)
+        return step(system["models"], state, generator), checksum
+
     for _ in range(warmup):
-        state, checksum = step((state, checksum), generator)
+        state, checksum = advance(state, checksum)
     torch.cuda.synchronize()
     knn_obs.reset_launch_counts()
     start = torch.cuda.Event(enable_timing=True)
@@ -494,7 +606,7 @@ def _time_env_only(system, generator, steps, warmup=5):
     t0 = time.perf_counter()
     start.record()
     for _ in range(steps):
-        state, checksum = step((state, checksum), generator)
+        state, checksum = advance(state, checksum)
     stop.record()
     stop.synchronize()
     host_s = time.perf_counter() - t0
@@ -523,7 +635,7 @@ def _drive_many_agents():
         system = build_many_agents(num_envs=MANY_AGENT_ENVS, seed=0,
                                    knn_algorithm=algo, device=DEVICE)
         generator = torch.Generator(device=DEVICE).manual_seed(0)
-        r, counts, state = _time_env_only(system, generator, MANY_AGENT_STEPS)
+        r, counts, state = _time_loop(system, generator, MANY_AGENT_STEPS)
         system["state"], system["generator"] = state, generator
         print(f"1024-agent env_only_step [{algo}]: {r['ms_per_step']:.4f} "
               f"ms/step, {r['env_steps_per_s']:.0f} env-steps/s, "
@@ -799,12 +911,18 @@ def main(argv=None) -> int:
     max_abs["knn_obs_mxu"], train_rolled = _check_k2(run_config)
     max_abs["knn_obs_flat"], fast, fast_gen, fast_rolled = _check_k3()
     max_abs.update(_check_k4_k5())
-    _check_step_against_cpu(
-        build_flagship(num_envs=4, fc_dims=(8, 8), seed=5, device=DEVICE),
-        build_flagship(num_envs=4, fc_dims=(8, 8), seed=5, device="cpu"),
-        "flagship")
+    k6_k9_abs, knn_rolled = _check_k6_k9()
+    max_abs.update(k6_k9_abs)
+    for algo in ("pallas_flat_exact", "pallas_onehot", "pallas_twolevel_exact",
+                 "pallas_envlanes_exact"):
+        _check_step_against_cpu(
+            build_flagship(num_envs=4, fc_dims=(8, 8), seed=5,
+                           knn_algorithm=algo, device=DEVICE),
+            build_flagship(num_envs=4, fc_dims=(8, 8), seed=5,
+                           knn_algorithm=algo, device="cpu"),
+            f"flagship, {algo}")
     for algo in ("pallas_flat_exact", "pallas_tiled_exact",
-                 "pallas_flat_mxudist"):
+                 "pallas_flat_mxudist", "pallas_envlanes_exact"):
         _check_step_against_cpu(
             build_many_agents(num_envs=4, seed=5, knn_algorithm=algo,
                               device=DEVICE),
@@ -852,8 +970,7 @@ def main(argv=None) -> int:
     many, many_loops, many_launches = _drive_many_agents()
 
     # 4d. the pallas_flat flagship env-only loop, counts from 0
-    fast_loop, fast_launches, _ = _time_env_only(fast, fast_gen,
-                                                 MAIN_PATH_STEPS)
+    fast_loop, fast_launches, _ = _time_loop(fast, fast_gen, MAIN_PATH_STEPS)
     print(f"pallas_flat env_only_step: {fast_loop['ms_per_step']:.4f} "
           f"ms/step, {fast_loop['env_steps_per_s']:.0f} env-steps/s at "
           f"{NUM_ENVS} envs x {fast['num_agents']} agents "
@@ -862,6 +979,9 @@ def main(argv=None) -> int:
     expected = dict(no_launches, knn_obs_flat=MAIN_PATH_STEPS)
     assert fast_launches == expected, \
         f"launches {fast_launches}, expected {expected}"
+
+    # 4e. the flagship loops of K6-K9, counts from 0 before each
+    knn_loops, knn_launches = _drive_knn_loops(knn_rolled)
 
     if args.profile:
         _profile(system, generator, trainer, many, {
@@ -892,6 +1012,18 @@ def main(argv=None) -> int:
             **big),
         "knn_obs_tiled": _time_knn(
             "knn_obs_tiled", *many_args, "tiled_exact", many_label, **big),
+        "knn_obs_packed": _time_knn(
+            "knn_obs_packed", *knn_rolled["pallas"][2], "packed",
+            "pallas flagship state"),
+        "knn_obs_onehot": _time_knn(
+            "knn_obs_onehot", *knn_rolled["pallas_onehot"][2], "onehot",
+            "pallas_onehot flagship state"),
+        "knn_obs_twolevel": _time_knn(
+            "knn_obs_twolevel", *knn_rolled["pallas_twolevel_exact"][2],
+            "twolevel_exact", "pallas_twolevel_exact flagship state"),
+        "knn_obs_envlanes": _time_knn(
+            "knn_obs_envlanes", *knn_rolled["pallas_envlanes_exact"][2],
+            "envlanes_exact", "pallas_envlanes_exact flagship state"),
     }
     at_1024 = {
         "knn_obs_flat_exact": _time_knn(
@@ -899,6 +1031,9 @@ def main(argv=None) -> int:
             **big),
         "knn_obs_flat_mxudist": timed["knn_obs_flat_mxudist"],
         "knn_obs_tiled": timed["knn_obs_tiled"],
+        "knn_obs_envlanes": _time_knn(
+            "knn_obs_envlanes", *many_args, "envlanes_exact", many_label,
+            **big),
     }
     others = [
         ("knn_obs_mxu", _time_knn("knn_obs_mxu", rolled_args, n, kk,
@@ -910,6 +1045,12 @@ def main(argv=None) -> int:
             many_label, **big)),
         ("knn_obs_tiled", _time_knn("knn_obs_tiled", *many_args,
                                     "tiled_mxudist", many_label, **big)),
+        ("knn_obs_twolevel", _time_knn(
+            "knn_obs_twolevel", *knn_rolled["pallas_twolevel"][2],
+            "twolevel", "pallas_twolevel flagship state")),
+        ("knn_obs_envlanes", _time_knn(
+            "knn_obs_envlanes", *knn_rolled["pallas_envlanes"][2],
+            "envlanes", "pallas_envlanes flagship state")),
     ]
     for name, r in [*timed.items(), *at_1024.items(), *others]:
         max_abs[name] = max(max_abs[name], r["max_abs_err"])
@@ -925,6 +1066,11 @@ def main(argv=None) -> int:
           f"knn_obs_flat share of the pallas_flat env_only_step "
           f"{100 * timed['knn_obs_flat']['ms'] / fast_loop['ms_per_step']:.1f}"
           "%")
+    for algo, kernel, _ in FLAGSHIP_KNN_LOOPS[:4]:
+        step_ms = knn_loops[algo, "env_only_step"]["ms_per_step"]
+        print(f"{kernel} share of the {algo} env_only_step "
+              f"{100 * timed[kernel]['ms'] / step_ms:.1f}% "
+              f"({timed[kernel]['ms']:.5f} of {step_ms:.4f} ms)")
     for algo, kernel in MANY_AGENT_LOOPS:
         step_ms = many_loops[algo]["ms_per_step"]
         print(f"{kernel} share of the 1024-agent {algo} step "
@@ -932,10 +1078,11 @@ def main(argv=None) -> int:
               f"({at_1024[kernel]['ms']:.5f} of {step_ms:.4f} ms)")
 
     # launches on the main paths: 4a and 4c for K1, 4b for K2, 4d for K3,
-    # 4c for K4 and K5
+    # 4c for K4 and K5, 4e for K6-K8, 4c and 4e for K9
     all_launches = {name: launches[name] + train_launches[name]
                     + fast_launches[name]
                     + sum(c[name] for c in many_launches.values())
+                    + sum(c[name] for c in knn_launches.values())
                     for name in knn_obs.LAUNCH_COUNTS}
     kernels = []
     for name, info in knn_obs.KERNELS.items():

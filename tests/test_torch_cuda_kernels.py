@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain PyTorch
-version, the flagship loops launching K1 (K3 with ``pallas_flat``) once per
-step, the 1024-agent loops launching K1, K4 or K5 once per step, and the
-training rollout launching K2 once per step.
+version, the flagship loops launching K1 (K3 with ``pallas_flat``, K6-K9
+with their names) once per step, the 1024-agent loops launching K1, K4, K5
+or K9 once per step, and the training rollout launching K2 once per step.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The file imports no JAX,
 so on a machine with a card and no JAX it runs without the repo's
@@ -213,3 +213,109 @@ def test_flagship_packed_loop_launches_k3_once_per_step(card):
         state, checksum = system["env_only_step"]((state, checksum), gen)
     torch.cuda.synchronize()
     assert knn_obs.LAUNCH_COUNTS == dict(_NO_LAUNCHES, knn_obs_flat=3)
+
+
+_LADDER_KERNEL_OF = {"packed": "knn_obs_packed", "onehot": "knn_obs_onehot",
+                     "twolevel": "knn_obs_twolevel",
+                     "twolevel_exact": "knn_obs_twolevel"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["packed", "onehot", "twolevel",
+                                     "twolevel_exact"])
+@pytest.mark.parametrize("E,N,k", [(1024, 105, 10), (100, 110, 10),
+                                   (8, 128, 16), (6, 15, 4), (3, 33, 1)])
+def test_ladder_kernels_match_plain_on_card(card, variant, E, N, k):
+    """K6, K7 and K8 bit for bit, one warp per observer, at N up to the
+    128-agent tile."""
+    args = _knn_args(N, k, E, seed=N + 3, device=card)
+    name = _LADDER_KERNEL_OF[variant]
+    before = knn_obs.LAUNCH_COUNTS[name]
+    out = knn_obs.knn_observation(*args, n_agents=N, k=k, variant=variant)
+    assert knn_obs.LAUNCH_COUNTS[name] == before + 1
+    plain = knn_obs.knn_observation_plain(*args, n_agents=N, k=k,
+                                          variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["packed", "onehot"])
+def test_per_slot_ladder_kernels_take_k_past_16_on_card(card, variant):
+    args = _knn_args(40, 40, 2, seed=4, device=card)
+    out = knn_obs.knn_observation(*args, n_agents=40, k=40, variant=variant)
+    plain = knn_obs.knn_observation_plain(*args, n_agents=40, k=40,
+                                          variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+
+
+@pytest.mark.cuda
+def test_ladder_kernels_refuse_their_limits_on_card(card):
+    before = dict(knn_obs.LAUNCH_COUNTS)
+    args = _knn_args(129, 10, 2, seed=1, device=card)
+    for variant in _LADDER_KERNEL_OF:
+        with pytest.raises(ValueError, match="at most 128 agents"):
+            knn_obs.knn_observation(*args, n_agents=129, k=10,
+                                    variant=variant)
+    args = _knn_args(40, 17, 2, seed=1, device=card)
+    for variant in ("twolevel", "twolevel_exact"):
+        with pytest.raises(ValueError, match="k <= 16"):
+            knn_obs.knn_observation(*args, n_agents=40, k=17,
+                                    variant=variant)
+    assert knn_obs.LAUNCH_COUNTS == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["envlanes", "envlanes_exact"])
+@pytest.mark.parametrize("E,N,k", [(1024, 105, 10), (130, 15, 4),
+                                   (3, 200, 6), (8, 1024, 10), (2, 70, 32),
+                                   (33, 9, 9)])
+def test_envlanes_kernel_matches_plain_on_card(card, variant, E, N, k):
+    """K9 bit for bit, with an env tail past a 32-env block (E = 130, 33),
+    candidate chunks past 64 agents and the K_MAX = 32 list."""
+    args = _knn_args(N, k, E, seed=N + 4, device=card)
+    before = knn_obs.LAUNCH_COUNTS["knn_obs_envlanes"]
+    out = knn_obs.knn_observation(*args, n_agents=N, k=k, variant=variant)
+    assert knn_obs.LAUNCH_COUNTS["knn_obs_envlanes"] == before + 1
+    plain = knn_obs.knn_observation_plain(*args, n_agents=N, k=k,
+                                          variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,name", [
+    ("pallas", "knn_obs_packed"), ("pallas_onehot", "knn_obs_onehot"),
+    ("pallas_twolevel", "knn_obs_twolevel"),
+    ("pallas_twolevel_exact", "knn_obs_twolevel"),
+    ("pallas_envlanes", "knn_obs_envlanes"),
+    ("pallas_envlanes_exact", "knn_obs_envlanes"),
+])
+def test_flagship_loops_launch_each_names_kernel_once_per_step(card, algo,
+                                                               name):
+    system = build_flagship(num_envs=16, fc_dims=(32, 32), seed=2,
+                            knn_algorithm=algo)
+    gen = torch.Generator(device=card).manual_seed(0)
+    state, checksum = system["state"], torch.zeros((), device=card)
+    knn_obs.reset_launch_counts()
+    for _ in range(3):
+        state, checksum = system["env_only_step"]((state, checksum), gen)
+        state = system["full_loop_step"](system["models"], state, gen)
+    torch.cuda.synchronize()
+    assert knn_obs.LAUNCH_COUNTS == dict(_NO_LAUNCHES, **{name: 6})
+    assert torch.isfinite(checksum)
+
+
+@pytest.mark.cuda
+def test_many_agent_envlanes_loop_launches_k9_once_per_step(card):
+    system = build_many_agents(num_envs=4,
+                               knn_algorithm="pallas_envlanes_exact")
+    gen = torch.Generator(device=card).manual_seed(0)
+    state, checksum = system["state"], torch.zeros((), device=card)
+    knn_obs.reset_launch_counts()
+    for _ in range(3):
+        state, checksum = system["env_only_step"]((state, checksum), gen)
+    torch.cuda.synchronize()
+    assert knn_obs.LAUNCH_COUNTS == dict(_NO_LAUNCHES, knn_obs_envlanes=3)
+    assert torch.isfinite(checksum)

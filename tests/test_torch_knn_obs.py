@@ -230,10 +230,10 @@ def test_wrapper_rejects_bad_inputs_and_unported_variants():
         bad = list(args)
         bad[1] = f(N, E).t()
         knn_obs.knn_observation(*bad, n_agents=N, k=k)
-    with pytest.raises(NotImplementedError, match="K6"):
-        knn_obs.knn_observation(*args, n_agents=N, k=k, variant="packed")
-    with pytest.raises(NotImplementedError, match="K8"):
-        TorchTagContinuous(**_env_kwargs(15, 4),
-                           knn_algorithm="pallas_twolevel_exact")
+    # every JAX variant is ported now: an unknown name is the one refused
+    assert knn_obs.knn_observation(*args, n_agents=N, k=k,
+                                   variant="packed").shape == (E, N, 25)
+    TorchTagContinuous(**_env_kwargs(15, 4),
+                       knn_algorithm="pallas_twolevel_exact")
     with pytest.raises(ValueError, match="unknown kNN variant"):
         knn_obs.knn_observation(*args, n_agents=N, k=k, variant="flat_fast")

@@ -128,13 +128,13 @@ def _env_kwargs(num_agents, k):
                 seed=3)
 
 
-def test_flat_packs_fewer_bits_than_mxu_on_a_near_tie():
-    """At N = 15 the v9 kernel packs 4 index bits and v3 packs 7.  Agent 1
-    lies a few ulps farther from observer 0 than agent 2, inside v3's tie
-    window and outside v9's: ``pallas_flat`` picks 2 first, ``pallas_mxu``
-    1, and the port follows the JAX kernel in both."""
+def near_tie_state():
+    """One env of 15 agents where agent 1 (at ``xa``) lies a few ulps
+    farther from observer 0 than agent 2 (at ``xb``), inside the 7-bit
+    packed tie window and outside the 4-bit one; returns the state, ``xa``
+    and ``xb``."""
     xa, xb = _near_tie_4_vs_7_bits()
-    N, k = 15, 2
+    N = 15
     rng = np.random.RandomState(4)
     # the other agents keep more than 5 units from the three
     far = np.stack([rng.uniform(0, 20, 40), rng.uniform(0, 20, 40)], 1)
@@ -149,6 +149,23 @@ def test_flat_packs_fewer_bits_than_mxu_on_a_near_tie():
     state = {name: v.astype(np.float32) for name, v in state.items()}
     state["still_in_the_game"] = np.ones((1, N), np.int32)
     state[Constants.TIMESTEP] = np.array([7], np.int32)
+    return state, xa, xb
+
+
+def near_tie_rel_x(x):
+    """Slot 0's relative x of an agent at ``x`` seen from observer 0 of
+    :func:`near_tie_state`, as the observation computes it."""
+    diag = np.float32(20.0 * np.sqrt(2))
+    return np.float32(x / diag) - np.float32(np.float32(10.0) / diag)
+
+
+def test_flat_packs_fewer_bits_than_mxu_on_a_near_tie():
+    """At N = 15 the v9 kernel packs 4 index bits and v3 packs 7.  Agent 1
+    lies a few ulps farther from observer 0 than agent 2, inside v3's tie
+    window and outside v9's: ``pallas_flat`` picks 2 first, ``pallas_mxu``
+    1, and the port follows the JAX kernel in both."""
+    state, xa, xb = near_tie_state()
+    N, k = 15, 2
     nearest = {}
     for algo in ("pallas_flat", "pallas_mxu"):
         penv = TorchTagContinuous(**_env_kwargs(N, k), knn_algorithm=algo)
@@ -160,10 +177,8 @@ def test_flat_packs_fewer_bits_than_mxu_on_a_near_tie():
             {name: jnp.asarray(v) for name, v in state.items()}))
         assert_same_selection(out, ref, k)
         nearest[algo] = out[0, 0, 0]  # observer 0, slot 0: relative x
-    diag = np.float32(20.0 * np.sqrt(2))
-    rel = lambda x: np.float32(x / diag) - np.float32(np.float32(10.0) / diag)
-    assert nearest["pallas_flat"] == rel(xb)
-    assert nearest["pallas_mxu"] == rel(xa)
+    assert nearest["pallas_flat"] == near_tie_rel_x(xb)
+    assert nearest["pallas_mxu"] == near_tie_rel_x(xa)
 
 
 @pytest.mark.parametrize("N,box", [(105, 20.0), (1024, 60.0)])

@@ -2,7 +2,7 @@
 ``tiled_mxudist``, ``tiled_mxudist_exact``), through their plain versions
 on the CPU, against the JAX package's ``_v7_body`` in interpret mode; the
 k <= 16 limit; the route of ``pallas_mxu[_exact]`` to the tiled kernel
-above 128 agents; and the names whose kernels are not ported yet.  Inputs
+above 128 agents; and the six names of kernels K6-K9, once unported.  Inputs
 are drawn with numpy and handed to both sides.
 
 Tolerances as in ``tests/test_torch_knn_obs_flat.py``: exact and packed
@@ -24,7 +24,10 @@ from test_torch_knn_obs_flat import (
     assert_swap_class,
 )
 from warpdrive_tpu.envs.tag_continuous import TpuTagContinuous
-from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
+from warpdrive_tpu_torch.envs.tag_continuous import (
+    _KNN_VARIANTS,
+    TorchTagContinuous,
+)
 from warpdrive_tpu_torch.ops import knn_obs
 from warpdrive_tpu_torch.utils.constants import Constants
 
@@ -103,13 +106,31 @@ def test_mxu_names_route_to_the_tiled_kernel_above_128_agents(algo, routed):
     assert_same_selection(out, ref, 8)
 
 
+_KERNEL_OF_ROW = {"K6": "knn_obs_packed", "K7": "knn_obs_onehot",
+                  "K8": "knn_obs_twolevel", "K9": "knn_obs_envlanes"}
+
+
 @pytest.mark.parametrize("algo,row", [
     ("pallas", "K6"), ("pallas_onehot", "K7"), ("pallas_twolevel", "K8"),
     ("pallas_twolevel_exact", "K8"), ("pallas_envlanes", "K9"),
     ("pallas_envlanes_exact", "K9"),
 ])
 def test_unported_kernels_raise_naming_their_row(algo, row):
+    """The six names that raised ``NotImplementedError`` naming their
+    ROADMAP queue 2 row until kernels K6-K9 were ported: each now builds,
+    goes to its row's kernel, and its ``observe_batch_fn`` matches the JAX
+    env's on one state."""
     kwargs = dict(num_taggers=2, num_runners=13, grid_length=20.0,
-                  use_full_observation=False, num_other_agents_observed=4)
-    with pytest.raises(NotImplementedError, match=f"queue 2, kernel {row}"):
-        TorchTagContinuous(**kwargs, knn_algorithm=algo)
+                  use_full_observation=False, num_other_agents_observed=4,
+                  seed=3)  # one tagger set on both sides
+    penv = TorchTagContinuous(**kwargs, knn_algorithm=algo)
+    jenv = TpuTagContinuous(**kwargs, knn_algorithm=algo)
+    assert knn_obs._PORTED[_KNN_VARIANTS[algo]] == _KERNEL_OF_ROW[row]
+    state = _many_agent_state(15, 3, seed=5, box=20.0)
+    out = penv.observe_batch_fn(
+        {name: torch.from_numpy(v.copy()) for name, v in state.items()}
+    ).numpy()
+    ref = np.asarray(jenv.observe_batch_fn(
+        {name: jnp.asarray(v) for name, v in state.items()}))
+    assert out.shape == (3, 15, 33)
+    assert_same_selection(out, ref, 4)

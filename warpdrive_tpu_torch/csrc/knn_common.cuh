@@ -1,9 +1,12 @@
 // Device code shared by the k-nearest-neighbour observation kernels
-// (knn_obs.cu, knn_obs_mxu.cu, knn_obs_tiled.cu): staging one env's inputs
-// in shared memory, the two squared-distance forms, the two selection keys,
-// a register-resident sorted list of the k best candidates, the emission
-// of one observation row, and the multi-tile scan kernel that K1, K3, K4
-// and K5 instantiate.
+// (knn_obs.cu, knn_obs_mxu.cu, knn_obs_tiled.cu, knn_obs_ladder.cu,
+// knn_obs_envlanes.cu): staging one env's inputs in shared memory, the two
+// squared-distance forms, the two selection keys, a register-resident
+// sorted list of the k best candidates, the emission of one observation
+// row, the multi-tile scan kernel that K1, K3, K4 and K5 instantiate, and
+// the common C signature of every entry point.  K2 uses the staging, the
+// keys and the list; K6-K8 (the ladder) the staging and the difference
+// form; K9 the difference form's rounding, the keys and the list.
 //
 // Contract (see warpdrive_tpu_torch/ops/knn_obs.py): inputs loc_x, loc_y
 // (E, N), feats (E, 5, N), types_f (N,), still_f (E, N), t_norm (E,), all
@@ -56,19 +59,20 @@ struct KnnArgs {
   int k;
 };
 
-// The common C signature of the kNN entry points (knn_obs.cu,
-// knn_obs_mxu.cu, knn_obs_tiled.cu), so that the Python wrapper makes one
-// ctypes call for every kernel.  iside is the MXU distance's observer-side
-// operand: bmat for K4, the centred coordinates for K5, else null.
+// The common C signature of the kNN entry points (K1-K9), so that the
+// Python wrapper makes one ctypes call for every kernel.  amat is the MXU
+// distance's candidate-side operand (K4, K5).  aux is the MXU distance's
+// observer-side operand -- bmat for K4, the centred coordinates for K5 --
+// or K9's envs-on-lanes planes; else null.
 #define KNN_ENTRY(name)                                                     \
   extern "C" int name(const float* loc_x, const float* loc_y,               \
                       const float* feats, const float* types_f,             \
                       const float* still_f, const float* t_norm,            \
-                      const void* amat, const void* iside, float* out,      \
+                      const void* amat, const void* aux, float* out,        \
                       int e, int n, int k, int packed_bits, int mxu_dist,   \
                       void* stream)
 
-// KnnArgs of an entry point's arguments, with iside as bmat (v9) or as the
+// KnnArgs of an entry point's arguments, with aux as bmat (v9) or as the
 // centred coordinates (v7).
 inline KnnArgs make_args(const float* loc_x, const float* loc_y,
                          const float* feats, const float* types_f,

@@ -152,16 +152,16 @@ KNN_ENTRY(knn_obs_flat) {
       a, e, packed_bits, clear, static_cast<cudaStream_t>(stream)));
 }
 
-// K4: MXU-expansion distance (mxu_dist != 0, iside = bmat), exact order
+// K4: MXU-expansion distance (mxu_dist != 0, aux = bmat), exact order
 // (packed_bits == 0) or packed.
 KNN_ENTRY(knn_obs_flat_mxudist) {
   int clear = 0;
   if (bad_call(e, n, k, packed_bits, &clear) || mxu_dist == 0 ||
-      amat == nullptr || iside == nullptr) {
+      amat == nullptr || aux == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const knn::KnnArgs a = knn::make_args(loc_x, loc_y, feats, types_f,
-                                        still_f, t_norm, amat, iside, nullptr,
+                                        still_f, t_norm, amat, aux, nullptr,
                                         out, n, k);
   return static_cast<int>(launch_keyed<BmatDist>(
       a, e, packed_bits, clear, static_cast<cudaStream_t>(stream)));

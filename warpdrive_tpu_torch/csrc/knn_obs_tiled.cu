@@ -101,7 +101,7 @@ cudaError_t launch(const knn::KnnArgs& a, int e, int packed_bits, int clear,
 // Plain C entry point for ctypes, with the common signature (knn_common.cuh:
 // KNN_ENTRY).  packed_bits == 0 selects the exact order, else the packed
 // key with that many index bits; mxu_dist != 0 selects the MXU-expansion
-// distance (amat, and the centred coordinates as iside, required).
+// distance (amat, and the centred coordinates as aux, required).
 // Returns a cudaError_t: 0 on a launch that was accepted,
 // cudaErrorInvalidValue for a shape it does not take (1 <= k <= min(16,
 // n); packed_bits in [1, 22] with n <= 2^packed_bits, or 0) or an N whose
@@ -110,13 +110,13 @@ KNN_ENTRY(knn_obs_tiled) {
   int clear = 0;
   if (e <= 0 || n <= 0 || k < 1 || k > kMaxK || k > n ||
       !knn::packed_clear(packed_bits, n, &clear) ||
-      (mxu_dist && (amat == nullptr || iside == nullptr))) {
+      (mxu_dist && (amat == nullptr || aux == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const knn::KnnArgs a =
       knn::make_args(loc_x, loc_y, feats, types_f, still_f, t_norm,
                      mxu_dist ? amat : nullptr, nullptr,
-                     mxu_dist ? iside : nullptr, out, n, k);
+                     mxu_dist ? aux : nullptr, out, n, k);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       mxu_dist ? launch<knn::ExpansionDist<CentredTerms>>(a, e, packed_bits,

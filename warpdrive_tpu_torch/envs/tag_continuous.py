@@ -9,8 +9,8 @@ The port's counterpart of ``warpdrive_tpu/envs/tag_continuous.py``:
 * ``TorchTagContinuous`` adds the batched device step: ``physics_fn`` over
   ``(envs, agents)`` tensors, ``observe_fn`` (the ``passes``, ``ladder``,
   ``topk``, ``approx`` and ``packed`` kNN algorithms in plain PyTorch) and
-  ``observe_batch_fn``, which sends every ported ``pallas_*`` name to the
-  port's kNN kernels (``ops/knn_obs.py``).
+  ``observe_batch_fn``, which sends every ``pallas*`` name to the port's
+  kNN kernels (``ops/knn_obs.py``).
 
 Game rules:
 
@@ -36,7 +36,6 @@ import torch
 from warpdrive_tpu_torch.envs.base import TorchEnvironmentContext
 from warpdrive_tpu_torch.ops.knn_obs import (
     _VALID_MAX_PACKED,
-    check_variant,
     knn_observation,
     packed_keys,
 )
@@ -447,18 +446,20 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
 
     * ``"pallas_flat_exact"``, ``"pallas_flat"``,
       ``"pallas_flat_mxudist[_exact]"``, ``"pallas_tiled[_exact]"``,
-      ``"pallas_mxudist[_exact]"`` and, up to 128 agents,
-      ``"pallas_mxu[_exact]"`` -- :meth:`observe_batch_fn` calls the port's
-      kNN kernels (``ops/knn_obs.py``: K1, K3, K4, K5 and K2).  Above 128
-      agents the ``mxu`` names route to ``pallas_tiled[_exact]``, as in the
-      JAX package.  :meth:`observe_fn`, the per-state observation, runs
-      ``passes`` for every ``pallas_*`` name, as the JAX package's does;
+      ``"pallas_mxudist[_exact]"`` and ``"pallas_envlanes[_exact]"`` at any
+      agent count, and up to 128 agents ``"pallas_mxu[_exact]"``,
+      ``"pallas"``, ``"pallas_onehot"`` and ``"pallas_twolevel[_exact]"``
+      -- :meth:`observe_batch_fn` calls the port's kNN kernels
+      (``ops/knn_obs.py``: K1, K3, K4, K5, K9, K2, K6, K7 and K8).  Above
+      128 agents the ``mxu`` names route to ``pallas_tiled[_exact]``, as in
+      the JAX package, and the other single-tile names raise
+      ``ValueError``.  :meth:`observe_fn`, the per-state observation, runs
+      ``passes`` for every ``pallas*`` name, as the JAX package's does;
     * ``"passes"``, ``"ladder"``, ``"topk"``, ``"approx"`` and ``"packed"``
-      -- plain PyTorch;
-    * the ``pallas_*`` names of kernels not ported yet raise
-      ``NotImplementedError`` naming their ROADMAP queue 2 row.
-      ``knn_select`` is accepted and ignored: the port always picks
-      neighbour features as exact float32.
+      -- plain PyTorch.
+
+    ``knn_select`` is accepted and ignored: the port always picks neighbour
+    features as exact float32.
     """
 
     def __init__(self, *args, **kwargs):
@@ -468,8 +469,6 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
                 "full-observation mode is not ported yet: ROADMAP queue 1, "
                 "item 1"
             )
-        if self.knn_algorithm in _KNN_VARIANTS:
-            check_variant(_KNN_VARIANTS[self.knn_algorithm])
         self._consts_by_device = {}
 
     def _consts(self, device: torch.device) -> dict:
@@ -622,8 +621,8 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
         return feats, still_f, t_norm
 
     def observe_batch_fn(self, state: dict) -> torch.Tensor:
-        """Batched kNN observation ``(envs, agents, 8k+1)``: a kNN kernel
-        for a ``pallas_*`` name the port runs, else :meth:`observe_fn`."""
+        """Batched kNN observation ``(envs, agents, 8k+1)``: the kNN kernel
+        of a ``pallas*`` name, else :meth:`observe_fn`."""
         if self.knn_algorithm not in _KNN_VARIANTS:
             return self.observe_fn(state)
         feats, still_f, t_norm = self._knn_inputs(state)

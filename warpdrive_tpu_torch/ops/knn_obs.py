@@ -1,8 +1,8 @@
 """
 Batched k-nearest-neighbour observation (TagContinuous kNN mode).
 
-The port's counterpart of ``warpdrive_tpu/ops/knn_obs.py:knn_observation``
-for the variants the port runs.  Contract:
+The port's counterpart of ``warpdrive_tpu/ops/knn_obs.py:knn_observation``,
+for every variant of it.  Contract:
 
     knn_observation(loc_x, loc_y, feats, types_f, still_f, t_norm,
                     n_agents, k, variant) -> (E, N, 8k+1) float32
@@ -19,13 +19,14 @@ Each variant is a distance and an order:
   for the ``mxudist`` variants the TPU's MXU expansion, the 12-term bf16
   hi/lo product ``amat . bmat`` (:func:`expansion_operands`) on per-env
   centred coordinates (:func:`centred_coords`), clamped at 0;
-* order: ``_exact`` variants (and ``flat_exact``) ascending d2, lowest index
-  first among equal distances; the others the TPU kernels' packed key
-  ``(bits(d2) & ~(2^b - 1)) | j`` (:func:`packed_keys`), so distances that
-  differ only in their low b mantissa bits order by index.  ``b`` is 7 for
-  ``mxu`` (the v3 kernel's ``_CLEAR_MASK``) and ``bit_length(SUBn - 1)``,
-  ``SUBn = ceil(N/8)*8``, for ``flat`` and ``tiled`` (v7/v9): 4 at N = 15,
-  7 at N = 105, 10 at N = 1024 (:func:`packed_bits`).
+* order: ``_exact`` variants (and ``flat_exact`` and ``onehot``) ascending
+  d2, lowest index first among equal distances; the others the TPU
+  kernels' packed key ``(bits(d2) & ~(2^b - 1)) | j`` (:func:`packed_keys`),
+  so distances that differ only in their low b mantissa bits order by
+  index.  ``b`` is 7 for ``mxu``, ``packed`` and ``twolevel`` (the v2, v3
+  and v6 kernels' ``_CLEAR_MASK``) and ``bit_length(SUBn - 1)``, ``SUBn =
+  ceil(N/8)*8``, for ``flat``, ``tiled`` and ``envlanes`` (v7, v8, v9): 4
+  at N = 15, 7 at N = 105, 10 at N = 1024 (:func:`packed_bits`).
 
 | variant | kernel (``LAUNCH_COUNTS`` key) | source | limits |
 |---|---|---|---|
@@ -34,10 +35,16 @@ Each variant is a distance and an order:
 | ``flat_mxudist[_exact]`` | ``knn_obs_flat_mxudist`` (K4) | ``csrc/knn_obs.cu`` | k <= 32 |
 | ``tiled[_exact]``, ``tiled_mxudist[_exact]`` | ``knn_obs_tiled`` (K5) | ``csrc/knn_obs_tiled.cu`` | k <= 16 |
 | ``mxu[_exact]`` | ``knn_obs_mxu`` (K2) | ``csrc/knn_obs_mxu.cu`` | N <= 128, k <= 16 |
+| ``packed`` | ``knn_obs_packed`` (K6) | ``csrc/knn_obs_ladder.cu`` | N <= 128 |
+| ``onehot`` | ``knn_obs_onehot`` (K7) | ``csrc/knn_obs_ladder.cu`` | N <= 128 |
+| ``twolevel[_exact]`` | ``knn_obs_twolevel`` (K8) | ``csrc/knn_obs_ladder.cu`` | N <= 128, k <= 16 |
+| ``envlanes[_exact]`` | ``knn_obs_envlanes`` (K9) | ``csrc/knn_obs_envlanes.cu`` | k <= 32 |
 
-The tiled and ``mxu`` limits are the TPU kernels' own and hold on every
-device; K1, K3, K4 and K5 also refuse an N whose staged operands exceed
-the card's 227 KB of shared memory.  On a CUDA tensor the wrapper launches
+The limits of the single-tile kernels (``mxu``, ``packed``, ``onehot``,
+``twolevel``) and of ``tiled`` are the TPU kernels' own and hold on every
+device; K1, K3, K4, K5 and K9 hold a sorted list of at most 32 entries,
+and K1, K3, K4 and K5 also refuse an N whose staged operands exceed the
+card's 227 KB of shared memory.  On a CUDA tensor the wrapper launches
 the variant's hand-written kernel or raises; each source's header gives
 its design and bound.  On a CPU tensor it runs the plain PyTorch version,
 :func:`knn_observation_plain`.  Unlike the TPU kernels, the port gathers
@@ -61,8 +68,10 @@ from warpdrive_tpu_torch.ops import cuda_build
 _VALID_MAX = 1e18
 _BIG = np.float32(1e20)
 _VALID_MAX_PACKED = int(np.float32(_VALID_MAX).view(np.int32))
-# the v3 kernel's packed index bits (warpdrive_tpu/ops/knn_obs.py:51-54)
-_MXU_PACKED_BITS = 7
+# the packed index bits of the v2, v3 and v6 kernels, whose _CLEAR_MASK
+# clears 7 bits whatever N (warpdrive_tpu/ops/knn_obs.py:51-54)
+_SEVEN_BIT_PACKED = ("mxu", "packed", "twolevel")
+_CLEAR_MASK_BITS = 7
 
 LAUNCH_COUNTS = {
     "knn_obs_flat_exact": 0,
@@ -70,6 +79,10 @@ LAUNCH_COUNTS = {
     "knn_obs_flat": 0,
     "knn_obs_flat_mxudist": 0,
     "knn_obs_tiled": 0,
+    "knn_obs_packed": 0,
+    "knn_obs_onehot": 0,
+    "knn_obs_twolevel": 0,
+    "knn_obs_envlanes": 0,
 }
 
 # what chip_smoke.py reports for each kernel of this module
@@ -99,6 +112,26 @@ KERNELS = {
         "source": "warpdrive_tpu_torch/csrc/knn_obs_tiled.cu",
         "replaces": "warpdrive_tpu/ops/knn_obs.py:536",
     },
+    "knn_obs_packed": {
+        "route": "cuda",
+        "source": "warpdrive_tpu_torch/csrc/knn_obs_ladder.cu",
+        "replaces": "warpdrive_tpu/ops/knn_obs.py:137",
+    },
+    "knn_obs_onehot": {
+        "route": "cuda",
+        "source": "warpdrive_tpu_torch/csrc/knn_obs_ladder.cu",
+        "replaces": "warpdrive_tpu/ops/knn_obs.py:57",
+    },
+    "knn_obs_twolevel": {
+        "route": "cuda",
+        "source": "warpdrive_tpu_torch/csrc/knn_obs_ladder.cu",
+        "replaces": "warpdrive_tpu/ops/knn_obs.py:359",
+    },
+    "knn_obs_envlanes": {
+        "route": "cuda",
+        "source": "warpdrive_tpu_torch/csrc/knn_obs_envlanes.cu",
+        "replaces": "warpdrive_tpu/ops/knn_obs.py:1440",
+    },
 }
 
 # the variants the port runs, and the kernel each launches on the card
@@ -113,19 +146,22 @@ _PORTED = {
     "tiled_mxudist_exact": "knn_obs_tiled",
     "mxu": "knn_obs_mxu",
     "mxu_exact": "knn_obs_mxu",
+    "packed": "knn_obs_packed",
+    "onehot": "knn_obs_onehot",
+    "twolevel": "knn_obs_twolevel",
+    "twolevel_exact": "knn_obs_twolevel",
+    "envlanes": "knn_obs_envlanes",
+    "envlanes_exact": "knn_obs_envlanes",
 }
 
-# the JAX variants not ported yet, with the ROADMAP queue 2 row of each
-_UNPORTED = {
-    "packed": "K6",
-    "onehot": "K7",
-    "twolevel": "K8", "twolevel_exact": "K8",
-    "envlanes": "K9", "envlanes_exact": "K9",
-}
-
-_K_LIMIT = 32  # the flat kernels' largest K_MAX instantiation
-# the TPU kernels' limits (warpdrive_tpu/ops/knn_obs.py:980, :1042, :1314)
-_MXU_MAX_AGENTS = 128
+_K_LIMIT = 32  # the sorted-list kernels' largest K_MAX instantiation
+# the TPU kernels' limits (warpdrive_tpu/ops/knn_obs.py:980, :1025, :1042,
+# :1314): the single-tile kernels take one 128-agent tile, and those with a
+# 16-row slot bookkeeping (v3, v6, v7) k <= 16
+_SINGLE_TILE = ("knn_obs_mxu", "knn_obs_packed", "knn_obs_onehot",
+                "knn_obs_twolevel")
+_SMALL_K = ("knn_obs_mxu", "knn_obs_twolevel", "knn_obs_tiled")
+_TILE_AGENTS = 128
 _SMALL_K_LIMIT = 16
 # the card's dynamic shared memory per block, and what the scan kernels
 # stage per agent: x, y, alive and six channels, plus 12 expansion terms
@@ -167,34 +203,23 @@ def _check_inputs(loc_x, loc_y, feats, types_f, still_f, t_norm, n_agents, k):
 
 
 def check_variant(variant: str):
-    """Raise unless the port runs kNN ``variant``: ``NotImplementedError``
-    naming the ROADMAP queue 2 kernel row of a JAX variant not ported yet,
-    ``ValueError`` for an unknown name."""
-    if variant in _PORTED:
-        return
-    row = _UNPORTED.get(variant)
-    if row is None:
+    """Raise ``ValueError`` unless ``variant`` is a kNN variant of the JAX
+    package's ``knn_observation``: the port runs every one of them."""
+    if variant not in _PORTED:
         raise ValueError(f"unknown kNN variant {variant!r}")
-    raise NotImplementedError(
-        f"kNN variant {variant!r} is not ported yet: ROADMAP queue 2, "
-        f"kernel {row}"
-    )
 
 
 def _check_limits(variant: str, n_agents: int, k: int):
     """The TPU kernels' own limits, on every device."""
     kernel = _PORTED[variant]
-    if kernel == "knn_obs_mxu" and (
-        n_agents > _MXU_MAX_AGENTS or k > _SMALL_K_LIMIT
-    ):
+    if kernel in _SINGLE_TILE and n_agents > _TILE_AGENTS:
         raise ValueError(
-            f"variant {variant!r} is the single-tile kernel: it takes at "
-            f"most {_MXU_MAX_AGENTS} agents and k <= {_SMALL_K_LIMIT}, got "
-            f"n_agents={n_agents}, k={k}"
+            f"variant {variant!r} is a single-tile kernel: it takes at most "
+            f"{_TILE_AGENTS} agents, got n_agents={n_agents}"
         )
-    if kernel == "knn_obs_tiled" and k > _SMALL_K_LIMIT:
+    if kernel in _SMALL_K and k > _SMALL_K_LIMIT:
         raise ValueError(
-            f"variant {variant!r} is the multi-tile v7 kernel: it takes "
+            f"variant {variant!r} keeps 16 slot rows: it takes "
             f"k <= {_SMALL_K_LIMIT}, got k={k}"
         )
 
@@ -214,10 +239,13 @@ def check_kernel_limits(variant: str, n_agents: int, k: int):
     take: k above its list size, or staged operands above the card's
     shared memory."""
     _check_limits(variant, n_agents, k)
-    if _PORTED[variant] == "knn_obs_mxu":
+    kernel = _PORTED[variant]
+    if kernel in _SINGLE_TILE:
         return
     if k > _K_LIMIT:
         raise ValueError(f"the kernel takes k <= {_K_LIMIT}, got k={k}")
+    if kernel == "knn_obs_envlanes":  # it stages candidates in chunks
+        return
     need = staged_bytes(variant, n_agents)
     if need > _MAX_SHARED_BYTES:
         raise ValueError(
@@ -229,10 +257,10 @@ def check_kernel_limits(variant: str, n_agents: int, k: int):
 
 def packed_bits(variant: str, n_agents: int) -> int:
     """Index bits of the variant's packed key, 0 for an exact order."""
-    if variant.endswith("_exact"):
+    if variant.endswith("_exact") or variant == "onehot":
         return 0
-    if variant == "mxu":
-        return _MXU_PACKED_BITS
+    if variant in _SEVEN_BIT_PACKED:
+        return _CLEAR_MASK_BITS
     sub_n = ((n_agents + 7) // 8) * 8  # the TPU kernels' candidate sublanes
     return max((sub_n - 1).bit_length(), 1)
 
@@ -292,9 +320,10 @@ def knn_observation(loc_x, loc_y, feats, types_f, still_f, t_norm,
     """Batched fused kNN observation: returns (E, N, 8*k + 1) float32.
 
     CUDA tensors go through the variant's kernel; CPU tensors through
-    :func:`knn_observation_plain`.  The ``mxu`` variants take at most 128
-    agents and k <= 16, the ``tiled`` ones k <= 16, on every device, as the
-    TPU kernels do.
+    :func:`knn_observation_plain`.  The ``mxu``, ``packed``, ``onehot`` and
+    ``twolevel`` variants take at most 128 agents, and ``mxu``,
+    ``twolevel`` and ``tiled`` k <= 16, on every device, as the TPU kernels
+    do.
     """
     check_variant(variant)
     _check_inputs(loc_x, loc_y, feats, types_f, still_f, t_norm, n_agents, k)
@@ -307,13 +336,18 @@ def knn_observation(loc_x, loc_y, feats, types_f, still_f, t_norm,
     check_kernel_limits(variant, n_agents, k)
     name = _PORTED[variant]
     mxu_dist = "mxudist" in variant
-    amat = iside = None
+    amat = aux = None
     if mxu_dist:
         centred = centred_coords(loc_x, loc_y)
         tiled = name == "knn_obs_tiled"  # v7 forms bmat in its body
         amat, bmat = expansion_operands(centred[:, 0], centred[:, 1],
                                         with_bmat=not tiled)
-        iside = centred if tiled else bmat
+        aux = centred if tiled else bmat
+    elif name == "knn_obs_envlanes":
+        # envs on the fast axis, as the JAX wrapper's to_lanes lays them
+        # out before its kernel: (8, N, E) planes x, y, still, 5 features
+        aux = torch.cat([loc_x[:, None], loc_y[:, None], still_f[:, None],
+                         feats], dim=1).permute(1, 2, 0).contiguous()
     E, N = loc_x.shape
     out = torch.empty((E, N, 8 * k + 1), dtype=torch.float32,
                       device=loc_x.device)
@@ -325,7 +359,7 @@ def knn_observation(loc_x, loc_y, feats, types_f, still_f, t_norm,
             [(t.data_ptr(), ptr)
              for t in (loc_x, loc_y, feats, types_f, still_f, t_norm)]
             + [(None if t is None else t.data_ptr(), ptr)
-               for t in (amat, iside)]
+               for t in (amat, aux)]
             + [(out.data_ptr(), ptr), (E, num), (N, num), (k, num),
                (packed_bits(variant, n_agents), num), (int(mxu_dist), num),
                (stream, ptr)]
@@ -363,7 +397,9 @@ def knn_observation_plain(loc_x, loc_y, feats, types_f, still_f, t_norm,
     expansion (:func:`expansion_sq_dist`) of the same operands.  The
     selection is a stable sort of the masked squared distances, or for a
     packed variant a sort of the TPU kernels' packed int32 keys with
-    :func:`packed_bits` index bits."""
+    :func:`packed_bits` index bits.  A valid candidate is a live other
+    agent with d2 below 1e18 (v1, ``onehot``, tests d2 below 1e20: the two
+    agree on any grid narrower than 1e9)."""
     check_variant(variant)
     E, N = loc_x.shape
     if "mxudist" in variant:
