@@ -24,8 +24,12 @@ Phases, each of which raises (and so exits non-zero) on a failure:
    modes) on random states, an exact-tie lattice, the packed-bits near-tie
    (7 bits for K6 and K8, 4 for K9 at N = 15) and the flagship rolled 100
    steps with each of their names (K2-K9: 0 mismatches and max abs diff 0
-   required); then the CUDA step against the same step on the CPU from the
-   same states, for the flagship with ``pallas_flat_exact``,
+   required); the warp scan's ordering cases for K1, K3, K4, K5 and K9 in
+   every mode (an exact-tie lattice at (8, 1024, 10), k = 32 and k = 1,
+   partial and full last rounds at N = 33 and 64, k = 32 at N = 1024, the
+   N = 15 packed near-tie, and K9 at (2, 8192, 10), eight staged chunks
+   of candidates); then the CUDA step against the same step on the CPU
+   from the same states, for the flagship with ``pallas_flat_exact``,
    ``pallas_onehot``, ``pallas_twolevel_exact`` and
    ``pallas_envlanes_exact`` and for the 1024-agent configuration with
    ``pallas_flat_exact``, ``pallas_tiled_exact``, ``pallas_envlanes_exact``
@@ -48,7 +52,8 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       agents) with ``pallas_flat_exact``, ``pallas_flat_mxudist``,
       ``pallas_tiled_exact`` and ``pallas_envlanes_exact``: 100
       ``env_only_step`` steps each, launching K1, K4, K5 or K9 exactly once
-      per step and no other kernel;
+      per step and no other kernel; then the four loops again in the
+      reverse order, so that each loop's wall is read early and late;
    d. the ``pallas_flat`` flagship ``env_only_step`` at 1024 envs x 105
       agents, 200 steps: exactly one K3 launch per step;
    e. the flagship at 1024 envs x 105 agents with ``pallas`` (K6),
@@ -66,9 +71,9 @@ Phases, each of which raises (and so exits non-zero) on a failure:
 The last three lines are the card (``nvidia-smi``'s name and power limit),
 one JSON object with a record per kernel, and the result line
 ``{"ok": true, "device": {...}}``.  ``--profile`` adds a ``torch.profiler``
-table of device time by kernel for a few steps of each loop (the
-1024-agent ones included) and for one training iteration, with the
-device's idle share.
+table of device time by kernel for 10 steps of every loop of phase 4 and
+for one training iteration, each with its device ms per step beside its
+wall ms per step and the device's idle share.
 """
 
 from __future__ import annotations
@@ -123,6 +128,24 @@ LADDER_SHAPES = ((NUM_ENVS, 105, 10), (100, 110, 10), (8, 128, 16),
 ENVLANES_SHAPES = ((NUM_ENVS, 105, 10), (130, 15, 4), (3, 200, 6),
                    (8, 1024, 10))
 PLAIN_MAX_ENVS_AT_1024 = 8  # plain compares at N = 1024 stay small
+# the warp scan's ordering cases (csrc/knn_common.cuh: WarpList, the k-list
+# one entry a lane): (state, E, N, k) -- an exact-tie lattice, a full warp
+# of list and k = 1, a partial (N = 33) and a full (N = 64) last round of
+# 32 candidates
+WARP_SCAN_CASES = (("lattice", 8, 1024, 10), ("random", 4, 33, 32),
+                   ("random", 4, 64, 32), ("random", 4, 33, 1),
+                   ("random", 4, 64, 1), ("random", 2, 1024, 32))
+WARP_SCAN_VARIANTS = (
+    ("knn_obs_flat_exact", ("flat_exact",)),
+    ("knn_obs_flat", ("flat",)),
+    ("knn_obs_flat_mxudist", ("flat_mxudist", "flat_mxudist_exact")),
+    ("knn_obs_tiled", ("tiled", "tiled_exact", "tiled_mxudist",
+                       "tiled_mxudist_exact")),
+    ("knn_obs_envlanes", ("envlanes", "envlanes_exact")),
+)
+K5_K_LIMIT = 16
+# K9 at an N whose env would not fit a block whole: 8 chunks of 1024
+ENVLANES_LARGE = (2, 8192, 10)
 # the MXU-distance class between devices (tests/test_knn_obs_kernel.py)
 SWAP_ATOL = 8e-6
 SWAP_SHARE = 2e-3
@@ -496,6 +519,37 @@ def _check_k6_k9():
     return max_abs, rolled
 
 
+def _check_warp_scan():
+    """The warp scan (K1, K3, K4, K5 and K9) vs plain in every mode on the
+    cases that exercise its k-list: ``WARP_SCAN_CASES`` (K5 at k <= 16),
+    the N = 15 packed near-tie, and K9 at ``ENVLANES_LARGE``.  Returns
+    each kernel's largest abs diff."""
+    max_abs = {}
+    cases = []
+    for state, E, N, k in WARP_SCAN_CASES:
+        make = (_lattice_knn_inputs if state == "lattice"
+                else _random_knn_inputs)
+        cases.append((state,) + make(E, N, k, seed=N + k + 11,
+                                     device=DEVICE))
+    cases.append(("packed-bits near-tie",) + _near_tie_inputs(DEVICE))
+    for kernel, variants in WARP_SCAN_VARIANTS:
+        tol = MAX_ABS_TOL if kernel == "knn_obs_flat_exact" else EXACT_TOL
+        for label, args, n, k in cases:
+            if kernel == "knn_obs_tiled":
+                k = min(k, K5_K_LIMIT)
+            for variant in variants:
+                max_abs[kernel] = max(max_abs.get(kernel, 0.0), _compare_knn(
+                    label, args, n, k, variant, tol=tol))
+    E, N, k = ENVLANES_LARGE
+    args, n, kk = _random_knn_inputs(E, N, k, seed=N, device=DEVICE)
+    for variant in ("envlanes", "envlanes_exact"):
+        max_abs["knn_obs_envlanes"] = max(
+            max_abs["knn_obs_envlanes"],
+            _compare_knn("8 chunks of candidates", args, n, kk, variant,
+                         tol=EXACT_TOL))
+    return max_abs
+
+
 def _drive_knn_loops(rolled):
     """The flagship loops of ``FLAGSHIP_KNN_LOOPS`` at 1024 envs from each
     name's rolled state, ``MAIN_PATH_STEPS`` steps of each loop, with the
@@ -647,6 +701,20 @@ def _drive_many_agents():
         expected[kernel] = MANY_AGENT_STEPS
         assert counts == expected, f"launches {counts}, expected {expected}"
         systems[algo], results[algo], launches[algo] = system, r, counts
+    # the same loops in the reverse order, so that each loop's wall is read
+    # both early and late in the run; each system keeps the state of its
+    # first pass, which the kernel timing of phase 5 reads
+    for algo, kernel in reversed(MANY_AGENT_LOOPS):
+        system = systems[algo]
+        r, counts, _ = _time_loop(system, system["generator"],
+                                  MANY_AGENT_STEPS)
+        print(f"1024-agent env_only_step [{algo}], reverse order: "
+              f"{r['ms_per_step']:.4f} ms/step (host {r['host_s']:.3f} s); "
+              f"launches {counts}")
+        expected = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
+        expected[kernel] = MANY_AGENT_STEPS
+        assert counts == expected, f"launches {counts}, expected {expected}"
+        launches[f"{algo}, reverse order"] = counts
     return systems, results, launches
 
 
@@ -770,45 +838,47 @@ def _device_ms(prof) -> float:
                if e.device_type == DeviceType.CUDA) / 1e3
 
 
-def _profile(system, generator, trainer, many, wall_ms, steps=10):
-    """Kernel tables of ``steps`` steps of each flagship loop and of each
-    1024-agent loop (``many``: systems by algorithm) and of one training
-    iteration under ``torch.profiler``, and each window's device idle share:
-    1 - device time / the wall time of the same work measured without the
-    profiler (``wall_ms``: per step, or per iteration), since the profiler
-    slows the host."""
+def _stepper(system, generator, loop):
+    """One step of ``loop`` (``env_only_step`` or ``full_loop_step``) on
+    ``system``, carrying its state in ``system["state"]``."""
+    import torch
+
+    checksum = torch.zeros((), device=DEVICE)
+
+    def step():
+        if loop == "env_only_step":
+            system["state"], _ = system["env_only_step"](
+                (system["state"], checksum), generator)
+        else:
+            system["state"] = system["full_loop_step"](
+                system["models"], system["state"], generator)
+
+    return step
+
+
+def _profile(windows, steps=10):
+    """A ``torch.profiler`` table of device time by kernel for each of
+    ``windows`` -- (label, advance, unit, wall ms per unit): ``steps``
+    calls of ``advance``, or one for a training iteration -- with the device
+    ms per unit beside the wall ms per unit of the same work measured
+    without the profiler (the profiler slows the host) and the device's
+    idle share, 1 - device / wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    state = system["state"]
-    checksum = torch.zeros((), device=state["loc_x"].device)
-    loops = ["env_only_step", "full_loop_step", "training iteration"]
-    loops += [f"1024-agent {algo}" for algo in many]
-    for loop in loops:
-        n = 1 if loop == "training iteration" else steps
+    for label, advance, unit, wall_ms in windows:
+        n = 1 if unit == "iteration" else steps
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
-                if loop == "training iteration":
-                    trainer._iteration(trainer.current_timestep)
-                elif loop == "env_only_step":
-                    state, checksum = system["env_only_step"](
-                        (state, checksum), generator)
-                elif loop == "full_loop_step":
-                    state = system["full_loop_step"](
-                        system["models"], state, generator)
-                else:
-                    m = many[loop.split()[-1]]
-                    m["state"], checksum = m["env_only_step"](
-                        (m["state"], checksum), m["generator"])
+                advance()
             torch.cuda.synchronize()
         device_ms = _device_ms(prof) / n
-        unit = "iteration" if loop == "training iteration" else "step"
-        print(f"profile {loop} ({n} {unit}s): device {device_ms:.4f} ms per "
-              f"{unit}, wall without the profiler {wall_ms[loop]:.4f} ms, "
-              f"device idle share {100 * (1 - device_ms / wall_ms[loop]):.1f}%"
-              f"; device time by kernel:")
+        print(f"profile {label} ({n} {unit}s): device {device_ms:.4f} ms per "
+              f"{unit}, wall without the profiler {wall_ms:.4f} ms, device "
+              f"idle share {100 * (1 - device_ms / wall_ms):.1f}%; device "
+              f"time by kernel:")
         print(prof.key_averages().table(sort_by="cuda_time_total",
                                         row_limit=25))
 
@@ -913,6 +983,8 @@ def main(argv=None) -> int:
     max_abs.update(_check_k4_k5())
     k6_k9_abs, knn_rolled = _check_k6_k9()
     max_abs.update(k6_k9_abs)
+    for name, value in _check_warp_scan().items():
+        max_abs[name] = max(max_abs[name], value)
     for algo in ("pallas_flat_exact", "pallas_onehot", "pallas_twolevel_exact",
                  "pallas_envlanes_exact"):
         _check_step_against_cpu(
@@ -984,13 +1056,30 @@ def main(argv=None) -> int:
     knn_loops, knn_launches = _drive_knn_loops(knn_rolled)
 
     if args.profile:
-        _profile(system, generator, trainer, many, {
-            "env_only_step": loops["env_only_step"]["ms_per_step"],
-            "full_loop_step": loops["full_loop_step"]["ms_per_step"],
-            "training iteration": roll_ms + upd_ms,
-            **{f"1024-agent {algo}": r["ms_per_step"]
-               for algo, r in many_loops.items()},
-        })
+        windows = [
+            (loop, _stepper(system, generator, loop), "step",
+             loops[loop]["ms_per_step"])
+            for loop in ("env_only_step", "full_loop_step")
+        ]
+        windows.append(("training iteration",
+                        lambda: trainer._iteration(trainer.current_timestep),
+                        "iteration", roll_ms + upd_ms))
+        windows += [
+            (f"1024-agent {algo}", _stepper(m, m["generator"],
+                                            "env_only_step"),
+             "step", many_loops[algo]["ms_per_step"])
+            for algo, m in many.items()
+        ]
+        windows.append(("pallas_flat env_only_step",
+                        _stepper(fast, fast_gen, "env_only_step"), "step",
+                        fast_loop["ms_per_step"]))
+        windows += [
+            (f"{loop} [{algo}]", _stepper(knn_rolled[algo][0],
+                                          knn_rolled[algo][1], loop),
+             "step", r["ms_per_step"])
+            for (algo, loop), r in knn_loops.items()
+        ]
+        _profile(windows)
 
     # 5. kernel vs plain and their times at the main paths' shapes
     many_args = _knn_args(many["pallas_flat_exact"]["env"],

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_knn_warp_order import near_tie_coords
 from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
 from warpdrive_tpu_torch.ops import knn_obs
 from warpdrive_tpu_torch.presets import build_flagship, build_many_agents
@@ -58,10 +59,13 @@ def _knn_args(N, k, E, seed, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("E,N,k", [(1024, 105, 10), (8, 1024, 10), (6, 15, 4),
-                                   (3, 40, 20), (2, 2000, 32)])
+                                   (3, 40, 20), (2, 2000, 32), (4, 33, 32),
+                                   (4, 64, 32), (4, 33, 1), (4, 64, 1),
+                                   (2, 1024, 32)])
 def test_knn_kernel_matches_plain_on_card(card, E, N, k):
-    """Bit for bit, including the K_MAX=32 instantiation and an N whose
-    staged inputs need more than 48 KB of shared memory."""
+    """Bit for bit, including a full warp of list (k = 32), k = 1, a
+    partial and a full last round of 32 candidates (N = 33, 64) and an N
+    whose staged inputs need more than 48 KB of shared memory."""
     args = _knn_args(N, k, E, seed=N, device=card)
     before = knn_obs.LAUNCH_COUNTS["knn_obs_flat_exact"]
     out = knn_obs.knn_observation(*args, n_agents=N, k=k)
@@ -151,11 +155,13 @@ _KERNEL_OF = {"flat": "knn_obs_flat", "flat_mxudist": "knn_obs_flat_mxudist",
 @pytest.mark.parametrize("variant", ["flat", "flat_mxudist",
                                      "flat_mxudist_exact"])
 @pytest.mark.parametrize("E,N,k", [(1024, 105, 10), (8, 1024, 10),
-                                   (6, 15, 4), (2, 2000, 32)])
+                                   (6, 15, 4), (2, 2000, 32), (4, 33, 32),
+                                   (4, 64, 32), (4, 33, 1), (4, 64, 1)])
 def test_v9_packed_and_mxu_distance_kernels_match_plain_on_card(card, variant,
                                                                 E, N, k):
-    """K3 and K4 bit for bit, including the K_MAX=32 instantiation and N
-    whose staging needs more than 48 KB of shared memory."""
+    """K3 and K4 bit for bit, including a full warp of list (k = 32), k = 1,
+    partial and full last rounds (N = 33, 64) and N whose staging needs
+    more than 48 KB of shared memory."""
     args = _knn_args(N, k, E, seed=N + 1, device=card)
     name = _KERNEL_OF[variant]
     before = knn_obs.LAUNCH_COUNTS[name]
@@ -171,7 +177,7 @@ def test_v9_packed_and_mxu_distance_kernels_match_plain_on_card(card, variant,
 @pytest.mark.parametrize("variant", ["tiled", "tiled_exact", "tiled_mxudist",
                                      "tiled_mxudist_exact"])
 @pytest.mark.parametrize("E,N,k", [(8, 1024, 10), (3, 300, 10), (3, 200, 6),
-                                   (8, 128, 16)])
+                                   (8, 128, 16), (4, 33, 16), (4, 64, 1)])
 def test_tiled_kernel_matches_plain_on_card(card, variant, E, N, k):
     args = _knn_args(N, k, E, seed=N + 2, device=card)
     before = knn_obs.LAUNCH_COUNTS["knn_obs_tiled"]
@@ -213,6 +219,66 @@ def test_flagship_packed_loop_launches_k3_once_per_step(card):
         state, checksum = system["env_only_step"]((state, checksum), gen)
     torch.cuda.synchronize()
     assert knn_obs.LAUNCH_COUNTS == dict(_NO_LAUNCHES, knn_obs_flat=3)
+
+
+_WARP_SCAN_KERNEL_OF = dict(_KERNEL_OF, flat_exact="knn_obs_flat_exact",
+                            envlanes="knn_obs_envlanes",
+                            envlanes_exact="knn_obs_envlanes")
+
+
+def _lattice_args(N, k, E, seed, device):
+    """Random inputs with the agents on an integer lattice: exact distance
+    ties everywhere."""
+    args = _knn_args(N, k, E, seed, device)
+    rng = np.random.RandomState(seed)
+    side = int(np.ceil(np.sqrt(N)))
+    cells = np.stack(np.meshgrid(np.arange(side), np.arange(side)),
+                     -1).reshape(-1, 2)
+    xy = np.stack([cells[rng.permutation(len(cells))[:N]] for _ in range(E)])
+    xy = torch.from_numpy(xy.astype(np.float32) * 1.5).to(device)
+    return (xy[..., 0].contiguous(), xy[..., 1].contiguous()) + args[2:]
+
+
+def _near_tie_args(device):
+    """One env of 15 live agents where agent 1 lies a few ulps farther from
+    observer 0 than agent 2: a tie under 7 packed index bits, not under the
+    4 that the v9 order packs at N = 15."""
+    x0, xa, xb = near_tie_coords()
+    args = _knn_args(15, 2, 1, seed=4, device=device)
+    loc_x, loc_y = args[0].clone(), args[1].clone()
+    loc_x[0, :3] = torch.tensor([x0, xa, xb])
+    loc_y[0, :3] = 10.0
+    loc_x[0, 3:] = torch.linspace(1.0, 19.0, 12)
+    loc_y[0, 3:] = 2.0
+    return (loc_x, loc_y, args[2], args[3], torch.ones_like(args[4]),
+            args[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(_WARP_SCAN_KERNEL_OF))
+@pytest.mark.parametrize("state", ["lattice", "near-tie"])
+def test_warp_scan_kernels_match_plain_on_ties_on_card(card, variant, state):
+    """K1, K3, K4, K5 and K9 bit for bit where the warp's k-list decides
+    ties: an exact-tie lattice at (8, 1024, 10), where an equal key must
+    enter behind the ones held, and the N = 15 near-tie, where the packed
+    orders take agent 2 first."""
+    if state == "lattice":
+        E, N, k = 8, 1024, 10
+        args = _lattice_args(N, k, E, seed=6, device=card)
+    else:
+        E, N, k = 1, 15, 2
+        args = _near_tie_args(card)
+    name = _WARP_SCAN_KERNEL_OF[variant]
+    before = knn_obs.LAUNCH_COUNTS[name]
+    out = knn_obs.knn_observation(*args, n_agents=N, k=k, variant=variant)
+    assert knn_obs.LAUNCH_COUNTS[name] == before + 1
+    plain = knn_obs.knn_observation_plain(*args, n_agents=N, k=k,
+                                          variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    if state == "near-tie" and "mxudist" not in variant:
+        assert float(out[0, 0, 0]) == float(args[2][0, 0, 2]
+                                            - args[2][0, 0, 0])
 
 
 _LADDER_KERNEL_OF = {"packed": "knn_obs_packed", "onehot": "knn_obs_onehot",
@@ -270,10 +336,12 @@ def test_ladder_kernels_refuse_their_limits_on_card(card):
 @pytest.mark.parametrize("variant", ["envlanes", "envlanes_exact"])
 @pytest.mark.parametrize("E,N,k", [(1024, 105, 10), (130, 15, 4),
                                    (3, 200, 6), (8, 1024, 10), (2, 70, 32),
-                                   (33, 9, 9)])
+                                   (33, 9, 9), (4, 33, 32), (4, 64, 32),
+                                   (4, 33, 1), (4, 64, 1), (2, 8192, 10)])
 def test_envlanes_kernel_matches_plain_on_card(card, variant, E, N, k):
-    """K9 bit for bit, with an env tail past a 32-env block (E = 130, 33),
-    candidate chunks past 64 agents and the K_MAX = 32 list."""
+    """K9 bit for bit: odd env counts (E = 130, 33), a full warp of list
+    (k = 32), k = 1, partial and full last rounds (N = 33, 64), and N =
+    8192, whose candidates take eight staged chunks of 1024."""
     args = _knn_args(N, k, E, seed=N + 4, device=card)
     before = knn_obs.LAUNCH_COUNTS["knn_obs_envlanes"]
     out = knn_obs.knn_observation(*args, n_agents=N, k=k, variant=variant)

@@ -1,12 +1,15 @@
 // Device code shared by the k-nearest-neighbour observation kernels
 // (knn_obs.cu, knn_obs_mxu.cu, knn_obs_tiled.cu, knn_obs_ladder.cu,
-// knn_obs_envlanes.cu): staging one env's inputs in shared memory, the two
-// squared-distance forms, the two selection keys, a register-resident
-// sorted list of the k best candidates, the emission of one observation
-// row, the multi-tile scan kernel that K1, K3, K4 and K5 instantiate, and
-// the common C signature of every entry point.  K2 uses the staging, the
-// keys and the list; K6-K8 (the ladder) the staging and the difference
-// form; K9 the difference form's rounding, the keys and the list.
+// knn_obs_envlanes.cu), and the common C signature of every entry point.
+// Which kernel uses what:
+//   K1, K3, K4, K5  the warp scan (scan_kernel: stage_env, DiffDist or
+//                   ExpansionDist, ExactKey or PackedKey, WarpList,
+//                   emit_warp_row over StagedFeature);
+//   K9              WarpList, the keys, diff_sq_dist and emit_warp_row,
+//                   over candidates it stages in chunks itself;
+//   K2              stage_env, DiffDist, the keys and the thread-per-
+//                   observer SortedList (select_and_emit, emit_row);
+//   K6-K8           stage_env and DiffDist.
 //
 // Contract (see warpdrive_tpu_torch/ops/knn_obs.py): inputs loc_x, loc_y
 // (E, N), feats (E, 5, N), types_f (N,), still_f (E, N), t_norm (E,), all
@@ -26,6 +29,7 @@
 
 #pragma once
 
+#include <algorithm>
 #include <climits>
 
 #include <cuda_bf16.h>
@@ -39,6 +43,10 @@ constexpr float kValidMax = 1e18f;  // candidates at d2 >= this are invalid
 constexpr int kTerms = 12;          // terms of the MXU distance expansion
 // the card's dynamic shared memory per block (227 KB)
 constexpr size_t kMaxSharedBytes = 232448;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kWarpLanes = 32;
+// the warp scan's k-list holds one entry a lane
+constexpr int kWarpListMax = kWarpLanes;
 
 // Everything a kNN kernel reads and writes.  amat, bmat and centred are
 // the MXU distance's operands (ExpansionDist only, else null): amat always,
@@ -63,7 +71,7 @@ struct KnnArgs {
 // Python wrapper makes one ctypes call for every kernel.  amat is the MXU
 // distance's candidate-side operand (K4, K5).  aux is the MXU distance's
 // observer-side operand -- bmat for K4, the centred coordinates for K5 --
-// or K9's envs-on-lanes planes; else null.
+// else null.
 #define KNN_ENTRY(name)                                                     \
   extern "C" int name(const float* loc_x, const float* loc_y,               \
                       const float* feats, const float* types_f,             \
@@ -142,6 +150,13 @@ __device__ __forceinline__ EnvTile stage_env(
 // The difference form d2 = (x_j - x_i)^2 + (y_j - y_i)^2 on raw float32
 // coordinates, every operation rounded on its own: no FMA contraction
 // moves a distance by an ulp and flips a near-tie.
+__device__ __forceinline__ float diff_sq_dist(float xj, float yj, float xi,
+                                              float yi) {
+  const float dx = __fsub_rn(xj, xi);
+  const float dy = __fsub_rn(yj, yi);
+  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+}
+
 struct DiffDist {
   static size_t extra_floats(int) { return 0; }
   __device__ static const float* stage(float*, const KnnArgs&, int, int) {
@@ -158,9 +173,7 @@ struct DiffDist {
       : x(t.x), y(t.y), xi(t.x[i]), yi(t.y[i]) {}
 
   __device__ __forceinline__ float operator()(int j) const {
-    const float dx = __fsub_rn(x[j], xi);
-    const float dy = __fsub_rn(y[j], yi);
-    return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+    return diff_sq_dist(x[j], y[j], xi, yi);
   }
 };
 
@@ -171,7 +184,9 @@ struct DiffDist {
 // +0).  Each product of two bf16 values is exact in float32, and the sum
 // runs in the fixed order t = 0..11 with __fadd_rn, as the plain version
 // sums it, so the two agree bit for bit on one device.  The candidates'
-// amat rows are staged in shared memory as float32 (48 B per agent); the
+// amat rows are staged in shared memory as float32 (48 B per agent; lanes
+// reading consecutive rows with float4 loads meet no bank conflict, since
+// each quarter warp's eight 16-byte pieces fall on distinct banks); the
 // observer's 12 terms sit in registers, where ObserverTerms::load(args, e,
 // i, b) puts them: read from bmat (v9 hoists them out of its kernel) or
 // formed from the centred coordinates (v7 forms them in its body).
@@ -217,7 +232,8 @@ struct ExpansionDist {
 // candidate is valid.
 
 // Exact order: the float d2 itself, lowest index first among equal d2 (the
-// sorted list's strict "<" and the ascending scan); valid iff d2 < 1e18.
+// lists keep an equal key behind the ones already held, and candidates
+// come in ascending j); valid iff d2 < 1e18.
 struct ExactKey {
   using Type = float;
   __device__ static Type sentinel() { return CUDART_INF_F; }
@@ -231,7 +247,7 @@ struct ExactKey {
 // packed index.  clear = ~(2^b - 1) with b = 7 for v3 (_CLEAR_MASK) and
 // b = bit_length(SUBn - 1) for v7/v9 (knn_obs.py:654, :810): distances
 // that differ only in their low b mantissa bits order by index.  Keys are
-// unique, so the list needs no tie rule; valid iff key < bits(1e18).
+// unique, so the lists need no tie rule; valid iff key < bits(1e18).
 struct PackedKey {
   using Type = int;
   int clear;
@@ -242,11 +258,251 @@ struct PackedKey {
   }
 };
 
-// The k smallest (key, index) pairs seen so far, ascending.  Candidates are
-// offered in ascending index and enter with a strict "<", so among equal
-// keys the lower index stays first.  Every array index is a compile-time
-// constant after unrolling, so the lists live in registers; only the first
-// k of the K_MAX entries are used.
+// ------------------------------------------------------- the warp's k-list
+// The k smallest (key, index) pairs offered so far to one warp, one entry a
+// lane: lane s < k holds the s-th smallest, ascending across the lanes.
+// Candidates are offered in rounds of 32, candidate base + l in lane l, in
+// ascending base.  A round takes one ballot of the lanes whose key beats
+// the list's k-th key (worst); those lanes then enter one at a time, the
+// lowest lane first, each checked again against the list as it stands.  An
+// entering key goes to position pos = the number of held keys <= it, and
+// the lanes from pos on shift up by one (__shfl_up_sync); since the lanes
+// are sorted, a lane finds itself at or past pos by comparing its own key
+// and its lower neighbour's, with no count across the warp.  So an equal
+// key stays behind the ones held: with ascending j, the lowest index wins
+// every tie, as a stable sort's does.  The lanes from k on hold what was
+// pushed out; their keys are >= worst, so they never move pos.  The first
+// round, into the empty list, is taken at once instead: a bitonic sort of
+// the 32 lanes by (key, index) leaves the list that its insertions one at
+// a time would leave.  Each lane counts its own valid candidates; finish()
+// sums the counts.
+template <typename Key>
+struct WarpList {
+  Key key;      // this lane's entry
+  int idx;
+  Key worst;    // lane k-1's key, the same in every lane
+  int n_valid;  // this lane's valid candidates; after finish(), the warp's
+
+  WarpList() = default;
+  __device__ __forceinline__ explicit WarpList(Key sentinel)
+      : key(sentinel), idx(0), worst(sentinel), n_valid(0) {}
+
+  // The first round, as offer() takes it, into an empty list: sorted
+  // across the lanes, ascending by (key, index), with __shfl_xor_sync.
+  __device__ __forceinline__ void first(bool valid, Key c, int base, int k,
+                                        int lane) {
+    n_valid += valid;
+    key = c;
+    idx = base + lane;
+#pragma unroll
+    for (int size = 2; size <= kWarpLanes; size <<= 1) {
+#pragma unroll
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        const Key other_key = __shfl_xor_sync(kFullMask, key, stride);
+        const int other_idx = __shfl_xor_sync(kFullMask, idx, stride);
+        const bool other_less =
+            other_key < key || (other_key == key && other_idx < idx);
+        // the lower lane of a pair in an ascending run keeps the smaller
+        const bool ascending = size == kWarpLanes || (lane & size) == 0;
+        const bool lower = (lane & stride) == 0;
+        if (other_less == (lower == ascending)) {
+          key = other_key;
+          idx = other_idx;
+        }
+      }
+    }
+    worst = __shfl_sync(kFullMask, key, k - 1);
+  }
+
+  // One round: lane l offers candidate base + l, whose key is c if it is
+  // valid and the sentinel if not.  Every lane of the warp calls it.
+  __device__ __forceinline__ void offer(bool valid, Key c, int base, int k,
+                                        int lane) {
+    n_valid += valid;
+    unsigned pass = __ballot_sync(kFullMask, c < worst);
+    while (pass != 0) {
+      const int src = __ffs(pass) - 1;
+      pass &= pass - 1;
+      const Key ck = __shfl_sync(kFullMask, c, src);
+      if (!(ck < worst)) continue;
+      const Key up_key = __shfl_up_sync(kFullMask, key, 1);
+      const int up_idx = __shfl_up_sync(kFullMask, idx, 1);
+      if (!(key <= ck)) {  // this lane is at or past pos
+        const bool at = lane == 0 || up_key <= ck;
+        key = at ? ck : up_key;
+        idx = at ? base + src : up_idx;
+      }
+      worst = __shfl_sync(kFullMask, key, k - 1);
+    }
+  }
+
+  // After the last round: n_valid becomes the warp's count.
+  __device__ __forceinline__ void finish() {
+    n_valid = __reduce_add_sync(kFullMask, n_valid);
+  }
+};
+
+// Feature c (0..4; 5 is the type) of agent j in the staged env.
+struct StagedFeature {
+  const float* f;
+  int n;
+  __device__ __forceinline__ float operator()(int c, int j) const {
+    return f[c * n + j];
+  }
+};
+
+// Observer i's row of 8k + 1 floats from its warp's list, written by the
+// whole warp with coalesced stores: lane l forms float f = 32p + l of the
+// row in pass p (slot f / 8, entry f % 8), taking the slot's index from
+// the list's lane by a shuffle, so each store covers 128 contiguous bytes.
+// t_end is t_norm[e] for a live observer and 0 for a dead one, whose list
+// is empty.
+template <typename Key, typename Feature>
+__device__ __forceinline__ void emit_warp_row(float* row,
+                                              const WarpList<Key>& list,
+                                              int k, float t_end,
+                                              const Feature& feature, int i,
+                                              int lane) {
+  const int row_len = 8 * k + 1;
+  for (int base = 0; base < row_len; base += kWarpLanes) {
+    const int f = base + lane;
+    const int s = f >> 3;
+    const int j = __shfl_sync(kFullMask, list.idx, s & (kWarpLanes - 1));
+    if (f < row_len) {
+      float v = 0.0f;
+      if (f == 8 * k) {
+        v = t_end;
+      } else if (s < list.n_valid) {
+        const int c = f & 7;
+        if (c < kChannels) {
+          const float fj = feature(c, j);
+          v = c < 5 ? __fsub_rn(fj, feature(c, i)) : fj;
+        } else {
+          v = 1.0f;
+        }
+      }
+      row[f] = v;
+    }
+  }
+}
+
+// --------------------------------------------------------------- the scan
+// The warp scan (K1, K3, K4, K5): the block stages one env's inputs (and
+// the distance's operands) in dynamic shared memory; each warp then takes
+// its observers one at a time, offers every candidate in rounds of 32
+// (lane l of round r takes j = 32r + l: consecutive shared-memory words,
+// free of bank conflicts) to a WarpList and writes the row with
+// emit_warp_row.  Blocks (e, y) of one env share its observers: warp w of
+// block y takes i = y * warps + w, then every gridDim.y * warps-th after.
+constexpr int kScanMaxWarps = 16;
+
+template <typename KeyOf, typename Dist>
+__global__ void __launch_bounds__(kScanMaxWarps* kWarpLanes)
+    scan_kernel(KnnArgs a, KeyOf key_of) {
+  using Key = typename KeyOf::Type;
+  extern __shared__ __align__(16) float knn_smem[];
+  const int e = blockIdx.x;
+  const int n = a.n;
+  const EnvTile t = stage_env(knn_smem, a.loc_x, a.loc_y, a.feats, a.types_f,
+                              a.still_f, e, n);
+  const float* staged = Dist::stage(knn_smem + env_floats(n), a, e, n);
+
+  const int lane = threadIdx.x % kWarpLanes;
+  const int warps = blockDim.x / kWarpLanes;
+  const int row_len = 8 * a.k + 1;
+  const float t_norm = a.t_norm[e];
+  const StagedFeature feature{t.f, n};
+  for (int i = blockIdx.y * warps + threadIdx.x / kWarpLanes; i < n;
+       i += gridDim.y * warps) {
+    WarpList<Key> list(KeyOf::sentinel());
+    const bool live = t.alive[i] != 0.0f;
+    if (live) {
+      const Dist dist(t, staged, a, e, i);
+      // candidate j's key, or the sentinel when it is not valid; a lane
+      // past the last agent reads agent n - 1, so that every load stays in
+      // the staging and none needs a branch
+      auto candidate = [&](int j, Key* c) {
+        const int jc = min(j, n - 1);
+        Key kc;
+        const bool valid = (j < n) & (j != i) & (t.alive[jc] != 0.0f) &
+                           key_of(dist(jc), jc, &kc);
+        *c = valid ? kc : KeyOf::sentinel();
+        return valid;
+      };
+      // two rounds a step, so that the second round's loads and distances
+      // overlap the first one's insertions
+      for (int base = 0; base < n; base += 2 * kWarpLanes) {
+        Key c0, c1;
+        const bool v0 = candidate(base + lane, &c0);
+        const bool v1 = candidate(base + kWarpLanes + lane, &c1);
+        if (base == 0) {
+          list.first(v0, c0, base, a.k, lane);
+        } else {
+          list.offer(v0, c0, base, a.k, lane);
+        }
+        list.offer(v1, c1, base + kWarpLanes, a.k, lane);
+      }
+    }
+    list.finish();
+    emit_warp_row(a.out + (static_cast<long long>(e) * n + i) * row_len, list,
+                  a.k, live ? t_norm : 0.0f, feature, i, lane);
+  }
+}
+
+// Dynamic shared memory of scan_kernel for n agents.
+template <typename Dist>
+size_t scan_smem_bytes(int n) {
+  return (static_cast<size_t>(env_floats(n)) + Dist::extra_floats(n)) *
+         sizeof(float);
+}
+
+// The card's multiprocessor count (132 on an H100 SXM), read once.
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        sms <= 0) {
+      sms = 132;
+    }
+  }
+  return sms;
+}
+
+// Launch scan_kernel over e envs.  A block has one warp for every 8
+// observers of its env, at most 16; an env gets enough blocks that the
+// grid holds at least 8 blocks an SM, but no more than leaves each warp
+// one observer.  Returns cudaErrorInvalidValue when the staging exceeds
+// the card's shared memory, else the launch's error.
+template <typename KeyOf, typename Dist>
+cudaError_t launch_scan(const KnnArgs& a, int e, KeyOf key_of,
+                        cudaStream_t stream) {
+  const int n = a.n;
+  const size_t smem = scan_smem_bytes<Dist>(n);
+  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        scan_kernel<KeyOf, Dist>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int warps = std::min(kScanMaxWarps, (n + 7) / 8);
+  const int fill = (8 * sm_count() + e - 1) / e;
+  const int most = (n + warps - 1) / warps;
+  const dim3 grid(e, std::max(1, std::min(fill, most)));
+  scan_kernel<KeyOf, Dist><<<grid, warps * kWarpLanes, smem, stream>>>(
+      a, key_of);
+  return cudaGetLastError();
+}
+
+// ------------------------------------- the thread-per-observer list (K2)
+// The k smallest (key, index) pairs seen so far, ascending, in one thread's
+// registers.  Candidates are offered in ascending index and enter with a
+// strict "<", so among equal keys the lower index stays first.  Every array
+// index is a compile-time constant after unrolling, so the lists live in
+// registers; only the first k of the K_MAX entries are used.
 template <int K_MAX, typename Key>
 struct SortedList {
   Key key[K_MAX];
@@ -341,58 +597,6 @@ __device__ __forceinline__ void select_and_emit(float* row, const EnvTile& t,
     list.insert(key, j, k);
   }
   emit_row(row, list, n_valid, k, t, i, t_norm);
-}
-
-// The multi-tile scan: one block per (env, tile of up to 128 observers),
-// one thread per observer.  The block stages its env's inputs (and the
-// distance's operands) in dynamic shared memory; each thread selects and
-// writes its own row.
-template <int K_MAX, typename KeyOf, typename Dist>
-__global__ void scan_kernel(KnnArgs a, KeyOf key_of) {
-  extern __shared__ __align__(16) float knn_smem[];
-  const int e = blockIdx.x;
-  const int n = a.n;
-  const EnvTile t = stage_env(knn_smem, a.loc_x, a.loc_y, a.feats, a.types_f,
-                              a.still_f, e, n);
-  const float* staged = Dist::stage(knn_smem + env_floats(n), a, e, n);
-
-  const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int row_len = 8 * a.k + 1;
-  float* row = a.out + (static_cast<long long>(e) * n + i) * row_len;
-  if (t.alive[i] == 0.0f) {
-    zero_row(row, row_len);
-    return;
-  }
-  const Dist dist(t, staged, a, e, i);
-  select_and_emit<K_MAX>(row, t, key_of, dist, i, a.k, a.t_norm[e]);
-}
-
-// Dynamic shared memory of scan_kernel for n agents.
-template <typename Dist>
-size_t scan_smem_bytes(int n) {
-  return (static_cast<size_t>(env_floats(n)) + Dist::extra_floats(n)) *
-         sizeof(float);
-}
-
-// Launch scan_kernel over e envs.  Returns cudaErrorInvalidValue when the
-// staging exceeds the card's shared memory, else the launch's error.
-template <int K_MAX, typename KeyOf, typename Dist>
-cudaError_t launch_scan(const KnnArgs& a, int e, KeyOf key_of,
-                        cudaStream_t stream) {
-  const int n = a.n;
-  const int threads = n >= 128 ? 128 : ((n + 31) / 32) * 32;
-  const dim3 grid(e, (n + threads - 1) / threads);
-  const size_t smem = scan_smem_bytes<Dist>(n);
-  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        scan_kernel<K_MAX, KeyOf, Dist>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  scan_kernel<K_MAX, KeyOf, Dist><<<grid, threads, smem, stream>>>(a, key_of);
-  return cudaGetLastError();
 }
 
 // b-bit packed key for b in [1, 22] covering every index below n, or an

@@ -48,23 +48,32 @@
 // than K1 on this card (the kernel itself runs all 12 multiplies).
 // The TPU runs the expansion on its matrix unit; a tensor-core form
 // (mma.sync / wgmma) sums in its own order, so kernel and plain would then
-// differ by near-tie swaps -- that is the later redesign.
+// differ by near-tie swaps -- that is a later redesign.  Beyond the bound,
+// what costs time is the selection: a candidate that enters the k best
+// pays a shift of the list, and at N = 1024 some 56 of an observer's
+// candidates enter when they come in random order.
 //
-// Design (correct first, simple): one block per (env, tile of up to 128
-// observers), one thread per observer.  The block stages its env's x, y,
-// alive flag and the six selectable channels in dynamic shared memory (36 B
-// per agent), and for K4 each candidate's 12 expansion terms as float32
-// (48 B more per agent: 86 KB at N = 1024, above the default 48 KB, so the
-// launch raises the limit; the wrapper refuses an N past the card's 227
-// KB).  Each thread scans the candidates in ascending j and keeps a sorted
-// list of (key, j) in registers; a candidate enters with a strict "<", so
-// among equal exact keys the lower index stays first -- the TPU ladder's
-// order (packed keys are unique).  The list holds K_MAX entries (16 or 32,
-// unrolled so it stays in registers); only its first k are emitted.  Every
-// d2 is formed with __fmul_rn / __fadd_rn (and the library is built with
-// -fmad=false), in the plain version's order, so kernel and plain agree bit
-// for bit.  Known cost left for later: each thread writes its own
-// (8k+1)-float row, so the output stores are uncoalesced.
+// Design: the warp scan of knn_common.cuh (scan_kernel), one warp per
+// observer.  The block stages its env's x, y, alive flag and six
+// selectable channels in dynamic shared memory (36 B per agent), and for
+// K4 each candidate's 12 expansion terms as float32 (48 B more per agent:
+// 86 KB at N = 1024, above the default 48 KB, so the launch raises the
+// limit; the wrapper refuses an N past the card's 227 KB).  A warp takes
+// the candidates 32 at a time, one a lane, so its shared-memory loads are
+// consecutive words.  The k best (key, j) sit one a lane (k <= 32).  The
+// first round is sorted across the lanes; in every later round a ballot
+// of the lanes whose key beats the k-th leaves few lanes, and those enter
+// one at a time, lowest lane first, by one __shfl_up_sync of the list --
+// no list array in registers or on the stack, and no shift for candidates
+// that do not enter.  An entering key goes behind every held key it
+// equals, so among equal exact keys the lower index stays first -- the TPU
+// ladder's order (packed keys are unique).  The warp then writes the
+// observer's 8k+1 floats together, 32 contiguous floats a store.  A block
+// has one warp for every 8 observers (at most 16); an env has as many
+// blocks as fill the card's SMs eight times over, at most one a warp's
+// observer.  Every d2 is formed with __fmul_rn / __fadd_rn (and the
+// library is built with -fmad=false), in the plain version's order, so
+// kernel and plain agree bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,7 +82,7 @@
 
 namespace {
 
-constexpr int kMaxK = 32;  // the largest K_MAX instantiation
+constexpr int kMaxK = knn::kWarpListMax;  // one list entry a lane
 
 // v9's observer-side MXU operand, hoisted out of the kernel: observer i's
 // column of bmat (E, 12, N).
@@ -91,20 +100,14 @@ struct BmatTerms {
 
 using BmatDist = knn::ExpansionDist<BmatTerms>;
 
-template <typename KeyOf, typename Dist>
-cudaError_t launch(const knn::KnnArgs& a, int e, KeyOf key_of,
-                   cudaStream_t stream) {
-  return a.k <= 16 ? knn::launch_scan<16, KeyOf, Dist>(a, e, key_of, stream)
-                   : knn::launch_scan<32, KeyOf, Dist>(a, e, key_of, stream);
-}
-
 template <typename Dist>
 cudaError_t launch_keyed(const knn::KnnArgs& a, int e, int packed_bits,
                          int clear, cudaStream_t stream) {
   return packed_bits == 0
-             ? launch<knn::ExactKey, Dist>(a, e, knn::ExactKey{}, stream)
-             : launch<knn::PackedKey, Dist>(a, e, knn::PackedKey{clear},
-                                            stream);
+             ? knn::launch_scan<knn::ExactKey, Dist>(a, e, knn::ExactKey{},
+                                                     stream)
+             : knn::launch_scan<knn::PackedKey, Dist>(
+                   a, e, knn::PackedKey{clear}, stream);
 }
 
 // The checks all three entry points share: the shape, and a packed bit

@@ -39,11 +39,13 @@
 // expansion, operations (19 flops a pair: 76 us for all pairs there, about
 // 28 us for the live pairs of a rolled state, just above the byte time).
 //
-// Design (correct first, simple): one block per (env, tile of up to 128
-// observers), one thread per observer, the env's inputs (and in MXU mode
-// the candidates' 12 expansion terms) staged in dynamic shared memory, a
-// register-resident sorted list of K_MAX = 16 entries with strict-"<"
-// insertion over an ascending scan, __fmul_rn / __fadd_rn distances in the
+// Design: the warp scan of knn_common.cuh (scan_kernel), as for K1, K3 and
+// K4 -- one warp per observer, the candidates 32 at a time across the
+// lanes, the k-list one entry a lane (the first round sorted, later ones
+// ballot-filtered and inserted in ascending j), and the row written by the
+// whole warp with coalesced stores
+// -- under this entry point, with CentredTerms as the observer side of the
+// MXU distance and v7's k <= 16.  __fmul_rn / __fadd_rn distances in the
 // plain version's order: bit for bit equal to the plain version.
 
 #include <cuda_bf16.h>
@@ -90,9 +92,9 @@ template <typename Dist>
 cudaError_t launch(const knn::KnnArgs& a, int e, int packed_bits, int clear,
                    cudaStream_t stream) {
   return packed_bits == 0
-             ? knn::launch_scan<kMaxK, knn::ExactKey, Dist>(
-                   a, e, knn::ExactKey{}, stream)
-             : knn::launch_scan<kMaxK, knn::PackedKey, Dist>(
+             ? knn::launch_scan<knn::ExactKey, Dist>(a, e, knn::ExactKey{},
+                                                     stream)
+             : knn::launch_scan<knn::PackedKey, Dist>(
                    a, e, knn::PackedKey{clear}, stream);
 }
 

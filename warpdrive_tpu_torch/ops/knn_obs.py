@@ -42,14 +42,16 @@ Each variant is a distance and an order:
 
 The limits of the single-tile kernels (``mxu``, ``packed``, ``onehot``,
 ``twolevel``) and of ``tiled`` are the TPU kernels' own and hold on every
-device; K1, K3, K4, K5 and K9 hold a sorted list of at most 32 entries,
-and K1, K3, K4 and K5 also refuse an N whose staged operands exceed the
-card's 227 KB of shared memory.  On a CUDA tensor the wrapper launches
-the variant's hand-written kernel or raises; each source's header gives
-its design and bound.  On a CPU tensor it runs the plain PyTorch version,
-:func:`knn_observation_plain`.  Unlike the TPU kernels, the port gathers
-exact float32 features (no bf16 hi/lo pairs) and emits the contract layout
-directly.
+device.  K1, K3, K4, K5 and K9 run one warp scan (``csrc/knn_common.cuh``):
+a warp takes an observer's candidates 32 at a time, one a lane, and holds
+its k-list one entry a lane, so they take k <= 32; K1, K3, K4 and K5 also
+refuse an N whose staged operands exceed the card's 227 KB of shared
+memory, while K9 stages candidates in chunks of 1024 and takes any N.  On
+a CUDA tensor the wrapper launches the variant's hand-written kernel or
+raises; each source's header gives its design and bound.  On a CPU tensor
+it runs the plain PyTorch version, :func:`knn_observation_plain`.  Unlike
+the TPU kernels, the port gathers exact float32 features (no bf16 hi/lo
+pairs) and emits the contract layout directly.
 
 ``LAUNCH_COUNTS`` counts kernel launches, one per call that launched it.
 """
@@ -154,7 +156,7 @@ _PORTED = {
     "envlanes_exact": "knn_obs_envlanes",
 }
 
-_K_LIMIT = 32  # the sorted-list kernels' largest K_MAX instantiation
+_K_LIMIT = 32  # the warp scan's k-list: one entry a lane of a warp
 # the TPU kernels' limits (warpdrive_tpu/ops/knn_obs.py:980, :1025, :1042,
 # :1314): the single-tile kernels take one 128-agent tile, and those with a
 # 16-row slot bookkeeping (v3, v6, v7) k <= 16
@@ -244,7 +246,9 @@ def check_kernel_limits(variant: str, n_agents: int, k: int):
         return
     if k > _K_LIMIT:
         raise ValueError(f"the kernel takes k <= {_K_LIMIT}, got k={k}")
-    if kernel == "knn_obs_envlanes":  # it stages candidates in chunks
+    if kernel == "knn_obs_envlanes":
+        # it stages 1024 candidates a pass and reads the winners' features
+        # from global memory, so shared memory sets no agent limit
         return
     need = staged_bytes(variant, n_agents)
     if need > _MAX_SHARED_BYTES:
@@ -343,11 +347,6 @@ def knn_observation(loc_x, loc_y, feats, types_f, still_f, t_norm,
         amat, bmat = expansion_operands(centred[:, 0], centred[:, 1],
                                         with_bmat=not tiled)
         aux = centred if tiled else bmat
-    elif name == "knn_obs_envlanes":
-        # envs on the fast axis, as the JAX wrapper's to_lanes lays them
-        # out before its kernel: (8, N, E) planes x, y, still, 5 features
-        aux = torch.cat([loc_x[:, None], loc_y[:, None], still_f[:, None],
-                         feats], dim=1).permute(1, 2, 0).contiguous()
     E, N = loc_x.shape
     out = torch.empty((E, N, 8 * k + 1), dtype=torch.float32,
                       device=loc_x.device)
