@@ -9,7 +9,9 @@ Phases, each of which raises (and so exits non-zero) on a failure:
 1. the card: name and power limit from ``nvidia-smi``, torch and CUDA
    versions, compute capability (must be 9.0, the kernels' ``sm_90a``);
 2. build every kernel in ``warpdrive_tpu_torch/csrc/`` with ``nvcc``, one
-   process per source, all started together;
+   process per source, all started together, and find HMMA (tensor-core)
+   instructions in both of K4's ``tile_kernel`` functions with
+   ``cuobjdump -sass``;
 3. hold each kernel against its plain PyTorch version on the card: K1
    (``knn_obs_flat_exact``) on random states and on a state rolled 100
    flagship steps (0 slot mismatches and a max abs diff <= 1e-6 required);
@@ -23,15 +25,22 @@ Phases, each of which raises (and so exits non-zero) on a failure:
    (``knn_obs_twolevel``, both modes) and K9 (``knn_obs_envlanes``, both
    modes) on random states, an exact-tie lattice, the packed-bits near-tie
    (7 bits for K6 and K8, 4 for K9 at N = 15) and the flagship rolled 100
-   steps with each of their names (K2-K9: 0 mismatches and max abs diff 0
-   required); the warp scan's ordering cases for K1, K3, K4, K5 and K9 in
-   every mode (an exact-tie lattice at (8, 1024, 10), k = 32 and k = 1,
-   partial and full last rounds at N = 33 and 64, k = 32 at N = 1024, the
-   N = 15 packed near-tie, and K9 at (2, 8192, 10), eight staged chunks
-   of candidates); then the CUDA step against the same step on the CPU
-   from the same states, for the flagship with ``pallas_flat_exact``,
-   ``pallas_onehot``, ``pallas_twolevel_exact`` and
-   ``pallas_envlanes_exact`` and for the 1024-agent configuration with
+   steps with each of their names (K2, K3 and K5-K9: 0 mismatches and max
+   abs diff 0 required); the warp scan's ordering cases for K1-K5 and K9
+   in every mode (an exact-tie lattice at (8, 1024, 10) -- (8, 128, 10)
+   for K2 --, k = 32 and k = 1, partial and full last rounds at N = 33 and
+   64, k = 32 at N = 1024, the N = 15 packed near-tie, and K9 at (2, 8192,
+   10), eight staged chunks of candidates).  From 1024 agents on K4 forms
+   its distance on the tensor cores, which sum in their own order, so it
+   is held to the swap class (``knn_obs.check_swap_class``: valid slots
+   and dead rows equal bit for bit, a slot that picks the plain version's
+   candidate equal bit for bit, one that picks another within the
+   near-tie window W and no candidate twice, and under 2e-3 of the
+   entries off by more than 8e-6 on the random and rolled states; each
+   case prints its swaps, share and max abs diff).  Then the CUDA step
+   against the same step on the CPU from the same states, for the flagship
+   with ``pallas_flat_exact``, ``pallas_onehot``, ``pallas_twolevel_exact``
+   and ``pallas_envlanes_exact`` and for the 1024-agent configuration with
    ``pallas_flat_exact``, ``pallas_tiled_exact``, ``pallas_envlanes_exact``
    (obs <= 1e-6) and ``pallas_flat_mxudist`` (under 2e-3 of the entries
    off by more than 8e-6: the CPU and the card centre on means summed in
@@ -63,10 +72,12 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       ``pallas_envlanes``: ``env_only_step``, 200 steps; each step must
       launch its name's kernel exactly once and no other;
 5. at the main paths' shapes -- (1024, 105, 10) for K1, K3, K6, K7, K8 in
-   both modes and K9 in both, (100, 110, 10) for K2, (256, 1024, 10) for
-   K1, K4 in both modes, K5 in its four and K9 exact -- hold each kernel
-   against its plain version once more (0 mismatches and max abs diff 0),
-   and time both beside the kernel's bound.
+   both modes, K9 in both, K2 and K4, (100, 110, 10) for K2, (256, 1024,
+   10) for K1, K4 in both modes, K5 in its four and K9 exact -- hold each
+   kernel against its plain version once more (0 mismatches and max abs
+   diff 0, or K4's swap class), and time both beside the kernel's bound:
+   the kernel back to back (21 x 50 calls) and by its own device time (the
+   profiler over 50 calls), and the launch floor (a one-element add).
 
 The last three lines are the card (``nvidia-smi``'s name and power limit),
 one JSON object with a record per kernel, and the result line
@@ -89,10 +100,15 @@ import tempfile
 import time
 from pathlib import Path
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s and float32 FLOP/s outside
-# the tensor cores
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, float32 FLOP/s outside
+# the tensor cores and bf16 FLOP/s on the tensor cores
 _PEAK_BYTES_PER_S = 3.35e12
 _PEAK_F32_FLOPS = 67e12
+_PEAK_BF16_FLOPS = 989e12
+# the device functions of the port's kNN kernels (csrc/*.cu), by which the
+# profiler's events are told from PyTorch's own
+_KERNEL_SYMBOLS = ("scan_kernel", "tile_kernel", "ladder_kernel",
+                   "envlanes_kernel")
 
 DEVICE = "cuda"
 NUM_ENVS = 1024
@@ -103,9 +119,14 @@ MAX_ABS_TOL = 1e-6
 # K2 and its plain version make the same float32 operations: bit for bit
 K2_MAX_ABS_TOL = 0.0
 K2_SHAPES = ((100, 110, 10), (1024, 105, 10), (8, 128, 16), (6, 15, 4))
-# K3, K4 and K5 make the same float32 operations as their plain versions
+# K3 and K5 make the same float32 operations as their plain versions; K4
+# sums its MXU distance on the tensor cores from 1024 agents on and is held
+# to the swap class (warpdrive_tpu_torch/ops/knn_obs.py:check_swap_class);
+# (4, 1057, 32) and (4, 1300, 1) give its tile a third chunk of 33 and of
+# 276 candidates, and (4, 1023, 10) is the largest N of its scalar form
 EXACT_TOL = 0.0
-K4_SHAPES = ((8, 1024, 10), (1024, 105, 10), (6, 15, 4))
+K4_SHAPES = ((8, 1024, 10), (1024, 105, 10), (6, 15, 4), (4, 1057, 32),
+             (4, 1300, 1), (4, 1023, 10))
 K5_SHAPES = ((8, 1024, 10), (3, 300, 10), (3, 200, 6), (8, 128, 16))
 MANY_AGENT_ENVS = 256
 MANY_AGENT_STEPS = 100
@@ -137,6 +158,7 @@ WARP_SCAN_CASES = (("lattice", 8, 1024, 10), ("random", 4, 33, 32),
                    ("random", 4, 64, 1), ("random", 2, 1024, 32))
 WARP_SCAN_VARIANTS = (
     ("knn_obs_flat_exact", ("flat_exact",)),
+    ("knn_obs_mxu", ("mxu", "mxu_exact")),
     ("knn_obs_flat", ("flat",)),
     ("knn_obs_flat_mxudist", ("flat_mxudist", "flat_mxudist_exact")),
     ("knn_obs_tiled", ("tiled", "tiled_exact", "tiled_mxudist",
@@ -144,11 +166,12 @@ WARP_SCAN_VARIANTS = (
     ("knn_obs_envlanes", ("envlanes", "envlanes_exact")),
 )
 K5_K_LIMIT = 16
+# K2's single tile (N <= 128, k <= 16), and its exact-tie lattice
+K2_AGENT_LIMIT = 128
+K2_K_LIMIT = 16
+K2_LATTICE = (8, 128, 10)
 # K9 at an N whose env would not fit a block whole: 8 chunks of 1024
 ENVLANES_LARGE = (2, 8192, 10)
-# the MXU-distance class between devices (tests/test_knn_obs_kernel.py)
-SWAP_ATOL = 8e-6
-SWAP_SHARE = 2e-3
 # the card's update against the CPU's on the same batch slice and state:
 # float32 GEMMs and reductions sum in other orders on the two devices
 # (relative gradient differences of about 1e-6), and Adam's normalized step
@@ -163,6 +186,28 @@ def _card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def _check_tile_sass():
+    """K4's tensor-core tile in the built library: ``cuobjdump -sass`` of
+    ``libknn_obs`` must show HMMA instructions in each ``tile_kernel``
+    function; prints each function's count and its first HMMA line."""
+    from warpdrive_tpu_torch.ops import cuda_build
+
+    cuobjdump = Path(cuda_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(cuda_build.library_path("knn_obs"))],
+        capture_output=True, text=True, timeout=120, check=True,
+    ).stdout
+    hmma, function = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            function = line.split("Function :")[1].strip()
+        elif function and "tile_kernel" in function and "HMMA" in line:
+            hmma.setdefault(function, []).append(line.strip())
+    assert len(hmma) == 2, f"HMMA in tile_kernel functions: {sorted(hmma)}"
+    for function, lines in sorted(hmma.items()):
+        print(f"SASS {function}: {len(lines)} HMMA, first: {lines[0]}")
 
 
 def _cuda_ms(fn, repeats: int, inner: int) -> float:
@@ -222,9 +267,18 @@ def _knn_args(env, state):
     )
 
 
+# K4's swap class over the cases where its share is bounded: the largest
+# share, and the largest gap of a swap as a share of W over every case
+_K4_SWAP = {"share": 0.0, "worst_gap_of_W": 0.0}
+
+
 def _compare_knn(label, args, n_agents, k, variant="flat_exact",
-                 tol=MAX_ABS_TOL):
-    """Kernel vs plain on the same inputs: (slot mismatches, max abs diff)."""
+                 tol=MAX_ABS_TOL, bound_share=True):
+    """Kernel vs plain on the same inputs.  Every kernel but K4: 0 slot
+    mismatches and a max abs diff <= ``tol``.  K4 (the ``flat_mxudist``
+    variants): the swap class of ``knn_obs.check_swap_class``, its share
+    bounded where ``bound_share``.  Returns the max abs diff over every
+    entry (for K4 a swapped slot's entries included)."""
     import torch
 
     from warpdrive_tpu_torch.ops import knn_obs
@@ -235,6 +289,23 @@ def _compare_knn(label, args, n_agents, k, variant="flat_exact",
                                           variant=variant)
     torch.cuda.synchronize()
     E, N = args[0].shape
+    finite = bool(torch.isfinite(out).all())
+    assert finite, f"{label}: non-finite kernel output"
+    if variant.startswith("flat_mxudist"):
+        report = knn_obs.check_swap_class(out, plain, args, k, variant,
+                                          bound_share=bound_share)
+        print(f"kernel vs plain [{variant}, {label}] E={E} N={N} k={k}: "
+              f"swap class held; {report['swaps']} of {report['slots']} "
+              f"valid slots pick another candidate (largest gap "
+              f"{report['worst_ratio']:.3g} of W), swap share "
+              f"{report['share']:.3g} ("
+              f"{'bounded' if bound_share else 'ties by construction, not bounded'}"
+              f"), max abs diff {report['max_abs']:.3g}, finite {finite}")
+        if bound_share:
+            _K4_SWAP["share"] = max(_K4_SWAP["share"], report["share"])
+        _K4_SWAP["worst_gap_of_W"] = max(_K4_SWAP["worst_gap_of_W"],
+                                         report["worst_ratio"])
+        return report["max_abs"]
     slots = out[..., :-1].reshape(E, N, k, 8)
     ref = plain[..., :-1].reshape(E, N, k, 8)
     mismatches = int((slots != ref).any(dim=-1).sum()) + int(
@@ -243,8 +314,7 @@ def _compare_knn(label, args, n_agents, k, variant="flat_exact",
     max_abs = float((out - plain).abs().max())
     print(f"kernel vs plain [{variant}, {label}] E={E} N={N} k={k}: "
           f"slot mismatches {mismatches} of {E * N * k}, max abs diff "
-          f"{max_abs:.3g}, finite {bool(torch.isfinite(out).all())}")
-    assert torch.isfinite(out).all(), f"{label}: non-finite kernel output"
+          f"{max_abs:.3g}, finite {finite}")
     assert mismatches == 0, f"{label}: {mismatches} slot mismatches"
     assert max_abs <= tol, f"{label}: max abs diff {max_abs}"
     return max_abs
@@ -317,9 +387,12 @@ def _check_step_against_cpu(gpu, cpu, label, steps=60, swap_class=False):
     step (plain observation) from the same states, along a CUDA rollout of
     ``steps`` steps with numpy-drawn actions; ``gpu`` and ``cpu`` are one
     system built on each device.  Observations agree to 1e-6, or with
-    ``swap_class`` in all but a share below 2e-3 of their entries."""
+    ``swap_class`` in all but a share below 2e-3 of their entries (the
+    MXU-distance class between devices, ``tests/test_knn_obs_kernel.py``)."""
     import numpy as np
     import torch
+
+    from warpdrive_tpu_torch.ops.knn_obs import SWAP_ATOL, SWAP_SHARE
 
     eg, ec = gpu["engine"], cpu["engine"]
     E = eg.n_envs
@@ -520,13 +593,15 @@ def _check_k6_k9():
 
 
 def _check_warp_scan():
-    """The warp scan (K1, K3, K4, K5 and K9) vs plain in every mode on the
-    cases that exercise its k-list: ``WARP_SCAN_CASES`` (K5 at k <= 16),
-    the N = 15 packed near-tie, and K9 at ``ENVLANES_LARGE``.  Returns
-    each kernel's largest abs diff."""
+    """The warp scan (K1-K5 and K9) vs plain in every mode on the cases
+    that exercise its k-list: ``WARP_SCAN_CASES`` (K5 and K2 at k <= 16,
+    K2 at N <= 128 and on its own lattice ``K2_LATTICE``), the N = 15
+    packed near-tie, and K9 at ``ENVLANES_LARGE``; K4 by its swap class,
+    whose share is bounded on the random states only.  Returns each
+    kernel's largest abs diff."""
     max_abs = {}
     cases = []
-    for state, E, N, k in WARP_SCAN_CASES:
+    for state, E, N, k in WARP_SCAN_CASES + (("lattice",) + K2_LATTICE,):
         make = (_lattice_knn_inputs if state == "lattice"
                 else _random_knn_inputs)
         cases.append((state,) + make(E, N, k, seed=N + k + 11,
@@ -535,11 +610,18 @@ def _check_warp_scan():
     for kernel, variants in WARP_SCAN_VARIANTS:
         tol = MAX_ABS_TOL if kernel == "knn_obs_flat_exact" else EXACT_TOL
         for label, args, n, k in cases:
+            if kernel == "knn_obs_mxu":
+                if n > K2_AGENT_LIMIT:
+                    continue
+                k = min(k, K2_K_LIMIT)
+            elif (label, args[0].shape[0], n, k) == ("lattice",) + K2_LATTICE:
+                continue  # K2's lattice
             if kernel == "knn_obs_tiled":
                 k = min(k, K5_K_LIMIT)
             for variant in variants:
                 max_abs[kernel] = max(max_abs.get(kernel, 0.0), _compare_knn(
-                    label, args, n, k, variant, tol=tol))
+                    label, args, n, k, variant, tol=tol,
+                    bound_share=label == "random"))
     E, N, k = ENVLANES_LARGE
     args, n, kk = _random_knn_inputs(E, N, k, seed=N, device=DEVICE)
     for variant in ("envlanes", "envlanes_exact"):
@@ -814,19 +896,68 @@ def _update_card_vs_cpu(trainer):
     return worst
 
 
-def _knn_bound_ms(E, N, k, d2_pairs, flops_per_pair=5):
+def _knn_bound_ms(E, N, k, d2_pairs, mxu_distance=False):
     """Least time for the kNN function on the card: each input read once and
     the output written once at the HBM rate, or the distance arithmetic at
-    the float32 rate, whichever is larger.  A pair costs 5 flops in the
-    difference form (2 sub, 2 mul, 1 add) and 19 in the scalar MXU
-    expansion: 8 mul and 11 add, since its terms 8-11 multiply by the
-    constant 1 and need only the adds."""
+    its peak rate, whichever is larger.  A pair costs 5 float32 flops in
+    the difference form (2 sub, 2 mul, 1 add) at 67 TFLOP/s, and in the MXU
+    expansion 12 bf16 multiply-adds, 24 flops, at the tensor cores' 989
+    TFLOP/s: the same work whatever implements it, K5's scalar form
+    included."""
     bytes_in = 4 * (3 * E * N + 5 * E * N + N + E)
     bytes_out = 4 * E * N * (8 * k + 1)
     t_bytes = (bytes_in + bytes_out) / _PEAK_BYTES_PER_S
-    t_ops = flops_per_pair * d2_pairs / _PEAK_F32_FLOPS
+    t_ops = (24 * d2_pairs / _PEAK_BF16_FLOPS if mxu_distance
+             else 5 * d2_pairs / _PEAK_F32_FLOPS)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     return 1e3 * max(t_bytes, t_ops), bound_by, bytes_in + bytes_out
+
+
+def _kernel_device_ms(fn, calls=50):
+    """The device time a call of ``fn`` spends in the port's kNN kernel
+    (``_KERNEL_SYMBOLS``; one launch a call), by ``torch.profiler`` over
+    ``calls`` back-to-back calls: the kernel's own time, without the host's
+    call rate."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and any(name in e.key for name in _KERNEL_SYMBOLS)]
+    # the profiler may drop an event of a long run of short launches, so
+    # the time a launch is over the launches it recorded
+    launches = sum(e.count for e in events)
+    assert 0 < launches <= calls, f"profiled {launches} kernel launches"
+    return sum(e.self_device_time_total for e in events) / 1e3 / launches
+
+
+def _launch_floor():
+    """The launch latency floor: a one-element add, back to back (median of
+    21 x 50) and by its device time (profiler, 50 launches)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1, device=DEVICE)
+    back_to_back = _cuda_ms(lambda: x.add_(1.0), repeats=21, inner=50)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3 / 50
+    print(f"launch floor (a one-element add): back to back {back_to_back:.5f}"
+          f" ms, device {device:.5f} ms a launch")
+    return back_to_back, device
 
 
 def _device_ms(prof) -> float:
@@ -861,9 +992,10 @@ def _profile(windows, steps=10):
     ``windows`` -- (label, advance, unit, wall ms per unit): ``steps``
     calls of ``advance``, or one for a training iteration -- with the device
     ms per unit beside the wall ms per unit of the same work measured
-    without the profiler (the profiler slows the host) and the device's
-    idle share, 1 - device / wall."""
+    without the profiler (the profiler slows the host), the device's idle
+    share, 1 - device / wall, and the kNN kernel's device time a launch."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for label, advance, unit, wall_ms in windows:
@@ -875,31 +1007,41 @@ def _profile(windows, steps=10):
                 advance()
             torch.cuda.synchronize()
         device_ms = _device_ms(prof) / n
+        knn = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and any(name in e.key for name in _KERNEL_SYMBOLS)]
+        launches = sum(e.count for e in knn)
+        knn_ms = sum(e.self_device_time_total for e in knn) / 1e3
         print(f"profile {label} ({n} {unit}s): device {device_ms:.4f} ms per "
               f"{unit}, wall without the profiler {wall_ms:.4f} ms, device "
-              f"idle share {100 * (1 - device_ms / wall_ms):.1f}%; device "
-              f"time by kernel:")
+              f"idle share {100 * (1 - device_ms / wall_ms):.1f}%; the kNN "
+              f"kernel {knn_ms / max(launches, 1):.5f} ms a launch over "
+              f"{launches} launches; device time by kernel:")
         print(prof.key_averages().table(sort_by="cuda_time_total",
                                         row_limit=25))
 
 
 def _time_knn(name, args, n_agents, k, variant, label, plain_repeats=11,
               plain_inner=5):
-    """Kernel vs plain on one input (0 mismatches, max abs diff 0), then
-    their times there (median of 21 x 50 back-to-back launches, so the
-    inputs stay in L2; plain ``plain_repeats`` x ``plain_inner``), beside
-    the bound."""
+    """Kernel vs plain on one input (``_compare_knn``: bit for bit, or K4's
+    swap class), then their times there: the kernel's median of 21 x 50
+    back-to-back wrapper calls (the inputs stay in L2), which at a small
+    shape is the host's call rate, and its own device time a launch
+    (``_kernel_device_ms``); plain ``plain_repeats`` x ``plain_inner``;
+    beside the bound."""
     import torch
 
     from warpdrive_tpu_torch.ops import knn_obs
 
     max_abs = _compare_knn(label, args, n_agents, k, variant, tol=EXACT_TOL)
     E, N = args[0].shape
-    kernel_ms = _cuda_ms(
-        lambda: knn_obs.knn_observation(*args, n_agents=n_agents, k=k,
-                                        variant=variant),
-        repeats=21, inner=50,
-    )
+
+    def call():
+        knn_obs.knn_observation(*args, n_agents=n_agents, k=k,
+                                variant=variant)
+
+    kernel_ms = _cuda_ms(call, repeats=21, inner=50)
+    device_ms = _kernel_device_ms(call)
     plain_ms = _cuda_ms(
         lambda: knn_obs.knn_observation_plain(*args, n_agents=n_agents, k=k,
                                               variant=variant),
@@ -908,13 +1050,14 @@ def _time_knn(name, args, n_agents, k, variant, label, plain_repeats=11,
     alive = (args[4] >= 0.5).sum(dim=1).to(torch.float64)
     d2_pairs = float((alive * (alive - 1)).sum())  # pairs of live agents
     bound_ms, bound_by, nbytes = _knn_bound_ms(
-        E, N, k, d2_pairs, flops_per_pair=19 if "mxudist" in variant else 5)
+        E, N, k, d2_pairs, mxu_distance="mxudist" in variant)
     print(f"{name} [{variant}, {label}] at E={E} N={N} k={k}: kernel "
-          f"{kernel_ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, {d2_pairs:.0f} "
-          f"live pairs); {100 * bound_ms / kernel_ms:.1f}% of bound")
-    return {"max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+          f"{kernel_ms:.5f} ms back to back, {device_ms:.5f} ms device, "
+          f"plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{nbytes} bytes, {d2_pairs:.0f} live pairs); "
+          f"{100 * bound_ms / device_ms:.1f}% of bound")
+    return {"max_abs_err": max_abs, "ms": kernel_ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def main(argv=None) -> int:
@@ -952,6 +1095,7 @@ def main(argv=None) -> int:
             if any(w in line for w in ("entry function", "registers",
                                         "spill")):
                 print(f"  {name}: {line.strip()}")
+    _check_tile_sass()
 
     # 3. kernels vs plain, and the CUDA step vs the CPU step
     max_abs = {"knn_obs_flat_exact": 0.0}
@@ -1132,6 +1276,9 @@ def main(argv=None) -> int:
         ("knn_obs_flat_mxudist", _time_knn(
             "knn_obs_flat_mxudist", *many_args, "flat_mxudist_exact",
             many_label, **big)),
+        ("knn_obs_flat_mxudist", _time_knn(
+            "knn_obs_flat_mxudist", rolled_args, n, kk, "flat_mxudist",
+            "flagship state")),
         ("knn_obs_tiled", _time_knn("knn_obs_tiled", *many_args,
                                     "tiled_mxudist", many_label, **big)),
         ("knn_obs_twolevel", _time_knn(
@@ -1143,6 +1290,7 @@ def main(argv=None) -> int:
     ]
     for name, r in [*timed.items(), *at_1024.items(), *others]:
         max_abs[name] = max(max_abs[name], r["max_abs_err"])
+    _launch_floor()  # what K2's training-shape times compare with
     for variant in ("tiled", "tiled_mxudist_exact"):  # K5's other modes
         max_abs["knn_obs_tiled"] = max(max_abs["knn_obs_tiled"], _compare_knn(
             many_label, *many_args, variant, tol=EXACT_TOL))
@@ -1184,9 +1332,13 @@ def main(argv=None) -> int:
             "launches": all_launches[name],
             "max_abs_err": max_abs[name],
             **{key: timed[name][key]
-               for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+               for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                           "bound_by")},
             "library_ms": None,
         })
+        if name == "knn_obs_flat_mxudist":
+            kernels[-1]["swap_share"] = _K4_SWAP["share"]
+            kernels[-1]["swap_worst_gap_of_W"] = _K4_SWAP["worst_gap_of_W"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each kernel against its plain PyTorch
-version, the flagship loops launching K1 (K3 with ``pallas_flat``, K6-K9
-with their names) once per step, the 1024-agent loops launching K1, K4, K5
-or K9 once per step, and the training rollout launching K2 once per step.
+version (bit for bit, or for K4 by its swap class), the flagship loops
+launching K1 (K3 with ``pallas_flat``, K6-K9 with their names) once per
+step, the 1024-agent loops launching K1, K4, K5 or K9 once per step, and
+the training rollout launching K2 once per step.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The file imports no JAX,
 so on a machine with a card and no JAX it runs without the repo's
@@ -55,6 +56,16 @@ def _knn_args(N, k, E, seed, device):
     feats, still_f, t_norm = env._knn_inputs(state)
     return (state["loc_x"], state["loc_y"], feats,
             env._consts(device)["types_f"], still_f, t_norm)
+
+
+def _assert_matches_plain(out, plain, args, k, variant, bound_share=True):
+    """Bit for bit, or for K4 (``flat_mxudist[_exact]``) the swap class,
+    its share bounded where ``bound_share``."""
+    if variant.startswith("flat_mxudist"):
+        knn_obs.check_swap_class(out, plain, args, k, variant,
+                                 bound_share=bound_share)
+    else:
+        assert torch.equal(out, plain)
 
 
 @pytest.mark.cuda
@@ -156,12 +167,18 @@ _KERNEL_OF = {"flat": "knn_obs_flat", "flat_mxudist": "knn_obs_flat_mxudist",
                                      "flat_mxudist_exact"])
 @pytest.mark.parametrize("E,N,k", [(1024, 105, 10), (8, 1024, 10),
                                    (6, 15, 4), (2, 2000, 32), (4, 33, 32),
-                                   (4, 64, 32), (4, 33, 1), (4, 64, 1)])
+                                   (4, 64, 32), (4, 33, 1), (4, 64, 1),
+                                   (4, 1023, 10), (4, 1057, 32),
+                                   (4, 1300, 1)])
 def test_v9_packed_and_mxu_distance_kernels_match_plain_on_card(card, variant,
                                                                 E, N, k):
-    """K3 and K4 bit for bit, including a full warp of list (k = 32), k = 1,
-    partial and full last rounds (N = 33, 64) and N whose staging needs
-    more than 48 KB of shared memory."""
+    """K3 bit for bit and K4 by its swap class (from 1024 agents on its
+    tensor cores sum the MXU distance in their own order:
+    ``knn_obs.check_swap_class``), including a full warp of list (k = 32),
+    k = 1, partial and full last rounds (N = 33, 64), K4's scalar form at
+    its largest N (1023), its tile with a third chunk of 33 (N = 1057) and
+    of 276 candidates (N = 1300), and N whose staging needs more than 48
+    KB of shared memory."""
     args = _knn_args(N, k, E, seed=N + 1, device=card)
     name = _KERNEL_OF[variant]
     before = knn_obs.LAUNCH_COUNTS[name]
@@ -170,7 +187,7 @@ def test_v9_packed_and_mxu_distance_kernels_match_plain_on_card(card, variant,
     plain = knn_obs.knn_observation_plain(*args, n_agents=N, k=k,
                                           variant=variant)
     torch.cuda.synchronize()
-    assert torch.equal(out, plain)
+    _assert_matches_plain(out, plain, args, k, variant)
 
 
 @pytest.mark.cuda
@@ -223,7 +240,8 @@ def test_flagship_packed_loop_launches_k3_once_per_step(card):
 
 _WARP_SCAN_KERNEL_OF = dict(_KERNEL_OF, flat_exact="knn_obs_flat_exact",
                             envlanes="knn_obs_envlanes",
-                            envlanes_exact="knn_obs_envlanes")
+                            envlanes_exact="knn_obs_envlanes",
+                            mxu="knn_obs_mxu", mxu_exact="knn_obs_mxu")
 
 
 def _lattice_args(N, k, E, seed, device):
@@ -258,12 +276,15 @@ def _near_tie_args(device):
 @pytest.mark.parametrize("variant", sorted(_WARP_SCAN_KERNEL_OF))
 @pytest.mark.parametrize("state", ["lattice", "near-tie"])
 def test_warp_scan_kernels_match_plain_on_ties_on_card(card, variant, state):
-    """K1, K3, K4, K5 and K9 bit for bit where the warp's k-list decides
-    ties: an exact-tie lattice at (8, 1024, 10), where an equal key must
-    enter behind the ones held, and the N = 15 near-tie, where the packed
-    orders take agent 2 first."""
+    """K1, K2, K3, K5 and K9 bit for bit, and K4 by its swap class (its
+    share reported, not bounded: these are ties by construction), where
+    the warp's k-list decides ties: an exact-tie lattice at (8, 1024, 10)
+    -- (8, 128, 10) for K2, a single 128-agent tile -- where an equal key
+    must enter behind the ones held, and the N = 15 near-tie, where the
+    packed orders of 4 bits take agent 2 first and K2's of 7 agent 1."""
     if state == "lattice":
-        E, N, k = 8, 1024, 10
+        E, N, k = (8, 128, 10) if variant.startswith("mxu") else (8, 1024,
+                                                                  10)
         args = _lattice_args(N, k, E, seed=6, device=card)
     else:
         E, N, k = 1, 15, 2
@@ -275,9 +296,10 @@ def test_warp_scan_kernels_match_plain_on_ties_on_card(card, variant, state):
     plain = knn_obs.knn_observation_plain(*args, n_agents=N, k=k,
                                           variant=variant)
     torch.cuda.synchronize()
-    assert torch.equal(out, plain)
+    _assert_matches_plain(out, plain, args, k, variant, bound_share=False)
     if state == "near-tie" and "mxudist" not in variant:
-        assert float(out[0, 0, 0]) == float(args[2][0, 0, 2]
+        first = 1 if knn_obs.packed_bits(variant, N) == 7 else 2
+        assert float(out[0, 0, 0]) == float(args[2][0, 0, first]
                                             - args[2][0, 0, 0])
 
 

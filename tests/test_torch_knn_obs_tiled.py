@@ -60,10 +60,10 @@ def test_kernel_limits_refuse_what_the_card_cannot_stage():
     the card's 232,448 B a block; the flat kernels' sorted list holds 32."""
     assert knn_obs.staged_bytes("flat_exact", 1024) == 36 * 1024
     assert knn_obs.staged_bytes("tiled_mxudist", 1024) == 84 * 1024
-    knn_obs.check_kernel_limits("flat_mxudist", 2767, 10)
+    knn_obs.check_kernel_limits("flat_mxudist", 4960, 10)
     knn_obs.check_kernel_limits("tiled_exact", 6456, 16)
     with pytest.raises(ValueError, match="shared memory"):
-        knn_obs.check_kernel_limits("flat_mxudist_exact", 2768, 10)
+        knn_obs.check_kernel_limits("flat_mxudist_exact", 4961, 10)
     with pytest.raises(ValueError, match="shared memory"):
         knn_obs.check_kernel_limits("tiled", 6457, 10)
     with pytest.raises(ValueError, match="k <= 32"):

@@ -1,6 +1,6 @@
 """A numpy model of the warp scan's lane-held k-list (``WarpList`` in
-``warpdrive_tpu_torch/csrc/knn_common.cuh``), the selection of K1, K3, K4,
-K5 and K9 on the card, held against the order of ``knn_observation_plain``.
+``warpdrive_tpu_torch/csrc/knn_common.cuh``), the selection of K1-K5 and
+K9 on the card, held against the order of ``knn_observation_plain``.
 
 The model does what a warp does for one observer, for every observer at
 once: candidates come in rounds of 32, candidate ``base + l`` in lane l; a
@@ -14,7 +14,9 @@ index); a test here holds that sort to the insertions it stands for.  The
 rows built from the model's lists must equal the plain version's bit for
 bit, in the exact and the packed order, on random states, exact-distance
 lattice ties, the N = 15 packed near-tie, partial and full last rounds (N
-= 33, 64) and N = 1024, with k = 1, 10 and 32.  The CUDA kernels are held
+= 33, 64) and N = 1024, with k = 1, 10 and 32; and at K2's limits (N <=
+128, k <= 16, a lattice at N = 128) in its exact order and its 7-bit
+packed one.  The CUDA kernels are held
 against the same plain version on the card (``chip_smoke.py``,
 ``tests/test_torch_cuda_kernels.py``).
 """
@@ -187,6 +189,24 @@ CASES = [
                          ids=[f"{s}-E{E}-N{N}-k{k}" for s, E, N, k in CASES])
 def test_warp_list_rows_equal_the_plain_order(state, E, N, k, variant):
     inputs = _inputs(E, N, seed=N + k, state=state)
+    key, valid = _keys(inputs, variant)
+    lidx, n_valid, _ = warp_list(key.reshape(E * N, N),
+                                 valid.reshape(E * N, N), k)
+    np.testing.assert_array_equal(_rows_of(inputs, lidx, n_valid, k),
+                                  _plain(inputs, k, variant))
+
+
+K2_CASES = [c for c in CASES if c[2] <= 128 and c[3] <= 16] + [
+    ("lattice", 8, 128, 10)]
+
+
+@pytest.mark.parametrize("variant", ["mxu_exact", "mxu"])
+@pytest.mark.parametrize("state,E,N,k", K2_CASES,
+                         ids=[f"{s}-E{E}-N{N}-k{k}" for s, E, N, k in K2_CASES])
+def test_warp_list_rows_equal_the_plain_order_at_k2_limits(state, E, N, k,
+                                                           variant):
+    """K2 on the warp scan: the exact order and v3's 7-bit packed key."""
+    inputs = _inputs(E, N, seed=N + k + 1, state=state)
     key, valid = _keys(inputs, variant)
     lidx, n_valid, _ = warp_list(key.reshape(E * N, N),
                                  valid.reshape(E * N, N), k)

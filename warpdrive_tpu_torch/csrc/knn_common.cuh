@@ -2,13 +2,17 @@
 // (knn_obs.cu, knn_obs_mxu.cu, knn_obs_tiled.cu, knn_obs_ladder.cu,
 // knn_obs_envlanes.cu), and the common C signature of every entry point.
 // Which kernel uses what:
-//   K1, K3, K4, K5  the warp scan (scan_kernel: stage_env, DiffDist or
-//                   ExpansionDist, ExactKey or PackedKey, WarpList,
-//                   emit_warp_row over StagedFeature);
+//   K1, K2, K3, K5  the warp scan (scan_kernel: stage_env, DiffDist or,
+//                   for K5's MXU modes, ExpansionDist; ExactKey or
+//                   PackedKey; WarpList; emit_warp_row over StagedFeature);
+//   K4              from 1024 agents on, the warp scan over a tensor-core
+//                   tile (tile_kernel: the bf16 candidate terms, WMMA
+//                   products of a group of 16 observers' distances into
+//                   shared memory, then scan_observer, WarpList and
+//                   emit_warp_row over GlobalFeature for each observer's
+//                   row); below, scan_kernel with ExpansionDist;
 //   K9              WarpList, the keys, diff_sq_dist and emit_warp_row,
 //                   over candidates it stages in chunks itself;
-//   K2              stage_env, DiffDist, the keys and the thread-per-
-//                   observer SortedList (select_and_emit, emit_row);
 //   K6-K8           stage_env and DiffDist.
 //
 // Contract (see warpdrive_tpu_torch/ops/knn_obs.py): inputs loc_x, loc_y
@@ -35,6 +39,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <mma.h>
 
 namespace knn {
 
@@ -49,9 +54,10 @@ constexpr int kWarpLanes = 32;
 constexpr int kWarpListMax = kWarpLanes;
 
 // Everything a kNN kernel reads and writes.  amat, bmat and centred are
-// the MXU distance's operands (ExpansionDist only, else null): amat always,
-// and the observer side either as bmat (v9, K4) or as the centred
-// coordinates it is formed from in the kernel (v7, K5).
+// the MXU distance's operands (tile_kernel and ExpansionDist only, else
+// null): amat always, and the observer side either as bmat (v9, K4's
+// tile_kernel) or as the centred coordinates it is formed from in the
+// kernel (v7, K5's ExpansionDist).
 struct KnnArgs {
   const float* loc_x;
   const float* loc_y;
@@ -177,19 +183,21 @@ struct DiffDist {
   }
 };
 
-// The TPU's MXU distance (warpdrive_tpu/ops/knn_obs.py:1176-1205): on
-// per-env centred coordinates, d2 = sum over t of amat[j, t] * bmat[t, i],
-// the 12-term bf16 hi/lo expansion of |p_j|^2 + |p_i|^2 - 2 p_j.p_i, then
-// max(d2, 0) + 0.0 (the v9 kernel's mask add, which also turns a -0 into
-// +0).  Each product of two bf16 values is exact in float32, and the sum
-// runs in the fixed order t = 0..11 with __fadd_rn, as the plain version
-// sums it, so the two agree bit for bit on one device.  The candidates'
-// amat rows are staged in shared memory as float32 (48 B per agent; lanes
-// reading consecutive rows with float4 loads meet no bank conflict, since
-// each quarter warp's eight 16-byte pieces fall on distinct banks); the
-// observer's 12 terms sit in registers, where ObserverTerms::load(args, e,
-// i, b) puts them: read from bmat (v9 hoists them out of its kernel) or
-// formed from the centred coordinates (v7 forms them in its body).
+// The TPU's MXU distance (warpdrive_tpu/ops/knn_obs.py:1176-1205) on the
+// CUDA cores, for K5's MXU modes and for K4 below 1024 agents (K4 forms it
+// on the tensor cores from there on: tile_kernel below): on per-env
+// centred coordinates, d2 = sum over t of
+// amat[j, t] * bmat[t, i], the 12-term bf16 hi/lo expansion of |p_j|^2 +
+// |p_i|^2 - 2 p_j.p_i, then max(d2, 0) + 0.0 (the v9 kernel's mask add,
+// which also turns a -0 into +0).  Each product of two bf16 values is exact
+// in float32, and the sum runs in the fixed order t = 0..11 with __fadd_rn,
+// as the plain version sums it, so the two agree bit for bit on one device.
+// The candidates' amat rows are staged in shared memory as float32 (48 B
+// per agent; lanes reading consecutive rows with float4 loads meet no bank
+// conflict, since each quarter warp's eight 16-byte pieces fall on
+// distinct banks); the observer's 12 terms sit in registers, where
+// ObserverTerms::load(args, e, i, b) puts them: formed from the centred
+// coordinates, as v7 forms them in its body.
 template <typename ObserverTerms>
 struct ExpansionDist {
   static size_t extra_floats(int n) {
@@ -387,7 +395,7 @@ __device__ __forceinline__ void emit_warp_row(float* row,
 }
 
 // --------------------------------------------------------------- the scan
-// The warp scan (K1, K3, K4, K5): the block stages one env's inputs (and
+// The warp scan (K1, K2, K3, K5): the block stages one env's inputs (and
 // the distance's operands) in dynamic shared memory; each warp then takes
 // its observers one at a time, offers every candidate in rounds of 32
 // (lane l of round r takes j = 32r + l: consecutive shared-memory words,
@@ -395,6 +403,41 @@ __device__ __forceinline__ void emit_warp_row(float* row,
 // emit_warp_row.  Blocks (e, y) of one env share its observers: warp w of
 // block y takes i = y * warps + w, then every gridDim.y * warps-th after.
 constexpr int kScanMaxWarps = 16;
+
+// One live observer i's scan of the candidates begin <= j < end (begin a
+// multiple of 64) in rounds of 32 (two rounds a step, so that the second
+// round's loads and distances overlap the first one's insertions) into the
+// warp's list, the round of j = 0 sorted into it; dist(j) is candidate
+// j's squared distance and alive[j] its staged flag.
+template <typename KeyOf, typename Dist>
+__device__ __forceinline__ void scan_observer(
+    WarpList<typename KeyOf::Type>& list, const Dist& dist,
+    const float* alive, const KeyOf& key_of, int i, int begin, int end,
+    int k, int lane) {
+  using Key = typename KeyOf::Type;
+  // candidate j's key, or the sentinel when it is not valid; a lane past
+  // the last candidate reads candidate end - 1, so that every load stays
+  // in the staging and none needs a branch
+  auto candidate = [&](int j, Key* c) {
+    const int jc = min(j, end - 1);
+    Key kc;
+    const bool valid = (j < end) & (j != i) & (alive[jc] != 0.0f) &
+                       key_of(dist(jc), jc, &kc);
+    *c = valid ? kc : KeyOf::sentinel();
+    return valid;
+  };
+  for (int base = begin; base < end; base += 2 * kWarpLanes) {
+    Key c0, c1;
+    const bool v0 = candidate(base + lane, &c0);
+    const bool v1 = candidate(base + kWarpLanes + lane, &c1);
+    if (base == 0) {
+      list.first(v0, c0, base, k, lane);
+    } else {
+      list.offer(v0, c0, base, k, lane);
+    }
+    list.offer(v1, c1, base + kWarpLanes, k, lane);
+  }
+}
 
 template <typename KeyOf, typename Dist>
 __global__ void __launch_bounds__(kScanMaxWarps* kWarpLanes)
@@ -417,31 +460,8 @@ __global__ void __launch_bounds__(kScanMaxWarps* kWarpLanes)
     WarpList<Key> list(KeyOf::sentinel());
     const bool live = t.alive[i] != 0.0f;
     if (live) {
-      const Dist dist(t, staged, a, e, i);
-      // candidate j's key, or the sentinel when it is not valid; a lane
-      // past the last agent reads agent n - 1, so that every load stays in
-      // the staging and none needs a branch
-      auto candidate = [&](int j, Key* c) {
-        const int jc = min(j, n - 1);
-        Key kc;
-        const bool valid = (j < n) & (j != i) & (t.alive[jc] != 0.0f) &
-                           key_of(dist(jc), jc, &kc);
-        *c = valid ? kc : KeyOf::sentinel();
-        return valid;
-      };
-      // two rounds a step, so that the second round's loads and distances
-      // overlap the first one's insertions
-      for (int base = 0; base < n; base += 2 * kWarpLanes) {
-        Key c0, c1;
-        const bool v0 = candidate(base + lane, &c0);
-        const bool v1 = candidate(base + kWarpLanes + lane, &c1);
-        if (base == 0) {
-          list.first(v0, c0, base, a.k, lane);
-        } else {
-          list.offer(v0, c0, base, a.k, lane);
-        }
-        list.offer(v1, c1, base + kWarpLanes, a.k, lane);
-      }
+      scan_observer(list, Dist(t, staged, a, e, i), t.alive, key_of, i, 0, n,
+                    a.k, lane);
     }
     list.finish();
     emit_warp_row(a.out + (static_cast<long long>(e) * n + i) * row_len, list,
@@ -471,132 +491,285 @@ inline int sm_count() {
   return sms;
 }
 
-// Launch scan_kernel over e envs.  A block has one warp for every 8
-// observers of its env, at most 16; an env gets enough blocks that the
-// grid holds at least 8 blocks an SM, but no more than leaves each warp
-// one observer.  Returns cudaErrorInvalidValue when the staging exceeds
-// the card's shared memory, else the launch's error.
+// The grid of a scan over e envs whose env holds `units` tasks, `warps` of
+// them a block at a time (scan_kernel: an observer a warp; tile_kernel: a
+// group of observers a block): enough blocks an env that the grid holds at
+// least 8 blocks an SM, but no more than leave each block tasks for all
+// its warps.
+inline dim3 scan_grid(int e, int units, int warps) {
+  const int fill = (8 * sm_count() + e - 1) / e;
+  const int most = (units + warps - 1) / warps;
+  return dim3(e, std::max(1, std::min(fill, most)));
+}
+
+// Raise the kernel's dynamic shared-memory limit when smem needs it.
+// cudaErrorInvalidValue when smem exceeds the card's shared memory.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Launch scan_kernel over e envs: a block has one warp for every 8
+// observers of its env, at most 16, and the blocks of scan_grid.  Returns
+// cudaErrorInvalidValue when the staging exceeds the card's shared memory,
+// else the launch's error.
 template <typename KeyOf, typename Dist>
 cudaError_t launch_scan(const KnnArgs& a, int e, KeyOf key_of,
                         cudaStream_t stream) {
   const int n = a.n;
   const size_t smem = scan_smem_bytes<Dist>(n);
-  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        scan_kernel<KeyOf, Dist>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_smem(scan_kernel<KeyOf, Dist>, smem);
+  if (err != cudaSuccess) return err;
   const int warps = std::min(kScanMaxWarps, (n + 7) / 8);
-  const int fill = (8 * sm_count() + e - 1) / e;
-  const int most = (n + warps - 1) / warps;
-  const dim3 grid(e, std::max(1, std::min(fill, most)));
-  scan_kernel<KeyOf, Dist><<<grid, warps * kWarpLanes, smem, stream>>>(
-      a, key_of);
+  scan_kernel<KeyOf, Dist>
+      <<<scan_grid(e, n, warps), warps * kWarpLanes, smem, stream>>>(a,
+                                                                     key_of);
   return cudaGetLastError();
 }
 
-// ------------------------------------- the thread-per-observer list (K2)
-// The k smallest (key, index) pairs seen so far, ascending, in one thread's
-// registers.  Candidates are offered in ascending index and enter with a
-// strict "<", so among equal keys the lower index stays first.  Every array
-// index is a compile-time constant after unrolling, so the lists live in
-// registers; only the first k of the K_MAX entries are used.
-template <int K_MAX, typename Key>
-struct SortedList {
-  Key key[K_MAX];
-  int idx[K_MAX];
-  Key worst;  // key[k - 1]: a candidate must beat it to enter
+// ------------------------------------------------ the tensor-core tile (K4)
+// The warp scan with the MXU distance of the TPU's _knn_obs_kernel_v9_mxu
+// (warpdrive_tpu/ops/knn_obs.py:720) formed on the tensor cores:
+// d2[i, j] = sum over t of amat[j, t] * bmat[t, i] (12 terms, padded to
+// 16 with zeros), then max(d2, 0) + 0.0, as ExpansionDist forms it.
+//
+// A block serves its env's live observers 16 at a time, one warp each;
+// dead observers, whose rows are zeros, take no place in a group, so that
+// no warp of a group idles for one.  The block stages each candidate's 12
+// terms as one bf16 row of 16 (the terms, then 4 zeros), the rows
+// zero-padded to a multiple of 32, the candidates' alive flags and the
+// live observers' indices.  For a group it stages the A operand, A[r, t] =
+// bmat[t, i_r] for its r-th observer i_r, and takes the candidates a chunk
+// of up to 512 at a time: its warps form the group's distances to the
+// chunk in 16x16x16 tensor-core products, bf16 in and float32 sums out,
+// with the B operand, B[t, j] = amat[j, t], a column-major view of the
+// staged rows, and store the 16 rows of float distances in shared memory;
+// then each warp runs the warp scan of its observer (scan_observer, as
+// K1's: WarpList, the first round sorted, rounds of 32 candidates
+// ballot-filtered) over its row.  After the last chunk each warp writes
+// its observer's row with emit_warp_row, the features read from global
+// memory.  A barrier waits for every warp's scan before the next chunk's
+// or group's products overwrite the rows, and the other blocks on the SM
+// run meanwhile: 73 KB of shared memory and 40 registers a thread hold
+// three blocks of 16 warps an SM at N = 1024.
+//
+// What bounds it: not the product.  It is 16 deep, 12 MACs a pair; at
+// (256, 1024) 268 M pairs, 6.5 us at the tensor cores' bf16 rate and a
+// few percent of the kernel's instructions.  The scan's ballots and
+// insertions set the pace, as for K1, with fewer instructions a round: a
+// shared-memory load in place of the difference form.  What the shared
+// product costs: a group's warps wait at its barriers for its slowest scan
+// (its observer with the most insertions), and 48 warps fit an SM where 64
+// of K1's do.  Those costs take back what the products save: on the
+// H100 the tile ran 11-23% slower than the scalar form (ExpansionDist) on
+// random states from 105 to 768 agents, as fast at 1024, and 6% faster on
+// the 1024-agent configuration's rolled state, so K4 takes the tile only
+// from kTileMinAgents = 1024 agents on (knn_obs.cu).  The product takes
+// mma.sync-class WMMA and not wgmma: wgmma's 64-row warpgroup tiles would
+// make groups of 64 observers, 64 warps waiting at each barrier and four
+// times the rows of distances, and gain nothing on a product this
+// shallow.  Nor does one warp hold the lists of a whole group of 16 and
+// scan it alone: 16 lists of 4 registers a lane leave one block of 16
+// warps an SM, and the insertions of 16 lists one after another are one
+// chain of shuffles, with too few warps to hide its latency.
+//
+// The order of the float32 sums inside the tensor core is not the plain
+// version's t = 0..11 (and its adds may truncate), so kernel and plain may
+// pick different neighbours where two distances lie within the summation
+// error: the swap class, as the JAX MXU kernel against its oracle.  Every
+// product of two bf16 values is exact in float32 and the padded terms add
+// +0, so only the order of the adds differs.  Take e = 16 * 2^-23 * sum_t
+// |amat[j, t] * bmat[t, i]|: a sum of 16 terms takes at most 15 adds, each
+// off by less than one ulp of its result (truncated or rounded), which is
+// at most 2^-23 * sum_t |term|, so either device's d2 lies within e of the
+// exact sum, and the two within 2e of each other.  The s-th smallest of
+// values that each move by at most 2e moves by at most 2e, so a slot whose
+// pick differs holds candidates j_k (kernel) and j_p (plain) with
+// |d2_plain(i, j_k) - d2_plain(i, j_p)| <= W = 4e, e the larger over the
+// two candidates; in the packed order W also takes in one packed bucket,
+// 2^b ulps of the larger plain d2.  ops/knn_obs.py:check_swap_class holds
+// a kernel's output to that.
+constexpr int kTileRows = 16;    // observers a group: the product's M
+constexpr int kTileDepth = 16;   // the product's K: 12 terms and 4 zeros
+constexpr int kTileChunk = 512;  // candidates a chunk
+static_assert(kTileChunk % (2 * kWarpLanes) == 0, "whole steps of the scan");
+// blocks an SM that tile_kernel's register budget is cut to hold
+// (__launch_bounds__: 40 registers a thread for three blocks of 16 warps,
+// as many as its shared memory leaves at N = 1024)
+constexpr int kTileMinBlocks = 3;
 
-  __device__ __forceinline__ explicit SortedList(Key sentinel) {
-#pragma unroll
-    for (int s = 0; s < K_MAX; ++s) {
-      key[s] = sentinel;
-      idx[s] = 0;
-    }
-    worst = sentinel;
-  }
+// Candidate rows staged: n rounded up to a round of 32.
+__host__ __device__ inline int tile_rows_padded(int n) {
+  return (n + kWarpLanes - 1) / kWarpLanes * kWarpLanes;
+}
 
-  __device__ __forceinline__ void insert(Key c, int j, int k) {
-    if (!(c < worst)) return;
-    // slots from the first one c beats shift down by one
-    bool shifting = false;
-#pragma unroll
-    for (int s = 0; s < K_MAX; ++s) {
-      const bool take = shifting || c < key[s];
-      const Key tk = key[s];
-      const int tj = idx[s];
-      if (take) {
-        key[s] = c;
-        idx[s] = j;
-        c = tk;
-        j = tj;
-      }
-      shifting = take;
-    }
-#pragma unroll
-    for (int s = 0; s < K_MAX; ++s) {
-      if (s == k - 1) worst = key[s];
-    }
+// Candidates a chunk at n agents, and the floats between two observers'
+// distance rows: 4 past the chunk, so that the rows of a product's store
+// fall on different banks.
+__host__ __device__ inline int tile_chunk(int n) {
+  return tile_rows_padded(n) < kTileChunk ? tile_rows_padded(n) : kTileChunk;
+}
+__host__ __device__ inline int tile_row_stride(int n) {
+  return tile_chunk(n) + 4;
+}
+
+// Dynamic shared memory of tile_kernel for n agents: the alive flags, live
+// observers' indices and bf16 terms (16 a row) of the padded rows, a
+// group's 16 distance rows of a chunk and its A operand (16 x 16 bf16).
+inline size_t tile_smem_bytes(int n) {
+  const size_t rows = tile_rows_padded(n);
+  return (2 * rows + rows * kTileDepth / 2 +
+          static_cast<size_t>(kTileRows) * tile_row_stride(n) +
+          kTileRows * kTileDepth / 2) *
+         sizeof(float);
+}
+
+// Feature c (0..4; 5 is the type) of agent j of one env, from global memory.
+struct GlobalFeature {
+  const float* feats;  // the env's (5, N) features
+  const float* types_f;
+  int n;
+  __device__ __forceinline__ float operator()(int c, int j) const {
+    return c < 5 ? feats[c * n + j] : types_f[j];
   }
 };
 
-// Observer i's row (8k + 1 floats) for a live observer whose first
-// n_valid list entries are valid neighbours.  ``row`` may point to global
-// or shared memory.
-template <int K_MAX, typename Key>
-__device__ __forceinline__ void emit_row(float* row,
-                                         const SortedList<K_MAX, Key>& list,
-                                         int n_valid, int k, const EnvTile& t,
-                                         int i, float t_norm) {
-  const int n = t.n;
-  float own[5];
-#pragma unroll
-  for (int c = 0; c < 5; ++c) own[c] = t.f[c * n + i];
-#pragma unroll
-  for (int s = 0; s < K_MAX; ++s) {
-    if (s < k) {
-      float* slot = row + 8 * s;
-      if (s < n_valid) {
-        const int j = list.idx[s];
-#pragma unroll
-        for (int c = 0; c < 5; ++c) {
-          slot[c] = __fsub_rn(t.f[c * n + j], own[c]);
-        }
-        slot[5] = t.f[5 * n + j];
-        slot[6] = 1.0f;
-        slot[7] = 1.0f;
-      } else {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) slot[c] = 0.0f;
+// The distance of candidate j as tile_kernel's products left it in the
+// observer's row of the chunk from candidate begin on, clamped and with
+// the v9 kernel's + 0.0.
+struct RowDist {
+  const float* row;
+  int begin;
+  __device__ __forceinline__ float operator()(int j) const {
+    return __fadd_rn(fmaxf(row[j - begin], 0.0f), 0.0f);
+  }
+};
+
+template <typename KeyOf>
+__global__ void __launch_bounds__(kTileRows* kWarpLanes, kTileMinBlocks)
+    tile_kernel(KnnArgs a, KeyOf key_of) {
+  using Key = typename KeyOf::Type;
+  namespace wmma = nvcuda::wmma;
+  constexpr int L = kTileRows;
+  constexpr int kCols = 16;  // the product's N
+  extern __shared__ __align__(128) float knn_tile_smem[];
+  const int e = blockIdx.x;
+  const int n = a.n;
+  const int rows = tile_rows_padded(n);
+  const int chunk = tile_chunk(n);
+  const int stride = tile_row_stride(n);
+  __shared__ int live_count;
+  float* alive = knn_tile_smem;
+  int* live_idx = reinterpret_cast<int*>(alive + rows);
+  __nv_bfloat16* terms = reinterpret_cast<__nv_bfloat16*>(alive + 2 * rows);
+  float* dist = alive + 2 * rows + rows * kTileDepth / 2;
+  __nv_bfloat16* a_rows = reinterpret_cast<__nv_bfloat16*>(dist + L * stride);
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+  const long long env_base = static_cast<long long>(e) * n;
+  const __nv_bfloat16* src = a.amat + env_base * kTerms;
+  for (int q = threadIdx.x; q < rows * kTileDepth; q += blockDim.x) {
+    const int j = q / kTileDepth;
+    const int t = q % kTileDepth;
+    terms[q] = (j < n && t < kTerms) ? src[j * kTerms + t] : zero;
+  }
+  for (int j = threadIdx.x; j < rows; j += blockDim.x) {
+    alive[j] = j < n && a.still_f[env_base + j] >= 0.5f ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % kWarpLanes;
+  const int warp = threadIdx.x / kWarpLanes;
+  const int row_len = 8 * a.k + 1;
+  // the live observers' indices, in order: the groups hold live observers
+  // only, so that no warp of a group idles for a dead one
+  if (warp == 0) {
+    int count = 0;
+    for (int base = 0; base < n; base += kWarpLanes) {
+      const int j = base + lane;
+      const bool live = j < n && alive[j] != 0.0f;
+      const unsigned mask = __ballot_sync(kFullMask, live);
+      if (live) live_idx[count + __popc(mask & ((1u << lane) - 1))] = j;
+      count += __popc(mask);
+    }
+    if (lane == 0) live_count = count;
+  }
+  // a dead observer's row is all zeros: the blocks of the env share them
+  for (int i = blockIdx.y * L + warp; i < n; i += gridDim.y * L) {
+    if (alive[i] == 0.0f) {
+      for (int f = lane; f < row_len; f += kWarpLanes) {
+        a.out[(env_base + i) * row_len + f] = 0.0f;
       }
     }
   }
-  row[8 * k] = t_norm;
-}
+  __syncthreads();
 
-__device__ __forceinline__ void zero_row(float* row, int row_len) {
-  for (int f = 0; f < row_len; ++f) row[f] = 0.0f;
-}
-
-// Live observer i: scan the candidates in ascending j, keep the k best
-// valid keys, count the valid ones, and emit the row.
-template <int K_MAX, typename KeyOf, typename Dist>
-__device__ __forceinline__ void select_and_emit(float* row, const EnvTile& t,
-                                                const KeyOf& key_of,
-                                                const Dist& dist, int i, int k,
-                                                float t_norm) {
-  SortedList<K_MAX, typename KeyOf::Type> list(KeyOf::sentinel());
-  int n_valid = 0;
-  for (int j = 0; j < t.n; ++j) {
-    if (j == i || t.alive[j] == 0.0f) continue;
-    typename KeyOf::Type key;
-    if (!key_of(dist(j), j, &key)) continue;
-    ++n_valid;
-    list.insert(key, j, k);
+  const int n_live = live_count;
+  const float t_norm = a.t_norm[e];
+  const GlobalFeature feature{a.feats + env_base * 5, a.types_f, n};
+  const __nv_bfloat16* bmat = a.bmat + env_base * kTerms;
+  const int groups = (n_live + L - 1) / L;
+  for (int g = blockIdx.y; g < groups; g += gridDim.y) {
+    // A[r, t] = bmat[t, i] for the group's r-th observer i, zero past the
+    // live observers and past the 12 terms; the barrier after it also
+    // waits for the previous group's scans
+    for (int q = threadIdx.x; q < L * kTileDepth; q += blockDim.x) {
+      const int r = g * L + q / kTileDepth;
+      const int t = q % kTileDepth;
+      a_rows[q] = (r < n_live && t < kTerms)
+                      ? bmat[static_cast<long long>(t) * n + live_idx[r]]
+                      : zero;
+    }
+    __syncthreads();
+    // the same in every lane of the warp
+    const bool live = g * L + warp < n_live;
+    const int i = live ? live_idx[g * L + warp] : 0;
+    WarpList<Key> list(KeyOf::sentinel());
+    for (int begin = 0; begin < rows; begin += chunk) {
+      if (begin > 0) __syncthreads();  // the previous chunk's rows are read
+      const int end = min(begin + chunk, rows);
+      wmma::fragment<wmma::matrix_a, L, kCols, kTileDepth, __nv_bfloat16,
+                     wmma::row_major>
+          a_frag;
+      wmma::load_matrix_sync(a_frag, a_rows, kTileDepth);
+      for (int col = begin + warp * kCols; col < end; col += L * kCols) {
+        wmma::fragment<wmma::matrix_b, L, kCols, kTileDepth, __nv_bfloat16,
+                       wmma::col_major>
+            b_frag;
+        wmma::fragment<wmma::accumulator, L, kCols, kTileDepth, float> acc;
+        wmma::load_matrix_sync(b_frag, terms + col * kTileDepth, kTileDepth);
+        wmma::fill_fragment(acc, 0.0f);
+        wmma::mma_sync(acc, a_frag, b_frag, acc);
+        wmma::store_matrix_sync(dist + col - begin, acc, stride,
+                                wmma::mem_row_major);
+      }
+      __syncthreads();
+      if (live) {
+        scan_observer(list, RowDist{dist + warp * stride, begin}, alive,
+                      key_of, i, begin, min(end, n), a.k, lane);
+      }
+    }
+    if (live) {
+      list.finish();
+      emit_warp_row(a.out + (env_base + i) * row_len, list, a.k, t_norm,
+                    feature, i, lane);
+    }
   }
-  emit_row(row, list, n_valid, k, t, i, t_norm);
+}
+
+template <typename KeyOf>
+cudaError_t launch_tile(const KnnArgs& a, int e, KeyOf key_of,
+                        cudaStream_t stream) {
+  const size_t smem = tile_smem_bytes(a.n);
+  const cudaError_t err = allow_smem(tile_kernel<KeyOf>, smem);
+  if (err != cudaSuccess) return err;
+  const int groups = (a.n + kTileRows - 1) / kTileRows;
+  tile_kernel<KeyOf><<<scan_grid(e, groups, 1), kTileRows * kWarpLanes,
+                       smem, stream>>>(a, key_of);
+  return cudaGetLastError();
 }
 
 // b-bit packed key for b in [1, 22] covering every index below n, or an

@@ -63,16 +63,6 @@ constexpr int kTile = kWarps * kLists;    // observers a block
 constexpr int kChunk = 1024;              // candidates staged a pass
 constexpr int kMaxK = knn::kWarpListMax;  // one list entry a lane
 
-// Feature c (0..4; 5 is the type) of agent j of one env, from global memory.
-struct GlobalFeature {
-  const float* feats;  // the env's (5, N) features
-  const float* types_f;
-  int n;
-  __device__ __forceinline__ float operator()(int c, int j) const {
-    return c < 5 ? feats[c * n + j] : types_f[j];
-  }
-};
-
 template <typename KeyOf>
 __global__ void __launch_bounds__(kWarps* knn::kWarpLanes)
     envlanes_kernel(knn::KnnArgs a, KeyOf key_of) {
@@ -136,7 +126,7 @@ __global__ void __launch_bounds__(kWarps* knn::kWarpLanes)
 
 #pragma unroll
   for (int m = 0; m < kLists; ++m) lists[m].finish();
-  const GlobalFeature feature{a.feats + env_base * 5, a.types_f, n};
+  const knn::GlobalFeature feature{a.feats + env_base * 5, a.types_f, n};
   const float t_norm = a.t_norm[e];
   const int row_len = 8 * k + 1;
 #pragma unroll

@@ -34,10 +34,12 @@
 // expansion_operands, so its d2 equals K4's and the plain version's bit for
 // bit.  The difference-form modes run the same scan as K1/K3.
 //
-// What bounds it: as for knn_obs.cu -- bytes in the difference form (93.3
-// MB at (256, 1024, 10), 27.9 us at 3.35 TB/s); with the scalar MXU
-// expansion, operations (19 flops a pair: 76 us for all pairs there, about
-// 28 us for the live pairs of a rolled state, just above the byte time).
+// What bounds it: as for knn_obs.cu -- bytes (93.3 MB at (256, 1024, 10),
+// 27.9 us at 3.35 TB/s) in every mode: the MXU expansion is 12
+// multiply-adds a pair, 6.5 us for all pairs there at the tensor cores'
+// bf16 rate, though this kernel runs it on the CUDA cores (ExpansionDist,
+// 12 multiplies and 11 adds a pair), bit for bit with the plain version;
+// K4's tensor-core tile (knn_common.cuh:tile_kernel) could take its place.
 //
 // Design: the warp scan of knn_common.cuh (scan_kernel), as for K1, K3 and
 // K4 -- one warp per observer, the candidates 32 at a time across the

@@ -32,7 +32,7 @@ Each variant is a distance and an order:
 |---|---|---|---|
 | ``flat_exact`` | ``knn_obs_flat_exact`` (K1) | ``csrc/knn_obs.cu`` | k <= 32 |
 | ``flat`` | ``knn_obs_flat`` (K3) | ``csrc/knn_obs.cu`` | k <= 32 |
-| ``flat_mxudist[_exact]`` | ``knn_obs_flat_mxudist`` (K4) | ``csrc/knn_obs.cu`` | k <= 32 |
+| ``flat_mxudist[_exact]`` | ``knn_obs_flat_mxudist`` (K4) | ``csrc/knn_obs.cu`` | k <= 32, swap class |
 | ``tiled[_exact]``, ``tiled_mxudist[_exact]`` | ``knn_obs_tiled`` (K5) | ``csrc/knn_obs_tiled.cu`` | k <= 16 |
 | ``mxu[_exact]`` | ``knn_obs_mxu`` (K2) | ``csrc/knn_obs_mxu.cu`` | N <= 128, k <= 16 |
 | ``packed`` | ``knn_obs_packed`` (K6) | ``csrc/knn_obs_ladder.cu`` | N <= 128 |
@@ -42,8 +42,8 @@ Each variant is a distance and an order:
 
 The limits of the single-tile kernels (``mxu``, ``packed``, ``onehot``,
 ``twolevel``) and of ``tiled`` are the TPU kernels' own and hold on every
-device.  K1, K3, K4, K5 and K9 run one warp scan (``csrc/knn_common.cuh``):
-a warp takes an observer's candidates 32 at a time, one a lane, and holds
+device.  K1-K5 and K9 run one warp scan (``csrc/knn_common.cuh``): a
+warp takes an observer's candidates 32 at a time, one a lane, and holds
 its k-list one entry a lane, so they take k <= 32; K1, K3, K4 and K5 also
 refuse an N whose staged operands exceed the card's 227 KB of shared
 memory, while K9 stages candidates in chunks of 1024 and takes any N.  On
@@ -52,6 +52,12 @@ raises; each source's header gives its design and bound.  On a CPU tensor
 it runs the plain PyTorch version, :func:`knn_observation_plain`.  Unlike
 the TPU kernels, the port gathers exact float32 features (no bf16 hi/lo
 pairs) and emits the contract layout directly.
+
+Every kernel equals its plain version bit for bit on the card, except K4:
+from 1024 agents on it forms the MXU distance on the tensor cores, which
+sum the 12 terms in their own order, so it is held to the swap class
+instead, as the JAX MXU kernel is held to its oracle
+(:func:`check_swap_class`).
 
 ``LAUNCH_COUNTS`` counts kernel launches, one per call that launched it.
 """
@@ -170,6 +176,21 @@ _SMALL_K_LIMIT = 16
 # for the MXU distance (csrc/knn_common.cuh)
 _MAX_SHARED_BYTES = 232448
 _EXPANSION_TERMS = 12
+# K4's tensor-core tile (csrc/knn_common.cuh:tile_kernel, the constants
+# of its geometry copied here), which K4 takes from _TILE_MIN_AGENTS on
+# (csrc/knn_obs.cu:kTileMinAgents): an alive flag, a live observer's index
+# and a bf16 row of 16 terms a candidate, the rows padded to a round of
+# 32, and for a group of 16 observers their distance rows of a chunk of at
+# most 512 candidates (4 floats longer) and their 16 x 16 bf16 A operand
+_TILE_DEPTH = 16
+_TILE_ROWS = 16
+_TILE_CHUNK = 512
+_TILE_MIN_AGENTS = 1024
+# the swap class (tests/test_knn_obs_kernel.py): entries off by more than
+# SWAP_ATOL (beside a relative 1e-5) are swaps; their share stays below
+# SWAP_SHARE
+SWAP_ATOL = 8e-6
+SWAP_SHARE = 2e-3
 
 
 def reset_launch_counts():
@@ -228,8 +249,19 @@ def _check_limits(variant: str, n_agents: int, k: int):
 
 def staged_bytes(variant: str, n_agents: int) -> int:
     """Shared memory one block of the variant's scan kernel stages: 36 B
-    per agent (x, y, alive, six channels, rounded to 16 B), plus 48 B per
-    agent for the MXU distance's candidate terms."""
+    per agent (x, y, alive, six channels, rounded to 16 B), plus for K5's
+    MXU modes, and K4's (the ``flat_mxudist`` variants) below 1024 agents,
+    48 B per agent of float32 candidate terms.  From 1024 agents on K4's
+    tensor-core tile stages per agent, padded to a multiple of 32, an
+    alive flag, a live observer's index and 16 bf16 terms (40 B), and for
+    its group of 16 observers their distance rows of a chunk of candidates
+    and their A operand (33,536 B at a chunk of 512)."""
+    if variant.startswith("flat_mxudist") and n_agents >= _TILE_MIN_AGENTS:
+        rows = -(-n_agents // 32) * 32
+        chunk = min(rows, _TILE_CHUNK)
+        floats = (2 * rows + rows * _TILE_DEPTH // 2
+                  + _TILE_ROWS * (chunk + 4) + _TILE_ROWS * _TILE_DEPTH // 2)
+        return 4 * floats
     floats = ((9 * n_agents) + 3) & ~3
     if "mxudist" in variant:
         floats += _EXPANSION_TERMS * n_agents
@@ -442,3 +474,124 @@ def knn_observation_plain(loc_x, loc_y, feats, types_f, still_f, t_norm,
     )  # (E, N, k, 8)
     t_col = torch.where(alive, t_norm[:, None], 0.0)[..., None]
     return torch.cat([slots.reshape(E, N, 8 * k), t_col], dim=2)
+
+
+def summation_window(terms: torch.Tensor) -> torch.Tensor:
+    """``e = 16 * 2^-23 * sum_t |term_t|`` over the last axis: how far a
+    float32 sum of the 12 terms (16 with the padding zeros) in any order,
+    with rounded or truncated adds, can lie from the exact sum -- at most
+    15 adds, each off by less than one ulp of a partial sum, which is at
+    most ``2^-23 * sum_t |term_t|``."""
+    return 16.0 * 2.0 ** -23 * terms.abs().sum(dim=-1)
+
+
+def check_swap_class(out, ref, args, k: int, variant: str,
+                     bound_share: bool = True, chunk: int = 1024) -> dict:
+    """Hold a K4 output ``out`` to the plain version's ``ref`` on the same
+    inputs ``args`` (``loc_x, loc_y, feats, types_f, still_f, t_norm``) by
+    the swap class of the tensor-core MXU distance
+    (``csrc/knn_common.cuh:tile_kernel`` derives it):
+
+    1. the slot-valid pattern (entry 7 of each slot), the last entry and
+       the zero rows of dead observers are equal bit for bit;
+    2. a slot that picks the same candidate as the plain version is equal
+       bit for bit to it;
+    3. a slot that picks another candidate, j_k where the plain version
+       picks j_p, holds a near-tie: ``|d2(i, j_k) - d2(i, j_p)| <= W`` in
+       the plain version's distance, with ``W = 4 e`` (e from
+       :func:`summation_window`, the larger over the two candidates), and
+       in a packed order also one packed bucket, ``2^b`` ulps of the larger
+       d2; and j_k is in no other slot of the row (no candidate is picked
+       twice);
+    4. with ``bound_share``, the share of entries off by more than
+       ``SWAP_ATOL`` (beside a relative 1e-5) is below ``SWAP_SHARE``.
+
+    A slot's candidate is the live other agent whose row entries
+    ``feat_j - feat_i`` and ``type_j`` it equals bit for bit (the first
+    such agent); a slot that equals none has a changed feature and fails
+    condition 2.  A slot picks j_k twice when more slots of its row hold
+    its entries than there are candidates with them.  Raises
+    ``ValueError`` naming the condition that fails; returns ``{"slots",
+    "swaps", "share", "worst_ratio", "max_abs"}``: the valid slots, those
+    that pick another candidate, the share of condition 4, the largest
+    ``|d2(j_k) - d2(j_p)| / W`` and the largest abs difference of any
+    entry."""
+    loc_x, loc_y, feats, types_f, still_f, _ = args
+    E, N = loc_x.shape
+    o_slots = out[..., :-1].reshape(E, N, k, 8)
+    r_slots = ref[..., :-1].reshape(E, N, k, 8)
+    bits_o = o_slots.contiguous().view(torch.int32)
+    bits_r = r_slots.contiguous().view(torch.int32)
+    alive = still_f >= 0.5
+    if not (torch.equal(bits_o[..., 7], bits_r[..., 7])
+            and torch.equal(out[..., -1].contiguous().view(torch.int32),
+                            ref[..., -1].contiguous().view(torch.int32))
+            and bool((out[~alive].contiguous().view(torch.int32) == 0)
+                     .all())):
+        raise ValueError("condition 1: the valid slots, the last entry or "
+                         "a dead observer's zero row differ")
+    differ = (bits_o != bits_r).any(dim=-1)  # (E, N, k)
+    e_idx, i_idx, s_idx = differ.nonzero(as_tuple=True)
+    share = float((~torch.isclose(out, ref, rtol=1e-5, atol=SWAP_ATOL))
+                  .float().mean())
+    report = {"slots": int((o_slots[..., 7] != 0).sum()),
+              "swaps": int(e_idx.numel()), "share": share,
+              "worst_ratio": 0.0,
+              "max_abs": float((out - ref).abs().max())}
+    if e_idx.numel():
+        centred = centred_coords(loc_x, loc_y)
+        amat, bmat = expansion_operands(centred[:, 0], centred[:, 1])
+        src6 = torch.cat([feats, types_f.expand(E, 1, N)], dim=1)
+        bits = packed_bits(variant, N)
+        cols = torch.arange(N, device=loc_x.device)
+        for lo in range(0, e_idx.numel(), chunk):
+            e, i, s = (t[lo:lo + chunk] for t in (e_idx, i_idx, s_idx))
+            # every candidate's slot entries for observer i: (D, 6, N)
+            own = torch.cat([feats[e, :, i],
+                             torch.zeros_like(feats[e, :1, i])], dim=1)
+            rows = src6[e] - own[:, :, None]
+            ok = alive[e] & (cols[None] != i[:, None])  # (D, N)
+
+            def matches(slots):  # (D, N): the candidates a slot could be
+                return (rows == slots[e, i, s, :6, None]).all(dim=1) & ok
+
+            match_k, match_p = matches(o_slots), matches(r_slots)
+            j_k = match_k.float().argmax(dim=1)
+            j_p = match_p.float().argmax(dim=1)
+            if not bool(match_k.any(dim=1).all()):
+                raise ValueError("condition 2: a slot's entries match no "
+                                 "candidate (a changed feature)")
+            if bool((j_k == j_p).any()) or not bool(match_p.any(dim=1).all()):
+                raise ValueError("condition 2: a slot that picks the plain "
+                                 "version's candidate differs from it")
+            # the valid slots of the row that hold this slot's entries,
+            # against the candidates that have them
+            held = ((bits_o[e, i, :, :6] == bits_o[e, i, s, None, :6])
+                    .all(dim=-1) & (o_slots[e, i, :, 7] != 0)).sum(dim=1)
+            if bool((held > match_k.sum(dim=1)).any()):
+                raise ValueError("condition 3: a candidate is picked twice "
+                                 "in one row")
+            b_cols = bmat[e, :, i]  # (D, 12)
+            both = torch.stack([j_k, j_p], dim=1)  # (D, 2)
+            a_rows = amat[e[:, None], both]  # (D, 2, 12)
+            terms = a_rows.to(torch.float32) * b_cols.to(
+                torch.float32)[:, None]
+            d2 = terms[..., 0]  # the plain version's order, t = 0..11
+            for t in range(1, _EXPANSION_TERMS):
+                d2 = d2 + terms[..., t]
+            d2 = torch.clamp(d2, min=0.0) + 0.0
+            window = 4.0 * summation_window(terms).max(dim=1).values
+            if bits:
+                top = d2.max(dim=1).values
+                ulp = torch.nextafter(top, torch.full_like(top, np.inf)) - top
+                window = window + (1 << bits) * ulp
+            gap = (d2[:, 0] - d2[:, 1]).abs()
+            if bool((gap > window).any()):
+                raise ValueError("condition 3: a swap outside the window W")
+            ratio = gap / torch.where(window > 0, window, 1.0)
+            report["worst_ratio"] = max(report["worst_ratio"],
+                                        float(ratio.max()))
+    if bound_share and not share < SWAP_SHARE:
+        raise ValueError(f"condition 4: swap share {share} is not below "
+                         f"{SWAP_SHARE}")
+    return report
