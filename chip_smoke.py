@@ -9,9 +9,10 @@ Phases, each of which raises (and so exits non-zero) on a failure:
 1. the card: name and power limit from ``nvidia-smi``, torch and CUDA
    versions, compute capability (must be 9.0, the kernels' ``sm_90a``);
 2. build every kernel in ``warpdrive_tpu_torch/csrc/`` with ``nvcc``, one
-   process per source, all started together, and find HMMA (tensor-core)
-   instructions in both of K4's ``tile_kernel`` functions with
-   ``cuobjdump -sass``;
+   process per source, all started together, and find with ``cuobjdump
+   -sass`` HMMA (tensor-core) instructions in both of K4's ``tile_kernel``
+   functions and REDUX (the warp's min-reduction) in both functions of the
+   ladders K6-K8, ``ladder_kernel``;
 3. hold each kernel against its plain PyTorch version on the card: K1
    (``knn_obs_flat_exact``) on random states and on a state rolled 100
    flagship steps (0 slot mismatches and a max abs diff <= 1e-6 required);
@@ -25,8 +26,9 @@ Phases, each of which raises (and so exits non-zero) on a failure:
    (``knn_obs_twolevel``, both modes) and K9 (``knn_obs_envlanes``, both
    modes) on random states, an exact-tie lattice, the packed-bits near-tie
    (7 bits for K6 and K8, 4 for K9 at N = 15) and the flagship rolled 100
-   steps with each of their names (K2, K3 and K5-K9: 0 mismatches and max
-   abs diff 0 required); the warp scan's ordering cases for K1-K5 and K9
+   steps with each of their names, K6-K8 also with a third of the agents
+   dead and K6 and K7 at k = n = 128 (K2, K3 and K5-K9: 0 mismatches and
+   max abs diff 0 required); the warp scan's ordering cases for K1-K5 and K9
    in every mode (an exact-tie lattice at (8, 1024, 10) -- (8, 128, 10)
    for K2 --, k = 32 and k = 1, partial and full last rounds at N = 33 and
    64, k = 32 at N = 1024, the N = 15 packed near-tie, and K9 at (2, 8192,
@@ -146,6 +148,10 @@ FLAGSHIP_KNN_LOOPS = (("pallas", "knn_obs_packed", True),
 # K6-K8 take one 128-agent tile; K9 any N and E (130: an env tail)
 LADDER_SHAPES = ((NUM_ENVS, 105, 10), (100, 110, 10), (8, 128, 16),
                  (6, 15, 4))
+# K6 and K7 take k up to n: each warp's winner table at its largest
+LADDER_FULL_K = (8, 128, 128)
+# the ladders on states with a third of the agents dead
+LADDER_DEAD_SHAPES = ((NUM_ENVS, 105, 10), (8, 128, 16))
 ENVLANES_SHAPES = ((NUM_ENVS, 105, 10), (130, 15, 4), (3, 200, 6),
                    (8, 1024, 10))
 PLAIN_MAX_ENVS_AT_1024 = 8  # plain compares at N = 1024 stay small
@@ -188,26 +194,31 @@ def _card_line() -> str:
     return out[0].strip()
 
 
-def _check_tile_sass():
-    """K4's tensor-core tile in the built library: ``cuobjdump -sass`` of
-    ``libknn_obs`` must show HMMA instructions in each ``tile_kernel``
-    function; prints each function's count and its first HMMA line."""
+def _check_sass(library, symbol, opcode, functions=2):
+    """``cuobjdump -sass`` of the built ``lib<library>`` must show
+    ``opcode`` in each of the ``functions`` device functions whose name
+    holds ``symbol``; prints each function's count and its first such
+    line.  K4's tensor-core tile: HMMA in both ``tile_kernel`` functions of
+    ``knn_obs``; the ladders K6-K8: REDUX (the warp's hardware
+    min-reduction) in both ``ladder_kernel`` functions of
+    ``knn_obs_ladder``."""
     from warpdrive_tpu_torch.ops import cuda_build
 
     cuobjdump = Path(cuda_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(cuda_build.library_path("knn_obs"))],
+        [str(cuobjdump), "-sass", str(cuda_build.library_path(library))],
         capture_output=True, text=True, timeout=120, check=True,
     ).stdout
-    hmma, function = {}, None
+    found, function = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             function = line.split("Function :")[1].strip()
-        elif function and "tile_kernel" in function and "HMMA" in line:
-            hmma.setdefault(function, []).append(line.strip())
-    assert len(hmma) == 2, f"HMMA in tile_kernel functions: {sorted(hmma)}"
-    for function, lines in sorted(hmma.items()):
-        print(f"SASS {function}: {len(lines)} HMMA, first: {lines[0]}")
+        elif function and symbol in function and opcode in line:
+            found.setdefault(function, []).append(line.strip())
+    assert len(found) == functions, \
+        f"{opcode} in {symbol} functions: {sorted(found)}"
+    for function, lines in sorted(found.items()):
+        print(f"SASS {function}: {len(lines)} {opcode}, first: {lines[0]}")
 
 
 def _cuda_ms(fn, repeats: int, inner: int) -> float:
@@ -335,6 +346,18 @@ def _lattice_knn_inputs(E, N, k, seed, device):
     loc_x = torch.from_numpy(xy[..., 0].astype(np.float32) * 1.5).to(device)
     loc_y = torch.from_numpy(xy[..., 1].astype(np.float32) * 1.5).to(device)
     return (loc_x, loc_y) + tuple(args[2:]), n, kk
+
+
+def _dead_third_inputs(E, N, k, seed, device):
+    """Random inputs with about a third of the agents dead, drawn anew."""
+    import numpy as np
+    import torch
+
+    args, n, kk = _random_knn_inputs(E, N, k, seed, device)
+    rng = np.random.RandomState(seed + 1)
+    still_f = torch.from_numpy(
+        (rng.uniform(size=(E, N)) >= 1 / 3).astype(np.float32)).to(device)
+    return args[:4] + (still_f,) + args[5:], n, kk
 
 
 def _training_env_state(run_config, steps, seed):
@@ -547,8 +570,10 @@ def _check_k6_k9():
     """K6-K9 vs plain in every mode: random states at each kernel's shapes,
     an exact-tie lattice, the N = 15 packed near-tie (where the 7-bit
     orders of K6 and K8 take agent 1, K9's 4-bit and the exact orders the
-    nearer agent 2), and the flagship rolled 100 steps with each name of
-    ``FLAGSHIP_KNN_LOOPS``.  Returns each kernel's largest abs diff and, by
+    nearer agent 2), for K6-K8 states with a third of the agents dead
+    (``LADDER_DEAD_SHAPES``), for K6 and K7 k = n = 128 on a random state
+    and a lattice (``LADDER_FULL_K``), and the flagship rolled 100 steps
+    with each name of ``FLAGSHIP_KNN_LOOPS``.  Returns each kernel's largest abs diff and, by
     name, the rolled flagship system, its generator and its rolled
     inputs."""
     import torch
@@ -570,6 +595,15 @@ def _check_k6_k9():
                                                      device=DEVICE)
                   for E, N, k in shapes[:2]]
         cases.append(("packed-bits near-tie", near, n15, k15))
+        if kernel != "knn_obs_envlanes":
+            cases += [("a third dead",) + _dead_third_inputs(
+                E, N, k, seed=N + 5, device=DEVICE)
+                for E, N, k in LADDER_DEAD_SHAPES]
+        if kernel in ("knn_obs_packed", "knn_obs_onehot"):
+            cases.append(("random, k = n",) + _random_knn_inputs(
+                *LADDER_FULL_K, seed=3, device=DEVICE))
+            cases.append(("lattice, k = n",) + _lattice_knn_inputs(
+                *LADDER_FULL_K, seed=4, device=DEVICE))
         system = build_flagship(num_envs=NUM_ENVS, fc_dims=FC_DIMS, seed=0,
                                 knn_algorithm=algo, device=DEVICE)
         generator = torch.Generator(device=DEVICE).manual_seed(1)
@@ -922,18 +956,22 @@ def _kernel_device_ms(fn, calls=50):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and any(name in e.key for name in _KERNEL_SYMBOLS)]
     # the profiler may drop an event of a long run of short launches, so
-    # the time a launch is over the launches it recorded
-    launches = sum(e.count for e in events)
+    # the time a launch is over the launches it recorded; a window in which
+    # it recorded none is profiled again, up to three times
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and any(name in e.key for name in _KERNEL_SYMBOLS)]
+        launches = sum(e.count for e in events)
+        if launches:
+            break
     assert 0 < launches <= calls, f"profiled {launches} kernel launches"
     return sum(e.self_device_time_total for e in events) / 1e3 / launches
 
@@ -1095,7 +1133,8 @@ def main(argv=None) -> int:
             if any(w in line for w in ("entry function", "registers",
                                         "spill")):
                 print(f"  {name}: {line.strip()}")
-    _check_tile_sass()
+    _check_sass("knn_obs", "tile_kernel", "HMMA")
+    _check_sass("knn_obs_ladder", "ladder_kernel", "REDUX")
 
     # 3. kernels vs plain, and the CUDA step vs the CPU step
     max_abs = {"knn_obs_flat_exact": 0.0}

@@ -339,6 +339,53 @@ def test_per_slot_ladder_kernels_take_k_past_16_on_card(card, variant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("state", ["random", "lattice"])
+@pytest.mark.parametrize("variant", ["packed", "onehot"])
+def test_per_slot_ladder_kernels_fill_the_winner_table_on_card(card, variant,
+                                                               state):
+    """K6 and K7 at k = n = 128: each warp's winner table at its largest,
+    with k past the warp's 32 lanes and slot 127 past every observer's
+    127 candidates."""
+    make = _lattice_args if state == "lattice" else _knn_args
+    args = make(128, 128, 8, seed=5, device=card)
+    out = knn_obs.knn_observation(*args, n_agents=128, k=128, variant=variant)
+    plain = knn_obs.knn_observation_plain(*args, n_agents=128, k=128,
+                                          variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+
+
+def _dead_third_args(N, k, E, seed, device):
+    """Random inputs with a third of the agents dead, drawn anew."""
+    args = _knn_args(N, k, E, seed, device)
+    rng = np.random.RandomState(seed + 1)
+    still = torch.from_numpy(
+        (rng.uniform(size=(E, N)) >= 1 / 3).astype(np.float32)).to(device)
+    return args[:4] + (still,) + args[5:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(_LADDER_KERNEL_OF))
+@pytest.mark.parametrize("E,N,k", [(1024, 105, 10), (8, 128, 16),
+                                   (6, 20, 16)])
+def test_ladder_kernels_match_plain_with_a_third_dead_on_card(card, variant,
+                                                              E, N, k):
+    """K6, K7 and K8 bit for bit where a third of the agents are dead: dead
+    observers' zero rows, dead candidates skipped, and at (6, 20, 16)
+    observers with fewer valid candidates than k, whose passes stop early."""
+    args = _dead_third_args(N, k, E, seed=N + 11, device=card)
+    name = _LADDER_KERNEL_OF[variant]
+    before = knn_obs.LAUNCH_COUNTS[name]
+    out = knn_obs.knn_observation(*args, n_agents=N, k=k, variant=variant)
+    assert knn_obs.LAUNCH_COUNTS[name] == before + 1
+    plain = knn_obs.knn_observation_plain(*args, n_agents=N, k=k,
+                                          variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    assert bool((plain[..., -1] == 0).any())  # some observer is dead
+
+
+@pytest.mark.cuda
 def test_ladder_kernels_refuse_their_limits_on_card(card):
     before = dict(knn_obs.LAUNCH_COUNTS)
     args = _knn_args(129, 10, 2, seed=1, device=card)

@@ -13,7 +13,8 @@
 //                   row); below, scan_kernel with ExpansionDist;
 //   K9              WarpList, the keys, diff_sq_dist and emit_warp_row,
 //                   over candidates it stages in chunks itself;
-//   K6-K8           stage_env and DiffDist.
+//   K6-K8           stage_env, DiffDist, scan_grid's geometry and emit_row
+//                   over StagedFeature, from a winner table of their own.
 //
 // Contract (see warpdrive_tpu_torch/ops/knn_obs.py): inputs loc_x, loc_y
 // (E, N), feats (E, 5, N), types_f (N,), still_f (E, N), t_norm (E,), all
@@ -359,28 +360,28 @@ struct StagedFeature {
   }
 };
 
-// Observer i's row of 8k + 1 floats from its warp's list, written by the
-// whole warp with coalesced stores: lane l forms float f = 32p + l of the
-// row in pass p (slot f / 8, entry f % 8), taking the slot's index from
-// the list's lane by a shuffle, so each store covers 128 contiguous bytes.
-// t_end is t_norm[e] for a live observer and 0 for a dead one, whose list
-// is empty.
-template <typename Key, typename Feature>
-__device__ __forceinline__ void emit_warp_row(float* row,
-                                              const WarpList<Key>& list,
-                                              int k, float t_end,
-                                              const Feature& feature, int i,
-                                              int lane) {
+// Observer i's row of 8k + 1 floats, written by the whole warp with
+// coalesced stores: lane l forms float f = 32p + l of the row in pass p
+// (slot f / 8, entry f % 8), so each store covers 128 contiguous bytes.
+// index_of(s) is slot s's candidate; every lane calls it (it may shuffle),
+// for every s up to (8k + 32) / 8, and only slots below n_valid use it:
+// later slots are zeros.  t_end is t_norm[e] for a live observer and 0 for
+// a dead one, whose n_valid is 0.
+template <typename SlotIndex, typename Feature>
+__device__ __forceinline__ void emit_row(float* row, const SlotIndex& index_of,
+                                         int n_valid, int k, float t_end,
+                                         const Feature& feature, int i,
+                                         int lane) {
   const int row_len = 8 * k + 1;
   for (int base = 0; base < row_len; base += kWarpLanes) {
     const int f = base + lane;
     const int s = f >> 3;
-    const int j = __shfl_sync(kFullMask, list.idx, s & (kWarpLanes - 1));
+    const int j = index_of(s);
     if (f < row_len) {
       float v = 0.0f;
       if (f == 8 * k) {
         v = t_end;
-      } else if (s < list.n_valid) {
+      } else if (s < n_valid) {
         const int c = f & 7;
         if (c < kChannels) {
           const float fj = feature(c, j);
@@ -392,6 +393,22 @@ __device__ __forceinline__ void emit_warp_row(float* row,
       row[f] = v;
     }
   }
+}
+
+// Observer i's row from its warp's list: slot s's index is lane s's, by a
+// shuffle.
+template <typename Key, typename Feature>
+__device__ __forceinline__ void emit_warp_row(float* row,
+                                              const WarpList<Key>& list,
+                                              int k, float t_end,
+                                              const Feature& feature, int i,
+                                              int lane) {
+  emit_row(
+      row,
+      [&](int s) {
+        return __shfl_sync(kFullMask, list.idx, s & (kWarpLanes - 1));
+      },
+      list.n_valid, k, t_end, feature, i, lane);
 }
 
 // --------------------------------------------------------------- the scan

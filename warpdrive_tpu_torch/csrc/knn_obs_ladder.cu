@@ -1,7 +1,7 @@
 // The single-tile ladder k-nearest-neighbour observation kernels for
-// TagContinuous, for Hopper (sm_90a): one templated kernel (a key and a
-// selection phase as template parameters) and three entry points, one per
-// TPU kernel it replaces.
+// TagContinuous, for Hopper (sm_90a): one kernel templated on its key
+// (exact or 7-bit packed) and three entry points, one per TPU kernel it
+// replaces.
 //
 //   knn_obs_packed    K6  _knn_obs_kernel_v2 (warpdrive_tpu/ops/knn_obs.py:
 //                         137), variant="packed": knn_algorithm="pallas"
@@ -40,39 +40,43 @@
 // permutation planes, a TPU layout device, have no counterpart here.
 //
 // What bounds them: bytes.  At the flagship shape (E=1024, N=105, k=10)
-// the function reads 3.4 MB and writes 34.8 MB: 11.4 us at 3.35 TB/s.  The
-// difference form is 5 flops a pair (1.7 us for all pairs there at 67
-// TFLOP/s); the ladder's k min-reductions are integer work on top, k
-// passes of N candidates per observer.
+// the function reads 3.4 MB and writes 34.8 MB: 11.4 us at 3.35 TB/s; the
+// difference form's 5 flops a pair take 1.7 us at 67 TFLOP/s.  The time is
+// set by instruction issue instead: k passes of N candidates per observer
+// on top of the distances, so each pass is cut to a few instructions.
 //
-// Design (correct first, simple), the TPU ladder as warp-wide reductions.
-// One block per env, 8 warps, one warp per observer (the block's warps
-// loop over the env's observers: at N = 128 one warp each would be 4096
-// threads, above the 1024-thread cap).  The block stages its env's x, y,
-// alive flag and six selectable channels in shared memory (knn_common.cuh:
-// stage_env).  Candidate j = lane + 32q sits in lane j % 32's registers
-// (q < 4 at N <= 128) as its key: the exact 64-bit (uint64(bits(d2)) << 32)
-// | j, or the 7-bit packed int32; self, dead and missing candidates hold
-// the all-ones key, above every valid one.  Each of the k passes is v1/v2/
-// v6's slot_body: a lane-local min over the lane's four keys, then a
-// __shfl_xor_sync butterfly min (one shuffle of the 64-bit key, which the
-// compiler splits into two), so every lane holds the slot's winner; keys
-// are unique (they carry j), so exactly one entry equals the min and its
-// lane knocks it out.  The exact key's one reduction gives the lowest
-// index among equal distances, as v1's min then index-min does.  Then:
-//   EMIT (K6, K7), v1/v2's per-slot select: lanes 0..7 form the slot's
-//          eight values as the pass ends and store them side by side.
-//   RECORD (K8), v6's record-winners-then-select: the pass only records
-//          the winner index (or -1) in a shared (N, k) table; after every
-//          observer's ladder, the block gathers all rows of its env from
-//          the table and writes the env's contiguous output block, one
-//          float a thread, in order.
-// Distances use __fmul_rn / __fadd_rn (and the library is built with
-// -fmad=false), in the plain version's order, so kernel and plain agree bit
-// for bit.
+// Design: the TPU ladder as warp-wide hardware min-reductions.  The block
+// stages its env's x, y, alive flag and six selectable channels in shared
+// memory (knn_common.cuh:stage_env); each warp takes its observers one at
+// a time, in scan_grid's geometry (a warp per 8 observers, at most 16, and
+// enough blocks an env to fill the card at small E).  Candidate j = lane +
+// 32q (q < 4) sits in lane j % 32's registers as a 32-bit key; self, dead
+// and missing candidates hold the all-ones key, above every valid one.
+// Each lane sorts its four entries once by (key, j), so that its head,
+// entry 0, is its least key at its lowest j.  A pass of the ladder is
+// v1/v2/v6's slot_body over the heads:
+//   packed (K6, K8 packed): the int32 key (bits(d2) & ~127) | j, unique;
+//          __reduce_min_sync (one REDUX) over the heads gives the winner,
+//          its low 7 bits the index.
+//   exact (K7, K8 exact): the key bits(d2) as unsigned (d2 >= +0, so the
+//          bit order is the float order); one REDUX gives the least key m,
+//          a second the lowest j among the heads at m: the lowest j at the
+//          least d2, as v1's min then index-min and v6's exact index-min
+//          give.  Other candidates at the same d2 stay for the next passes.
+// The winner's lane pops its head (its other entries move up one).  A
+// winner is valid iff its key is below bits(1e18); the passes stop at the
+// first invalid one, since every key left is invalid then.  Lane 0
+// records each pass's winner in the warp's table of k ints in shared
+// memory (v6's record-winners-then-select, at warp scope, for every mode);
+// after the passes the warp writes the observer's 8k+1 floats from the
+// table with 128-byte stores (knn_common.cuh:emit_row), a dead observer's
+// row as zeros.  So K7 and K8 exact run one code, and K6 and K8 packed
+// another; the entry points keep the TPU kernels' limits.  Distances use
+// __fmul_rn / __fadd_rn (and the library is built with -fmad=false), in
+// the plain version's order, so kernel and plain agree bit for bit.
 
+#include <algorithm>
 #include <climits>
-#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -80,32 +84,46 @@
 
 namespace {
 
-constexpr int kMaxAgents = 128;               // one TPU lane tile
-constexpr int kPerLane = kMaxAgents / 32;     // candidates in a lane
-constexpr int kWarps = 8;                     // observers in flight a block
-constexpr int kPackedBits = 7;                // _CLEAR_MASK clears 7 bits
+constexpr int kMaxAgents = 128;                         // one TPU lane tile
+constexpr int kPerLane = kMaxAgents / knn::kWarpLanes;  // candidates a lane
+constexpr int kPackedBits = 7;  // _CLEAR_MASK clears 7 bits
 constexpr int kClearMask = ~((1 << kPackedBits) - 1);
-constexpr int kMaxRecordK = 16;               // v6's k <= _VALID_ROWS
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMaxRecordK = 16;  // v6's k <= _VALID_ROWS
 
-// Exact order: the 64-bit key (bits(d2) << 32) | j.  Non-negative floats
-// order as their bit patterns, so one min gives the least d2 and, among
-// equal d2, the lowest j.
-struct ExactLadderKey {
-  using Type = unsigned long long;
-  __device__ static Type invalid() { return ~0ull; }
-  __device__ __forceinline__ static Type make(float d2, int j) {
-    return (static_cast<Type>(__float_as_uint(d2)) << 32) |
-           static_cast<unsigned>(j);
-  }
-  __device__ __forceinline__ static int index(Type key) {
-    return static_cast<int>(key & 0xffffffffull);
-  }
-  __device__ __forceinline__ static bool valid(Type key) {
-    return static_cast<unsigned>(key >> 32) <
-           __float_as_uint(knn::kValidMax);
-  }
-};
+// A lane's four entries, sorted ascending by (key, j): a sorting network
+// of five compare-exchanges.
+template <typename T>
+__device__ __forceinline__ void compare_exchange(T& ka, int& ja, T& kb,
+                                                 int& jb) {
+  const bool swap = kb < ka || (kb == ka && jb < ja);
+  const T k = ka;
+  const int j = ja;
+  ka = swap ? kb : ka;
+  kb = swap ? k : kb;
+  ja = swap ? jb : ja;
+  jb = swap ? j : jb;
+}
+
+template <typename T>
+__device__ __forceinline__ void sort_lane(T (&key)[kPerLane],
+                                          int (&idx)[kPerLane]) {
+  compare_exchange(key[0], idx[0], key[1], idx[1]);
+  compare_exchange(key[2], idx[2], key[3], idx[3]);
+  compare_exchange(key[0], idx[0], key[2], idx[2]);
+  compare_exchange(key[1], idx[1], key[3], idx[3]);
+  compare_exchange(key[1], idx[1], key[2], idx[2]);
+}
+
+// Pops a lane's head: its other entries move up one.
+template <typename T>
+__device__ __forceinline__ void pop_head(T (&key)[kPerLane], T invalid) {
+#pragma unroll
+  for (int q = 0; q + 1 < kPerLane; ++q) key[q] = key[q + 1];
+  key[kPerLane - 1] = invalid;
+}
+
+// Each key type's take() is one pass over the lanes' sorted entries: the
+// winner's index, its entry popped, or -1 when no valid key is left.
 
 // Packed order: the int32 key (bits(d2) & ~127) | j of v2 and v6.
 struct PackedLadderKey {
@@ -114,33 +132,40 @@ struct PackedLadderKey {
   __device__ __forceinline__ static Type make(float d2, int j) {
     return (__float_as_int(d2) & kClearMask) | j;
   }
-  __device__ __forceinline__ static int index(Type key) {
-    return key & ~kClearMask;
-  }
-  __device__ __forceinline__ static bool valid(Type key) {
-    return key < __float_as_int(knn::kValidMax);
+  __device__ __forceinline__ static int take(Type (&key)[kPerLane],
+                                             int (&)[kPerLane]) {
+    const Type m = __reduce_min_sync(knn::kFullMask, key[0]);
+    // keys are unique: one head holds m (an invalid m pops nothing but
+    // invalid keys)
+    if (key[0] == m) pop_head(key, invalid());
+    return m < __float_as_int(knn::kValidMax) ? m & ~kClearMask : -1;
   }
 };
 
-template <typename T>
-__device__ __forceinline__ T warp_min(T v) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) {
-    const T other = __shfl_xor_sync(kFullMask, v, m);
-    v = other < v ? other : v;
+// Exact order: bits(d2) as unsigned, the lowest index first among equal
+// keys.
+struct ExactLadderKey {
+  using Type = unsigned;
+  __device__ static Type invalid() { return 0xffffffffu; }
+  __device__ __forceinline__ static Type make(float d2, int) {
+    return __float_as_uint(d2);
   }
-  return v;
-}
+  __device__ __forceinline__ static int take(Type (&key)[kPerLane],
+                                             int (&idx)[kPerLane]) {
+    const Type m = __reduce_min_sync(knn::kFullMask, key[0]);
+    const int w = static_cast<int>(__reduce_min_sync(
+        knn::kFullMask,
+        key[0] == m ? static_cast<unsigned>(idx[0]) : invalid()));
+    if (idx[0] == w) {
+      pop_head(key, invalid());
+      pop_head(idx, 0);
+    }
+    return m < __float_as_uint(knn::kValidMax) ? w : -1;
+  }
+};
 
-// Slot value c (0..7) of neighbour j for observer i.
-__device__ __forceinline__ float slot_value(const knn::EnvTile& t, int i,
-                                            int j, int c) {
-  if (c < 5) return __fsub_rn(t.f[c * t.n + j], t.f[c * t.n + i]);
-  return c == 5 ? t.f[5 * t.n + j] : 1.0f;
-}
-
-template <typename Key, bool RECORD>
-__global__ void __launch_bounds__(kWarps * 32)
+template <typename Key>
+__global__ void __launch_bounds__(knn::kScanMaxWarps* knn::kWarpLanes)
     ladder_kernel(knn::KnnArgs a) {
   extern __shared__ __align__(16) float knn_smem[];
   const int e = blockIdx.x;
@@ -148,81 +173,56 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int k = a.k;
   const knn::EnvTile t = knn::stage_env(knn_smem, a.loc_x, a.loc_y, a.feats,
                                         a.types_f, a.still_f, e, n);
-  // RECORD: winner j of (observer i, slot s) at winners[i * k + s], -1 for
-  // an invalid slot
-  int* winners = reinterpret_cast<int*>(knn_smem + knn::env_floats(n));
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x % knn::kWarpLanes;
+  const int warp = threadIdx.x / knn::kWarpLanes;
+  const int warps = blockDim.x / knn::kWarpLanes;
+  // the warp's winners: slot s's candidate at winners[s]
+  int* winners = reinterpret_cast<int*>(knn_smem + knn::env_floats(n)) +
+                 warp * k;
   const int row_len = 8 * k + 1;
   const float t_norm = a.t_norm[e];
-  float* env_out = a.out + static_cast<long long>(e) * n * row_len;
-
-  for (int i = threadIdx.x >> 5; i < n; i += kWarps) {
-    if (t.alive[i] == 0.0f) {
-      if (!RECORD) {  // RECORD: the gather phase writes the zero row
-        float* row = env_out + static_cast<long long>(i) * row_len;
-        for (int f = lane; f < row_len; f += 32) row[f] = 0.0f;
-      }
-      continue;
-    }
-    const knn::DiffDist dist(t, nullptr, a, e, i);
-    typename Key::Type key[kPerLane];
-#pragma unroll
-    for (int q = 0; q < kPerLane; ++q) {
-      const int j = lane + 32 * q;
-      key[q] = (j < n && j != i && t.alive[j] != 0.0f)
-                   ? Key::make(dist(j), j)
-                   : Key::invalid();
-    }
-    for (int s = 0; s < k; ++s) {
-      typename Key::Type m = key[0];
-#pragma unroll
-      for (int q = 1; q < kPerLane; ++q) m = key[q] < m ? key[q] : m;
-      m = warp_min(m);
-      const bool valid = Key::valid(m);
-      // knock the winner out (every remaining entry is invalid once the
-      // min is, and rewriting those changes nothing)
+  const knn::StagedFeature feature{t.f, n};
+  for (int i = blockIdx.y * warps + warp; i < n; i += gridDim.y * warps) {
+    const bool live = t.alive[i] != 0.0f;
+    int n_valid = 0;
+    if (live) {
+      const knn::DiffDist dist(t, nullptr, a, e, i);
+      typename Key::Type key[kPerLane];
+      int idx[kPerLane];
 #pragma unroll
       for (int q = 0; q < kPerLane; ++q) {
-        if (key[q] == m) key[q] = Key::invalid();
+        // a lane past the last candidate reads candidate n - 1, so that
+        // every load stays in the staging
+        const int j = lane + knn::kWarpLanes * q;
+        const int jc = min(j, n - 1);
+        const bool valid = (j < n) & (j != i) & (t.alive[jc] != 0.0f);
+        key[q] = valid ? Key::make(dist(jc), jc) : Key::invalid();
+        idx[q] = j;
       }
-      if (RECORD) {
-        if (lane == 0) winners[i * k + s] = valid ? Key::index(m) : -1;
-      } else if (lane < 8) {
-        env_out[static_cast<long long>(i) * row_len + 8 * s + lane] =
-            valid ? slot_value(t, i, Key::index(m), lane) : 0.0f;
+      sort_lane(key, idx);
+      for (; n_valid < k; ++n_valid) {
+        const int w = Key::take(key, idx);
+        if (w < 0) break;
+        if (lane == 0) winners[n_valid] = w;
       }
+      __syncwarp();
     }
-    if (!RECORD && lane == 0) {
-      env_out[static_cast<long long>(i) * row_len + 8 * k] = t_norm;
-    }
-  }
-  if (!RECORD) return;
-
-  // the selection phase: every row of the env from the winners table
-  __syncthreads();
-  const int total = n * row_len;
-  for (int f = threadIdx.x; f < total; f += blockDim.x) {
-    const int i = f / row_len;
-    const int r = f - i * row_len;
-    float v = 0.0f;
-    if (t.alive[i] != 0.0f) {
-      if (r == 8 * k) {
-        v = t_norm;
-      } else {
-        const int j = winners[i * k + (r >> 3)];
-        if (j >= 0) v = slot_value(t, i, j, r & 7);
-      }
-    }
-    env_out[f] = v;
+    knn::emit_row(
+        a.out + (static_cast<long long>(e) * n + i) * row_len,
+        [&](int s) { return s < n_valid ? winners[s] : 0; }, n_valid, k,
+        live ? t_norm : 0.0f, feature, i, lane);
+    __syncwarp();  // every lane has read the table before it is rewritten
   }
 }
 
-template <typename Key, bool RECORD>
+template <typename Key>
 cudaError_t launch(const knn::KnnArgs& a, int e, cudaStream_t stream) {
+  const int warps = std::min(knn::kScanMaxWarps, (a.n + 7) / 8);
   const size_t smem =
       static_cast<size_t>(knn::env_floats(a.n)) * sizeof(float) +
-      (RECORD ? static_cast<size_t>(a.n) * a.k * sizeof(int) : 0);
-  ladder_kernel<Key, RECORD><<<e, kWarps * 32, smem, stream>>>(a);
+      static_cast<size_t>(warps) * a.k * sizeof(int);
+  ladder_kernel<Key><<<knn::scan_grid(e, a.n, warps),
+                       warps * knn::kWarpLanes, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -249,28 +249,27 @@ knn::KnnArgs args_of(const float* loc_x, const float* loc_y,
 // (1 <= n <= 128, 1 <= k <= n, k <= 16 for K8; packed_bits 7 for K6, 0 for
 // K7, either for K8).
 
-// K6: the 7-bit packed order, per-slot selection.
+// K6: the 7-bit packed order.
 KNN_ENTRY(knn_obs_packed) {
   if (bad_call(e, n, k, mxu_dist) || packed_bits != kPackedBits) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(launch<PackedLadderKey, false>(
+  return static_cast<int>(launch<PackedLadderKey>(
       args_of(loc_x, loc_y, feats, types_f, still_f, t_norm, out, n, k), e,
       static_cast<cudaStream_t>(stream)));
 }
 
-// K7: the exact order, per-slot selection.
+// K7: the exact order.
 KNN_ENTRY(knn_obs_onehot) {
   if (bad_call(e, n, k, mxu_dist) || packed_bits != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(launch<ExactLadderKey, false>(
+  return static_cast<int>(launch<ExactLadderKey>(
       args_of(loc_x, loc_y, feats, types_f, still_f, t_norm, out, n, k), e,
       static_cast<cudaStream_t>(stream)));
 }
 
-// K8: the exact (packed_bits == 0) or 7-bit packed order, winners recorded
-// first and selected in a second phase.
+// K8: the exact (packed_bits == 0) or 7-bit packed order, k <= 16.
 KNN_ENTRY(knn_obs_twolevel) {
   if (bad_call(e, n, k, mxu_dist) || k > kMaxRecordK ||
       (packed_bits != 0 && packed_bits != kPackedBits)) {
@@ -279,6 +278,6 @@ KNN_ENTRY(knn_obs_twolevel) {
   const knn::KnnArgs a =
       args_of(loc_x, loc_y, feats, types_f, still_f, t_norm, out, n, k);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(packed_bits ? launch<PackedLadderKey, true>(a, e, st)
-                                      : launch<ExactLadderKey, true>(a, e, st));
+  return static_cast<int>(packed_bits ? launch<PackedLadderKey>(a, e, st)
+                                      : launch<ExactLadderKey>(a, e, st));
 }
