@@ -46,7 +46,15 @@ Phases, each of which raises (and so exits non-zero) on a failure:
    ``pallas_flat_exact``, ``pallas_tiled_exact``, ``pallas_envlanes_exact``
    (obs <= 1e-6) and ``pallas_flat_mxudist`` (under 2e-3 of the entries
    off by more than 8e-6: the CPU and the card centre on means summed in
-   other orders);
+   other orders); then the full-step path (no kernel): the CUDA step
+   against the CPU step from the same states over 60 rolled states at 1024
+   envs, TagGridWorld with full and partial observations bit for bit, and
+   CartPole (with its run config's pool), MountainCar,
+   ContinuousMountainCar, Acrobot and Pendulum with state and observations
+   within 1e-5 and rewards and done flags equal; and a forced and a
+   done-driven pool reset on the card of TagGridWorldWithResetPool and
+   CartPole with a pool: every reset row a row of its pool, the reset
+   envs' observations ``observe_fn`` of the reset state;
 4. drive the main paths, each with the kernels' launch counts set to 0 just
    before and read just after:
    a. the flagship rollout at 1024 envs x 105 agents with ``fc_dims=(256,
@@ -73,6 +81,22 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       ``full_loop_step``, 200 steps each; with ``pallas_twolevel`` and
       ``pallas_envlanes``: ``env_only_step``, 200 steps; each step must
       launch its name's kernel exactly once and no other;
+   f. the full-step path's env-only loops, 200 steps each after 5 warm-up
+      steps (random device actions, the step, an observation checksum,
+      the auto-reset): TagGridWorld at the JAX bench's 32,768 envs (4
+      taggers, grid 20, episode 100, partial observations, seed 7),
+      CartPole at 131,072 envs (episode 200, seed 5), and MountainCar,
+      ContinuousMountainCar, Acrobot and Pendulum at 131,072 envs with
+      their run configs' episodes and reset pools; none may launch a kNN
+      kernel;
+   g. A2C training at full width, through ``setup_trainer`` and
+      ``train()``, of ``tag_gridworld`` (2000 envs x 100 steps),
+      ``tag_gridworld_with_reset_pool`` (the same, pools registered),
+      ``single_cartpole`` (100 x 500, a pool of 1000), ``single_acrobot``
+      (1000 x 50) and ``single_mountain_car`` (1000 x 100), 3 iterations
+      each, no kNN kernel launched: finite losses, moved parameters and a
+      checkpoint each; then one ``tag_gridworld`` update on the card
+      against the same update on the CPU;
 5. at the main paths' shapes -- (1024, 105, 10) for K1, K3, K6, K7, K8 in
    both modes, K9 in both, K2 and K4, (100, 110, 10) for K2, (256, 1024,
    10) for K1, K4 in both modes, K5 in its four and K9 exact -- hold each
@@ -85,8 +109,8 @@ The last three lines are the card (``nvidia-smi``'s name and power limit),
 one JSON object with a record per kernel, and the result line
 ``{"ok": true, "device": {...}}``.  ``--profile`` adds a ``torch.profiler``
 table of device time by kernel for 10 steps of every loop of phase 4 and
-for one training iteration, each with its device ms per step beside its
-wall ms per step and the device's idle share.
+for one iteration of each training run, each with its device ms per step
+beside its wall ms per step and the device's idle share.
 """
 
 from __future__ import annotations
@@ -184,6 +208,39 @@ ENVLANES_LARGE = (2, 8192, 10)
 # turns those into parameter differences far below the learning rate
 UPDATE_PARAM_TOL = 1e-5
 UPDATE_ENVS = 25  # envs of the last training batch in that comparison
+# the full-step path (TagGridWorld and the classic-control envs; no kNN
+# kernel): the CUDA step vs the CPU step over this many rolled states, at
+# this many envs; classic-control state and observations within 1e-5 (CUDA
+# sin/cos and the division by a host scalar through its reciprocal move
+# last bits), TagGridWorld bit for bit
+FULL_STEP_STATES = 60
+FULL_STEP_CHECK_ENVS = 1024
+CLASSIC_STEP_TOL = 1e-5
+# the env-only loops: (label, registered env, envs, seed, the env's
+# settings or the run config whose env section gives them); TagGridWorld at
+# the JAX bench's geometry (bench.py:448-459), CartPole at its
+# cartpole_100k count (bench.py:518-520), the other four envs at that count
+# with their run configs' episodes and reset pools
+ENV_LOOP_STEPS = 200
+ENV_LOOPS = (
+    ("TagGridWorld", "TagGridWorld", 32768, 7,
+     dict(num_taggers=4, grid_length=20, episode_length=100,
+          use_full_observation=False)),
+    ("CartPole", "ClassicControlCartPoleEnv", 131072, 5,
+     dict(episode_length=200)),
+    ("MountainCar", "ClassicControlMountainCarEnv", 131072, 5,
+     "single_mountain_car"),
+    ("ContinuousMountainCar", "ClassicControlContinuousMountainCarEnv",
+     131072, 5, "single_continuous_mountain_car"),
+    ("Acrobot", "ClassicControlAcrobotEnv", 131072, 5, "single_acrobot"),
+    ("Pendulum", "ClassicControlPendulumEnv", 131072, 5, "single_pendulum"),
+)
+# A2C training of the full-step path's run configs at full width, this
+# many iterations each
+FULL_STEP_TRAINING = ("tag_gridworld", "tag_gridworld_with_reset_pool",
+                      "single_cartpole", "single_acrobot",
+                      "single_mountain_car")
+FULL_STEP_TRAIN_ITERS = 3
 
 
 def _card_line() -> str:
@@ -703,7 +760,7 @@ def _drive_main_path(system, generator):
     full_loop = system["full_loop_step"]
     models = system["models"]
     state = system["state"]
-    checksum = torch.zeros((), device=state["loc_x"].device)
+    checksum = torch.zeros((), device=state["_done_"].device)
 
     for _ in range(5):  # warm-up: allocator, library and kernel loading
         state, checksum = env_only((state, checksum), generator)
@@ -739,13 +796,16 @@ def _drive_main_path(system, generator):
 
 
 def _check_loop_state(state, checksum, shape):
+    """A loop's state after its steps: a finite observation checksum,
+    every float array finite, the rewards ``(envs, agents)`` and the done
+    flags 0 or 1."""
     import torch
 
     assert torch.isfinite(checksum), "non-finite observation checksum"
-    for name in ("loc_x", "loc_y", "speed", "direction", "acceleration",
-                 "rewards"):
-        assert torch.isfinite(state[name]).all(), f"non-finite {name}"
-    assert tuple(state["loc_x"].shape) == shape
+    for name, value in state.items():
+        if value.is_floating_point():
+            assert torch.isfinite(value).all(), f"non-finite {name}"
+    assert tuple(state["rewards"].shape) == shape
     assert bool(((state["_done_"] == 0) | (state["_done_"] == 1)).all())
 
 
@@ -760,7 +820,7 @@ def _time_loop(system, generator, steps, loop="env_only_step", warmup=5):
 
     step = system[loop]
     state = system["state"]
-    checksum = torch.zeros((), device=state["loc_x"].device)
+    checksum = torch.zeros((), device=state["_done_"].device)
 
     def advance(state, checksum):
         if loop == "env_only_step":
@@ -928,6 +988,164 @@ def _update_card_vs_cpu(trainer):
         assert diff <= UPDATE_PARAM_TOL, f"{tag}: parameters differ by {diff}"
         worst = max(worst, diff)
     return worst
+
+
+def _env_settings(settings):
+    """An env loop's settings: given, or a run config's env section."""
+    from warpdrive_tpu_torch.utils.config import load_run_config
+
+    if isinstance(settings, str):
+        return dict(load_run_config(settings)["env"])
+    return dict(settings)
+
+
+def _check_full_steps():
+    """The full-step path's CUDA step against its CPU step from the same
+    states (``tools/consistency.py:step_against_cpu``) over
+    ``FULL_STEP_STATES`` rolled states at ``FULL_STEP_CHECK_ENVS`` envs:
+    TagGridWorld with full (the run config's env) and partial (the bench's
+    geometry) observations bit for bit; each classic-control env (its run
+    config's env, CartPole's with its pool of 1000) state and observations
+    within ``CLASSIC_STEP_TOL``, rewards and done flags equal.  Then a
+    forced and a done-driven pool reset on the card of TagGridWorldWith
+    ResetPool and CartPole with a pool, each after ``FULL_STEP_STATES``
+    random steps (``check_pool_reset``: reset rows are pool rows, the reset
+    envs' observations ``observe_fn`` of the reset state).  Returns the
+    largest float difference by env."""
+    import torch
+
+    from warpdrive_tpu_torch.envs import register_all_envs
+    from warpdrive_tpu_torch.envs.engine import EnvEngine
+    from warpdrive_tpu_torch.presets import random_actions_fn
+    from warpdrive_tpu_torch.tools.consistency import (
+        check_pool_reset,
+        step_against_cpu,
+    )
+    from warpdrive_tpu_torch.utils.config import load_run_config
+    from warpdrive_tpu_torch.utils.env_registrar import env_registrar
+
+    register_all_envs()
+
+    def engines(env_name, settings, devices=(DEVICE, "cpu"), seed=3):
+        cls = env_registrar.get(env_name, backend="torch")
+        return [EnvEngine(env_obj=cls(seed=seed, **settings),
+                          num_envs=FULL_STEP_CHECK_ENVS, seed=seed,
+                          device=device) for device in devices]
+
+    cases = [("TagGridWorld, full obs", "TagGridWorld",
+              _env_settings("tag_gridworld"), 0.0),
+             ("TagGridWorld, partial obs", "TagGridWorld",
+              _env_settings(ENV_LOOPS[0][4]), 0.0)]
+    cases += [(f"{label}", env_name, _env_settings(
+        "single_cartpole" if label == "CartPole" else settings),
+        CLASSIC_STEP_TOL) for label, env_name, _, _, settings in ENV_LOOPS[1:]]
+    worst = {}
+    for label, env_name, settings, tol in cases:
+        settings.pop("seed", None)
+        diffs = step_against_cpu(*engines(env_name, settings),
+                                 steps=FULL_STEP_STATES)
+        print(f"CUDA step vs CPU step [{label}], {FULL_STEP_STATES} states "
+              f"at {FULL_STEP_CHECK_ENVS} envs: max abs diff "
+              + ", ".join(f"{k} {v:.3g}" for k, v in sorted(diffs.items()))
+              + "; integer arrays equal")
+        assert diffs["rewards"] == 0.0, diffs
+        assert max(diffs.values()) <= tol, diffs
+        worst[label] = max(diffs.values())
+
+    for label, env_name, run_config in (
+            ("TagGridWorldWithResetPool", "TagGridWorldWithResetPool",
+             "tag_gridworld_with_reset_pool"),
+            ("CartPole with a pool", "ClassicControlCartPoleEnv",
+             "single_cartpole")):
+        settings = dict(load_run_config(run_config)["env"])
+        settings.pop("seed", None)
+        [engine] = engines(env_name, settings, devices=(DEVICE,))
+        generator = torch.Generator(device=DEVICE).manual_seed(3)
+        actions = random_actions_fn(engine, DEVICE)
+        state = engine.state
+        for _ in range(FULL_STEP_STATES):
+            state = engine.step(state, actions(generator))
+        forced = check_pool_reset(engine, state)
+        done = torch.rand((engine.n_envs,), generator=generator,
+                          device=DEVICE) < 0.3
+        partial = check_pool_reset(engine, state, done=done)
+        pools = {t: tuple(p.shape) for t, p in engine.store.pools.items()}
+        print(f"pool reset on the card [{label}, pools {pools}]: forced "
+              f"{forced} envs and done-driven {partial} envs; every reset "
+              "row a pool row, their observations observe_fn of the reset "
+              "state, the others unchanged")
+    return worst
+
+
+def _drive_env_loops():
+    """The full-step path's env-only loops (``ENV_LOOPS``), each
+    ``ENV_LOOP_STEPS`` steps after 5 warm-up steps with the kernels' launch
+    counts set to 0 after the warm-up: random device actions, the step, an
+    observation checksum and the auto-reset; none may launch a kNN kernel.
+    Returns the systems (with their generators) and the timings by label."""
+    import torch
+
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.presets import build_env_only_loop
+
+    no_launches = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
+    systems, results = {}, {}
+    for label, env_name, num_envs, seed, settings in ENV_LOOPS:
+        settings = _env_settings(settings)
+        settings.pop("seed", None)
+        system = build_env_only_loop(env_name, num_envs, seed=seed,
+                                     device=DEVICE, **settings)
+        generator = torch.Generator(device=DEVICE).manual_seed(seed)
+        r, counts, state = _time_loop(system, generator, ENV_LOOP_STEPS)
+        system["state"], system["generator"] = state, generator
+        print(f"{label} env_only_step: {r['ms_per_step']:.4f} ms/step, "
+              f"{r['env_steps_per_s']:.0f} env-steps/s at {num_envs} envs x "
+              f"{system['num_agents']} agents ({ENV_LOOP_STEPS} steps, host "
+              f"{r['host_s']:.3f} s; {settings}); launches {counts}")
+        assert counts == no_launches, f"{label}: launches {counts}"
+        systems[label], results[label] = system, r
+    return systems, results
+
+
+def _drive_full_step_training():
+    """A2C training of ``FULL_STEP_TRAINING`` at full width through
+    ``_drive_training`` (``setup_trainer`` and ``train()``), each for
+    ``FULL_STEP_TRAIN_ITERS`` iterations, no kNN kernel launched; the pool
+    variants must have their pools registered.  Returns the trainers and
+    the mean (rollout ms, update ms, env-steps/s) of iterations 2 on, by
+    config."""
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.utils.config import load_run_config
+
+    no_launches = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
+    trainers, means = {}, {}
+    for name in FULL_STEP_TRAINING:
+        cfg = load_run_config(name)
+        trainer_cfg = cfg["trainer"]
+        trainer_cfg["num_episodes"] = (FULL_STEP_TRAIN_ITERS
+                                       * trainer_cfg["train_batch_size"]
+                                       // cfg["env"]["episode_length"])
+        trainer_cfg["seed"] = 0
+        trainer, launches, times = _drive_training(cfg)
+        assert trainer.num_iters == FULL_STEP_TRAIN_ITERS
+        assert launches == no_launches, f"{name}: launches {launches}"
+        pools = {t: tuple(p.shape)
+                 for t, p in trainer.engine.store.pools.items()}
+        if "reset_pool_size" in cfg["env"] or "with_reset_pool" in name:
+            assert pools, f"{name}: no reset pool registered"
+        steps = trainer.training_batch_size_per_env * trainer.num_envs
+        later = trainer.phase_ms[1:]
+        roll_ms = statistics.mean(r for r, _ in later)
+        upd_ms = statistics.mean(u for _, u in later)
+        rate = steps / ((roll_ms + upd_ms) / 1e3)
+        print(f"training {name}: {trainer.num_iters} iterations of "
+              f"{trainer.num_envs} envs x {trainer.training_batch_size_per_env}"
+              f" steps, pools {pools}, in {times['train_s']:.3f} s (setup "
+              f"{times['setup_s']:.3f} s); iterations 2-{trainer.num_iters}, "
+              f"mean: rollout {roll_ms:.3f} ms, update {upd_ms:.3f} ms, "
+              f"{rate:.0f} env-steps/s; launches {launches}")
+        trainers[name], means[name] = trainer, (roll_ms, upd_ms, rate)
+    return trainers, means
 
 
 def _knn_bound_ms(E, N, k, d2_pairs, mxu_distance=False):
@@ -1186,6 +1404,8 @@ def main(argv=None) -> int:
             f"1024 agents, {algo}", steps=20,
             swap_class=algo == "pallas_flat_mxudist")
 
+    _check_full_steps()
+
     no_launches = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
     # 4a. the flagship rollout, counts from 0
     system["state"] = rolled
@@ -1238,6 +1458,14 @@ def main(argv=None) -> int:
     # 4e. the flagship loops of K6-K9, counts from 0 before each
     knn_loops, knn_launches = _drive_knn_loops(knn_rolled)
 
+    # 4f. the full-step path's env-only loops, counts from 0 before each
+    env_loops, env_loop_times = _drive_env_loops()
+
+    # 4g. A2C training of the full-step path's run configs, counts from 0
+    # before each, and one tag_gridworld update on the card vs the CPU
+    full_trainers, full_train_means = _drive_full_step_training()
+    _update_card_vs_cpu(full_trainers["tag_gridworld"])
+
     if args.profile:
         windows = [
             (loop, _stepper(system, generator, loop), "step",
@@ -1261,6 +1489,18 @@ def main(argv=None) -> int:
                                           knn_rolled[algo][1], loop),
              "step", r["ms_per_step"])
             for (algo, loop), r in knn_loops.items()
+        ]
+        windows += [
+            (f"{label} env_only_step", _stepper(m, m["generator"],
+                                                "env_only_step"),
+             "step", env_loop_times[label]["ms_per_step"])
+            for label, m in env_loops.items()
+        ]
+        windows += [
+            (f"training iteration [{name}]",
+             lambda t=t: t._iteration(t.current_timestep), "iteration",
+             full_train_means[name][0] + full_train_means[name][1])
+            for name, t in full_trainers.items()
         ]
         _profile(windows)
 

@@ -2,7 +2,9 @@
 version (bit for bit, or for K4 by its swap class), the flagship loops
 launching K1 (K3 with ``pallas_flat``, K6-K9 with their names) once per
 step, the 1024-agent loops launching K1, K4, K5 or K9 once per step, and
-the training rollout launching K2 once per step.
+the training rollout launching K2 once per step; on the full-step path
+(no kernel), TagGridWorld's and CartPole's steps on the card against the
+CPU's and the observation refresh after a pool reset.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The file imports no JAX,
 so on a machine with a card and no JAX it runs without the repo's
@@ -16,9 +18,25 @@ import pytest
 import torch
 
 from test_torch_knn_warp_order import near_tie_coords
+from warpdrive_tpu_torch.envs.classic_control.cartpole import (
+    TorchClassicControlCartPoleEnv,
+)
+from warpdrive_tpu_torch.envs.engine import EnvEngine
 from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
+from warpdrive_tpu_torch.envs.tag_gridworld import (
+    TorchTagGridWorld,
+    TorchTagGridWorldWithResetPool,
+)
 from warpdrive_tpu_torch.ops import knn_obs
-from warpdrive_tpu_torch.presets import build_flagship, build_many_agents
+from warpdrive_tpu_torch.presets import (
+    build_flagship,
+    build_many_agents,
+    random_actions_fn,
+)
+from warpdrive_tpu_torch.tools.consistency import (
+    check_pool_reset,
+    step_against_cpu,
+)
 from warpdrive_tpu_torch.training.scripts.train import setup_trainer_and_train
 from warpdrive_tpu_torch.utils.config import load_run_config
 
@@ -456,3 +474,59 @@ def test_many_agent_envlanes_loop_launches_k9_once_per_step(card):
     torch.cuda.synchronize()
     assert knn_obs.LAUNCH_COUNTS == dict(_NO_LAUNCHES, knn_obs_envlanes=3)
     assert torch.isfinite(checksum)
+
+
+# the full-step path: TagGridWorld and the classic-control envs (no kNN
+# kernel; PyTorch ops on the card against the same ops on the CPU)
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [True, False], ids=["full_obs", "partial_obs"])
+def test_gridworld_step_on_card_equals_cpu(card, full):
+    """60 steps of TagGridWorld from the same states on the card and on the
+    CPU: positions, rewards, done flags and observations bit for bit (every
+    division is by a device tensor, so CUDA divides as the CPU does), and
+    no kNN kernel launched."""
+    config = dict(num_taggers=4, grid_length=20, episode_length=30, seed=7,
+                  use_full_observation=full)
+    engines = [EnvEngine(env_obj=TorchTagGridWorld(**config), num_envs=256,
+                         seed=7, device=device) for device in (card, "cpu")]
+    knn_obs.reset_launch_counts()
+    worst = step_against_cpu(*engines, steps=60)
+    assert worst == dict.fromkeys(worst, 0.0), worst
+    assert knn_obs.LAUNCH_COUNTS == _NO_LAUNCHES
+
+
+@pytest.mark.cuda
+def test_cartpole_pool_step_on_card_matches_cpu(card):
+    """CartPole with a reset pool, 60 steps from the same states: state
+    and observations within 1e-5 (CUDA's sin/cos and its division by a host
+    scalar through the reciprocal move last bits), rewards and done flags
+    equal."""
+    config = dict(episode_length=40, reset_pool_size=1000, seed=5)
+    engines = [EnvEngine(env_obj=TorchClassicControlCartPoleEnv(**config),
+                         num_envs=512, seed=5, device=device)
+               for device in (card, "cpu")]
+    worst = step_against_cpu(*engines, steps=60)
+    assert worst["rewards"] == 0.0
+    assert max(worst.values()) <= 1e-5, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", ["gridworld", "cartpole"])
+def test_pool_reset_refreshes_observations_on_card(card, env):
+    """A forced and a done-driven pool reset on the card: every reset row
+    is a row of its pool and the reset envs' observations are observe_fn
+    of the reset state, the other envs' unchanged."""
+    env_obj = (TorchTagGridWorldWithResetPool(
+        num_taggers=4, grid_length=20, episode_length=30, seed=3,
+        reset_pool_size=64) if env == "gridworld"
+        else TorchClassicControlCartPoleEnv(episode_length=40, seed=3,
+                                            reset_pool_size=64))
+    engine = EnvEngine(env_obj=env_obj, num_envs=1024, seed=3, device=card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    actions = random_actions_fn(engine, card)
+    state = engine.state
+    for _ in range(10):
+        state = engine.step(state, actions(gen))
+    assert check_pool_reset(engine, state) == 1024
+    done = torch.rand((1024,), generator=gen, device=card) < 0.3
+    assert check_pool_reset(engine, state, done=done) == int(done.sum())

@@ -190,8 +190,9 @@ def test_cli_main_on_a_tiny_config(tmp_path):
         "-e", str(path), "--num_episodes", "20", "--num_envs", "4",
         "--results_dir", str(tmp_path / "cli"), "--device", "cpu",
     ])
+    # --num_envs keeps the config's 40 steps an iteration: 160 env-steps
     assert trainer.num_envs == 4 and trainer.iters_completed == 2
-    assert "tagger_400.state_dict" in os.listdir(tmp_path / "cli")
+    assert "tagger_320.state_dict" in os.listdir(tmp_path / "cli")
     for flags, item in ((["-n", "2"], "11"), (["-a"], "12"),
                         (["--coordinator", "localhost:1234"], "11")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -215,8 +216,8 @@ def test_left_out_features_raise(tmp_path):
             port_train.setup_trainer(cfg, results_dir=str(tmp_path / "x"),
                                      device="cpu")
     cfg = _config(port_config.load_run_config)
-    cfg["name"] = "single_cartpole"
-    with pytest.raises(NotImplementedError, match="item 6"):
+    cfg["name"] = "single_pendulum"
+    with pytest.raises(NotImplementedError, match="item 7"):
         port_train.setup_trainer(cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

@@ -1,23 +1,27 @@
 """
 EnvEngine: the vectorized environment runtime on one device.
 
-The port's counterpart of ``warpdrive_tpu/envs/engine.py``, for the
-split-step path.  It
+The port's counterpart of ``warpdrive_tpu/envs/engine.py``.  It
 
 * builds the batched device state from the env's host-side reset and its
-  DataFeeds (single-env arrays replicated across replicas),
+  DataFeeds (single-env arrays replicated across replicas) and registers
+  the env's reset pools,
 * creates the shared observation/action/reward placeholders,
-* exposes the functions a rollout composes -- ``step_physics``,
-  ``observe``, ``auto_reset`` and the composed ``step`` -- each taking and
-  returning a dict of batched tensors without touching its input,
+* exposes the functions a rollout composes, each taking and returning a
+  dict of batched tensors without touching its input: ``step`` (write the
+  actions, then the env's whole ``step_fn``, or on the split path
+  ``step_physics`` then ``observe``), ``auto_reset``, and on the split path
+  ``step_physics`` and ``observe`` (``None`` on the full-step path),
+* refreshes, after a reset that drew reset-pool rows, the observations of
+  the reset replicas from the env's ``observe_fn`` (restoring the
+  at-reset snapshot would leave them one step stale),
 * offers the gym-like conveniences ``reset_all_envs``,
   ``reset_only_done_envs`` and ``step_all_envs``, which keep the engine's
   own ``state``,
 * and ``rewards_of``, the all-agent rewards a trainer records.
 
-Envs without the split-step contract, separate per-policy placeholders,
-Dict observations and reset pools (which need the post-reset observation
-refresh) raise ``NotImplementedError``.
+Separate per-policy placeholders and Dict observations raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -65,12 +69,12 @@ class EnvEngine:
             env_cls = registrar.get(env_name, backend="torch")
             env_obj = env_cls(**(env_config or {}))
         self.env = env_obj
-        if not getattr(self.env, "has_split_step", False):
-            raise NotImplementedError(
-                "the port's engine runs the split-step path only "
-                "(physics_fn + observe_fn); the full step_fn path comes "
-                "with ROADMAP queue 1, item 6"
-            )
+        self.has_split_step = bool(getattr(self.env, "has_split_step", False))
+        if not self.has_split_step:
+            # the full-step path: the env's whole step_fn writes its own
+            # observations, so there is no split pair to compose
+            self.step_physics = None
+            self.observe = None
         self.n_envs = int(num_envs)
         self.n_agents = int(self.env.num_agents)
         self.episode_length = int(self.env.episode_length)
@@ -99,10 +103,7 @@ class EnvEngine:
         self.store.push(self.env.get_tensor_dictionary())
         pool_feed = self.env.get_reset_pool_dictionary()
         if pool_feed:
-            raise NotImplementedError(
-                "reset pools need the post-reset observation refresh, which "
-                "is not ported yet: ROADMAP queue 1, item 5"
-            )
+            self.store.push(pool_feed)
 
         placeholder_meta = create_and_push_data_placeholders(
             self.store,
@@ -120,17 +121,49 @@ class EnvEngine:
             np.zeros((), dtype=placeholder_meta["groups"][None]["action"][1])
         ).dtype
 
-        self.auto_reset = make_auto_reset_fn(
-            self.store.snapshot, self.store.pools
-        )
+        self.auto_reset = self._make_auto_reset()
         self.state = self.store.state
         self._first_reset_done = False
+
+    def _make_auto_reset(self):
+        """The done-driven reset; with reset pools, followed by the
+        observation refresh of the replicas it reset."""
+        base_auto_reset = make_auto_reset_fn(
+            self.store.snapshot, self.store.pools
+        )
+        if not self.store.pools:
+            return base_auto_reset
+        observe_fn = getattr(self.env, "observe_fn", None)
+        if observe_fn is None:
+            # without the refresh every pool reset would serve one step of
+            # observations of the fixed snapshot beside a pool row's state
+            raise NotImplementedError(
+                "reset pools need the env's observe_fn, which refreshes the "
+                "observations of the replicas a pool reset has reset"
+            )
+
+        def auto_reset(state: dict, generator: torch.Generator = None,
+                       force: bool = False, pool_idx: dict = None) -> dict:
+            done = state[Constants.DONE] > 0
+            if force:
+                done = torch.ones_like(done)
+            new_state = base_auto_reset(state, generator, force=force,
+                                        pool_idx=pool_idx)
+            if _OBS in new_state:
+                fresh = observe_fn(dict(new_state))
+                mask = done.reshape(done.shape + (1,) * (fresh.ndim - 1))
+                new_state[_OBS] = torch.where(
+                    mask, fresh.to(new_state[_OBS].dtype), new_state[_OBS]
+                )
+            return new_state
+
+        return auto_reset
 
     def rewards_of(self, state: dict) -> torch.Tensor:
         """All-agent rewards ``(envs, agents)`` of a state."""
         return state[_REWARDS]
 
-    # ------------------------------------------------------- split-step path
+    # ------------------------------------------------------------ the steps
     def _as_actions(self, actions) -> torch.Tensor:
         a = torch.as_tensor(actions, device=self.device)
         if a.ndim == 2:  # (envs, agents) -> add the action-type axis
@@ -138,12 +171,14 @@ class EnvEngine:
         return a.to(self._act_dtype)
 
     def step_physics(self, state: dict, actions) -> dict:
-        """Dynamics, rewards and done flags of every replica for
-        ``actions`` of shape ``(envs, agents[, components])``."""
+        """Split path: dynamics, rewards and done flags of every replica
+        for ``actions`` of shape ``(envs, agents[, components])``
+        (``None`` on the full-step path)."""
         return self.env.physics_fn(dict(state), self._as_actions(actions))
 
     def observe(self, state: dict) -> torch.Tensor:
-        """Observations ``(envs, agents, obs_dim)`` of the current state."""
+        """Split path: observations ``(envs, agents, obs_dim)`` of the
+        current state (``None`` on the full-step path)."""
         return self.env.observe_batch_fn(dict(state))
 
     def write_actions(self, state: dict, actions) -> dict:
@@ -153,9 +188,12 @@ class EnvEngine:
         return state
 
     def step(self, state: dict, actions=None) -> dict:
-        """Composed step: write actions, physics, then observations."""
+        """Write ``actions`` (when given), then the env's whole
+        ``step_fn``, or on the split path physics and then observations."""
         if actions is not None:
             state = self.write_actions(state, actions)
+        if not self.has_split_step:
+            return self.env.step_fn(dict(state))
         out = self.step_physics(state, state[_ACTIONS])
         out[_OBS] = self.observe(out)
         return out

@@ -17,6 +17,12 @@ the kNN kernel once.
 bench (``bench.py:576-598``): the flagship's settings with 20 taggers and
 1004 runners on a 60-unit square, no policies, and the same
 ``env_only_step``.
+
+``build_env_only_loop`` builds the same random-action loop for an env of
+the full-step path (TagGridWorld, the classic-control envs): the env's
+whole step, which writes the observations, then the auto-reset; the JAX
+bench's ``tag_gridworld_env_steps_per_sec`` and
+``cartpole_100k_env_steps_per_sec`` stages (``bench.py:430-551``) time it.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from warpdrive_tpu_torch.models.fully_connected import FullyConnected
 from warpdrive_tpu_torch.sampling.samplers import sample_from_logits
 from warpdrive_tpu_torch.utils.constants import Constants
 from warpdrive_tpu_torch.utils.device import resolve_device
+from warpdrive_tpu_torch.utils.spaces import Box, Discrete, MultiDiscrete
 
 _OBS = Constants.OBSERVATIONS
 
@@ -72,22 +79,48 @@ def _rollout_state(engine):
     }
 
 
-def _env_only_step_fn(engine, heads, device):
+def random_actions_fn(engine, device):
+    """``actions(generator)``: uniform random actions ``(envs, agents,
+    components)`` for every agent of ``engine``, drawn on ``device``."""
+    space = engine.action_space[engine._agent_ids[0]]
+    shape = (engine.n_envs, engine.n_agents)
+    if isinstance(space, Box):
+        low = torch.tensor(np.array(space.low, np.float32), device=device)
+        span = torch.tensor(np.array(space.high - space.low, np.float32),
+                            device=device)
+
+        def actions(generator):
+            u = torch.rand(shape + tuple(space.shape), generator=generator,
+                           device=device)
+            return low + u * span
+
+        return actions
+    if isinstance(space, Discrete):
+        heads = [space.n]
+    elif isinstance(space, MultiDiscrete):
+        heads = [int(n) for n in space.nvec]
+    else:
+        raise NotImplementedError(repr(space))
+
+    def actions(generator):
+        return torch.stack(
+            [torch.randint(0, n, shape, generator=generator, device=device,
+                           dtype=torch.int32) for n in heads], dim=-1)
+
+    return actions
+
+
+def _env_only_step_fn(engine, device):
     """``env_only_step((state, checksum), generator)`` over every replica
     of ``engine``."""
-    num_envs, n_agents = engine.n_envs, engine.n_agents
+    random_actions = random_actions_fn(engine, device)
 
     @torch.no_grad()
     def env_only_step(carry, generator):
         """Random-action env step + observation + auto-reset.  The obs
         checksum keeps the observation an output of the step."""
         state, checksum = carry
-        actions = torch.stack(
-            [torch.randint(0, n, (num_envs, n_agents), generator=generator,
-                           device=device, dtype=torch.int32)
-             for n in heads],
-            dim=-1,
-        )
+        actions = random_actions(generator)
         checksum = checksum + engine.observe(state).sum()
         state = engine.step_physics(state, actions)
         return engine.auto_reset(state, generator), checksum
@@ -161,7 +194,7 @@ def build_flagship(num_envs: int = 64, fc_dims=(256, 256), seed: int = 0,
         state = engine.step_physics(state, actions)
         return engine.auto_reset(state, generator)
 
-    env_only_step = _env_only_step_fn(engine, heads, device)
+    env_only_step = _env_only_step_fn(engine, device)
 
     return {
         "engine": engine,
@@ -198,12 +231,56 @@ def build_many_agents(num_envs: int = 256, seed: int = 0,
                              knn_algorithm=knn_algorithm)
     engine = EnvEngine(env_obj=env, num_envs=num_envs, seed=seed,
                        device=device)
-    heads = [int(n) for n in env.action_space[0].nvec]
     return {
         "engine": engine,
         "env": env,
         "state": _rollout_state(engine),
-        "env_only_step": _env_only_step_fn(engine, heads, device),
+        "env_only_step": _env_only_step_fn(engine, device),
+        "num_envs": num_envs,
+        "num_agents": engine.n_agents,
+    }
+
+
+def build_env_only_loop(env_name: str, num_envs: int, seed: int = 0,
+                        device="cuda", **env_kwargs):
+    """
+    Build the env-only loop of a registered full-step env (its ``step_fn``
+    writes the observations) on ``device``: ``env_kwargs`` configure the
+    env, which is seeded with ``seed`` as the engine is.
+
+    :returns: dict with ``engine``, ``env``, ``state`` (the engine's batched
+        state), ``env_only_step((state, checksum), generator)`` -- random
+        device actions, the whole step, the observations' sum added to the
+        checksum, then the auto-reset (with reset pools, the refresh of the
+        reset envs' observations) --, ``num_envs`` and ``num_agents``.
+    """
+    from warpdrive_tpu_torch.envs import register_all_envs
+    from warpdrive_tpu_torch.envs.engine import EnvEngine
+    from warpdrive_tpu_torch.utils.env_registrar import env_registrar
+
+    device = resolve_device(device)
+    register_all_envs()
+    env = env_registrar.get(env_name, backend="torch")(seed=seed,
+                                                       **env_kwargs)
+    engine = EnvEngine(env_obj=env, num_envs=num_envs, seed=seed,
+                       device=device)
+    assert not engine.has_split_step, f"{env_name} takes the split path"
+    random_actions = random_actions_fn(engine, device)
+
+    @torch.no_grad()
+    def env_only_step(carry, generator):
+        """Random-action step + auto-reset; the obs checksum keeps the
+        observation write an output of the step."""
+        state, checksum = carry
+        state = engine.step(state, random_actions(generator))
+        checksum = checksum + state[_OBS].sum()
+        return engine.auto_reset(state, generator), checksum
+
+    return {
+        "engine": engine,
+        "env": env,
+        "state": dict(engine.state),
+        "env_only_step": env_only_step,
         "num_envs": num_envs,
         "num_agents": engine.n_agents,
     }

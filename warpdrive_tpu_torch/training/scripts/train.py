@@ -5,11 +5,16 @@ Training CLI: the port's counterpart of
     python -m warpdrive_tpu_torch.training.scripts.train -e tag_continuous
 
 ``-e`` names a run config under the port's ``training/run_configs`` (or is
-a path to one); ``--num_episodes`` and ``--num_envs`` override the config,
+a path to one); ``--num_episodes`` and ``--num_envs`` override the config
+(``--num_envs`` keeps an iteration's steps per env, scaling
+``train_batch_size`` with the env count),
 ``--results_dir`` sets where metrics and checkpoints go, and ``--device``
-(default ``cuda``) where the run happens.  The TagContinuous two-policy
-config is ported; the device mesh (``-n``), the auto-scaler (``-a``) and the
-multi-host flags raise ``NotImplementedError`` naming their ROADMAP items.
+(default ``cuda``) where the run happens.  The A2C run configs are
+ported: ``tag_continuous`` (two policies), ``tag_gridworld``,
+``tag_gridworld_with_reset_pool``, ``single_cartpole``, ``single_acrobot``
+and ``single_mountain_car`` (one shared policy).  The DDPG configs, the
+device mesh (``-n``), the auto-scaler (``-a``) and the multi-host flags
+raise ``NotImplementedError`` naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -26,20 +31,25 @@ from warpdrive_tpu_torch.utils.env_registrar import env_registrar
 # run-config name -> (registered env name, policy-map kind); the port
 # trains them with TrainerA2C
 _ENV_SETUPS = {
+    "single_cartpole": ("ClassicControlCartPoleEnv", "shared"),
+    "single_mountain_car": ("ClassicControlMountainCarEnv", "shared"),
+    "single_acrobot": ("ClassicControlAcrobotEnv", "shared"),
+    "tag_gridworld": ("TagGridWorld", "shared"),
+    "tag_gridworld_with_reset_pool": ("TagGridWorldWithResetPool", "shared"),
     "tag_continuous": ("TagContinuous", "tag_continuous"),
 }
 
 # the JAX package's other run configs, with the ROADMAP item that ports each
 _NOT_PORTED = {
-    "single_cartpole": "6", "single_mountain_car": "6",
-    "single_acrobot": "6", "single_pendulum": "7",
-    "single_continuous_mountain_car": "7",
-    "tag_gridworld": "5", "tag_gridworld_with_reset_pool": "5",
+    "single_pendulum": "7", "single_continuous_mountain_car": "7",
     "asymmetric_pursuit": "8",
 }
 
 
 def build_policy_map(kind: str, env) -> dict:
+    if kind == "shared":
+        # one policy over every agent
+        return {"shared": list(range(env.num_agents))}
     if kind == "tag_continuous":
         # two policies keyed on agent type
         taggers = [i for i in range(env.num_agents) if env.agent_type[i] == 1]
@@ -109,7 +119,10 @@ def main(argv=None):
     parser.add_argument("-a", "--auto_scale", action="store_true",
                         help="auto-scaler (not ported)")
     parser.add_argument("--num_episodes", type=int, default=None)
-    parser.add_argument("--num_envs", type=int, default=None)
+    parser.add_argument("--num_envs", type=int, default=None,
+                        help="env replicas; an iteration keeps the config's "
+                             "steps per env (train_batch_size // num_envs), "
+                             "so train_batch_size follows the count")
     parser.add_argument("--results_dir", type=str, default=None)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda; cpu runs the plain "
@@ -131,7 +144,11 @@ def main(argv=None):
     if args.num_episodes is not None:
         run_config["trainer"]["num_episodes"] = args.num_episodes
     if args.num_envs is not None:
-        run_config["trainer"]["num_envs"] = args.num_envs
+        trainer_cfg = run_config["trainer"]
+        steps_per_env = (int(trainer_cfg["train_batch_size"])
+                         // int(trainer_cfg["num_envs"]))
+        trainer_cfg["num_envs"] = args.num_envs
+        trainer_cfg["train_batch_size"] = steps_per_env * args.num_envs
     return setup_trainer_and_train(
         run_config, results_dir=args.results_dir, device=args.device
     )

@@ -5,10 +5,14 @@ The port's counterpart of ``warpdrive_tpu/training/trainer_a2c.py``.  One
 iteration runs, eagerly on the engine's device:
 
   rollout, ``training_batch_size_per_env`` steps of
-      the kNN observation of every agent (on a card, one kernel launch)
+      the observation of every agent: on the split path (TagContinuous)
+      ``observe``, the kNN observation (on a card, one kernel launch), on
+      the full-step path the observations the last step wrote
       per-policy model forward and categorical sampling
-      ``step_physics``, per-policy rewards and done flags
-      episodic-reward bookkeeping and done-driven auto-reset
+      ``step_physics`` (split) or the env's whole ``step`` (full),
+      per-policy rewards and done flags
+      episodic-reward bookkeeping and done-driven auto-reset (with a reset
+      pool, the refresh of the reset envs' observations)
   then, per trained policy:
       whole-batch forward, the A2C or PPO loss, and :class:`ClippedAdam`:
       clip-by-global-norm, Adam and the scheduled learning rate, the rule
@@ -37,6 +41,7 @@ from warpdrive_tpu_torch.training.trainer_base import TrainerBase, not_ported
 from warpdrive_tpu_torch.utils.constants import Constants
 
 _DONE = Constants.DONE
+_OBS = Constants.OBSERVATIONS
 
 
 class ClippedAdam:
@@ -137,7 +142,7 @@ class TrainerA2C(TrainerBase):
         self.optimizers = {}
         self._head_dims = {}
         self.engine.reset_all_envs()  # the initial state as built
-        obs_dim = self.engine.state[Constants.OBSERVATIONS].shape[-1]
+        obs_dim = self.engine.state[_OBS].shape[-1]
         init_gen = torch.Generator(device=self.device)
         init_gen.manual_seed(self.seed)
 
@@ -210,7 +215,7 @@ class TrainerA2C(TrainerBase):
     # ------------------------------------------------------------ rollout
     def _make_batch(self) -> dict:
         T, E = self.training_batch_size_per_env, self.num_envs
-        obs_dim = self.engine.state[Constants.OBSERVATIONS].shape[-1]
+        obs_dim = self.engine.state[_OBS].shape[-1]
         batch = {"done": torch.zeros((T, E), dtype=torch.int32,
                                      device=self.device)}
         for tag, ids in self.policy_tag_to_agent_id_map.items():
@@ -234,8 +239,9 @@ class TrainerA2C(TrainerBase):
         batch = self._batch
         engine = self.engine
         state = self._env_state
+        split = engine.has_split_step
         for t in range(self.training_batch_size_per_env):
-            obs_all = engine.observe(state)
+            obs_all = engine.observe(state) if split else state[_OBS]
             per_policy = {}
             for tag in self.policies:
                 ids = self._agent_ids[tag]
@@ -250,7 +256,9 @@ class TrainerA2C(TrainerBase):
                     acts = actions[t][:, ids]
                 batch[f"actions_{tag}"][t] = acts
                 per_policy[tag] = acts
-            state = engine.step_physics(state, self._scatter_actions(per_policy))
+            actions_all = self._scatter_actions(per_policy)
+            state = (engine.step_physics(state, actions_all) if split
+                     else engine.step(state, actions_all))
 
             rewards = engine.rewards_of(state)
             done = state[_DONE]
@@ -269,8 +277,9 @@ class TrainerA2C(TrainerBase):
 
             state = engine.auto_reset(state, self.generator)
         self._env_state = state
-        # keep the engine facade on the live state; observations and actions
-        # are not carried and keep their placeholders
+        # keep the engine facade on the live state; on the split path
+        # observations and actions are not carried and keep their
+        # placeholders
         engine.state = {**engine.state, **state}
         return batch
 

@@ -254,9 +254,12 @@ class TrainerBase:
 
     # ------------------------------------------------------------ utilities
     def _rollout_env_state(self) -> dict:
-        """The env state carried through the rollout: observations are
-        recomputed from it each step and actions are handed to the physics,
-        so neither placeholder is carried."""
+        """The env state carried through the rollout.  On the split path
+        observations are recomputed from it each step and actions are
+        handed to the physics, so neither placeholder is carried; a full
+        step writes both, so there they are."""
+        if not self.engine.has_split_step:
+            return dict(self.engine.state)
         return {
             k: v for k, v in self.engine.state.items()
             if k not in (_OBS, _ACTIONS)
