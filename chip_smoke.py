@@ -97,6 +97,27 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       each, no kNN kernel launched: finite losses, moved parameters and a
       checkpoint each; then one ``tag_gridworld`` update on the card
       against the same update on the CPU;
+   h. DDPG training at full width, through ``setup_trainer`` and
+      ``train()``, of ``single_pendulum`` (10,000 envs x 5 steps, n_step 5:
+      a 9-row replay window, a pool of 10,000) and
+      ``single_continuous_mountain_car`` (1000 envs x 10 steps, a 14-row
+      window), 4 iterations each, no kNN kernel launched: iteration 1 moves
+      no net, target or Adam count (the window is not full), iterations 2-4
+      report "Buffer full" 1.0, every metric finite, the online actor apart
+      from its target, an actor and a critic checkpoint; then one update of
+      each on the card against the same update on the CPU from the same
+      nets and window (nets and targets within 1e-5), and the ring buffer
+      on its default device, the card, against the same buffer on the CPU
+      through its wraps (bit for bit);
+   i. ``evaluate_episodes`` of the Pendulum trainer (no kNN launch) and of
+      the ``tag_continuous`` trainer of 4b at full width (100 envs x 110
+      agents, episode 500), that trainer's ``fetch_episode_states`` and
+      ``fetch_logged_episode`` of ``loc_x``, ``loc_y`` and
+      ``still_in_the_game`` (a contiguous log mask), each exactly one K2
+      launch a step; and ``save_full_state`` after 2 Pendulum iterations, a
+      fresh trainer of other seeds ``load_full_state`` and 2 more through
+      ``train()``, against the 4 straight iterations of 4h (nets and
+      targets within 1e-6; whether bit for bit is printed);
 5. at the main paths' shapes -- (1024, 105, 10) for K1, K3, K6, K7, K8 in
    both modes, K9 in both, K2 and K4, (100, 110, 10) for K2, (256, 1024,
    10) for K1, K4 in both modes, K5 in its four and K9 exact -- hold each
@@ -109,7 +130,8 @@ The last three lines are the card (``nvidia-smi``'s name and power limit),
 one JSON object with a record per kernel, and the result line
 ``{"ok": true, "device": {...}}``.  ``--profile`` adds a ``torch.profiler``
 table of device time by kernel for 10 steps of every loop of phase 4 and
-for one iteration of each training run, each with its device ms per step
+for one iteration of each training run (DDPG's too), each with its device
+ms per step
 beside its wall ms per step and the device's idle share.
 """
 
@@ -241,6 +263,12 @@ FULL_STEP_TRAINING = ("tag_gridworld", "tag_gridworld_with_reset_pool",
                       "single_cartpole", "single_acrobot",
                       "single_mountain_car")
 FULL_STEP_TRAIN_ITERS = 3
+# DDPG training of its run configs at full width, this many iterations each
+DDPG_TRAINING = ("single_pendulum", "single_continuous_mountain_car")
+DDPG_TRAIN_ITERS = 4
+# a resumed run against a straight one: the same eager program on the same
+# inputs, so 1e-6 is far above any difference it could have
+RESUME_PARAM_TOL = 1e-6
 
 
 def _card_line() -> str:
@@ -1316,6 +1344,347 @@ def _time_knn(name, args, n_agents, k, variant, label, plain_repeats=11,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def _ddpg_config(name):
+    """A DDPG run config at full width, cut to ``DDPG_TRAIN_ITERS``
+    iterations, trainer and env seeds 0 (the env draws its initial state
+    and pool from its seed), metrics logged every iteration."""
+    from warpdrive_tpu_torch.utils.config import load_run_config
+
+    cfg = load_run_config(name)
+    trainer_cfg = cfg["trainer"]
+    trainer_cfg["num_episodes"] = (DDPG_TRAIN_ITERS
+                                   * trainer_cfg["train_batch_size"]
+                                   // cfg["env"]["episode_length"])
+    trainer_cfg["seed"] = 0
+    cfg["env"]["seed"] = 0
+    cfg["saving"]["metrics_log_freq"] = 1
+    return cfg
+
+
+def _ddpg_nets(trainer) -> dict:
+    """Copies of a DDPG trainer's nets and targets, and its Adam counts."""
+    out = {}
+    for kind in ("nets", "targets"):
+        for net, by_tag in getattr(trainer, kind).items():
+            for tag, model in by_tag.items():
+                for k, v in model.state_dict().items():
+                    out[f"{kind}.{net}.{tag}.{k}"] = v.detach().clone()
+    for net, by_tag in trainer.optimizers.items():
+        for tag, opt in by_tag.items():
+            out[f"count.{net}.{tag}"] = opt.count
+    return out
+
+
+def _nets_diff(a: dict, b: dict) -> float:
+    """The largest difference of two ``_ddpg_nets``; Adam counts must be
+    equal."""
+    assert a.keys() == b.keys()
+    worst = 0.0
+    for k, v in a.items():
+        if k.startswith("count."):
+            assert v == b[k], f"{k}: {v} != {b[k]}"
+        else:
+            worst = max(worst, float((v - b[k]).abs().max()))
+    return worst
+
+
+def _drive_ddpg_training():
+    """DDPG training of ``DDPG_TRAINING`` at full width through
+    ``setup_trainer`` and ``train()``, ``DDPG_TRAIN_ITERS`` iterations each,
+    with the kernels' launch counts set to 0 just before and read just
+    after: iteration 1 must leave the nets, the targets and the Adam counts
+    as built (the replay window is not full yet), the later iterations
+    report "Buffer full" 1.0 and every metric is finite, the online actor
+    ends apart from its target, both checkpoints exist and no kNN kernel
+    is launched.  Returns the trainers and the mean (rollout ms, update ms,
+    env-steps/s) of iterations 2 on, by config."""
+    import math
+
+    import torch
+
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.training.scripts.train import setup_trainer
+    from warpdrive_tpu_torch.training.trainer_ddpg import TrainerDDPG
+
+    no_launches = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
+    trainers, means = {}, {}
+    for name in DDPG_TRAINING:
+        cfg = _ddpg_config(name)
+        results_dir = tempfile.mkdtemp(prefix="chip_smoke_ddpg_")
+        try:
+            knn_obs.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer = setup_trainer(cfg, results_dir=results_dir,
+                                    verbose=False, device=DEVICE)
+            setup_s = time.perf_counter() - t0
+            assert isinstance(trainer, TrainerDDPG)
+            assert trainer.num_iters == DDPG_TRAIN_ITERS
+            built = _ddpg_nets(trainer)
+            after_first = {}
+            iteration = trainer._iteration
+
+            def watched(timestep, iteration=iteration,
+                        after_first=after_first, trainer=trainer):
+                metrics = iteration(timestep)
+                if not after_first:
+                    after_first.update(_ddpg_nets(trainer))
+                return metrics
+
+            trainer._iteration = watched
+            t0 = time.perf_counter()
+            trainer.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            del trainer._iteration  # the class's method again
+            launches = dict(knn_obs.LAUNCH_COUNTS)
+            assert launches == no_launches, f"{name}: launches {launches}"
+            first_moved = _nets_diff(after_first, built)
+            assert first_moved == 0.0, \
+                f"{name}: iteration 1 moved the nets by {first_moved}"
+
+            with open(Path(results_dir) / "results.json",
+                      encoding="utf-8") as f:
+                records = [json.loads(line)["metrics"]["shared"]
+                           for line in f.read().splitlines()]
+            full = [r["Buffer full"] for r in records]
+            assert full == [0.0] + [1.0] * (DDPG_TRAIN_ITERS - 1), full
+            for r in records:
+                bad = {k: v for k, v in r.items() if not math.isfinite(v)}
+                assert not bad, f"{name}: non-finite metrics {bad}"
+            online = trainer.nets["actor"]["shared"].state_dict()
+            target = trainer.targets["actor"]["shared"].state_dict()
+            apart = max(float((v - target[k]).abs().max())
+                        for k, v in online.items())
+            assert apart > 0, f"{name}: the actor equals its target"
+            ckpts = [Path(trainer._ckpt_path("shared",
+                                             trainer.current_timestep, net))
+                     for net in ("actor", "critic")]
+            assert all(c.is_file() for c in ckpts), f"no checkpoints {ckpts}"
+            last = records[-1]
+        finally:
+            shutil.rmtree(results_dir, ignore_errors=True)
+        steps = trainer.training_batch_size_per_env * trainer.num_envs
+        for it, (roll_ms, upd_ms) in enumerate(trainer.phase_ms):
+            print(f"DDPG {name} iteration {it + 1}: rollout {roll_ms:.3f} "
+                  f"ms, update {upd_ms:.3f} ms, "
+                  f"{steps / ((roll_ms + upd_ms) / 1e3):.0f} env-steps/s, "
+                  f"buffer full {full[it]}")
+        later = trainer.phase_ms[1:]
+        roll_ms = statistics.mean(r for r, _ in later)
+        upd_ms = statistics.mean(u for _, u in later)
+        rate = steps / ((roll_ms + upd_ms) / 1e3)
+        pools = {t: tuple(p.shape)
+                 for t, p in trainer.engine.store.pools.items()}
+        print(f"DDPG {name}: {trainer.num_iters} iterations of "
+              f"{trainer.num_envs} envs x {trainer.training_batch_size_per_env}"
+              f" steps, window {trainer.buffer_capacity} rows, pools {pools}"
+              f", in {train_s:.3f} s (setup {setup_s:.3f} s); iteration 1 "
+              f"moved nothing; iterations 2-{trainer.num_iters}, mean: "
+              f"rollout {roll_ms:.3f} ms, update {upd_ms:.3f} ms, {rate:.0f} "
+              f"env-steps/s; actor vs target {apart:.4g}; last metrics: "
+              f"critic loss {last['Critic loss']:.5f}, actor loss "
+              f"{last['Actor loss']:.5f}; launches {launches}")
+        trainers[name], means[name] = trainer, (roll_ms, upd_ms, rate)
+    return trainers, means
+
+
+def _ddpg_update_card_vs_cpu(trainer):
+    """One DDPG update of each trained policy on the card and on the CPU,
+    from copies of the trained nets, targets and optimizer states, on the
+    trainer's whole replay window.  Returns the largest parameter
+    difference."""
+    from warpdrive_tpu_torch.training.trainer_a2c import ClippedAdam
+    from warpdrive_tpu_torch.training.trainer_ddpg import ddpg_policy_update
+
+    worst = 0.0
+    timestep = trainer.current_timestep
+    for tag in trainer.policies_to_train:
+        batch = {"obs": trainer._window[f"obs_{tag}"],
+                 "actions": trainer._window[f"actions_{tag}"],
+                 "rewards": trainer._window[f"rewards_{tag}"],
+                 "done": trainer._window["done"]}
+        lrs = {net: trainer.lr_schedules[net][tag].value_at(timestep)
+               for net in ("actor", "critic")}
+        params, losses = {}, {}
+        for device in (DEVICE, "cpu"):
+            nets, targets, opts = {}, {}, {}
+            for net in ("actor", "critic"):
+                nets[net] = copy.deepcopy(trainer.nets[net][tag]).to(device)
+                targets[net] = copy.deepcopy(
+                    trainer.targets[net][tag]).to(device)
+                source = trainer.optimizers[net][tag]
+                opts[net] = ClippedAdam(dict(nets[net].named_parameters()),
+                                        max_norm=source.max_norm)
+                opts[net].load_state_dict(source.state_dict())
+            metrics = ddpg_policy_update(
+                nets, targets, opts, trainer.algorithms[tag],
+                {k: v.to(device) for k, v in batch.items()}, timestep, lrs,
+                trainer.tau[tag])
+            losses[device] = (float(metrics["Critic loss"]),
+                              float(metrics["Actor loss"]))
+            params[device] = {
+                f"{kind}.{net}.{k}": v.detach().cpu()
+                for kind, by_net in (("net", nets), ("target", targets))
+                for net, model in by_net.items()
+                for k, v in model.state_dict().items()}
+        diff = max(float((params[DEVICE][k] - params["cpu"][k]).abs().max())
+                   for k in params["cpu"])
+        print(f"DDPG update card vs CPU [{tag}, window "
+              f"{tuple(batch['obs'].shape[:2])}]: critic, actor loss "
+              f"{losses[DEVICE][0]:.7f}, {losses[DEVICE][1]:.7f} vs "
+              f"{losses['cpu'][0]:.7f}, {losses['cpu'][1]:.7f}; max abs "
+              f"parameter diff (nets and targets) {diff:.3g} (tolerance "
+              f"{UPDATE_PARAM_TOL})")
+        assert diff <= UPDATE_PARAM_TOL, f"{tag}: parameters differ by {diff}"
+        worst = max(worst, diff)
+    return worst
+
+
+def _check_ring_buffer():
+    """``RingBufferManager`` with its default storage, the card: 11 rows of
+    Pendulum's observations at full width (10,000 envs x 1 agent x 3)
+    enqueued into a capacity of 4 unroll, oldest first, exactly as the same
+    buffer on the CPU after every enqueue."""
+    import torch
+
+    from warpdrive_tpu_torch.training.ring_buffer import (
+        RingBuffer,
+        RingBufferManager,
+    )
+
+    shape = (10_000, 1, 3)
+    on_card, on_cpu = RingBufferManager(), RingBufferManager()
+    buf = on_card.add("obs", capacity=4, item_shape=shape)
+    on_cpu.add("obs", capacity=4, item_shape=shape, device="cpu")
+    assert buf.device.type == "cuda", buf.device
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    for _ in range(11):
+        row = torch.randn(shape, generator=gen, device=DEVICE)
+        on_card.enqueue("obs", row)
+        on_cpu.enqueue("obs", row.cpu())
+        assert torch.equal(on_card.unroll("obs").cpu(),
+                           on_cpu.unroll("obs")), "ring buffer unroll"
+    assert RingBuffer.isfull(on_card.get("obs")[1])
+    print(f"ring buffer on {buf.device}: 11 enqueues of {shape} into 4 "
+          f"slots unroll as on the CPU, bit for bit")
+
+
+def _timed(fn):
+    """``fn()`` and its host seconds, up to a synchronised device."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _drive_item9(pendulum, tag_trainer):
+    """Evaluation and episode fetching on the card, each with the kernels'
+    launch counts set to 0 just before and read just after:
+    ``evaluate_episodes`` of the Pendulum DDPG trainer (no kNN launch) and
+    of the ``tag_continuous`` A2C trainer at full width, then that
+    trainer's ``fetch_episode_states`` and ``fetch_logged_episode`` of
+    ``loc_x``, ``loc_y`` and ``still_in_the_game`` (a contiguous log mask),
+    each making exactly one K2 launch a step.  Returns the launches of the
+    ``tag_continuous`` episodes."""
+    import numpy as np
+
+    from warpdrive_tpu_torch.ops import knn_obs
+
+    no_launches = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
+    knn_obs.reset_launch_counts()
+    (rew, steps), secs = _timed(pendulum.evaluate_episodes)
+    assert dict(knn_obs.LAUNCH_COUNTS) == no_launches
+    T = pendulum.engine.episode_length
+    assert rew["shared"].shape == (pendulum.num_envs, 1)
+    assert np.isfinite(rew["shared"]).all()
+    assert (steps["shared"] == T - 1).all(), "Pendulum is done at its end"
+    print(f"evaluate_episodes [single_pendulum, {pendulum.num_envs} envs x "
+          f"{T} steps]: {secs:.3f} s, {pendulum.num_envs * T / secs:.0f} "
+          f"env-steps/s; mean episodic reward "
+          f"{float(rew['shared'].mean()):.3f}; no kNN launch")
+
+    T = tag_trainer.engine.episode_length
+    one_a_step = dict(no_launches, knn_obs_mxu=T)
+    total = dict(no_launches)
+    names = ["loc_x", "loc_y", "still_in_the_game"]
+    runs = (
+        ("evaluate_episodes", tag_trainer.evaluate_episodes),
+        ("fetch_episode_states", lambda: tag_trainer.fetch_episode_states(
+            names, env_id=0, include_rewards_actions=True,
+            include_probabilities=True)),
+        ("fetch_logged_episode",
+         lambda: tag_trainer.fetch_logged_episode(env_id=0)),
+    )
+    for label, run in runs:
+        knn_obs.reset_launch_counts()
+        out, secs = _timed(run)
+        launches = dict(knn_obs.LAUNCH_COUNTS)
+        assert launches == one_a_step, f"{label}: launches {launches}"
+        total = {k: total[k] + v for k, v in launches.items()}
+        if label == "evaluate_episodes":
+            rew, steps = out
+            assert all(np.isfinite(r).all() for r in rew.values())
+            detail = ", ".join(
+                f"{tag} mean reward {float(rew[tag].mean()):.4f}"
+                for tag in sorted(rew))
+            detail += f", mean steps {float(steps['runner'].mean()):.1f}"
+        else:
+            assert sorted(k for k in out if k in names) == sorted(names)
+            lengths = {out[n].shape[0] for n in names}
+            assert len(lengths) == 1 and 2 <= lengths.pop() <= T + 1
+            assert all(np.isfinite(out[n]).all() for n in names)
+            detail = f"{out['loc_x'].shape[0]} logged steps, shapes " + \
+                ", ".join(f"{n} {out[n].shape}" for n in names)
+        print(f"{label} [tag_continuous, {tag_trainer.num_envs} envs x "
+              f"{tag_trainer.engine.n_agents} agents, episode {T}]: "
+              f"{secs:.3f} s, {1e3 * secs / T:.3f} ms a step; {detail}; "
+              f"launches {launches}")
+    return total
+
+
+def _check_ddpg_resume(straight):
+    """``save_full_state`` after 2 iterations of ``single_pendulum``, a
+    fresh trainer of other seeds (other nets, draws, initial state and
+    pool) ``load_full_state`` and ``train()`` for the last 2, against
+    ``straight``, which ran the 4 through ``train()``:
+    nets, targets (within ``RESUME_PARAM_TOL``) and Adam counts.  Prints
+    whether they are equal bit for bit."""
+    from warpdrive_tpu_torch.training.scripts.train import setup_trainer
+
+    dirs = [tempfile.mkdtemp(prefix="chip_smoke_resume_") for _ in range(2)]
+    try:
+        cfg = _ddpg_config("single_pendulum")
+        first = setup_trainer(cfg, results_dir=dirs[0], verbose=False,
+                              device=DEVICE)
+        for _ in range(2):
+            first._iteration(first.current_timestep)
+            first.current_timestep += first.train_batch_size
+            first.iters_completed += 1
+        path = first.save_full_state()
+        cfg = _ddpg_config("single_pendulum")
+        cfg["trainer"]["seed"] = cfg["env"]["seed"] = 1
+        resumed = setup_trainer(cfg, results_dir=dirs[1], verbose=False,
+                                device=DEVICE)
+        resumed.load_full_state(path)
+        resumed.train()
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    assert resumed.iters_completed == straight.iters_completed
+    diff = _nets_diff(_ddpg_nets(resumed), _ddpg_nets(straight))
+    windows = max(float((v.float() - straight._window[k].float()).abs().max())
+                  for k, v in resumed._window.items())
+    print(f"full-state resume [single_pendulum, 2 + 2 iterations vs 4]: max "
+          f"abs diff of nets and targets {diff:.3g} (tolerance "
+          f"{RESUME_PARAM_TOL}), of the replay window {windows:.3g}; bit for "
+          f"bit: {diff == 0.0 and windows == 0.0}")
+    assert diff <= RESUME_PARAM_TOL, f"resumed nets differ by {diff}"
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1466,6 +1835,18 @@ def main(argv=None) -> int:
     full_trainers, full_train_means = _drive_full_step_training()
     _update_card_vs_cpu(full_trainers["tag_gridworld"])
 
+    # 4h. DDPG training of its run configs, counts from 0 before each, and
+    # one update on the card vs the CPU
+    ddpg_trainers, ddpg_means = _drive_ddpg_training()
+    for ddpg_trainer in ddpg_trainers.values():
+        _ddpg_update_card_vs_cpu(ddpg_trainer)
+    _check_ring_buffer()
+
+    # 4i. evaluation, episode fetching and logging, counts from 0 before
+    # each, and a full-state resume
+    item9_launches = _drive_item9(ddpg_trainers["single_pendulum"], trainer)
+    _check_ddpg_resume(ddpg_trainers["single_pendulum"])
+
     if args.profile:
         windows = [
             (loop, _stepper(system, generator, loop), "step",
@@ -1499,8 +1880,10 @@ def main(argv=None) -> int:
         windows += [
             (f"training iteration [{name}]",
              lambda t=t: t._iteration(t.current_timestep), "iteration",
-             full_train_means[name][0] + full_train_means[name][1])
-            for name, t in full_trainers.items()
+             means[name][0] + means[name][1])
+            for trainers, means in ((full_trainers, full_train_means),
+                                    (ddpg_trainers, ddpg_means))
+            for name, t in trainers.items()
         ]
         _profile(windows)
 
@@ -1593,10 +1976,10 @@ def main(argv=None) -> int:
               f"{100 * at_1024[kernel]['ms'] / step_ms:.1f}% "
               f"({at_1024[kernel]['ms']:.5f} of {step_ms:.4f} ms)")
 
-    # launches on the main paths: 4a and 4c for K1, 4b for K2, 4d for K3,
-    # 4c for K4 and K5, 4e for K6-K8, 4c and 4e for K9
+    # launches on the main paths: 4a and 4c for K1, 4b and 4i for K2, 4d
+    # for K3, 4c for K4 and K5, 4e for K6-K8, 4c and 4e for K9
     all_launches = {name: launches[name] + train_launches[name]
-                    + fast_launches[name]
+                    + item9_launches[name] + fast_launches[name]
                     + sum(c[name] for c in many_launches.values())
                     + sum(c[name] for c in knn_launches.values())
                     for name in knn_obs.LAUNCH_COUNTS}

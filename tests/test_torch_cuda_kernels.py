@@ -2,9 +2,12 @@
 version (bit for bit, or for K4 by its swap class), the flagship loops
 launching K1 (K3 with ``pallas_flat``, K6-K9 with their names) once per
 step, the 1024-agent loops launching K1, K4, K5 or K9 once per step, and
-the training rollout launching K2 once per step; on the full-step path
-(no kernel), TagGridWorld's and CartPole's steps on the card against the
-CPU's and the observation refresh after a pool reset.
+the training rollout and the evaluation and episode fetching of
+``tag_continuous`` launching K2 once per step; on the full-step path (no
+kernel), TagGridWorld's and CartPole's steps on the card against the CPU's
+and the observation refresh after a pool reset, and DDPG's warm-up gate,
+its update against the CPU's and a full-state resume, and the ring
+buffer's storage on the card.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The file imports no JAX,
 so on a machine with a card and no JAX it runs without the repo's
@@ -12,6 +15,8 @@ so on a machine with a card and no JAX it runs without the repo's
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -37,7 +42,16 @@ from warpdrive_tpu_torch.tools.consistency import (
     check_pool_reset,
     step_against_cpu,
 )
-from warpdrive_tpu_torch.training.scripts.train import setup_trainer_and_train
+from warpdrive_tpu_torch.training.scripts.train import (
+    setup_trainer,
+    setup_trainer_and_train,
+)
+from warpdrive_tpu_torch.training.trainer_a2c import ClippedAdam
+from warpdrive_tpu_torch.training.ring_buffer import (
+    RingBuffer,
+    RingBufferManager,
+)
+from warpdrive_tpu_torch.training.trainer_ddpg import ddpg_policy_update
 from warpdrive_tpu_torch.utils.config import load_run_config
 
 
@@ -171,6 +185,152 @@ def test_training_rollout_launches_k2_once_per_step(card, tmp_path):
     torch.cuda.synchronize()
     assert trainer.iters_completed == 1
     assert knn_obs.LAUNCH_COUNTS == dict(_NO_LAUNCHES, knn_obs_mxu=50)
+
+
+def _ddpg_trainer(name, tmp_path, seed=0, device="cuda"):
+    """A DDPG run config at 64 envs x 10 steps, n_step 5 (a 14-row
+    window), episodes of 20, a pool of 50."""
+    cfg = load_run_config(name)
+    cfg["env"].update({"episode_length": 20, "reset_pool_size": 50,
+                       "seed": seed})
+    cfg["trainer"].update({"num_envs": 64, "train_batch_size": 640,
+                           "num_episodes": 128, "seed": seed})
+    cfg["saving"]["model_params_save_freq"] = 10_000
+    return setup_trainer(cfg, verbose=False, device=device,
+                         results_dir=str(tmp_path / f"{name}_{seed}"))
+
+
+def _ddpg_params(trainer) -> dict:
+    return {f"{kind}.{net}.{k}": v.detach().cpu().clone()
+            for kind in ("nets", "targets") for net in ("actor", "critic")
+            for k, v in getattr(trainer, kind)[net]["shared"]
+            .state_dict().items()}
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((v - b[k]).abs().max()) for k, v in a.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["single_pendulum",
+                                  "single_continuous_mountain_car"])
+def test_ddpg_iterations_on_card_gate_warm_up_and_launch_no_knn(card, name,
+                                                                tmp_path):
+    """Iteration 1 fills 10 of the 14 rows and moves no net, target or Adam
+    count; iteration 2 moves them; no kNN kernel is launched; one more
+    update on the card equals the same update on the CPU within 1e-5."""
+    trainer = _ddpg_trainer(name, tmp_path)
+    built = _ddpg_params(trainer)
+    knn_obs.reset_launch_counts()
+    metrics = trainer._iteration(0)["shared"]
+    assert float(metrics["Buffer full"]) == 0.0
+    assert _max_diff(_ddpg_params(trainer), built) == 0.0
+    assert trainer.optimizers["actor"]["shared"].count == 0
+    metrics = trainer._iteration(640)["shared"]
+    torch.cuda.synchronize()
+    assert float(metrics["Buffer full"]) == 1.0
+    assert np.isfinite(float(metrics["Critic loss"]))
+    assert _max_diff(_ddpg_params(trainer), built) > 0.0
+    assert trainer.optimizers["critic"]["shared"].count == 1
+    assert knn_obs.LAUNCH_COUNTS == _NO_LAUNCHES
+
+    window = {"obs": trainer._window["obs_shared"],
+              "actions": trainer._window["actions_shared"],
+              "rewards": trainer._window["rewards_shared"],
+              "done": trainer._window["done"]}
+    lrs = {net: trainer.lr_schedules[net]["shared"].value_at(1280)
+           for net in ("actor", "critic")}
+    updated = []
+    for device in (card, "cpu"):
+        nets = {n: copy.deepcopy(trainer.nets[n]["shared"]).to(device)
+                for n in ("actor", "critic")}
+        targets = {n: copy.deepcopy(trainer.targets[n]["shared"]).to(device)
+                   for n in ("actor", "critic")}
+        opts = {}
+        for n in ("actor", "critic"):
+            source = trainer.optimizers[n]["shared"]
+            opts[n] = ClippedAdam(dict(nets[n].named_parameters()),
+                                  max_norm=source.max_norm)
+            opts[n].load_state_dict(source.state_dict())
+        ddpg_policy_update(nets, targets, opts,
+                           trainer.algorithms["shared"],
+                           {k: v.to(device) for k, v in window.items()},
+                           1280, lrs, trainer.tau["shared"])
+        updated.append({f"{kind}.{n}.{k}": v.detach().cpu()
+                        for kind, group in (("nets", nets),
+                                            ("targets", targets))
+                        for n, m in group.items()
+                        for k, v in m.state_dict().items()})
+    assert _max_diff(*updated) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ddpg_full_state_resume_on_card(card, tmp_path):
+    """2 iterations, ``save_full_state``, a fresh trainer of other seeds
+    ``load_full_state`` and 2 more: the nets and targets of 4 straight
+    iterations within 1e-6."""
+    def run(trainer, n):
+        for _ in range(n):
+            trainer._iteration(trainer.current_timestep)
+            trainer.current_timestep += trainer.train_batch_size
+            trainer.iters_completed += 1
+
+    straight = _ddpg_trainer("single_pendulum", tmp_path)
+    run(straight, 4)
+    first = _ddpg_trainer("single_pendulum", tmp_path / "first")
+    run(first, 2)
+    resumed = _ddpg_trainer("single_pendulum", tmp_path, seed=1)
+    resumed.load_full_state(first.save_full_state())
+    run(resumed, 2)
+    torch.cuda.synchronize()
+    assert _max_diff(_ddpg_params(resumed), _ddpg_params(straight)) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_ring_buffer_on_card_matches_cpu_through_wraps(card):
+    """A ring buffer's storage defaults to the card; 11 enqueues into a
+    capacity of 4 unroll, oldest first, as the same buffer on the CPU."""
+    on_card = RingBufferManager()
+    on_cpu = RingBufferManager()
+    buf = on_card.add("X", capacity=4, item_shape=(2, 3))
+    on_cpu.add("X", capacity=4, item_shape=(2, 3), device="cpu")
+    assert buf.device.type == "cuda"
+    rows = np.random.default_rng(0).normal(size=(11, 2, 3)).astype(np.float32)
+    for row in rows:
+        on_card.enqueue("X", torch.from_numpy(row).to(card))
+        on_cpu.enqueue("X", torch.from_numpy(row))
+        assert torch.equal(on_card.unroll("X").cpu(), on_cpu.unroll("X"))
+        assert on_card.get("X")[1].size == on_cpu.get("X")[1].size
+    assert RingBuffer.isfull(on_card.get("X")[1])
+    assert torch.equal(on_card.unroll("X").cpu(), torch.from_numpy(rows[-4:]))
+
+
+@pytest.mark.cuda
+def test_tag_continuous_episodes_launch_k2_once_per_step(card, tmp_path):
+    """``evaluate_episodes``, ``fetch_episode_states`` (with probabilities)
+    and ``fetch_logged_episode`` of ``loc_x``, ``loc_y`` and
+    ``still_in_the_game`` each step their episode of 40 with one K2 launch
+    a step."""
+    cfg = load_run_config("tag_continuous")
+    cfg["env"]["episode_length"] = 40
+    cfg["trainer"].update({"num_envs": 8, "train_batch_size": 400,
+                           "num_episodes": 10, "seed": 1})
+    for policy in ("runner", "tagger"):
+        cfg["policy"][policy]["model"]["fc_dims"] = [32, 32]
+    trainer = setup_trainer(cfg, verbose=False, results_dir=str(tmp_path))
+    names = ["loc_x", "loc_y", "still_in_the_game"]
+    runs = [trainer.evaluate_episodes,
+            lambda: trainer.fetch_episode_states(
+                names, env_id=3, include_probabilities=True),
+            lambda: trainer.fetch_logged_episode(env_id=3)]
+    for run in runs:
+        knn_obs.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        assert knn_obs.LAUNCH_COUNTS == dict(_NO_LAUNCHES, knn_obs_mxu=40)
+        if isinstance(out, dict):
+            assert all(out[n].shape[0] == out["loc_x"].shape[0] >= 2
+                       for n in names)
 
 
 _KERNEL_OF = {"flat": "knn_obs_flat", "flat_mxudist": "knn_obs_flat_mxudist",

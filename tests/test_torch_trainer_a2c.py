@@ -204,7 +204,6 @@ def test_left_out_features_raise(tmp_path):
         (("policy", "runner", "num_epochs", 2), "item 4"),
         (("policy", "tagger", "remat", True), "item 4"),
         (("trainer", "update_recompute_obs", True), "item 4"),
-        (("trainer", "evaluator", True), "item 9"),
     ]
     for keys, message in cases:
         cfg = _config(port_config.load_run_config)
@@ -215,9 +214,12 @@ def test_left_out_features_raise(tmp_path):
         with pytest.raises(NotImplementedError, match=message):
             port_train.setup_trainer(cfg, results_dir=str(tmp_path / "x"),
                                      device="cpu")
+    trainer = _port_trainer(tmp_path, name="z")
+    with pytest.raises(NotImplementedError, match="item 2"):
+        trainer.profile_phases()
     cfg = _config(port_config.load_run_config)
-    cfg["name"] = "single_pendulum"
-    with pytest.raises(NotImplementedError, match="item 7"):
+    cfg["name"] = "asymmetric_pursuit"
+    with pytest.raises(NotImplementedError, match="item 8"):
         port_train.setup_trainer(cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

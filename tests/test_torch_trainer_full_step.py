@@ -3,8 +3,8 @@ their own observations, with or without reset pools) against the JAX
 package's: two A2C updates of a small ``tag_gridworld`` config from the
 same parameters, optimizer state and recorded batch, the rollout replaying
 the JAX-recorded actions, CPU training of the five A2C run configs of this
-path, the CLI, a CartPole learning check, and the run configs still left
-out."""
+path, the CLI, a CartPole learning check, the DDPG run configs' trainer,
+and the run configs still left out."""
 
 import json
 import os
@@ -212,15 +212,35 @@ def test_cartpole_learns(tmp_path):
     assert rewards[-1] >= 1.1 * rewards[0], rewards
 
 
-@pytest.mark.parametrize("name,item", [
-    ("single_pendulum", "7"), ("single_continuous_mountain_car", "7"),
-    ("asymmetric_pursuit", "8")])
+@pytest.mark.parametrize("name,item", [("asymmetric_pursuit", "8")])
 def test_left_out_run_configs_raise(name, item, tmp_path):
     cfg = _gridworld_config(port_config.load_run_config)
     cfg["name"] = name
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         port_train.setup_trainer(cfg, results_dir=str(tmp_path / "x"),
                                  device="cpu")
+
+
+@pytest.mark.parametrize("name,env", [
+    ("single_pendulum", "ClassicControlPendulumEnv"),
+    ("single_continuous_mountain_car",
+     "ClassicControlContinuousMountainCarEnv")])
+def test_ddpg_run_configs_build_a_ddpg_trainer(name, env, tmp_path):
+    """The DDPG run configs, once left out, build a ``TrainerDDPG`` on the
+    full-step path, with their Box bound (``output_w``) and window."""
+    from warpdrive_tpu_torch.training.trainer_ddpg import TrainerDDPG
+
+    cfg = port_config.load_run_config(name)
+    cfg["env"].update({"episode_length": 20, "reset_pool_size": 20})
+    cfg["trainer"].update({"num_envs": 4, "train_batch_size": 40})
+    trainer = port_train.setup_trainer(cfg, results_dir=str(tmp_path / "x"),
+                                       device="cpu", verbose=False)
+    assert isinstance(trainer, TrainerDDPG)
+    assert type(trainer.engine.env).__name__ == f"Torch{env}"
+    assert not trainer.engine.has_split_step
+    assert trainer.buffer_capacity == 10 + 5 - 1
+    output_w = cfg["policy"]["shared"]["model"]["actor"]["output_w"]
+    assert trainer.nets["actor"]["shared"].action_scale == output_w
 
 
 @pytest.mark.parametrize("name", FULL_STEP_CONFIGS + [

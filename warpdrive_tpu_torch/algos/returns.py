@@ -1,9 +1,10 @@
 """
 Return computations shared by the policy-gradient algorithms.
 
-The port's counterpart of ``warpdrive_tpu/algos/returns.py`` for A2C and
-PPO: the JAX ``lax.scan`` recurrences are reverse loops over time-major
-tensors.  DDPG's ``n_step_returns`` comes with ROADMAP queue 1, item 7.
+The port's counterpart of ``warpdrive_tpu/algos/returns.py``: the JAX
+``lax.scan`` recurrences are reverse loops over time-major tensors, and
+DDPG's per-row ``vmap`` of n-step returns is one loop over the n steps,
+all rows at once.
 """
 
 from __future__ import annotations
@@ -34,6 +35,43 @@ def discounted_returns(
         ret = rewards[t] + (1.0 - done[t]) * gamma * ret
         out[t] = ret
     return out
+
+
+def n_step_returns(
+    rewards: torch.Tensor,  # (T, E, A)
+    done_flags: torch.Tensor,  # (T, E)
+    next_values: torch.Tensor,  # (>= T-1, E, A) detached Q(s', pi'(s'))
+    gamma: float,
+    n_step: int,
+) -> torch.Tensor:
+    """
+    n-step bootstrapped returns for DDPG, for the first ``T - n_step + 1``
+    rows:
+
+        last = i + n_step - 1
+        r = rew[last] + (1 - done[last]) * gamma * V'[last]     (last < T-1)
+        r = done[last] * rew[last] + (1 - done[last]) * V'[-1]  (last == T-1)
+        for j in 1..n_step-1:
+            r = rew[last-j] + (1 - done[last-j]) * gamma * r
+
+    The final row keeps the reference's quirk (no gamma on its bootstrap).
+    Only the branch a row takes is evaluated: the JAX version evaluates
+    both, and its gather clamps the final row's ``V'[T-1]`` onto the last
+    row of a ``T-1``-row ``V'``.  Returns ``(T - n_step + 1, E, A)``.
+    """
+    T = rewards.shape[0]
+    valid = T - n_step + 1
+    assert valid >= 1, "the batch must hold at least n_step rows"
+    done = (done_flags > 0).to(rewards.dtype)[..., None]  # (T, E, 1)
+    lo = n_step - 1  # the first row's ``last``
+    # rows whose ``last`` is below T-1, then the final row
+    ret = rewards[lo:T - 1] + (1.0 - done[lo:T - 1]) * gamma \
+        * next_values[lo:T - 1]
+    final = done[-1] * rewards[-1] + (1.0 - done[-1]) * next_values[-1]
+    ret = torch.cat([ret, final[None]], dim=0)
+    for j in range(1, n_step):
+        ret = rewards[lo - j:T - j] + (1.0 - done[lo - j:T - j]) * gamma * ret
+    return ret
 
 
 def normalize_across_env_agents(x: torch.Tensor, enabled: bool,

@@ -1,27 +1,30 @@
 """
 Model factory: name -> model class registry with dynamic import.
 
-The port's counterpart of ``warpdrive_tpu/models/factory.py``.  The built-in
-``"fully_connected"`` and ``"module:ClassName"`` resolution of user models
-are ported; the DDPG actor and critic come with ROADMAP queue 1, item 7.
-A model class is built as ``cls(in_features, fc_dims, output_dims,
+The port's counterpart of ``warpdrive_tpu/models/factory.py``: the three
+built-ins and ``"module:ClassName"`` resolution of user models.  An A2C
+model class is built as ``cls(in_features, fc_dims, output_dims,
 generator=..., device=...)``, the signature of
-:class:`~warpdrive_tpu_torch.models.fully_connected.FullyConnected`.
+:class:`~warpdrive_tpu_torch.models.fully_connected.FullyConnected`; a DDPG
+actor as ``cls(in_features, fc_dims, num_action_types, action_scale=...,
+generator=..., device=...)`` and a critic as ``cls(obs_features +
+action_features, fc_dims, generator=..., device=...)``.
 """
 
 from __future__ import annotations
 
 import importlib
 
-from warpdrive_tpu_torch.models.fully_connected import FullyConnected
+from warpdrive_tpu_torch.models.fully_connected import (
+    FullyConnected,
+    FullyConnectedActionValueCritic,
+    FullyConnectedActor,
+)
 
 default_models = {
     "fully_connected": FullyConnected,
-}
-
-_NOT_PORTED = {
-    "fully_connected_actor": "ROADMAP queue 1, item 7 (DDPG)",
-    "fully_connected_action_value_critic": "ROADMAP queue 1, item 7 (DDPG)",
+    "fully_connected_actor": FullyConnectedActor,
+    "fully_connected_action_value_critic": FullyConnectedActionValueCritic,
 }
 
 
@@ -40,11 +43,6 @@ class ModelFactory:
     def create(model_type: str):
         if model_type in default_models:
             return default_models[model_type]
-        if model_type in _NOT_PORTED:
-            raise NotImplementedError(
-                f"model type {model_type!r} is not ported yet: "
-                f"{_NOT_PORTED[model_type]}"
-            )
         return dynamic_import(model_type)
 
     @staticmethod

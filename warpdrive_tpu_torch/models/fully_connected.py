@@ -1,6 +1,7 @@
 """
-Policy/value network: the port's counterpart of
-``warpdrive_tpu/models/fully_connected.py:FullyConnected``.
+Policy/value networks: the port's counterparts of
+``warpdrive_tpu/models/fully_connected.py``'s ``FullyConnected`` and of
+DDPG's ``FullyConnectedActor`` and ``FullyConnectedActionValueCritic``.
 
 ``FullyConnected`` is an MLP trunk followed by one logit head per action
 component and a value head.  The heads run as ONE fused matmul: their
@@ -9,8 +10,12 @@ once, while each head keeps its own parameters.  Box action spaces use a
 deterministic ``tanh * scale + bias`` head instead.  Models return LOGITS;
 ``apply_logit_mask`` gives masked actions a huge negative logit.
 
+The DDPG actor is an MLP with a ``tanh * scale + bias`` head; the critic
+an MLP over ``cat(obs, action)`` with a scalar ``q_head``.
+
 Submodule names follow flax's (``Dense_0``, ``Dense_1``, ...,
-``policy_head_{i}``, ``vf_head``, or ``policy_head`` in deterministic mode),
+``policy_head_{i}``, ``vf_head``, ``policy_head`` in deterministic mode and
+in the actor, ``q_head`` in the critic),
 so :func:`params_from_flax` maps a JAX parameter tree onto the
 ``state_dict`` one name at a time.  Compute is float32 only; the JAX
 model's bf16 compute option is ROADMAP queue 1, item 3.
@@ -46,6 +51,22 @@ def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator = None):
                               generator=generator)
 
 
+def _add_dense(module: nn.Module, name: str, fan_in: int, fan_out: int,
+               generator: torch.Generator = None, device=None):
+    """A flax-initialized ``nn.Linear`` (LeCun-normal weight, zero bias)
+    registered on ``module`` as ``name``."""
+    layer = nn.Linear(fan_in, fan_out, device=device)
+    _lecun_normal_(layer.weight, generator)
+    nn.init.zeros_(layer.bias)
+    module.add_module(name, layer)
+
+
+def _relu_trunk(module: nn.Module, x: torch.Tensor, depth: int):
+    for idx in range(depth):
+        x = F.relu(getattr(module, f"Dense_{idx}")(x))
+    return x
+
+
 class FullyConnected(nn.Module):
     """MLP trunk + per-action-component policy heads + value head."""
 
@@ -70,10 +91,7 @@ class FullyConnected(nn.Module):
         self.include_value_head = bool(include_value_head)
 
         def dense(name, fan_in, fan_out):
-            layer = nn.Linear(fan_in, fan_out, device=device)
-            _lecun_normal_(layer.weight, generator)
-            nn.init.zeros_(layer.bias)
-            self.add_module(name, layer)
+            _add_dense(self, name, fan_in, fan_out, generator, device)
 
         width = int(in_features)
         for idx, out in enumerate(self.fc_dims):
@@ -91,9 +109,7 @@ class FullyConnected(nn.Module):
         """:returns: ``(heads, value)``: a list of per-component logits (or,
         deterministic, of ``(..., 1)`` actions) and the value ``(...)`` or
         None."""
-        x = obs
-        for idx in range(len(self.fc_dims)):
-            x = F.relu(getattr(self, f"Dense_{idx}")(x))
+        x = _relu_trunk(self, obs, len(self.fc_dims))
 
         if self.is_deterministic:
             raw = self.policy_head(x)
@@ -122,8 +138,64 @@ class FullyConnected(nn.Module):
         return heads, value
 
 
+class FullyConnectedActor(nn.Module):
+    """DDPG actor: a deterministic action vector bounded by
+    ``action_scale * tanh(.) + action_bias``, no value head."""
+
+    def __init__(
+        self,
+        in_features: int,
+        fc_dims: Sequence[int],
+        num_action_types: int,
+        action_scale: float = 1.0,
+        action_bias: float = 0.0,
+        generator: torch.Generator = None,
+        device=None,
+    ):
+        super().__init__()
+        self.fc_dims = tuple(int(d) for d in fc_dims)
+        self.action_scale = float(action_scale)
+        self.action_bias = float(action_bias)
+        width = int(in_features)
+        for idx, out in enumerate(self.fc_dims):
+            _add_dense(self, f"Dense_{idx}", width, out, generator, device)
+            width = out
+        _add_dense(self, "policy_head", width, int(num_action_types),
+                   generator, device)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        """:returns: actions ``(..., num_action_types)``."""
+        raw = self.policy_head(_relu_trunk(self, obs, len(self.fc_dims)))
+        return self.action_scale * torch.tanh(raw) + self.action_bias
+
+
+class FullyConnectedActionValueCritic(nn.Module):
+    """DDPG critic: ``Q(s, a)`` over the concatenated observation and
+    action; ``in_features`` is their summed width."""
+
+    def __init__(
+        self,
+        in_features: int,
+        fc_dims: Sequence[int],
+        generator: torch.Generator = None,
+        device=None,
+    ):
+        super().__init__()
+        self.fc_dims = tuple(int(d) for d in fc_dims)
+        width = int(in_features)
+        for idx, out in enumerate(self.fc_dims):
+            _add_dense(self, f"Dense_{idx}", width, out, generator, device)
+            width = out
+        _add_dense(self, "q_head", width, 1, generator, device)
+
+    def forward(self, obs: torch.Tensor, action: torch.Tensor):
+        """:returns: ``Q(s, a)`` of shape ``obs.shape[:-1]``."""
+        x = torch.cat([obs, action.to(obs.dtype)], dim=-1)
+        return self.q_head(_relu_trunk(self, x, len(self.fc_dims)))[..., 0]
+
+
 def params_from_flax(tree: dict) -> dict:
-    """A ``FullyConnected`` ``state_dict`` from the JAX model's parameter
+    """A ``FullyConnected`` (or DDPG actor or critic) ``state_dict`` from the JAX model's parameter
     tree (``{"params": {name: {"kernel", "bias"}}}`` or the inner dict),
     given as numpy arrays.  A flax ``Dense`` stores ``kernel (in, out)``;
     ``nn.Linear`` stores ``weight (out, in)``."""

@@ -12,9 +12,13 @@ a path to one); ``--num_episodes`` and ``--num_envs`` override the config
 (default ``cuda``) where the run happens.  The A2C run configs are
 ported: ``tag_continuous`` (two policies), ``tag_gridworld``,
 ``tag_gridworld_with_reset_pool``, ``single_cartpole``, ``single_acrobot``
-and ``single_mountain_car`` (one shared policy).  The DDPG configs, the
-device mesh (``-n``), the auto-scaler (``-a``) and the multi-host flags
-raise ``NotImplementedError`` naming their ROADMAP items.
+and ``single_mountain_car`` (one shared policy); so are the DDPG ones,
+``single_pendulum`` and ``single_continuous_mountain_car``.  A config
+whose policies all name ``algorithm: DDPG`` trains with
+:class:`TrainerDDPG`, any other with :class:`TrainerA2C`.
+``asymmetric_pursuit``, the device mesh (``-n``), the auto-scaler (``-a``)
+and the multi-host flags raise ``NotImplementedError`` naming their
+ROADMAP items.
 """
 
 from __future__ import annotations
@@ -28,22 +32,21 @@ from warpdrive_tpu_torch.training.trainer_base import not_ported
 from warpdrive_tpu_torch.utils.config import load_run_config
 from warpdrive_tpu_torch.utils.env_registrar import env_registrar
 
-# run-config name -> (registered env name, policy-map kind); the port
-# trains them with TrainerA2C
+# run-config name -> (registered env name, policy-map kind)
 _ENV_SETUPS = {
     "single_cartpole": ("ClassicControlCartPoleEnv", "shared"),
     "single_mountain_car": ("ClassicControlMountainCarEnv", "shared"),
     "single_acrobot": ("ClassicControlAcrobotEnv", "shared"),
+    "single_pendulum": ("ClassicControlPendulumEnv", "shared"),
+    "single_continuous_mountain_car": (
+        "ClassicControlContinuousMountainCarEnv", "shared"),
     "tag_gridworld": ("TagGridWorld", "shared"),
     "tag_gridworld_with_reset_pool": ("TagGridWorldWithResetPool", "shared"),
     "tag_continuous": ("TagContinuous", "tag_continuous"),
 }
 
 # the JAX package's other run configs, with the ROADMAP item that ports each
-_NOT_PORTED = {
-    "single_pendulum": "7", "single_continuous_mountain_car": "7",
-    "asymmetric_pursuit": "8",
-}
+_NOT_PORTED = {"asymmetric_pursuit": "8"}
 
 
 def build_policy_map(kind: str, env) -> dict:
@@ -82,9 +85,17 @@ def setup_trainer(
         device=device,
     )
 
-    from warpdrive_tpu_torch.training.trainer_a2c import TrainerA2C
-
-    return TrainerA2C(
+    algorithms = {str(p.get("algorithm", "A2C")).upper()
+                  for p in run_config["policy"].values()}
+    if algorithms == {"DDPG"}:
+        from warpdrive_tpu_torch.training.trainer_ddpg import (
+            TrainerDDPG as Trainer,
+        )
+    else:
+        from warpdrive_tpu_torch.training.trainer_a2c import (
+            TrainerA2C as Trainer,
+        )
+    return Trainer(
         env_wrapper=engine,
         config=run_config,
         policy_tag_to_agent_id_map=policy_map,

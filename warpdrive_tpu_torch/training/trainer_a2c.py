@@ -19,6 +19,13 @@ iteration runs, eagerly on the engine's device:
       of the JAX trainer's ``optax.chain(clip_by_global_norm(max_norm),
       scale_by_adam(), scale(-1))`` times ``lr_t``.
 
+Evaluation and episode fetching act through ``_act_fn`` (the most likely
+action, or one drawn from the evaluation generator), and
+``fetch_episode_states(include_probabilities=True)`` adds each policy's
+action probabilities, the softmax of the logits that chose the actions;
+full-state checkpoints hold the models, the
+optimizer states, the rollout's env state and the episodic accounting.
+
 The policy matrix products and their backward pass are ``torch.matmul`` and
 autograd, which the JAX package leaves to XLA; they run in float32.
 
@@ -282,6 +289,42 @@ class TrainerA2C(TrainerBase):
         # placeholders
         engine.state = {**engine.state, **state}
         return batch
+
+    # ------------------------------------------------- acting outside training
+    def _act_fn(self, state: dict, use_argmax: bool = True,
+                generator: torch.Generator = None,
+                return_logits: bool = False):
+        per_policy, logits_of = {}, {}
+        for tag in self.policies:
+            obs_p = torch.index_select(state[_OBS], 1, self._agent_ids[tag])
+            logits_list, _ = self.models[tag](obs_p)
+            logits_of[tag] = logits_list
+            per_policy[tag] = torch.stack(
+                [sample_from_logits(logits, generator, use_argmax=use_argmax)
+                 for logits in logits_list], dim=-1)
+        actions = self._scatter_actions(per_policy)
+        return (actions, logits_of) if return_logits else actions
+
+    # ------------------------------------------------- full-state checkpoints
+    def _training_state(self) -> dict:
+        return {
+            "models": {tag: m.state_dict() for tag, m in self.models.items()},
+            "optimizers": {tag: opt.state_dict()
+                           for tag, opt in self.optimizers.items()},
+            "env_state": self._env_state,
+            "episodes": {"acc": self._ep_acc, "sum": self._ep_sum,
+                         "count": self._ep_count},
+        }
+
+    def _load_training_state(self, state: dict):
+        for tag, model in self.models.items():
+            model.load_state_dict(state["models"][tag])
+            self.optimizers[tag].load_state_dict(state["optimizers"][tag])
+        self._env_state = dict(state["env_state"])
+        episodes = state["episodes"]
+        self._ep_acc = episodes["acc"]
+        self._ep_sum = episodes["sum"]
+        self._ep_count = episodes["count"]
 
     # ------------------------------------------------------------- update
     def _policy_batch(self, batch: dict, tag: str) -> dict:

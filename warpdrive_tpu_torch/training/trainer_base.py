@@ -1,18 +1,25 @@
 """
 TrainerBase: shared training infrastructure.
 
-The port's counterpart of ``warpdrive_tpu/training/trainer_base.py`` for the
-path ``train()`` runs:
+The port's counterpart of ``warpdrive_tpu/training/trainer_base.py``:
 
 * config unpack and batch algebra: ``training_batch_size_per_env =
   train_batch_size // num_envs`` and ``num_iters = num_episodes *
   episode_length // train_batch_size``;
 * the policy -> agent-id map, ``policies_to_train`` and seeding (one
-  ``torch.Generator`` on the engine's device in place of the PRNG key);
+  ``torch.Generator`` on the engine's device in place of the PRNG key, and
+  a second one for evaluation and episode fetching, so that neither moves
+  the training draws);
 * the results directory with ``run_config.json`` and ``results.json``,
-  :class:`Metrics`, :class:`PerfStats` and the ``train()`` loop;
+  :class:`Metrics`, :class:`PerfStats` and the ``train()`` loop, with the
+  ``trainer.evaluator`` flag's "(test)" metrics at log points;
 * per-policy checkpoints as torch ``state_dict`` files whose names carry
-  the timestep.
+  the timestep, and full-state checkpoints (everything the next iteration
+  reads) for a resume that is bit for bit on one device;
+* ``evaluate_episodes``, ``fetch_episode_states`` and
+  ``fetch_logged_episode``: one episode of the current policy from a
+  forced reset of the engine's own state, which the trainer's rollout
+  state (``_env_state``) does not share.
 
 The JAX package compiles a metrics-free twin of its iteration for XLA's
 sake; here one eager iteration always builds the metric tensors and the
@@ -20,9 +27,9 @@ loop reads them (which waits for the device) at log points only.
 
 Left out, each raising ``NotImplementedError`` that names its ROADMAP item:
 separate per-policy placeholders, the agent-dim-last layout and action
-masks (queue 1, item 8), the evaluator, episode fetching and logging and
-full-state checkpoints (item 9), ``num_devices > 1`` (item 11), the eager
-host-env backend (item 12) and ``profile_phases`` (item 2, the port's bench).
+masks (queue 1, item 8), ``num_devices > 1`` (item 11), the eager
+host-env backend (item 12) and ``profile_phases`` (item 2, the port's
+bench).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+from warpdrive_tpu_torch.core.episode_log import EpisodeLogger
 from warpdrive_tpu_torch.training.data_loader import policy_agent_groups
 from warpdrive_tpu_torch.utils.constants import Constants
 from warpdrive_tpu_torch.utils.spaces import Box, Discrete, MultiDiscrete
@@ -156,14 +164,14 @@ class TrainerBase:
 
         # ---------------- config unpack and batch algebra -------------------
         trainer_cfg = config["trainer"]
-        if trainer_cfg.get("evaluator", False):
-            raise not_ported("the evaluator", "9")
         if trainer_cfg.get("env_backend") in ("cpu", "cpp"):
             raise not_ported("the eager host-env backend", "12")
         self.num_envs = int(trainer_cfg["num_envs"])
         assert self.num_envs == self.engine.n_envs
         self.num_episodes = int(trainer_cfg["num_episodes"])
         self.train_batch_size = int(trainer_cfg["train_batch_size"])
+        self.n_step = int(trainer_cfg.get("n_step", 1))
+        self.use_evaluator = bool(trainer_cfg.get("evaluator", False))
         self.neg_pos_env_ratio = float(trainer_cfg.get("neg_pos_env_ratio", -1))
 
         self.episode_length = self.engine.episode_length
@@ -214,6 +222,9 @@ class TrainerBase:
         self.seed = seed + self.device_id
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
+        # evaluation and episode fetching draw from their own generator
+        self.eval_generator = torch.Generator(device=self.device)
+        self.eval_generator.manual_seed(self.seed + 1)
 
         # ---------------- saving / metrics ----------------------------------
         saving_cfg = config["saving"]
@@ -322,6 +333,15 @@ class TrainerBase:
                     time.perf_counter() - window_start,
                     self._resolve_phase_marks(),
                 )
+                if self.use_evaluator:
+                    # the test-time evaluator: no action randomness
+                    eval_rew, eval_steps = self.evaluate_episodes(
+                        use_argmax=True)
+                    for tag in metrics_host:
+                        metrics_host[tag]["Mean episodic reward (test)"] = (
+                            float(eval_rew[tag].mean()))
+                        metrics_host[tag]["Mean episodic steps (test)"] = (
+                            float(eval_steps[tag].mean()))
                 self._log_metrics(metrics_host)
                 if self.verbose:
                     print(f"Iteration {iteration + 1}/{self.num_iters} | "
@@ -370,16 +390,17 @@ class TrainerBase:
             f.write(json.dumps(record) + "\n")
 
     # --------------------------------------------------------- checkpoints
-    def _ckpt_path(self, policy: str, timestep: int) -> str:
-        return os.path.join(self.save_dir, f"{policy}_{timestep}.state_dict")
+    def _ckpt_path(self, policy: str, timestep: int, net: str = "") -> str:
+        suffix = f"_{net}" if net else ""
+        return os.path.join(self.save_dir,
+                            f"{policy}{suffix}_{timestep}.state_dict")
 
     def save_model_checkpoint(self, timestep: int = None):
         """One ``state_dict`` file per trained policy."""
         timestep = self.current_timestep if timestep is None else timestep
         for policy in self.policies_to_train:
-            state = {k: v.detach().cpu()
-                     for k, v in self.models[policy].state_dict().items()}
-            torch.save(state, self._ckpt_path(policy, timestep))
+            torch.save(_host_state(self.models[policy]),
+                       self._ckpt_path(policy, timestep))
 
     def load_model_checkpoint(self, ckpt_filepaths: dict):
         """Restore per-policy parameters from files whose names encode the
@@ -388,30 +409,244 @@ class TrainerBase:
         for policy, path in ckpt_filepaths.items():
             if not path:
                 continue
-            state = torch.load(path, map_location=self.device,
-                               weights_only=True)
-            self.models[policy].load_state_dict(state)
-            stem = os.path.basename(path).split(".")[0]
-            timesteps.add(int(stem.split("_")[-1]))
+            self.models[policy].load_state_dict(self._load(path))
+            timesteps.add(_timestep_of(path))
+        self._resume_timestep(timesteps)
+
+    def _load(self, path: str):
+        return torch.load(path, map_location=self.device, weights_only=True)
+
+    def _resume_timestep(self, timesteps: set):
         if timesteps:
             assert len(timesteps) == 1, "checkpoints disagree on the timestep"
             self.current_timestep = timesteps.pop()
 
-    # ------------------------------------------- left out (ROADMAP queue 1)
-    def evaluate_episodes(self, use_argmax: bool = True):
-        raise not_ported("evaluate_episodes", "9")
+    # ---- full-state checkpoints: everything the next iteration reads ----
+    def _training_state(self) -> dict:  # pragma: no cover - subclass detail
+        """The algorithm's share of a full-state checkpoint: nets,
+        optimizer states, the rollout's env state and accounting."""
+        raise NotImplementedError
 
-    def fetch_episode_states(self, *args, **kwargs):
-        raise not_ported("fetch_episode_states", "9")
+    def _load_training_state(self, state: dict):  # pragma: no cover
+        raise NotImplementedError
 
-    def fetch_logged_episode(self, env_id: int = 0):
-        raise not_ported("fetch_logged_episode", "9")
-
-    def save_full_state(self, path: str = None):
-        raise not_ported("full-state checkpoints", "9")
+    def save_full_state(self, path: str = None) -> str:
+        """Write the whole training state -- parameters, optimizer moments
+        and counts, the rollout's env state, episodic accounting, the
+        iteration count, every generator's state, and the store's at-reset
+        snapshot and reset pools (an env built without a seed draws its own)
+        -- so that a fresh trainer built from the same config resumes
+        exactly where this one stands.  Returns the path."""
+        path = path or os.path.join(
+            self.save_dir, f"full_state_{self.current_timestep}.ckpt")
+        store = self.engine.store
+        payload = {
+            "training": self._training_state(),
+            "resets": {"snapshot": store.snapshot, "pools": store.pools},
+            "current_timestep": self.current_timestep,
+            "iters_completed": self.iters_completed,
+            "generators": {
+                "trainer": self.generator.get_state(),
+                "eval": self.eval_generator.get_state(),
+                "store": self.engine.store.generator.get_state(),
+            },
+        }
+        torch.save(_to_host(payload), path)
+        return path
 
     def load_full_state(self, path: str):
-        raise not_ported("full-state checkpoints", "9")
+        """Restore a :meth:`save_full_state` checkpoint."""
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        self._load_training_state(_to_device(payload["training"],
+                                             self.device))
+        # in place: the engine's reset function holds these tensors
+        store = self.engine.store
+        for kind, saved in payload["resets"].items():
+            live = getattr(store, kind)
+            assert live.keys() == saved.keys(), f"{kind}: {sorted(saved)}"
+            for name, tensor in saved.items():
+                live[name].copy_(tensor)
+        self.current_timestep = int(payload["current_timestep"])
+        self.iters_completed = int(payload["iters_completed"])
+        gens = payload["generators"]
+        self.generator.set_state(gens["trainer"])
+        self.eval_generator.set_state(gens["eval"])
+        self.engine.store.generator.set_state(gens["store"])
+        self.engine.state = {**self.engine.state, **self._env_state}
 
+    # --------------------------------------------------- evaluation, fetching
+    def _act_fn(self, state: dict, use_argmax: bool = True,
+                generator: torch.Generator = None,
+                return_logits: bool = False):  # pragma: no cover
+        """All agents' actions ``(E, N, C)`` for ``state`` (subclass
+        detail): the most likely (or noise-free) action with
+        ``use_argmax``, else one drawn from ``generator``.  With
+        ``return_logits``, ``(actions, {tag: [(E, A_p, n_i) logits per
+        action component]})`` from the same forward (categorical policies
+        only)."""
+        raise NotImplementedError
+
+    def _episode_start(self) -> dict:
+        """Force-reset the engine's own state (not the trainer's rollout
+        state) and return a copy to step an episode from."""
+        self.engine.reset_all_envs()
+        return dict(self.engine.state)
+
+    @torch.no_grad()
+    def evaluate_episodes(self, use_argmax: bool = True):
+        """One episode of every env replica from a forced reset, with the
+        most likely (DDPG: noise-free) actions, or with actions drawn from
+        the evaluation generator.  An env's rewards and steps are summed
+        while its done flag is 0: the mask is sticky, and finished envs are
+        stepped on without a reset.
+
+        Returns ``(episodic_reward_sum, episodic_step_sum)``: per policy,
+        numpy arrays of shape ``(num_envs, num_agents_of_policy)`` and
+        ``(num_envs,)``.
+        """
+        engine = self.engine
+        E, N = self.num_envs, engine.n_agents
+        state = self._episode_start()
+        alive = torch.ones((E,), dtype=torch.bool, device=self.device)
+        rew_sum = torch.zeros((E, N), dtype=torch.float32, device=self.device)
+        step_sum = torch.zeros((E,), dtype=torch.int32, device=self.device)
+        for _ in range(engine.episode_length):
+            actions = self._act_fn(state, use_argmax=use_argmax,
+                                   generator=self.eval_generator)
+            state = engine.step(state, actions)
+            alive = alive & (state[Constants.DONE] == 0)
+            rew_sum = rew_sum + engine.rewards_of(state) \
+                * alive.to(torch.float32)[:, None]
+            step_sum = step_sum + alive.to(torch.int32)
+        rew_sum = rew_sum.cpu().numpy()
+        step_sum = step_sum.cpu().numpy()
+        episodic_reward_sum, episodic_step_sum = {}, {}
+        for tag, ids in self.policy_tag_to_agent_id_map.items():
+            episodic_reward_sum[tag] = rew_sum[:, ids]
+            episodic_step_sum[tag] = step_sum.copy()
+        return episodic_reward_sum, episodic_step_sum
+
+    @torch.no_grad()
+    def fetch_episode_states(
+        self,
+        list_of_states: list,
+        env_id: int = 0,
+        include_rewards_actions: bool = False,
+        include_probabilities: bool = False,
+    ):
+        """Step one episode with the current policy (actions drawn from
+        the evaluation generator; DDPG's are noise-free) from a forced
+        reset, recording the named state arrays of env ``env_id``.
+        Returns ``{name: (steps + 1, ...)}`` numpy arrays, the reset state
+        first, up to and including the env's first done step, with
+        ``"rewards"`` and ``"actions"`` (``(steps, ...)``) and, for
+        categorical policies, ``"probabilities"`` ``{tag: [(steps, A_p,
+        n_i) per action component]}`` of the states acted on."""
+        assert isinstance(list_of_states, list) and len(list_of_states) > 0
+        engine = self.engine
+        for name in list_of_states:
+            assert name in engine.state, f"{name!r} is not a state array"
+        state = self._episode_start()
+        recs = {name: [state[name][env_id]] for name in list_of_states}
+        extra = {"_done": []}
+        for _ in range(engine.episode_length):
+            if include_probabilities:
+                actions, logits_of = self._act_fn(
+                    state, use_argmax=False, generator=self.eval_generator,
+                    return_logits=True)
+                for tag, logits_list in logits_of.items():
+                    for i, logits in enumerate(logits_list):
+                        extra.setdefault(f"_probs_{tag}_{i}", []).append(
+                            torch.softmax(logits[env_id], dim=-1))
+            else:
+                actions = self._act_fn(state, use_argmax=False,
+                                       generator=self.eval_generator)
+            state = engine.step(state, actions)
+            for name in list_of_states:
+                recs[name].append(state[name][env_id])
+            if include_rewards_actions:
+                extra.setdefault("_rewards", []).append(
+                    engine.rewards_of(state)[env_id])
+                extra.setdefault("_actions", []).append(actions[env_id])
+            extra["_done"].append(state[Constants.DONE][env_id])
+
+        host = {key: torch.stack(v).cpu().numpy()
+                for key, v in {**recs, **extra}.items()}
+        done_t = host["_done"] > 0
+        end = int(np.argmax(done_t)) + 1 if done_t.any() else \
+            engine.episode_length
+        out = {name: host[name][: end + 1] for name in list_of_states}
+        if include_rewards_actions:
+            out["rewards"] = host["_rewards"][:end]
+            out["actions"] = host["_actions"][:end]
+        if include_probabilities:
+            out["probabilities"] = {
+                tag: [host[f"_probs_{tag}_{i}"][:end]
+                      for i in range(len(self._action_heads(tag)[0]))]
+                for tag in self.policies
+            }
+        return out
+
+    @torch.no_grad()
+    def fetch_logged_episode(self, env_id: int = 0):
+        """Dense per-timestep trajectories of every state array the env
+        flagged ``log_data_across_episode``, for env ``env_id``, recorded on
+        the device by :class:`EpisodeLogger` over one episode of the most
+        likely (DDPG: noise-free) actions from a forced reset.  Each step is
+        logged up to and including the env's first done step, then no
+        more, so the log mask stays contiguous.  Returns ``{name:
+        (last_step + 1, ...)}`` numpy arrays."""
+        engine = self.engine
+        logger = EpisodeLogger(engine.store)
+        assert logger.log_names, (
+            "no state array was pushed with log_data_across_episode=True"
+        )
+        state = self._episode_start()
+        buffers = logger.init_buffers(state, env_id)
+        done_seen = torch.zeros((), dtype=torch.bool, device=self.device)
+        done_t = []
+        for t in range(1, engine.episode_length + 1):
+            actions = self._act_fn(state, use_argmax=True,
+                                   generator=self.eval_generator)
+            state = engine.step(state, actions)
+            logged = logger.log_step(buffers, state, t, env_id)
+            buffers = {k: torch.where(done_seen, buffers[k], v)
+                       for k, v in logged.items()}
+            done = state[Constants.DONE][env_id]
+            done_seen = done_seen | (done > 0)
+            done_t.append(done)
+        done_t = torch.stack(done_t).cpu().numpy() > 0
+        last_step = int(np.argmax(done_t)) + 1 if done_t.any() else \
+            engine.episode_length
+        return logger.fetch(buffers, last_step)
+
+    # ------------------------------------------- left out (ROADMAP queue 1)
     def profile_phases(self, repeats: int = 3):
         raise not_ported("profile_phases (the port's bench)", "2")
+
+
+def _host_state(module: torch.nn.Module) -> dict:
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
+def _timestep_of(path: str) -> int:
+    """The timestep a checkpoint's file name ends with."""
+    stem = os.path.basename(path).split(".")[0]
+    return int(stem.split("_")[-1])
+
+
+def _to_host(tree):
+    """Every tensor of nested dicts on the CPU, cloned."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    return tree
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return tree
