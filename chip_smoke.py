@@ -118,9 +118,24 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       fresh trainer of other seeds ``load_full_state`` and 2 more through
       ``train()``, against the 4 straight iterations of 4h (nets and
       targets within 1e-6; whether bit for bit is printed);
+   j. the JAX bench's tuned flagship training stage (``bench.py:744-813``)
+      at full width through ``setup_trainer`` and ``train()``: the
+      flagship env with K1, 2000 envs x 100 steps, two A2C policies with a
+      bf16 model and batch and 400 contiguous minibatches, 3
+      iterations with exactly 100 K1 launches each and no other kernel,
+      rollout and update ms and env-steps/s printed; ``profile_phases``
+      (2 repeats; its updates launch no kernel); one iteration under
+      ``update_recompute_obs`` with exactly 100 + 2 x 400 K1 launches; then
+      at a small size on the card: minibatched updates (contiguous, and
+      PPO over 2 epochs x 2 shuffled minibatches with an injected table)
+      against the CPU within 1e-5, remat against none and recompute
+      against store (float32 batch) bit for bit, and the bf16 model's
+      outputs against the CPU's, bit for bit at the small size and each
+      head within 2^-7 of its largest output at the tuned width;
 5. at the main paths' shapes -- (1024, 105, 10) for K1, K3, K6, K7, K8 in
    both modes, K9 in both, K2 and K4, (100, 110, 10) for K2, (256, 1024,
-   10) for K1, K4 in both modes, K5 in its four and K9 exact -- hold each
+   10) for K1, K4 in both modes, K5 in its four and K9 exact, and the
+   tuned stage's (2000, 105, 10) and (500, 105, 10) for K1 -- hold each
    kernel against its plain version once more (0 mismatches and max abs
    diff 0, or K4's swap class), and time both beside the kernel's bound:
    the kernel back to back (21 x 50 calls) and by its own device time (the
@@ -130,8 +145,8 @@ The last three lines are the card (``nvidia-smi``'s name and power limit),
 one JSON object with a record per kernel, and the result line
 ``{"ok": true, "device": {...}}``.  ``--profile`` adds a ``torch.profiler``
 table of device time by kernel for 10 steps of every loop of phase 4 and
-for one iteration of each training run (DDPG's too), each with its device
-ms per step
+for one iteration of each training run (DDPG's too; the tuned stage's
+rollout and update apart), each with its device ms per step
 beside its wall ms per step and the device's idle share.
 """
 
@@ -269,6 +284,26 @@ DDPG_TRAIN_ITERS = 4
 # a resumed run against a straight one: the same eager program on the same
 # inputs, so 1e-6 is far above any difference it could have
 RESUME_PARAM_TOL = 1e-6
+# the JAX bench's tuned flagship training stage (bench.py:744-813): 2000
+# envs x 100 steps, two A2C policies with 400 contiguous env-axis
+# minibatches of 5 envs (each forwarded env-major), a bf16 model
+# and batch, K1; this many iterations, then profile_phases with this many
+# repeats, then one iteration under update_recompute_obs
+TUNED_ENVS = 2000
+TUNED_STEPS = 100
+TUNED_MINIBATCHES = 400
+TUNED_ITERS = 3
+TUNED_PROFILE_REPEATS = 2
+# the update options' card checks: tests/test_torch_update_options.py's
+# small TagContinuous (2 taggers + 8 runners, k = 4, 8 envs x 10 steps, fc
+# (16, 16)) on K1; card against CPU within UPDATE_PARAM_TOL, a bf16 model's
+# outputs bit for bit at that size and, at the tuned width, within the CPU
+# tests' bf16 bound (each head within 2^-7 of that head's largest
+# magnitude, normwise: tests/test_torch_update_options.py says why), and
+# remat and recompute against their controls on the card bit for bit
+OPTIONS_CHECK_ENVS = 8
+OPTIONS_CHECK_STEPS = 10
+BF16_NORMWISE = 2.0 ** -7
 
 
 def _card_line() -> str:
@@ -1581,6 +1616,271 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
+def _tuned_config(iters, recompute=False):
+    """The tuned flagship training stage as a run config for the CLI's
+    ``setup_trainer``: the JAX bench's env (``FLAGSHIP_ENV_KWARGS``, env seed
+    274880, ``pallas_flat_exact``; ``knn_block_envs`` has no meaning on the
+    card), trainer seed 1 (which ``setup_trainer`` also gives the engine,
+    where the bench's engine has seed 31), ``iters`` iterations."""
+    from warpdrive_tpu_torch.presets import FLAGSHIP_ENV_KWARGS
+
+    policy = {"to_train": True, "algorithm": "A2C", "vf_loss_coeff": 1,
+              "entropy_coeff": 0.05, "clip_grad_norm": True,
+              "max_grad_norm": 0.5, "gamma": 0.98, "lr": 0.001,
+              "num_minibatches": TUNED_MINIBATCHES,
+              "shuffle_minibatches": False,
+              "model": {"type": "fully_connected", "fc_dims": [256, 256],
+                        "dtype": "bfloat16"}}
+    batch = TUNED_ENVS * TUNED_STEPS
+    return {
+        "name": "tag_continuous",
+        "env": dict(FLAGSHIP_ENV_KWARGS, seed=274880,
+                    knn_algorithm="pallas_flat_exact"),
+        "trainer": {"num_envs": TUNED_ENVS, "train_batch_size": batch,
+                    "num_episodes": iters * batch
+                    // FLAGSHIP_ENV_KWARGS["episode_length"],
+                    "seed": 1, "batch_dtype": "bfloat16",
+                    "update_recompute_obs": recompute},
+        "policy": {"runner": dict(policy, lr=0.005), "tagger": dict(policy)},
+        "saving": {"metrics_log_freq": iters,
+                   "model_params_save_freq": 10**9},
+    }
+
+
+def _drive_tuned_training():
+    """4j: the tuned flagship stage at full width through ``setup_trainer``
+    and ``train()`` (``_drive_training``), ``TUNED_ITERS`` iterations with
+    exactly ``TUNED_STEPS`` K1 launches each and no other kernel; then
+    ``profile_phases``, whose updates launch no kernel; then one iteration
+    under ``update_recompute_obs``, with ``TUNED_STEPS`` K1 launches in the
+    rollout and one for each policy and minibatch pass in the update.
+    Returns both trainers, the two training runs' launches and the means
+    of iterations 2 on and the profile."""
+    import torch
+
+    from warpdrive_tpu_torch.ops import knn_obs
+
+    no_launches = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
+    torch.cuda.reset_peak_memory_stats()
+    trainer, launches, times = _drive_training(_tuned_config(TUNED_ITERS))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    assert trainer.num_iters == TUNED_ITERS
+    expected = dict(no_launches, knn_obs_flat_exact=TUNED_ITERS * TUNED_STEPS)
+    assert launches == expected, f"launches {launches}, expected {expected}"
+    for tag, model in trainer.models.items():
+        opts = trainer.update_options[tag]
+        assert model.dtype == torch.bfloat16, tag
+        assert trainer._batch[f"obs_{tag}"].dtype == torch.bfloat16, tag
+        assert (opts.num_minibatches, opts.shuffle) == (
+            TUNED_MINIBATCHES, False), opts
+        assert trainer.optimizers[tag].count == \
+            TUNED_ITERS * TUNED_MINIBATCHES, tag
+    steps = TUNED_ENVS * TUNED_STEPS
+    later = trainer.phase_ms[1:]
+    roll_ms = statistics.mean(r for r, _ in later)
+    upd_ms = statistics.mean(u for _, u in later)
+    print(f"tuned flagship training: {TUNED_ITERS} iterations of "
+          f"{TUNED_ENVS} envs x {TUNED_STEPS} steps x "
+          f"{trainer.engine.n_agents} agents, {TUNED_MINIBATCHES} contiguous "
+          f"minibatches of {TUNED_ENVS // TUNED_MINIBATCHES} envs a policy, "
+          f"bf16 model and batch, in {times['train_s']:.3f} s (setup "
+          f"{times['setup_s']:.3f} s), peak device memory {peak_gib:.2f} "
+          f"GiB; iterations 2-{TUNED_ITERS}, mean: rollout {roll_ms:.3f} ms, "
+          f"update {upd_ms:.3f} ms, "
+          f"{steps / ((roll_ms + upd_ms) / 1e3):.0f} env-steps/s; launches "
+          f"{launches}")
+
+    knn_obs.reset_launch_counts()
+    prof = trainer.profile_phases(repeats=TUNED_PROFILE_REPEATS)
+    # (1 + repeats) iterations, (1 + repeats) rollouts and one rollout for
+    # the update's batch; the updates launch none
+    rollouts = 2 * (1 + TUNED_PROFILE_REPEATS) + 1
+    expected = dict(no_launches, knn_obs_flat_exact=rollouts * TUNED_STEPS)
+    assert dict(knn_obs.LAUNCH_COUNTS) == expected, knn_obs.LAUNCH_COUNTS
+    print("tuned flagship profile_phases: " + ", ".join(
+        f"{key} {prof[key]:.3f}" for key in (
+            "iteration_ms", "rollout_ms", "update_ms", "update_ms_residual",
+            "steps_per_sec", "rollout_steps_per_sec"))
+        + "; repeats: iteration "
+        + ", ".join(f"{ms:.3f}" for ms in prof["iteration_ms_repeats"])
+        + "; rollout "
+        + ", ".join(f"{ms:.3f}" for ms in prof["rollout_ms_repeats"])
+        + "; update "
+        + ", ".join(f"{ms:.3f}" for ms in prof["update_ms_repeats"]))
+
+    rec, rec_launches, rec_times = _drive_training(_tuned_config(1, True))
+    expected = dict(no_launches, knn_obs_flat_exact=TUNED_STEPS + len(
+        rec.policies_to_train) * TUNED_MINIBATCHES)
+    assert rec_launches == expected, \
+        f"launches {rec_launches}, expected {expected}"
+    batch = rec._batch
+    assert not any(key.startswith("obs_") for key in batch)
+    phys_gb = sum(v.numel() * v.element_size()
+                  for v in batch["phys"].values()) / 1e9
+    obs_gb = sum(v.numel() * v.element_size()
+                 for k, v in trainer._batch.items()
+                 if k.startswith("obs_")) / 1e9
+    rec_roll, rec_upd = rec.phase_ms[0]
+    print(f"tuned flagship, update_recompute_obs: 1 iteration in "
+          f"{rec_times['train_s']:.3f} s, rollout {rec_roll:.3f} ms, update "
+          f"{rec_upd:.3f} ms; recorded state {phys_gb:.3f} GB in place of "
+          f"{obs_gb:.3f} GB of bf16 observations; launches {rec_launches}")
+    return trainer, rec, launches, rec_launches, {
+        "rollout_ms": roll_ms, "update_ms": upd_ms, "profile": prof}
+
+
+def _options_check_config(**trainer):
+    """The small TagContinuous of the update options' CPU tests, on K1."""
+    from warpdrive_tpu_torch.utils.config import load_run_config
+
+    cfg = load_run_config("tag_continuous")
+    cfg["env"].update({"num_taggers": 2, "num_runners": 8,
+                       "episode_length": 20, "num_other_agents_observed": 4,
+                       "knn_algorithm": "pallas_flat_exact"})
+    cfg["trainer"].update({
+        "num_envs": OPTIONS_CHECK_ENVS,
+        "train_batch_size": OPTIONS_CHECK_ENVS * OPTIONS_CHECK_STEPS,
+        "num_episodes": 40, "seed": 3, **trainer})
+    for tag in ("runner", "tagger"):
+        cfg["policy"][tag]["model"]["fc_dims"] = [16, 16]
+    return cfg
+
+
+def _check_update_options(tuned):
+    """The update options on the card at a small size: minibatched updates
+    (contiguous, PPO over 2 epochs x 2 shuffled minibatches with an
+    injected table) card against CPU within ``UPDATE_PARAM_TOL``; remat
+    against none and recompute against store (float32 batch) on the card,
+    bit for bit; the bf16 model card against CPU, bit for bit at the small
+    size, and at full width on the first 5 envs of the ``tuned`` trainer's
+    last batch (50,000 rows), with freshly initialised weights, as the CPU
+    tests hold it, and with the trained runner's: each head (each logit
+    head, the value) within ``BF16_NORMWISE`` of that head's largest
+    magnitude."""
+    import numpy as np
+    import torch
+
+    from warpdrive_tpu_torch.algos.policygradient import PPO
+    from warpdrive_tpu_torch.models.fully_connected import FullyConnected
+    from warpdrive_tpu_torch.training.scripts.train import setup_trainer
+    from warpdrive_tpu_torch.training.trainer_a2c import (
+        ClippedAdam,
+        UpdateOptions,
+        policy_update,
+    )
+
+    results_dir = tempfile.mkdtemp(prefix="chip_smoke_options_")
+    try:
+        store = setup_trainer(_options_check_config(),
+                              results_dir=results_dir, verbose=False,
+                              device=DEVICE)
+        rec = setup_trainer(_options_check_config(update_recompute_obs=True),
+                            results_dir=results_dir, verbose=False,
+                            device=DEVICE)
+    finally:
+        shutil.rmtree(results_dir, ignore_errors=True)
+    for tag in rec.models:  # the same parameters on both
+        rec.models[tag].load_state_dict(store.models[tag].state_dict())
+    batch, rec_batch = store._rollout(), rec._rollout()
+    assert torch.equal(batch["done"], rec_batch["done"])
+    E = OPTIONS_CHECK_ENVS
+    table = torch.from_numpy(np.stack(
+        [np.random.RandomState(e).permutation(E) for e in range(2)]
+    ).reshape(4, E // 2))
+
+    def update(tag, device, options, algo=None, policy_batch=None,
+               observe=None, index_table=None):
+        model = copy.deepcopy(store.models[tag]).to(device)
+        opt = ClippedAdam(dict(model.named_parameters()),
+                          max_norm=store.optimizers[tag].max_norm)
+        opt.load_state_dict(store.optimizers[tag].state_dict())
+        policy_batch = policy_batch or store._policy_batch(batch, tag)
+        policy_update(
+            model, opt, algo or store.algorithms[tag],
+            {k: v.to(device) if torch.is_tensor(v) else v
+             for k, v in policy_batch.items()},
+            0, store.lr_schedules[tag].value_at(0), options=options,
+            index_table=index_table, observe=observe)
+        return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+    def diff(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+    tuned_obs = tuned._batch["obs_runner"][:, :5].to(torch.float32)
+    trained = tuned.models["runner"]
+    fresh = FullyConnected(tuned_obs.shape[-1], trained.fc_dims,
+                           trained.output_dims,
+                           generator=torch.Generator().manual_seed(0))
+    # (label, observations, weights, bit for bit)
+    bf16_cases = [
+        ("runner, small", batch["obs_runner"], store.models["runner"], True),
+        ("tuned width, fresh weights", tuned_obs, fresh, False),
+        ("tuned width, the trained runner", tuned_obs, trained, False)]
+    ppo = PPO(clip_param=0.1, discount_factor_gamma=0.98, vf_loss_coeff=1,
+              entropy_coeff=0.05)
+    cases = {
+        "contiguous": (UpdateOptions(num_minibatches=4), None, None),
+        "PPO 2 epochs x 2 shuffled, injected table": (
+            UpdateOptions(num_epochs=2, num_minibatches=2, shuffle=True), ppo,
+            table),
+    }
+    for tag in store.policies_to_train:
+        card = {}
+        for label, (opts, algo, idx) in cases.items():
+            card[label] = update(tag, DEVICE, opts, algo, index_table=idx)
+            worst = diff(card[label], update(tag, "cpu", opts, algo,
+                                             index_table=idx))
+            print(f"update option card vs CPU [{tag}, {label}]: max abs "
+                  f"parameter diff {worst:.3g} (tolerance "
+                  f"{UPDATE_PARAM_TOL})")
+            assert worst <= UPDATE_PARAM_TOL, f"{tag} {label}: {worst}"
+        pairs = {
+            "remat vs none": (
+                update(tag, DEVICE, UpdateOptions(num_minibatches=4,
+                                                  remat=True)),
+                card["contiguous"]),
+        }
+        observe = rec._observe_policy(tag)
+        rec_policy = rec._policy_batch(rec_batch, tag)
+        for label, opts in (("whole batch", UpdateOptions()),
+                            ("4 minibatches", UpdateOptions(
+                                num_minibatches=4))):
+            pairs[f"recompute vs store, {label}"] = (
+                update(tag, DEVICE, opts, policy_batch=rec_policy,
+                       observe=observe),
+                update(tag, DEVICE, opts))
+        for label, (a, b) in pairs.items():
+            worst = diff(a, b)
+            print(f"update option on the card [{tag}, {label}]: max abs "
+                  f"parameter diff {worst:.3g} (bit for bit required)")
+            assert worst == 0.0, f"{tag} {label}: {worst}"
+
+    for label, obs, model, exact in bf16_cases:
+        outs = {}
+        for device in (DEVICE, "cpu"):
+            bf16 = FullyConnected(obs.shape[-1], model.fc_dims,
+                                  model.output_dims, dtype=torch.bfloat16,
+                                  device=device)
+            bf16.load_state_dict(model.state_dict())
+            with torch.no_grad():
+                heads, value = bf16(obs.to(device))
+            outs[device] = [out.cpu() for out in (*heads, value)]
+        for i, (card, cpu) in enumerate(zip(outs[DEVICE], outs["cpu"])):
+            head = f"head {i}" if i < len(outs["cpu"]) - 1 else "value"
+            assert card.dtype == torch.float32
+            largest = float(cpu.abs().max())
+            bound = 0.0 if exact else BF16_NORMWISE * largest
+            worst = float((card - cpu).abs().max())
+            print(f"bf16 model card vs CPU [{label}, obs "
+                  f"{tuple(obs.shape)}, {head}]: max abs diff {worst:.3g}, "
+                  f"entries differing {int((card != cpu).sum())} of "
+                  f"{card.numel()}, largest output {largest:.4g} "
+                  + ("(bit for bit required)" if exact else
+                     f"(tolerance {bound:.3g}: {BF16_NORMWISE:.4g} of it)"))
+            assert worst <= bound, \
+                f"bf16 model [{label}, {head}]: {worst} > {bound}"
+
+
 def _drive_item9(pendulum, tag_trainer):
     """Evaluation and episode fetching on the card, each with the kernels'
     launch counts set to 0 just before and read just after:
@@ -1847,45 +2147,11 @@ def main(argv=None) -> int:
     item9_launches = _drive_item9(ddpg_trainers["single_pendulum"], trainer)
     _check_ddpg_resume(ddpg_trainers["single_pendulum"])
 
-    if args.profile:
-        windows = [
-            (loop, _stepper(system, generator, loop), "step",
-             loops[loop]["ms_per_step"])
-            for loop in ("env_only_step", "full_loop_step")
-        ]
-        windows.append(("training iteration",
-                        lambda: trainer._iteration(trainer.current_timestep),
-                        "iteration", roll_ms + upd_ms))
-        windows += [
-            (f"1024-agent {algo}", _stepper(m, m["generator"],
-                                            "env_only_step"),
-             "step", many_loops[algo]["ms_per_step"])
-            for algo, m in many.items()
-        ]
-        windows.append(("pallas_flat env_only_step",
-                        _stepper(fast, fast_gen, "env_only_step"), "step",
-                        fast_loop["ms_per_step"]))
-        windows += [
-            (f"{loop} [{algo}]", _stepper(knn_rolled[algo][0],
-                                          knn_rolled[algo][1], loop),
-             "step", r["ms_per_step"])
-            for (algo, loop), r in knn_loops.items()
-        ]
-        windows += [
-            (f"{label} env_only_step", _stepper(m, m["generator"],
-                                                "env_only_step"),
-             "step", env_loop_times[label]["ms_per_step"])
-            for label, m in env_loops.items()
-        ]
-        windows += [
-            (f"training iteration [{name}]",
-             lambda t=t: t._iteration(t.current_timestep), "iteration",
-             means[name][0] + means[name][1])
-            for trainers, means in ((full_trainers, full_train_means),
-                                    (ddpg_trainers, ddpg_means))
-            for name, t in trainers.items()
-        ]
-        _profile(windows)
+    # 4j. the tuned flagship training stage, counts from 0 before each run,
+    # and the update options on the card
+    tuned, tuned_rec, tuned_launches, tuned_rec_launches, tuned_means = \
+        _drive_tuned_training()
+    _check_update_options(tuned)
 
     # 5. kernel vs plain and their times at the main paths' shapes
     many_args = _knn_args(many["pallas_flat_exact"]["env"],
@@ -1952,6 +2218,21 @@ def main(argv=None) -> int:
     ]
     for name, r in [*timed.items(), *at_1024.items(), *others]:
         max_abs[name] = max(max_abs[name], r["max_abs_err"])
+    # K1 at the tuned stage's shapes: its rollout state (2000 envs) and the
+    # first minibatch's rows under update_recompute_obs (5 envs x 100 steps)
+    rows = {k: v.transpose(0, 1)[:TUNED_ENVS // TUNED_MINIBATCHES]
+            .reshape((-1,) + v.shape[2:])
+            for k, v in tuned_rec._batch["phys"].items()}
+    for label, state in ((f"tuned stage state, {TUNED_ENVS} envs",
+                          tuned._env_state),
+                         ("tuned stage recompute minibatch, "
+                          f"{TUNED_ENVS // TUNED_MINIBATCHES} envs x "
+                          f"{TUNED_STEPS} steps", rows)):
+        r = _time_knn("knn_obs_flat_exact",
+                      *_knn_args(tuned.engine.env, state), "flat_exact",
+                      label)
+        max_abs["knn_obs_flat_exact"] = max(max_abs["knn_obs_flat_exact"],
+                                            r["max_abs_err"])
     _launch_floor()  # what K2's training-shape times compare with
     for variant in ("tiled", "tiled_mxudist_exact"):  # K5's other modes
         max_abs["knn_obs_tiled"] = max(max_abs["knn_obs_tiled"], _compare_knn(
@@ -1976,10 +2257,62 @@ def main(argv=None) -> int:
               f"{100 * at_1024[kernel]['ms'] / step_ms:.1f}% "
               f"({at_1024[kernel]['ms']:.5f} of {step_ms:.4f} ms)")
 
-    # launches on the main paths: 4a and 4c for K1, 4b and 4i for K2, 4d
-    # for K3, 4c for K4 and K5, 4e for K6-K8, 4c and 4e for K9
+    # the profiler tables last: a window of a million events (the tuned
+    # update) has left later profiling recording no kernel
+    if args.profile:
+        windows = [
+            (loop, _stepper(system, generator, loop), "step",
+             loops[loop]["ms_per_step"])
+            for loop in ("env_only_step", "full_loop_step")
+        ]
+        windows.append(("training iteration",
+                        lambda: trainer._iteration(trainer.current_timestep),
+                        "iteration", roll_ms + upd_ms))
+        windows += [
+            (f"1024-agent {algo}", _stepper(m, m["generator"],
+                                            "env_only_step"),
+             "step", many_loops[algo]["ms_per_step"])
+            for algo, m in many.items()
+        ]
+        windows.append(("pallas_flat env_only_step",
+                        _stepper(fast, fast_gen, "env_only_step"), "step",
+                        fast_loop["ms_per_step"]))
+        windows += [
+            (f"{loop} [{algo}]", _stepper(knn_rolled[algo][0],
+                                          knn_rolled[algo][1], loop),
+             "step", r["ms_per_step"])
+            for (algo, loop), r in knn_loops.items()
+        ]
+        windows += [
+            (f"{label} env_only_step", _stepper(m, m["generator"],
+                                                "env_only_step"),
+             "step", env_loop_times[label]["ms_per_step"])
+            for label, m in env_loops.items()
+        ]
+        windows += [
+            (f"training iteration [{name}]",
+             lambda t=t: t._iteration(t.current_timestep), "iteration",
+             means[name][0] + means[name][1])
+            for trainers, means in ((full_trainers, full_train_means),
+                                    (ddpg_trainers, ddpg_means))
+            for name, t in trainers.items()
+        ]
+        tuned_t = tuned.current_timestep
+        windows += [
+            ("tuned flagship rollout",
+             lambda: tuned._rollout_phase(tuned_t), "iteration",
+             tuned_means["rollout_ms"]),
+            ("tuned flagship update",
+             lambda: tuned._update_phase(tuned._batch, tuned_t), "iteration",
+             tuned_means["update_ms"]),
+        ]
+        _profile(windows)
+
+    # launches on the main paths: 4a, 4c and 4j for K1, 4b and 4i for K2,
+    # 4d for K3, 4c for K4 and K5, 4e for K6-K8, 4c and 4e for K9
     all_launches = {name: launches[name] + train_launches[name]
                     + item9_launches[name] + fast_launches[name]
+                    + tuned_launches[name] + tuned_rec_launches[name]
                     + sum(c[name] for c in many_launches.values())
                     + sum(c[name] for c in knn_launches.values())
                     for name in knn_obs.LAUNCH_COUNTS}

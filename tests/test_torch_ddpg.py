@@ -574,24 +574,30 @@ def test_ddpg_load_rejects_string_paths(trained):
 @pytest.mark.parametrize("name", ["single_pendulum",
                                   "single_continuous_mountain_car"])
 def test_cli_trains_the_ddpg_configs_on_the_cpu(name, tmp_path):
-    """``-e <name> --device cpu --num_envs 4 --num_episodes 8``:
-    ``--num_envs`` keeps the config's steps an iteration (5 for Pendulum,
-    10 for ContinuousMountainCar), so Pendulum's 4,000 env-steps take 200
-    iterations and ContinuousMountainCar's 8,000 take 200."""
+    """``-e <name> --device cpu --num_envs <n> --num_episodes <m>``:
+    ``--num_envs`` sets the replicas alone, as in the JAX CLI, so an
+    iteration keeps the config's batch (Pendulum 50,000 env-steps, 10 a
+    replica at 5000 envs; ContinuousMountainCar 10,000, 20 a replica at
+    500): four iterations each, the first filling the window."""
+    envs, episodes, steps = {"single_pendulum": (5000, 400, 10),
+                             "single_continuous_mountain_car": (500, 40, 20)
+                             }[name]
     trainer = port_train.main([
-        "-e", name, "--device", "cpu", "--num_envs", "4", "--num_episodes",
-        "8", "--results_dir", str(tmp_path / "cli"),
+        "-e", name, "--device", "cpu", "--num_envs", str(envs),
+        "--num_episodes", str(episodes), "--results_dir", str(tmp_path / "cli"),
     ])
     assert isinstance(trainer, TrainerDDPG)
-    assert trainer.iters_completed == trainer.num_iters == 200
-    assert trainer.optimizers["actor"]["shared"].count == 199
+    assert trainer.num_envs == envs
+    assert trainer.training_batch_size_per_env == steps
+    assert trainer.iters_completed == trainer.num_iters == 4
+    assert trainer.optimizers["actor"]["shared"].count == 3
     t = trainer.current_timestep
     assert f"shared_critic_{t}.state_dict" in os.listdir(tmp_path / "cli")
 
 
 @pytest.mark.parametrize("where,key,value,item", [
-    ("policy", "remat", True, "item 4"),
-    ("trainer", "batch_dtype", "bfloat16", "item 4")])
+    ("trainer", "env_backend", "cpu", "item 12"),
+    ("trainer", "env_backend", "cpp", "item 12")])
 def test_ddpg_left_out_options_raise(where, key, value, item, tmp_path):
     cfg = _config(port_config.load_run_config)
     node = cfg["policy"]["shared"] if where == "policy" else cfg["trainer"]
@@ -599,5 +605,3 @@ def test_ddpg_left_out_options_raise(where, key, value, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         port_train.setup_trainer(cfg, verbose=False, device="cpu",
                                  results_dir=str(tmp_path / "x"))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        _port(tmp_path).profile_phases()

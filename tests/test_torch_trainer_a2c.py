@@ -190,9 +190,12 @@ def test_cli_main_on_a_tiny_config(tmp_path):
         "-e", str(path), "--num_episodes", "20", "--num_envs", "4",
         "--results_dir", str(tmp_path / "cli"), "--device", "cpu",
     ])
-    # --num_envs keeps the config's 40 steps an iteration: 160 env-steps
-    assert trainer.num_envs == 4 and trainer.iters_completed == 2
-    assert "tagger_320.state_dict" in os.listdir(tmp_path / "cli")
+    # --num_envs sets num_envs alone, as in the JAX CLI: an iteration keeps
+    # the config's 200 env-steps, 50 a replica
+    assert trainer.num_envs == 4 and trainer.train_batch_size == 200
+    assert trainer.training_batch_size_per_env == 50
+    assert trainer.iters_completed == 2
+    assert "tagger_400.state_dict" in os.listdir(tmp_path / "cli")
     for flags, item in ((["-n", "2"], "11"), (["-a"], "12"),
                         (["--coordinator", "localhost:1234"], "11")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -200,23 +203,22 @@ def test_cli_main_on_a_tiny_config(tmp_path):
 
 
 def test_left_out_features_raise(tmp_path):
-    cases = [
-        (("policy", "runner", "num_epochs", 2), "item 4"),
-        (("policy", "tagger", "remat", True), "item 4"),
-        (("trainer", "update_recompute_obs", True), "item 4"),
-    ]
-    for keys, message in cases:
-        cfg = _config(port_config.load_run_config)
-        node = cfg
-        for key in keys[:-2]:
-            node = node[key]
-        node[keys[-2]] = keys[-1]
-        with pytest.raises(NotImplementedError, match=message):
+    for backend in ("cpu", "cpp"):
+        cfg = _config(port_config.load_run_config, env_backend=backend)
+        with pytest.raises(NotImplementedError, match="item 12"):
             port_train.setup_trainer(cfg, results_dir=str(tmp_path / "x"),
                                      device="cpu")
-    trainer = _port_trainer(tmp_path, name="z")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        trainer.profile_phases()
+    # the update options and profile_phases are ported: they build and run
+    cfg = _config(port_config.load_run_config, update_recompute_obs=True,
+                  batch_dtype="bfloat16", num_episodes=10)
+    cfg["policy"]["runner"].update(num_epochs=2, remat=True)
+    cfg["policy"]["tagger"]["model"]["dtype"] = "bfloat16"
+    trainer = port_train.setup_trainer(cfg, results_dir=str(tmp_path / "z"),
+                                       verbose=False, device="cpu")
+    assert trainer._recompute_obs
+    assert trainer.update_options["runner"].remat
+    assert {"iteration_ms", "rollout_ms", "update_ms"} <= set(
+        trainer.profile_phases(repeats=1))
     cfg = _config(port_config.load_run_config)
     cfg["name"] = "asymmetric_pursuit"
     with pytest.raises(NotImplementedError, match="item 8"):

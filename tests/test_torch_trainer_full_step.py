@@ -175,17 +175,25 @@ def test_cpu_training_of_each_config(name, tmp_path):
 
 
 def test_cli_trains_single_cartpole_on_the_cpu(tmp_path):
-    """``-e single_cartpole --device cpu --num_envs 4 --num_episodes 8``:
-    ``--num_envs`` keeps the config's 500 steps an iteration, so the run
-    takes two iterations of 2,000 env-steps."""
+    """``-e single_cartpole --device cpu --num_envs 1000 --num_episodes
+    100``: ``--num_envs`` sets the replicas alone, as in the JAX CLI, so an
+    iteration keeps the config's 50,000 env-steps, 50 a replica, and the
+    run takes one iteration.  Too few episodes for one batch raise, as in
+    JAX: ``--num_envs 4 --num_episodes 8`` is 4,000 env-steps."""
     trainer = port_train.main([
-        "-e", "single_cartpole", "--device", "cpu", "--num_envs", "4",
-        "--num_episodes", "8", "--results_dir", str(tmp_path / "cli"),
+        "-e", "single_cartpole", "--device", "cpu", "--num_envs", "1000",
+        "--num_episodes", "100", "--results_dir", str(tmp_path / "cli"),
     ])
-    assert trainer.num_envs == 4 and trainer.train_batch_size == 2000
-    assert trainer.iters_completed == 2
+    assert trainer.num_envs == 1000 and trainer.train_batch_size == 50000
+    assert trainer.training_batch_size_per_env == 50
+    assert trainer.iters_completed == 1
     assert trainer.engine.store.pools["state"].shape[0] == 1000
-    assert "shared_4000.state_dict" in os.listdir(tmp_path / "cli")
+    assert "shared_50000.state_dict" in os.listdir(tmp_path / "cli")
+    with pytest.raises(ValueError, match="Not enough episodes"):
+        port_train.main([
+            "-e", "single_cartpole", "--device", "cpu", "--num_envs", "4",
+            "--num_episodes", "8", "--results_dir", str(tmp_path / "cli2"),
+        ])
 
 
 def test_cartpole_learns(tmp_path):

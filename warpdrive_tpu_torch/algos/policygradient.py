@@ -6,7 +6,9 @@ The port's counterpart of ``warpdrive_tpu/algos/policygradient.py``:
 * discounted returns with done masking, optional return/advantage
   normalization over (env, agent), entropy and value-loss coefficient
   schedules;
-* single-epoch PPO with the clipped surrogate against detached log-probs;
+* PPO's clipped surrogate against the behaviour log-probs a caller passes
+  (``old_log_prob``, fixed before a multi-pass update), or against the
+  detached current ones (single-epoch PPO);
 * negative/positive env downsampling on done==2 success markers as per-env
   Bernoulli keep-weights (:func:`env_selection_weights`), whose uniform
   draws a caller may pass in so a test can feed both sides the same draws.
@@ -96,8 +98,9 @@ class A2C:
         self.vf_loss_coeff_schedule = ParamScheduler(vf_loss_coeff)
         self.entropy_coeff_schedule = ParamScheduler(entropy_coeff)
 
-    # PPO overrides this hook
-    def _policy_loss(self, log_prob, advantages, env_weights):
+    # PPO overrides this hook; A2C ignores ``old_log_prob``
+    def _policy_loss(self, log_prob, advantages, env_weights,
+                     old_log_prob=None):
         return _wmean(-log_prob * advantages, env_weights)
 
     def compute_loss_and_metrics(
@@ -111,10 +114,11 @@ class A2C:
         negative_positive_ratio: float = -1.0,
         generator: torch.Generator = None,
         downsample_uniform: torch.Tensor = None,
+        old_log_prob: torch.Tensor = None,  # (T, E, A), detached
     ):
         """:returns: ``(loss, metrics)``, both tensors; reading a metric
         value waits for the device, so callers read them at log points
-        only."""
+        only.  ``old_log_prob`` reaches PPO's ratio."""
         values_detached = value_functions_batch.detach()
 
         if negative_positive_ratio > 0:
@@ -145,7 +149,8 @@ class A2C:
             _wmean(entropy[c], env_w) for c in range(entropy.shape[0])
         )
 
-        policy_loss = self._policy_loss(log_prob, norm_advantages, env_w)
+        policy_loss = self._policy_loss(log_prob, norm_advantages, env_w,
+                                        old_log_prob=old_log_prob)
 
         vf_coeff_t = float(self.vf_loss_coeff_schedule.value_at(timestep))
         ent_coeff_t = float(self.entropy_coeff_schedule.value_at(timestep))
@@ -188,9 +193,11 @@ class A2C:
 
 
 class PPO(A2C):
-    """Single-epoch PPO with the clipped surrogate: the old log-probs are
-    the detached current ones, so the ratio is 1 in value and gradients
-    flow through the unclipped branch."""
+    """PPO with the clipped surrogate.  Without ``old_log_prob`` the old
+    log-probs are the detached current ones (single-epoch PPO: the ratio is
+    1 in value and gradients flow through the unclipped branch); a
+    multi-pass update passes the behaviour policy's, fixed before its
+    first pass."""
 
     def __init__(
         self,
@@ -211,8 +218,11 @@ class PPO(A2C):
         assert 0 <= clip_param <= 1
         self.clip_param = float(clip_param)
 
-    def _policy_loss(self, log_prob, advantages, env_weights):
-        ratio = torch.exp(log_prob - log_prob.detach())
+    def _policy_loss(self, log_prob, advantages, env_weights,
+                     old_log_prob=None):
+        if old_log_prob is None:
+            old_log_prob = log_prob.detach()
+        ratio = torch.exp(log_prob - old_log_prob)
         surr1 = ratio * advantages
         surr2 = (
             torch.clamp(ratio, 1.0 - self.clip_param, 1.0 + self.clip_param)

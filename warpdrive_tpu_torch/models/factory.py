@@ -5,7 +5,8 @@ The port's counterpart of ``warpdrive_tpu/models/factory.py``: the three
 built-ins and ``"module:ClassName"`` resolution of user models.  An A2C
 model class is built as ``cls(in_features, fc_dims, output_dims,
 generator=..., device=...)``, the signature of
-:class:`~warpdrive_tpu_torch.models.fully_connected.FullyConnected`; a DDPG
+:class:`~warpdrive_tpu_torch.models.fully_connected.FullyConnected`, with
+``dtype=...`` added only when the config's ``model.dtype`` names one; a DDPG
 actor as ``cls(in_features, fc_dims, num_action_types, action_scale=...,
 generator=..., device=...)`` and a critic as ``cls(obs_features +
 action_features, fc_dims, generator=..., device=...)``.

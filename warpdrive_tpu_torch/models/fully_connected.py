@@ -17,8 +17,15 @@ Submodule names follow flax's (``Dense_0``, ``Dense_1``, ...,
 ``policy_head_{i}``, ``vf_head``, ``policy_head`` in deterministic mode and
 in the actor, ``q_head`` in the critic),
 so :func:`params_from_flax` maps a JAX parameter tree onto the
-``state_dict`` one name at a time.  Compute is float32 only; the JAX
-model's bf16 compute option is ROADMAP queue 1, item 3.
+``state_dict`` one name at a time.
+
+Parameters are float32.  ``FullyConnected(dtype=torch.bfloat16)`` runs as
+flax's ``dtype`` option does: the observation, each dense layer's weight
+and bias, the ReLUs and the fused head's product and bias add in bf16 (the
+product and the bias add each rounded, as ``dot`` and ``+`` are in flax),
+and the logits and the value come back as float32.  Without ``dtype`` an
+input of another dtype (a bf16 training batch) is promoted against the
+float32 parameters, as flax promotes it.
 """
 
 from __future__ import annotations
@@ -61,9 +68,27 @@ def _add_dense(module: nn.Module, name: str, fan_in: int, fan_out: int,
     module.add_module(name, layer)
 
 
-def _relu_trunk(module: nn.Module, x: torch.Tensor, depth: int):
+def _promote(x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The input in the compute dtype: ``dtype`` when set, else promoted
+    against the float32 parameters."""
+    return x.to(dtype if dtype is not None
+                else torch.promote_types(x.dtype, torch.float32))
+
+
+def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           dtype=None) -> torch.Tensor:
+    """``x @ W.T + b``; with ``dtype`` the parameters are cast to it and the
+    product and the bias add are rounded one after the other."""
+    if dtype is None:
+        return F.linear(x, weight, bias)
+    return x @ weight.to(dtype).t() + bias.to(dtype)
+
+
+def _relu_trunk(module: nn.Module, x: torch.Tensor, depth: int, dtype=None):
+    x = _promote(x, dtype)
     for idx in range(depth):
-        x = F.relu(getattr(module, f"Dense_{idx}")(x))
+        layer = getattr(module, f"Dense_{idx}")
+        x = F.relu(_dense(x, layer.weight, layer.bias, dtype))
     return x
 
 
@@ -81,10 +106,12 @@ class FullyConnected(nn.Module):
         include_value_head: bool = True,
         generator: torch.Generator = None,
         device=None,
+        dtype: torch.dtype = None,
     ):
         super().__init__()
         self.fc_dims = tuple(int(d) for d in fc_dims)
         self.output_dims = tuple(int(d) for d in output_dims)
+        self.dtype = dtype  # the compute dtype; the parameters stay float32
         self.is_deterministic = bool(is_deterministic)
         self.action_scale = float(action_scale)
         self.action_bias = float(action_bias)
@@ -109,14 +136,20 @@ class FullyConnected(nn.Module):
         """:returns: ``(heads, value)``: a list of per-component logits (or,
         deterministic, of ``(..., 1)`` actions) and the value ``(...)`` or
         None."""
-        x = _relu_trunk(self, obs, len(self.fc_dims))
+        dtype = self.dtype
+        x = _relu_trunk(self, obs, len(self.fc_dims), dtype)
 
         if self.is_deterministic:
-            raw = self.policy_head(x)
-            combined = self.action_scale * torch.tanh(raw) + self.action_bias
+            raw = _dense(x, self.policy_head.weight, self.policy_head.bias,
+                         dtype)
+            combined = (self.action_scale * torch.tanh(raw)
+                        + self.action_bias).to(torch.float32)
             heads = [combined[..., i : i + 1]
                      for i in range(len(self.output_dims))]
-            value = self.vf_head(x)[..., 0] if self.include_value_head else None
+            value = None
+            if self.include_value_head:
+                value = _dense(x, self.vf_head.weight, self.vf_head.bias,
+                               dtype)[..., 0].to(torch.float32)
             return heads, value
 
         layers = [getattr(self, f"policy_head_{i}")
@@ -125,7 +158,7 @@ class FullyConnected(nn.Module):
             layers.append(self.vf_head)
         weight = torch.cat([layer.weight for layer in layers], dim=0)
         bias = torch.cat([layer.bias for layer in layers], dim=0)
-        fused = F.linear(x, weight, bias)
+        fused = _dense(x, weight, bias, dtype).to(torch.float32)
         heads = []
         start = 0
         for dim in self.output_dims:
@@ -190,6 +223,7 @@ class FullyConnectedActionValueCritic(nn.Module):
 
     def forward(self, obs: torch.Tensor, action: torch.Tensor):
         """:returns: ``Q(s, a)`` of shape ``obs.shape[:-1]``."""
+        # a bf16 observation rounds the action to bf16 too, as in JAX
         x = torch.cat([obs, action.to(obs.dtype)], dim=-1)
         return self.q_head(_relu_trunk(self, x, len(self.fc_dims)))[..., 0]
 

@@ -6,9 +6,9 @@ Training CLI: the port's counterpart of
 
 ``-e`` names a run config under the port's ``training/run_configs`` (or is
 a path to one); ``--num_episodes`` and ``--num_envs`` override the config
-(``--num_envs`` keeps an iteration's steps per env, scaling
-``train_batch_size`` with the env count),
-``--results_dir`` sets where metrics and checkpoints go, and ``--device``
+(as in the JAX CLI, ``--num_envs`` sets ``trainer.num_envs`` alone: an
+iteration keeps ``train_batch_size`` env-steps, ``train_batch_size //
+num_envs`` a replica), ``--results_dir`` sets where metrics and checkpoints go, and ``--device``
 (default ``cuda``) where the run happens.  The A2C run configs are
 ported: ``tag_continuous`` (two policies), ``tag_gridworld``,
 ``tag_gridworld_with_reset_pool``, ``single_cartpole``, ``single_acrobot``
@@ -131,9 +131,9 @@ def main(argv=None):
                         help="auto-scaler (not ported)")
     parser.add_argument("--num_episodes", type=int, default=None)
     parser.add_argument("--num_envs", type=int, default=None,
-                        help="env replicas; an iteration keeps the config's "
-                             "steps per env (train_batch_size // num_envs), "
-                             "so train_batch_size follows the count")
+                        help="env replicas; train_batch_size stays, so the "
+                             "steps per env are train_batch_size // "
+                             "num_envs")
     parser.add_argument("--results_dir", type=str, default=None)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda; cpu runs the plain "
@@ -155,11 +155,7 @@ def main(argv=None):
     if args.num_episodes is not None:
         run_config["trainer"]["num_episodes"] = args.num_episodes
     if args.num_envs is not None:
-        trainer_cfg = run_config["trainer"]
-        steps_per_env = (int(trainer_cfg["train_batch_size"])
-                         // int(trainer_cfg["num_envs"]))
-        trainer_cfg["num_envs"] = args.num_envs
-        trainer_cfg["train_batch_size"] = steps_per_env * args.num_envs
+        run_config["trainer"]["num_envs"] = args.num_envs
     return setup_trainer_and_train(
         run_config, results_dir=args.results_dir, device=args.device
     )

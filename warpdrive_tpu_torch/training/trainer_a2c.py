@@ -8,16 +8,25 @@ iteration runs, eagerly on the engine's device:
       the observation of every agent: on the split path (TagContinuous)
       ``observe``, the kNN observation (on a card, one kernel launch), on
       the full-step path the observations the last step wrote
-      per-policy model forward and categorical sampling
+      per-policy model forward and categorical sampling; the observations
+      are recorded in ``trainer.batch_dtype`` (e.g. ``bfloat16``), or, under
+      ``trainer.update_recompute_obs`` on the split path, not at all: the
+      pre-step state is recorded instead
       ``step_physics`` (split) or the env's whole ``step`` (full),
       per-policy rewards and done flags
       episodic-reward bookkeeping and done-driven auto-reset (with a reset
       pool, the refresh of the reset envs' observations)
-  then, per trained policy:
-      whole-batch forward, the A2C or PPO loss, and :class:`ClippedAdam`:
-      clip-by-global-norm, Adam and the scheduled learning rate, the rule
-      of the JAX trainer's ``optax.chain(clip_by_global_norm(max_norm),
-      scale_by_adam(), scale(-1))`` times ``lr_t``.
+  then, per trained policy, :func:`policy_update`:
+      one pass over the whole batch, or ``num_epochs`` x
+      ``num_minibatches`` passes over env-axis slices (shuffled or
+      contiguous, each forwarded env-major, PPO against fixed behaviour
+      log-probs), each a forward (under ``remat``, recomputed in the
+      backward pass; under ``update_recompute_obs``, of observations
+      derived from the slice's recorded state, one kNN launch), the A2C or
+      PPO loss, and :class:`ClippedAdam`: clip-by-global-norm, Adam and the
+      scheduled learning rate, the rule of the JAX trainer's
+      ``optax.chain(clip_by_global_norm(max_norm), scale_by_adam(),
+      scale(-1))`` times ``lr_t``, read once an update.
 
 Evaluation and episode fetching act through ``_act_fn`` (the most likely
 action, or one drawn from the evaluation generator), and
@@ -27,28 +36,29 @@ full-state checkpoints hold the models, the
 optimizer states, the rollout's env state and the episodic accounting.
 
 The policy matrix products and their backward pass are ``torch.matmul`` and
-autograd, which the JAX package leaves to XLA; they run in float32.
-
-Left out, each raising ``NotImplementedError`` that names its ROADMAP item
-(queue 1, item 4 unless stated): multi-epoch and minibatched PPO, the
-env-major relayout, ``remat``, ``batch_dtype``, ``update_recompute_obs``
-and the model ``dtype`` option (item 3).
+autograd, which the JAX package leaves to XLA; they run in float32, or in
+the model's ``dtype``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
-from warpdrive_tpu_torch.algos.policygradient import A2C, PPO
+from warpdrive_tpu_torch.algos.policygradient import A2C, PPO, _logp_and_entropy
 from warpdrive_tpu_torch.models.factory import ModelFactory
 from warpdrive_tpu_torch.sampling.samplers import sample_from_logits
 from warpdrive_tpu_torch.training.param_scheduler import ParamScheduler
-from warpdrive_tpu_torch.training.trainer_base import TrainerBase, not_ported
+from warpdrive_tpu_torch.training.trainer_base import TrainerBase, torch_dtype
 from warpdrive_tpu_torch.utils.constants import Constants
 
 _DONE = Constants.DONE
 _OBS = Constants.OBSERVATIONS
+_REWARDS = Constants.REWARDS
 
 
 class ClippedAdam:
@@ -112,24 +122,168 @@ class ClippedAdam:
         return g_norm
 
 
+@dataclass(frozen=True)
+class UpdateOptions:
+    """One policy's update sweep (the JAX trainer's per-policy
+    ``num_epochs``, ``num_minibatches``, ``shuffle_minibatches`` and
+    ``remat``): ``num_epochs`` x ``num_minibatches`` passes, each over a
+    slice of the env axis, shuffled (one permutation of the envs an epoch)
+    or contiguous blocks.  ``remat`` recomputes the model's activations in
+    the backward pass."""
+
+    num_epochs: int = 1
+    num_minibatches: int = 1
+    shuffle: bool = False
+    remat: bool = False
+
+    def __post_init__(self):
+        assert self.num_epochs >= 1 and self.num_minibatches >= 1
+
+    @property
+    def passes(self) -> int:
+        return self.num_epochs * self.num_minibatches
+
+
+def remat_apply(module, remat: bool):
+    """``module``'s forward; with ``remat`` under
+    ``torch.utils.checkpoint`` (non-reentrant), which stores none of its
+    activations and recomputes them in the backward pass: the same values
+    and gradients."""
+    if not remat:
+        return module
+
+    def apply(*args):
+        return checkpoint(module, *args, use_reentrant=False)
+
+    return apply
+
+
+def _to_time_major(logits_list, values):
+    return [lg.transpose(0, 1) for lg in logits_list], values.transpose(0, 1)
+
+
 def policy_update(model, optimizer: ClippedAdam, algo, batch: dict,
                   timestep, lr, negative_positive_ratio: float = -1.0,
-                  generator: torch.Generator = None) -> dict:
-    """One policy's update on its batch ``{"obs" (T, E, A, F), "actions"
-    (T, E, A, C), "rewards" (T, E, A), "done" (T, E)}``: whole-batch
-    forward, the algorithm's loss, gradients and one optimizer step.
-    Returns the metric tensors."""
-    logits_list, values = model(batch["obs"])
-    loss, metrics = algo.compute_loss_and_metrics(
-        timestep, batch["actions"], batch["rewards"], batch["done"],
-        logits_list, values,
-        negative_positive_ratio=negative_positive_ratio, generator=generator,
-    )
+                  generator: torch.Generator = None,
+                  options: UpdateOptions = None,
+                  index_table: torch.Tensor = None,
+                  observe=None) -> dict:
+    """One policy's update on its batch ``{"actions" (T, E, A, C),
+    "rewards" (T, E, A), "done" (T, E)}`` with the observations either
+    stored, ``"obs"`` (T, E, A, F), or derived: ``"phys"``, the pre-step
+    state entries ``(T, E, ...)``, which ``observe`` maps, given as ``(R,
+    ...)`` env rows, to the policy's ``(R, A, F)`` observations.
+
+    One pass (the default ``options``) forwards the whole batch.  More
+    passes sweep env-axis slices, each with its own returns, gradients and
+    optimizer step; a shuffled sweep draws one permutation of the envs an
+    epoch from ``generator`` unless ``index_table`` ``(passes, E //
+    num_minibatches)`` gives them.  A slice's rows go through the model
+    env-major, ``(E_mb, T, A, F)``, copied into one contiguous block, and
+    its logits and values back to time-major for the loss; this is the
+    layout the JAX trainer's ``env_major`` relayout gives its slices, so
+    every value of that option runs this one path.  PPO over more than one
+    pass holds its ratio to the
+    behaviour log-probs of the parameters before the first pass: from one
+    forward of the stored batch, or of each derived slice.  Returns the
+    metric tensors of the last pass, with its own gradient norm."""
+    opts = options or UpdateOptions()
     names = [n for n, _ in model.named_parameters()]
-    grads = torch.autograd.grad(loss, [optimizer.params[n] for n in names])
-    metrics["Gradient norm"] = optimizer.step(dict(zip(names, grads)), lr)
+    params = [optimizer.params[n] for n in names]
+    forward = remat_apply(model, opts.remat)
+    actions, rewards, done = batch["actions"], batch["rewards"], batch["done"]
+    loss_kw = dict(negative_positive_ratio=negative_positive_ratio,
+                   generator=generator)
+    stored = "obs" in batch
+
+    def derive(rows_of):
+        """The policy's observations of the env rows ``rows_of`` picks from
+        each ``(T, E, ...)`` state entry: ``(B1, B2, A, F)``."""
+        picked = {k: rows_of(v) for k, v in batch["phys"].items()}
+        lead = next(iter(picked.values())).shape[:2]
+        obs = observe({k: v.reshape((-1,) + v.shape[2:])
+                       for k, v in picked.items()})
+        return obs.reshape(lead + obs.shape[1:])
+
+    def step(loss):
+        grads = torch.autograd.grad(loss, params)
+        return optimizer.step(dict(zip(names, grads)), lr)
+
+    if opts.passes == 1:
+        obs = batch["obs"] if stored else derive(lambda x: x)
+        logits_list, values = forward(obs)
+        loss, metrics = algo.compute_loss_and_metrics(
+            timestep, actions, rewards, done, logits_list, values, **loss_kw)
+        metrics["Gradient norm"] = step(loss)
+    else:
+        metrics = _sweep(model, forward, algo, batch, timestep, step, derive,
+                         opts, index_table, generator, loss_kw)
     metrics["Current timestep"] = float(timestep)
     metrics["Learning rate"] = float(lr)
+    return metrics
+
+
+def _sweep(model, forward, algo, batch, timestep, step, derive, opts,
+           index_table, generator, loss_kw) -> dict:
+    """The epoch x minibatch passes of :func:`policy_update`."""
+    actions, rewards, done = batch["actions"], batch["rewards"], batch["done"]
+    E = done.shape[1]
+    assert E % opts.num_minibatches == 0, (
+        "num_minibatches must divide num_envs (env-axis slicing)")
+    mb = E // opts.num_minibatches
+    stored = "obs" in batch
+    old_lp, behaviour = None, None
+    if isinstance(algo, PPO):
+        if stored:
+            with torch.no_grad():
+                old_lp = _logp_and_entropy(model(batch["obs"])[0],
+                                           actions)[0]
+        else:
+            # derived observations: the behaviour log-probs of each slice,
+            # from these parameters, so the batch is never whole
+            behaviour = {n: p.detach().clone()
+                         for n, p in model.named_parameters()}
+
+    if opts.shuffle:
+        if index_table is None:
+            index_table = torch.stack([
+                torch.randperm(E, generator=generator, device=done.device)
+                for _ in range(opts.num_epochs)
+            ]).reshape(opts.passes, mb)
+        assert tuple(index_table.shape) == (opts.passes, mb)
+        blocks = list(index_table.to(done.device, torch.long))
+    else:
+        assert index_table is None, "contiguous slices draw no table"
+        blocks = [slice(m * mb, (m + 1) * mb)
+                  for m in range(opts.num_minibatches)] * opts.num_epochs
+
+    for block in blocks:
+        if opts.shuffle:
+            def take(x, block=block):  # time-major (T, E_mb, ...)
+                return x.index_select(1, block)
+
+            def rows(x, block=block):  # env-major (E_mb, T, ...)
+                return x.transpose(0, 1).index_select(0, block)
+        else:
+            def take(x, block=block):
+                return x[:, block]
+
+            def rows(x, block=block):
+                return x.transpose(0, 1)[block]
+
+        obs = rows(batch["obs"]).contiguous() if stored else derive(rows)
+        act = take(actions)
+        mb_old_lp = None if old_lp is None else take(old_lp)
+        if behaviour is not None:
+            with torch.no_grad():
+                logits0, _ = _to_time_major(
+                    *functional_call(model, behaviour, (obs,)))
+                mb_old_lp = _logp_and_entropy(logits0, act)[0]
+        logits_list, values = _to_time_major(*forward(obs))
+        loss, metrics = algo.compute_loss_and_metrics(
+            timestep, act, take(rewards), take(done), logits_list, values,
+            old_log_prob=mb_old_lp, **loss_kw)
+        metrics["Gradient norm"] = step(loss)
     return metrics
 
 
@@ -138,15 +292,18 @@ class TrainerA2C(TrainerBase):
 
     def __init__(self, env_wrapper=None, config=None, **kwargs):
         super().__init__(env_wrapper=env_wrapper, config=config, **kwargs)
-        trainer_cfg = config["trainer"]
-        if trainer_cfg.get("update_recompute_obs", False):
-            raise not_ported("trainer.update_recompute_obs", "4")
-        if trainer_cfg.get("batch_dtype", "float32") != "float32":
-            raise not_ported("trainer.batch_dtype other than float32", "4")
+        # update_recompute_obs: on split-step envs the rollout records each
+        # step's pre-step state instead of observations, and the update
+        # derives each slice's observations from it (engine.observe)
+        self._recompute_obs = (
+            bool(config["trainer"].get("update_recompute_obs", False))
+            and self.engine.has_split_step
+        )
 
         self.algorithms = {}
         self.lr_schedules = {}
         self.optimizers = {}
+        self.update_options = {}
         self._head_dims = {}
         self.engine.reset_all_envs()  # the initial state as built
         obs_dim = self.engine.state[_OBS].shape[-1]
@@ -155,7 +312,6 @@ class TrainerA2C(TrainerBase):
 
         for tag in self.policies:
             policy_cfg = config["policy"][tag]
-            self._check_policy_config(tag, policy_cfg)
             heads, _, is_det = self._action_heads(tag)
             assert not is_det, (
                 "A2C/PPO need categorical action spaces; DDPG (ROADMAP "
@@ -164,9 +320,12 @@ class TrainerA2C(TrainerBase):
             self._head_dims[tag] = heads
             model_cfg = policy_cfg["model"]
             model_cls = ModelFactory.create(model_cfg["type"])
+            model_kwargs = {}
+            if model_cfg.get("dtype"):  # e.g. "bfloat16"
+                model_kwargs["dtype"] = torch_dtype(model_cfg["dtype"])
             self.models[tag] = model_cls(
                 obs_dim, tuple(model_cfg["fc_dims"]), tuple(heads),
-                generator=init_gen, device=self.device,
+                generator=init_gen, device=self.device, **model_kwargs,
             )
 
             algo_name = policy_cfg.get("algorithm", "A2C").upper()
@@ -187,6 +346,21 @@ class TrainerA2C(TrainerBase):
                 raise NotImplementedError(
                     f"TrainerA2C supports A2C/PPO, got {algo_name!r}"
                 )
+            num_epochs = int(policy_cfg.get("num_epochs", 1))
+            self.update_options[tag] = UpdateOptions(
+                num_epochs=num_epochs,
+                num_minibatches=int(policy_cfg.get("num_minibatches", 1)),
+                # a multi-epoch sweep reshuffles unless told otherwise
+                shuffle=bool(policy_cfg.get("shuffle_minibatches",
+                                            num_epochs > 1)),
+                remat=bool(policy_cfg.get("remat", False)),
+            )
+            # accepted as the JAX trainer accepts it; every value runs the
+            # one env-major slice layout of policy_update
+            env_major = policy_cfg.get("env_major", "auto")
+            assert env_major in (True, False, "auto"), env_major
+            assert self.num_envs % self.update_options[tag].num_minibatches \
+                == 0, "num_minibatches must divide num_envs (env-axis slicing)"
             self.lr_schedules[tag] = ParamScheduler(policy_cfg.get("lr", 1e-3))
             max_norm = (policy_cfg.get("max_grad_norm", 0.5)
                         if policy_cfg.get("clip_grad_norm", True) else None)
@@ -205,30 +379,29 @@ class TrainerA2C(TrainerBase):
                                      device=self.device)
         self._batch = None  # the rollout's buffers, made at first use
 
-    @staticmethod
-    def _check_policy_config(tag: str, policy_cfg: dict):
-        if (int(policy_cfg.get("num_epochs", 1)) > 1
-                or int(policy_cfg.get("num_minibatches", 1)) > 1):
-            raise not_ported(
-                f"policy {tag!r}: multi-epoch or minibatched PPO", "4"
-            )
-        if policy_cfg.get("env_major") is True:
-            raise not_ported(f"policy {tag!r}: the env-major relayout", "4")
-        if policy_cfg.get("remat", False):
-            raise not_ported(f"policy {tag!r}: remat", "4")
-        if policy_cfg["model"].get("dtype"):
-            raise not_ported(f"policy {tag!r}: the model dtype option", "3")
-
     # ------------------------------------------------------------ rollout
     def _make_batch(self) -> dict:
+        """The rollout's buffers: per policy the observations in
+        ``trainer.batch_dtype`` -- or, under ``update_recompute_obs``, one
+        ``(T, E, ...)`` copy of every state entry but the done flags and
+        rewards --, actions and rewards, and the done flags."""
         T, E = self.training_batch_size_per_env, self.num_envs
         obs_dim = self.engine.state[_OBS].shape[-1]
         batch = {"done": torch.zeros((T, E), dtype=torch.int32,
                                      device=self.device)}
+        if self._recompute_obs:
+            batch["phys"] = {
+                k: torch.empty((T,) + tuple(v.shape), dtype=v.dtype,
+                               device=self.device)
+                for k, v in self._env_state.items()
+                if k != _DONE and not k.startswith(_REWARDS)
+            }
         for tag, ids in self.policy_tag_to_agent_id_map.items():
             A, C = len(ids), len(self._head_dims[tag])
-            batch[f"obs_{tag}"] = torch.empty(
-                (T, E, A, obs_dim), dtype=torch.float32, device=self.device)
+            if not self._recompute_obs:
+                batch[f"obs_{tag}"] = torch.empty(
+                    (T, E, A, obs_dim), dtype=self.batch_dtype,
+                    device=self.device)
             batch[f"actions_{tag}"] = torch.empty(
                 (T, E, A, C), dtype=torch.int32, device=self.device)
             batch[f"rewards_{tag}"] = torch.empty(
@@ -248,12 +421,21 @@ class TrainerA2C(TrainerBase):
         state = self._env_state
         split = engine.has_split_step
         for t in range(self.training_batch_size_per_env):
+            if self._recompute_obs:
+                # copies: later steps must not write into the record
+                for name, buf in batch["phys"].items():
+                    buf[t].copy_(state[name])
             obs_all = engine.observe(state) if split else state[_OBS]
             per_policy = {}
             for tag in self.policies:
                 ids = self._agent_ids[tag]
-                obs_p = torch.index_select(obs_all, 1, ids,
-                                           out=batch[f"obs_{tag}"][t])
+                store = batch.get(f"obs_{tag}")
+                if store is not None and store.dtype == obs_all.dtype:
+                    obs_p = torch.index_select(obs_all, 1, ids, out=store[t])
+                else:
+                    obs_p = torch.index_select(obs_all, 1, ids)
+                    if store is not None:
+                        store[t].copy_(obs_p)
                 if actions is None:
                     logits_list, _ = self.models[tag](obs_p)
                     acts = torch.stack(
@@ -328,14 +510,25 @@ class TrainerA2C(TrainerBase):
 
     # ------------------------------------------------------------- update
     def _policy_batch(self, batch: dict, tag: str) -> dict:
-        return {"obs": batch[f"obs_{tag}"],
+        obs = ({"phys": batch["phys"]} if self._recompute_obs
+               else {"obs": batch[f"obs_{tag}"]})
+        return {**obs,
                 "actions": batch[f"actions_{tag}"],
                 "rewards": batch[f"rewards_{tag}"],
                 "done": batch["done"]}
 
-    def _update(self, batch: dict, timestep) -> dict:
+    def _observe_policy(self, tag: str):
+        """``update_recompute_obs``: env rows ``(R, ...)`` of the recorded
+        state -> the policy's ``(R, A, F)`` observations, one kNN launch."""
+        ids = self._agent_ids[tag]
+        return lambda rows: torch.index_select(self.engine.observe(rows), 1,
+                                               ids)
+
+    def _update(self, batch: dict, timestep, index_tables: dict = None
+                ) -> dict:
         """Every trained policy's update on ``batch``; metric tensors per
-        policy."""
+        policy.  ``index_tables`` ``{tag: (passes, E_mb)}`` replaces a
+        shuffled sweep's draws."""
         metrics = {}
         for tag in self.policies_to_train:
             metrics[tag] = policy_update(
@@ -344,16 +537,11 @@ class TrainerA2C(TrainerBase):
                 self.lr_schedules[tag].value_at(timestep),
                 negative_positive_ratio=self.neg_pos_env_ratio,
                 generator=self.generator,
+                options=self.update_options[tag],
+                index_table=(index_tables or {}).get(tag),
+                observe=(self._observe_policy(tag) if self._recompute_obs
+                         else None),
             )
         return metrics
 
-    def _iteration(self, timestep) -> dict:
-        start = self.clock.mark()
-        batch = self._rollout()
-        mid = self.clock.mark()
-        metrics = self._update(batch, timestep)
-        self._pending_marks.append((start, mid, self.clock.mark()))
-        mean_ep_reward = self._ep_sum / torch.clamp(self._ep_count, min=1.0)
-        for tag in metrics:
-            metrics[tag]["Mean episodic reward"] = mean_ep_reward
-        return metrics
+    _update_phase = _update

@@ -19,7 +19,9 @@ The port's counterpart of ``warpdrive_tpu/training/trainer_base.py``:
 * ``evaluate_episodes``, ``fetch_episode_states`` and
   ``fetch_logged_episode``: one episode of the current policy from a
   forced reset of the engine's own state, which the trainer's rollout
-  state (``_env_state``) does not share.
+  state (``_env_state``) does not share;
+* ``profile_phases``: the iteration, the rollout and the update timed
+  apart, with the training state restored afterwards.
 
 The JAX package compiles a metrics-free twin of its iteration for XLA's
 sake; here one eager iteration always builds the metric tensors and the
@@ -27,9 +29,8 @@ loop reads them (which waits for the device) at log points only.
 
 Left out, each raising ``NotImplementedError`` that names its ROADMAP item:
 separate per-policy placeholders, the agent-dim-last layout and action
-masks (queue 1, item 8), ``num_devices > 1`` (item 11), the eager
-host-env backend (item 12) and ``profile_phases`` (item 2, the port's
-bench).
+masks (queue 1, item 8), ``num_devices > 1`` (item 11) and the eager
+host-env backend (item 12).
 """
 
 from __future__ import annotations
@@ -58,6 +59,14 @@ def not_ported(what: str, item: str):
     )
 
 
+def torch_dtype(name: str) -> torch.dtype:
+    """The ``torch.dtype`` a config names, e.g. ``"bfloat16"``."""
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"not a dtype: {name!r}")
+    return dtype
+
+
 class Metrics:
     """Pretty-printing of metric dicts."""
 
@@ -77,7 +86,9 @@ class PerfStats:
     Iteration timing and throughput, window-based as in the JAX package:
     the trainer adds a window at each log point, after waiting for the
     device, so every second counted is device-complete.  Per-phase times
-    (rollout, update) come from marks on the device's own clock.
+    (rollout, update) come from marks on the device's own clock;
+    ``phase_breakdown`` holds what ``TrainerBase.profile_phases`` last
+    measured.
     """
 
     def __init__(self):
@@ -85,6 +96,7 @@ class PerfStats:
         self.steps = 0
         self.total_time = 0.0
         self.phase_ms = {"rollout": 0.0, "update": 0.0}
+        self.phase_breakdown = {}
 
     def add_window(self, iters: int, steps: int, elapsed: float,
                    phase_ms: dict):
@@ -102,6 +114,7 @@ class PerfStats:
             "Mean steps per sec (total)": self.steps / max(self.total_time, 1e-9),
             "Rollout time per iter (ms)": self.phase_ms["rollout"] / self.iters,
             "Update time per iter (ms)": self.phase_ms["update"] / self.iters,
+            **self.phase_breakdown,
         }
 
     def pretty_print(self):
@@ -135,7 +148,8 @@ class DeviceClock:
 
 class TrainerBase:
     """Common trainer machinery; an algorithm subclass provides
-    ``_iteration(timestep)``."""
+    ``_rollout()`` (or ``_rollout_phase(timestep)``) and
+    ``_update_phase(batch, timestep)``."""
 
     def __init__(
         self,
@@ -170,6 +184,9 @@ class TrainerBase:
         assert self.num_envs == self.engine.n_envs
         self.num_episodes = int(trainer_cfg["num_episodes"])
         self.train_batch_size = int(trainer_cfg["train_batch_size"])
+        # the dtype the training batch stores observations in
+        self.batch_dtype = torch_dtype(trainer_cfg.get("batch_dtype",
+                                                       "float32"))
         self.n_step = int(trainer_cfg.get("n_step", 1))
         self.use_evaluator = bool(trainer_cfg.get("evaluator", False))
         self.neg_pos_env_ratio = float(trainer_cfg.get("neg_pos_env_ratio", -1))
@@ -303,8 +320,27 @@ class TrainerBase:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------- training
-    def _iteration(self, timestep):  # pragma: no cover - subclass detail
+    def _rollout_phase(self, timestep):
+        """One rollout from the trainer's env state; returns its batch.  A
+        subclass whose rollout reads the timestep's schedules overrides
+        it."""
+        return self._rollout()
+
+    def _update_phase(self, batch, timestep):  # pragma: no cover
+        """The update on a rollout's batch; returns the metric tensors per
+        policy."""
         raise NotImplementedError
+
+    def _iteration(self, timestep) -> dict:
+        start = self.clock.mark()
+        batch = self._rollout_phase(timestep)
+        mid = self.clock.mark()
+        metrics = self._update_phase(batch, timestep)
+        self._pending_marks.append((start, mid, self.clock.mark()))
+        mean_ep_reward = self._ep_sum / torch.clamp(self._ep_count, min=1.0)
+        for tag in metrics:
+            metrics[tag]["Mean episodic reward"] = mean_ep_reward
+        return metrics
 
     def train(self):
         """``num_iters`` iterations, metrics every ``metrics_log_freq``,
@@ -620,9 +656,83 @@ class TrainerBase:
             engine.episode_length
         return logger.fetch(buffers, last_step)
 
-    # ------------------------------------------- left out (ROADMAP queue 1)
-    def profile_phases(self, repeats: int = 3):
-        raise not_ported("profile_phases (the port's bench)", "2")
+    # ------------------------------------------------------------ profiling
+    def profile_phases(self, repeats: int = 3) -> dict:
+        """Time an iteration, a rollout and an update apart, each after one
+        warm-up call and then ``repeats`` times: iterations chained as
+        ``train()`` runs them, rollouts chained from the state the last one
+        left, and updates chained through their parameters on one real
+        rollout batch.  Each repeat is timed on the device's clock (CUDA
+        events on a card) and ends with a one-element host fetch.  The
+        best repeat is reported beside every repeat's time, as the JAX
+        trainer's ``profile_phases`` reports them:
+        ``{"iteration_ms", "rollout_ms", "update_ms",
+        "update_ms_residual" (max(iteration - rollout, 0)),
+        "update_ms_direct", "steps_per_sec", "rollout_steps_per_sec"}``
+        and the ``..._repeats`` lists.  The breakdown goes onto
+        ``perf_stats``, so later logs carry it.
+
+        The models, optimizer states, rollout env state, episodic
+        accounting and generators are restored afterwards: training goes on
+        as if the call had not been made."""
+        saved = _clone_tree(self._training_state())
+        engine_state = _clone_tree(dict(self.engine.state))
+        generators = (self.generator.get_state(),
+                      self.engine.store.generator.get_state())
+        t = self.current_timestep
+        steps = self.training_batch_size_per_env * self.num_envs
+
+        # a parameter: updated in place, so it stays the live one
+        probe = _first_tensor(self._training_state()).reshape(-1)[:1]
+
+        def fetch():
+            probe.cpu()
+
+        def timeit(fn):
+            fn()
+            fetch()
+            times = []
+            for _ in range(repeats):
+                start = self.clock.mark()
+                fn()
+                stop = self.clock.mark()
+                fetch()
+                times.append(self.clock.ms(start, stop))
+            return min(times), times
+
+        try:
+            iter_ms, iter_reps = timeit(
+                lambda: self._update_phase(self._rollout_phase(t), t))
+            rollout_ms, rollout_reps = timeit(lambda: self._rollout_phase(t))
+            batch = self._rollout_phase(t)
+            update_ms, update_reps = timeit(
+                lambda: self._update_phase(batch, t))
+        finally:
+            self._load_training_state(saved)
+            self.engine.state = engine_state
+            self.generator.set_state(generators[0])
+            self.engine.store.generator.set_state(generators[1])
+
+        result = {
+            "iteration_ms": iter_ms,
+            "rollout_ms": rollout_ms,
+            "update_ms": update_ms,
+            "update_ms_residual": max(iter_ms - rollout_ms, 0.0),
+            "update_ms_direct": True,
+            "steps_per_sec": steps / (iter_ms / 1000.0),
+            "rollout_steps_per_sec": steps / (rollout_ms / 1000.0),
+            "iteration_ms_repeats": iter_reps,
+            "rollout_ms_repeats": rollout_reps,
+            "update_ms_repeats": update_reps,
+            "steps_per_sec_repeats": [steps / (ms / 1000.0)
+                                      for ms in iter_reps],
+        }
+        self.perf_stats.phase_breakdown = {
+            "Profiled rollout time per iter (ms)": rollout_ms,
+            "Profiled update time per iter (ms)": update_ms,
+            "Profiled rollout steps per sec": result["rollout_steps_per_sec"],
+        }
+        return result
 
 
 def _host_state(module: torch.nn.Module) -> dict:
@@ -633,6 +743,26 @@ def _timestep_of(path: str) -> int:
     """The timestep a checkpoint's file name ends with."""
     stem = os.path.basename(path).split(".")[0]
     return int(stem.split("_")[-1])
+
+
+def _clone_tree(tree):
+    """Nested dicts with every tensor cloned where it lies."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    return tree
+
+
+def _first_tensor(tree) -> torch.Tensor:
+    """The first tensor of nested dicts, depth first."""
+    if isinstance(tree, torch.Tensor):
+        return tree
+    for value in tree.values() if isinstance(tree, dict) else ():
+        found = _first_tensor(value)
+        if found is not None:
+            return found
+    return None
 
 
 def _to_host(tree):

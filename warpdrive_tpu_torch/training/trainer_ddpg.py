@@ -26,12 +26,14 @@ Until the window is full neither net, neither target and neither optimizer
 moves, and Adam's step count stays: the window fills by T rows an
 iteration, a count the host knows, so the gate is a Python branch.
 
+``trainer.batch_dtype`` (e.g. ``bfloat16``) is the replay window's
+observation dtype; the nets promote such observations against their
+float32 parameters.  A policy's ``remat`` recomputes the online actor's and
+critic's activations in the update's backward pass.
+
 Checkpoints are per net, ``{policy}_{actor|critic}_{timestep}.state_dict``;
 loading takes ``{policy: {"actor": path, "critic": path}}`` and resets the
 targets of the nets it loads to them.
-
-Left out, each raising ``NotImplementedError`` that names its ROADMAP item
-(queue 1, item 4): ``remat`` and ``trainer.batch_dtype``.
 """
 
 from __future__ import annotations
@@ -45,12 +47,11 @@ from warpdrive_tpu_torch.algos.ddpg import DDPG
 from warpdrive_tpu_torch.models.factory import ModelFactory
 from warpdrive_tpu_torch.sampling.samplers import sample_ou_process
 from warpdrive_tpu_torch.training.param_scheduler import ParamScheduler
-from warpdrive_tpu_torch.training.trainer_a2c import ClippedAdam
+from warpdrive_tpu_torch.training.trainer_a2c import ClippedAdam, remat_apply
 from warpdrive_tpu_torch.training.trainer_base import (
     TrainerBase,
     _host_state,
     _timestep_of,
-    not_ported,
 )
 from warpdrive_tpu_torch.utils.constants import Constants
 
@@ -73,15 +74,18 @@ def global_norm(grads) -> torch.Tensor:
 
 def ddpg_policy_update(nets: dict, targets: dict, optimizers: dict, algo,
                        batch: dict, timestep, lrs: dict, tau: float,
-                       step: bool = True) -> dict:
+                       step: bool = True, remat: bool = False) -> dict:
     """One policy's DDPG update on its replay window ``{"obs" (W, E, A, F),
     "actions" (W, E, A, C), "rewards" (W, E, A), "done" (W, E)}``.
     ``nets``, ``targets``, ``optimizers`` and ``lrs`` are keyed
     ``"actor"``/``"critic"``.  Both gradients are taken before either
     optimizer steps, so the actor's goes through the critic as it was;
     with ``step`` the optimizers step and the targets move toward the
-    updated nets, without it nothing moves.  Returns the metric tensors."""
-    actor, critic = nets["actor"], nets["critic"]
+    updated nets, without it nothing moves.  ``remat`` recomputes the
+    online nets' activations in the backward pass.  Returns the metric
+    tensors."""
+    actor = remat_apply(nets["actor"], remat)
+    critic = remat_apply(nets["critic"], remat)
     obs_b, act_b = batch["obs"], batch["actions"]
 
     # the targets' Q(s_{t+1}, pi'(s_{t+1})), W - 1 rows
@@ -92,11 +96,12 @@ def ddpg_policy_update(nets: dict, targets: dict, optimizers: dict, algo,
     q = critic(obs_b, act_b)
     critic_loss, critic_metrics = algo.critic_loss_and_metrics(
         act_b, batch["rewards"], batch["done"], q, next_q)
-    grads = {"critic": torch.autograd.grad(critic_loss,
-                                           list(critic.parameters()))}
+    grads = {"critic": torch.autograd.grad(
+        critic_loss, list(nets["critic"].parameters()))}
 
     actor_loss, j = algo.actor_loss(critic(obs_b, actor(obs_b)))
-    grads["actor"] = torch.autograd.grad(actor_loss, list(actor.parameters()))
+    grads["actor"] = torch.autograd.grad(actor_loss,
+                                         list(nets["actor"].parameters()))
 
     metrics = algo.with_actor_terms(critic_metrics, actor_loss, j)
     if step:
@@ -125,8 +130,6 @@ class TrainerDDPG(TrainerBase):
 
     def __init__(self, env_wrapper=None, config=None, **kwargs):
         super().__init__(env_wrapper=env_wrapper, config=config, **kwargs)
-        if config["trainer"].get("batch_dtype", "float32") != "float32":
-            raise not_ported("trainer.batch_dtype other than float32", "4")
 
         T = self.training_batch_size_per_env
         self.buffer_capacity = T + self.n_step - 1
@@ -146,11 +149,11 @@ class TrainerDDPG(TrainerBase):
         self.optimizers = {net: {} for net in _NETS}
         self.lr_schedules = {net: {} for net in _NETS}
         self.tau = {}
+        self.remat = {}
         self._num_action_dims = {}
         for tag in self.policies:
             policy_cfg = config["policy"][tag]
-            if policy_cfg.get("remat", False):
-                raise not_ported(f"policy {tag!r}: remat", "4")
+            self.remat[tag] = bool(policy_cfg.get("remat", False))
             heads, _, is_det = self._action_heads(tag)
             assert is_det, (
                 "TrainerDDPG needs Box action spaces; TrainerA2C trains "
@@ -207,7 +210,7 @@ class TrainerDDPG(TrainerBase):
             self._ou[tag] = torch.zeros((E, A, C), dtype=torch.float32,
                                         device=self.device)
             self._window[f"obs_{tag}"] = torch.zeros(
-                (self.buffer_capacity, E, A, obs_dim), dtype=torch.float32,
+                (self.buffer_capacity, E, A, obs_dim), dtype=self.batch_dtype,
                 device=self.device)
             self._window[f"actions_{tag}"] = torch.zeros(
                 (self.buffer_capacity, E, A, C), dtype=torch.float32,
@@ -336,23 +339,17 @@ class TrainerDDPG(TrainerBase):
                 timestep,
                 {net: self.lr_schedules[net][tag].value_at(timestep)
                  for net in _NETS},
-                self.tau[tag], step=is_full,
+                self.tau[tag], step=is_full, remat=self.remat[tag],
             )
         return metrics
 
-    def _iteration(self, timestep) -> dict:
-        start = self.clock.mark()
+    def _rollout_phase(self, timestep) -> dict:
         stddev = self.ou_stddev.value_at(timestep)
         noise = self._presample_ou_noise(stddev)
-        rows = self._rollout(noise, self.ou_damping.value_at(timestep),
+        return self._rollout(noise, self.ou_damping.value_at(timestep),
                              stddev, self.ou_scale.value_at(timestep))
-        mid = self.clock.mark()
-        metrics = self._replay_update(rows, timestep)
-        self._pending_marks.append((start, mid, self.clock.mark()))
-        mean_ep_reward = self._ep_sum / torch.clamp(self._ep_count, min=1.0)
-        for tag in metrics:
-            metrics[tag]["Mean episodic reward"] = mean_ep_reward
-        return metrics
+
+    _update_phase = _replay_update
 
     # ------------------------------------------------------- checkpoints
     def save_model_checkpoint(self, timestep: int = None):
