@@ -132,6 +132,31 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       against store (float32 batch) bit for bit, and the bf16 model's
       outputs against the CPU's, bit for bit at the small size and each
       head within 2^-7 of its largest output at the tuned width;
+   k. the shipped ``asymmetric_pursuit`` run config (2 pursuers + 3
+      evaders, 100 envs x 100 steps, two A2C policies with fc (64, 64):
+      separate per-policy placeholders, the evaders' Dict observations
+      with an ``action_mask`` key): the CUDA step against the CPU step
+      over 60 rolled states (``loc``, every observation key and the
+      rewards within 1e-6, done flags equal), 3 iterations through
+      ``setup_trainer`` and ``train()`` (no kNN launch, finite losses,
+      moved parameters, checkpoints), the masked-action gate (over every
+      rollout step, no evader action on a 0 of its mask; the count and the
+      draws printed), one update of both policies on the card against the
+      CPU (1e-5), ``evaluate_episodes``' per-policy sums (100, 2) and (100,
+      3), and env-steps/s, rollout and update ms;
+   l. the shipped ``tag_continuous`` run config with
+      ``use_full_observation`` (100 envs x 250 steps, 110 agents, 764
+      features, no kNN kernel): the CUDA step against the CPU step over 60
+      rolled states (observations 1e-6, physics 1e-5), 3 iterations
+      through ``train()`` with no kNN launch and the device's peak memory,
+      one update on the card and on the CPU on the first 5 envs, each held
+      to the CPU's float64 update within a hundredth of the learning rate
+      (at 764 features Adam turns the card's float32 rounding into
+      parameter changes above 1e-5);
+   m. the chem-search envs (one atom in 2-D and 3-D modes on an 8 x 8
+      synthetic landscape with the z-slab 2-6, two atoms) and DummyEnv:
+      the CUDA step against the CPU step over 60 rolled states at 10,000
+      envs (positions exact, observations and rewards within 1e-6);
 5. at the main paths' shapes -- (1024, 105, 10) for K1, K3, K6, K7, K8 in
    both modes, K9 in both, K2 and K4, (100, 110, 10) for K2, (256, 1024,
    10) for K1, K4 in both modes, K5 in its four and K9 exact, and the
@@ -304,6 +329,20 @@ TUNED_PROFILE_REPEATS = 2
 OPTIONS_CHECK_ENVS = 8
 OPTIONS_CHECK_STEPS = 10
 BF16_NORMWISE = 2.0 ** -7
+# the heterogeneous spaces and the full observation: the shipped
+# asymmetric_pursuit run config (2 pursuers + 3 evaders, 100 envs x 100
+# steps, fc (64, 64)) and tag_continuous with use_full_observation (100
+# envs x 250 steps, 110 agents, 764 features), this many iterations each;
+# the CUDA step against the CPU step within NEW_STEP_TOL (positions,
+# observations, rewards), the physics within 1e-5
+NEW_TRAIN_ITERS = 3
+NEW_STEP_TOL = 1e-6
+# the full observation's update on the CPU: the first envs of the batch,
+# 250 steps x 100 runners x 764 features each
+FULL_OBS_UPDATE_ENVS = 5
+# the chem-search envs and DummyEnv: the CUDA step against the CPU step at
+# this many envs, on the JAX tests' configs (tests/test_chem_search.py)
+CHEM_ENVS = 10_000
 
 
 def _card_line() -> str:
@@ -957,11 +996,12 @@ def _drive_many_agents():
     return systems, results, launches
 
 
-def _drive_training(run_config):
+def _drive_training(run_config, before_train=None):
     """The training path at the run config's width, through the CLI's
     ``setup_trainer`` and ``train()``, with the kernels' launch counts set
-    to 0 just before and read just after.  Returns the trainer, the counts
-    and the per-iteration times."""
+    to 0 just before and read just after; ``before_train(trainer)``, when
+    given, runs between the two.  Returns the trainer, the counts and the
+    per-iteration times."""
     import math
 
     import torch
@@ -979,6 +1019,8 @@ def _drive_training(run_config):
         before = {tag: {k: v.detach().clone()
                         for k, v in m.state_dict().items()}
                   for tag, m in trainer.models.items()}
+        if before_train is not None:
+            before_train(trainer)
         t0 = time.perf_counter()
         trainer.train()
         torch.cuda.synchronize()
@@ -1011,11 +1053,17 @@ def _drive_training(run_config):
     return trainer, launches, {"setup_s": setup_s, "train_s": train_s}
 
 
-def _update_card_vs_cpu(trainer):
+def _update_card_vs_cpu(trainer, envs=UPDATE_ENVS, float64=False):
     """One update of each trained policy on the card and on the CPU, from
     copies of the trained parameters and optimizer state, on the first
-    ``UPDATE_ENVS`` envs of the last training batch.  Returns the largest
-    parameter difference."""
+    ``envs`` envs of the last training batch (action masks included): the
+    parameters within ``UPDATE_PARAM_TOL``.  With ``float64`` the CPU also
+    runs the update in float64, and each float32 update is held to that
+    one instead, within ``UPDATE_PARAM_TOL`` or a hundredth of the
+    learning rate, the larger: Adam's normalised step turns the float32
+    rounding of a gradient entry near 0 into a share of a step, which at
+    the full observation's 764 features exceeds ``UPDATE_PARAM_TOL`` on
+    the card.  Returns the largest parameter difference card vs CPU."""
     import torch
 
     from warpdrive_tpu_torch.training.trainer_a2c import (
@@ -1023,33 +1071,62 @@ def _update_card_vs_cpu(trainer):
         policy_update,
     )
 
+    runs = [(DEVICE, torch.float32), ("cpu", torch.float32)]
+    if float64:
+        runs.append(("cpu", torch.float64))
     worst = 0.0
     timestep = trainer.current_timestep
     for tag in trainer.policies_to_train:
-        batch = {k: v[:, :UPDATE_ENVS].contiguous()
+        batch = {k: v[:, :envs].contiguous()
                  for k, v in trainer._policy_batch(trainer._batch, tag).items()}
         lr = trainer.lr_schedules[tag].value_at(timestep)
         params = {}
         losses = {}
-        for device in (DEVICE, "cpu"):
-            model = copy.deepcopy(trainer.models[tag]).to(device)
+        for device, dtype in runs:
+            model = copy.deepcopy(trainer.models[tag]).to(device, dtype)
             opt = ClippedAdam(dict(model.named_parameters()),
                               max_norm=trainer.optimizers[tag].max_norm)
             opt.load_state_dict(trainer.optimizers[tag].state_dict())
             metrics = policy_update(
                 model, opt, trainer.algorithms[tag],
-                {k: v.to(device) for k, v in batch.items()}, timestep, lr)
-            losses[device] = float(metrics["Total loss"])
-            params[device] = {k: v.detach().cpu()
-                              for k, v in model.state_dict().items()}
-        diff = max(float((params[DEVICE][k] - params["cpu"][k]).abs().max())
-                   for k in params["cpu"])
-        print(f"update card vs CPU [{tag}, {UPDATE_ENVS} envs x "
-              f"{trainer.training_batch_size_per_env} steps]: loss "
-              f"{losses[DEVICE]:.7f} vs {losses['cpu']:.7f}, max abs "
-              f"parameter diff {diff:.3g} (tolerance {UPDATE_PARAM_TOL})")
-        assert diff <= UPDATE_PARAM_TOL, f"{tag}: parameters differ by {diff}"
-        worst = max(worst, diff)
+                {k: v.to(device, dtype) if v.is_floating_point()
+                 else v.to(device) for k, v in batch.items()},
+                timestep, lr)
+            losses[device, dtype] = float(metrics["Total loss"])
+            params[device, dtype] = {
+                k: v.detach().cpu().double()
+                for k, v in model.state_dict().items()}
+
+        def diff(a, b):
+            return max(float((params[a][k] - params[b][k]).abs().max())
+                       for k in params[b])
+
+        def worst_tensor(a, b):
+            return max(params[b], key=lambda k: float(
+                (params[a][k] - params[b][k]).abs().max()))
+
+        card, cpu = runs[0], runs[1]
+        worst = max(worst, diff(card, cpu))
+        line = (f"update card vs CPU [{tag}, {envs} envs x "
+                f"{trainer.training_batch_size_per_env} steps]: loss "
+                f"{losses[card]:.7f} vs {losses[cpu]:.7f}, max abs "
+                f"parameter diff {diff(card, cpu):.3g}")
+        if not float64:
+            print(f"{line} (tolerance {UPDATE_PARAM_TOL})")
+            assert diff(card, cpu) <= UPDATE_PARAM_TOL, \
+                f"{tag}: parameters differ by {diff(card, cpu)}"
+            continue
+        exact = runs[2]
+        card_err, cpu_err = diff(card, exact), diff(cpu, exact)
+        bound = max(UPDATE_PARAM_TOL, lr / 100)
+        print(f"{line}; from the CPU's float64 update (loss "
+              f"{losses[exact]:.7f}): card {card_err:.3g} (in "
+              f"{worst_tensor(card, exact)}), CPU float32 {cpu_err:.3g} (in "
+              f"{worst_tensor(cpu, exact)}); tolerance {bound:.3g}, a "
+              f"hundredth of the learning rate {lr:.3g} or "
+              f"{UPDATE_PARAM_TOL}")
+        assert max(card_err, cpu_err) <= bound, \
+            f"{tag}: card {card_err}, CPU {cpu_err} from float64"
     return worst
 
 
@@ -1881,6 +1958,229 @@ def _check_update_options(tuned):
                 f"bf16 model [{label}, {head}]: {worst} > {bound}"
 
 
+def _iters_config(name, iters, **env):
+    """A shipped run config (its env updated by ``env``) for ``iters``
+    training iterations, trainer seed 0."""
+    from warpdrive_tpu_torch.utils.config import load_run_config
+
+    cfg = load_run_config(name)
+    cfg["env"].update(env)
+    trainer_cfg = cfg["trainer"]
+    trainer_cfg["num_episodes"] = (iters * trainer_cfg["train_batch_size"]
+                                   // cfg["env"]["episode_length"])
+    trainer_cfg["seed"] = 0
+    return cfg
+
+
+def _training_means(trainer):
+    """Mean rollout ms, update ms and env-steps/s of iterations 2 on."""
+    steps = trainer.training_batch_size_per_env * trainer.num_envs
+    later = trainer.phase_ms[1:]
+    roll_ms = statistics.mean(r for r, _ in later)
+    upd_ms = statistics.mean(u for _, u in later)
+    return roll_ms, upd_ms, steps / ((roll_ms + upd_ms) / 1e3)
+
+
+def _drive_asymmetric_pursuit():
+    """Phase 4k: the shipped ``asymmetric_pursuit`` run config at full
+    width -- separate per-policy placeholders, the evaders' Dict
+    observations with an ``action_mask`` key. The CUDA step against the CPU
+    step over ``FULL_STEP_STATES`` rolled states (``loc``, every observation
+    key and the rewards within ``NEW_STEP_TOL``, integer arrays equal);
+    ``NEW_TRAIN_ITERS`` iterations through ``setup_trainer`` and
+    ``train()`` with no kNN launch and, over every rollout step, no evader
+    action on a 0 of its mask; one update of both policies on the card
+    against the CPU; ``evaluate_episodes``' per-policy sums.  Returns the
+    trainer, its launches and its means."""
+    import numpy as np
+    import torch
+
+    from warpdrive_tpu_torch.envs.asymmetric_pursuit import (
+        TorchAsymmetricPursuit,
+    )
+    from warpdrive_tpu_torch.envs.engine import EnvEngine
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.tools.consistency import step_against_cpu
+
+    cfg = _iters_config("asymmetric_pursuit", NEW_TRAIN_ITERS)
+    E = cfg["trainer"]["num_envs"]
+    engines = []
+    for device in (DEVICE, "cpu"):
+        env = TorchAsymmetricPursuit(**cfg["env"])
+        engines.append(EnvEngine(
+            env_obj=env, num_envs=E, seed=0, device=device,
+            policy_tag_to_agent_id_map=env.policy_map(),
+            create_separate_placeholders_for_each_policy=True))
+    diffs = step_against_cpu(*engines, steps=FULL_STEP_STATES)
+    print(f"CUDA step vs CPU step [asymmetric_pursuit], {FULL_STEP_STATES} "
+          f"states at {E} envs: max abs diff "
+          + ", ".join(f"{k} {v:.3g}" for k, v in sorted(diffs.items()))
+          + f" (tolerance {NEW_STEP_TOL}); integer arrays equal")
+    assert max(diffs.values()) <= NEW_STEP_TOL, diffs
+
+    masked = []
+
+    def count_masked(trainer):
+        rollout = trainer._rollout_phase
+
+        def checked(timestep):
+            batch = rollout(timestep)
+            chosen = batch["mask_evader"].gather(
+                3, batch["actions_evader"].long())
+            masked.append(((chosen == 0).sum(), chosen.numel()))
+            return batch
+
+        trainer._rollout_phase = checked
+
+    trainer, launches, times = _drive_training(cfg, count_masked)
+    assert launches == {name: 0 for name in knn_obs.LAUNCH_COUNTS}, launches
+    assert trainer.num_iters == NEW_TRAIN_ITERS
+    n_masked = int(sum(int(m) for m, _ in masked))
+    draws = sum(n for _, n in masked)
+    T = trainer.training_batch_size_per_env
+    print(f"masked-action gate [asymmetric_pursuit evaders]: {n_masked} "
+          f"draws on a masked move of {draws} ({len(masked)} rollouts of "
+          f"{T} steps x {E} envs x 3 evaders)")
+    assert n_masked == 0 and draws == NEW_TRAIN_ITERS * T * E * 3
+    _update_card_vs_cpu(trainer)
+    rew, _ = trainer.evaluate_episodes()
+    assert rew["pursuer"].shape == (E, 2) and rew["evader"].shape == (E, 3)
+    assert all(np.isfinite(r).all() for r in rew.values())
+    roll_ms, upd_ms, rate = means = _training_means(trainer)
+    print(f"training asymmetric_pursuit: {trainer.num_iters} iterations of "
+          f"{E} envs x {T} steps x 5 agents in {times['train_s']:.3f} s "
+          f"(setup {times['setup_s']:.3f} s); iterations "
+          f"2-{trainer.num_iters}, mean: rollout {roll_ms:.3f} ms, update "
+          f"{upd_ms:.3f} ms, {rate:.0f} env-steps/s; evaluate_episodes sums "
+          f"pursuer {rew['pursuer'].shape} mean "
+          f"{float(rew['pursuer'].mean()):.4f}, evader "
+          f"{rew['evader'].shape} mean {float(rew['evader'].mean()):.4f}; "
+          f"launches {launches}")
+    torch.cuda.synchronize()
+    return trainer, launches, means
+
+
+def _drive_full_obs_training():
+    """Phase 4l: the shipped ``tag_continuous`` run config with
+    ``use_full_observation`` (110 agents, 7 x 109 + 1 = 764 features, no
+    kNN): the CUDA step against the CPU step over ``FULL_STEP_STATES``
+    rolled states (observations within ``NEW_STEP_TOL``, physics within
+    1e-5); ``NEW_TRAIN_ITERS`` iterations through ``setup_trainer`` and
+    ``train()`` with no kNN launch, the device's peak memory read around
+    them; one update on the card and on the CPU on the first
+    ``FULL_OBS_UPDATE_ENVS`` envs, each held to the CPU's float64 update
+    (``_update_card_vs_cpu``).  Returns the trainer, its launches and its
+    means."""
+    import torch
+
+    from warpdrive_tpu_torch.envs.engine import EnvEngine
+    from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
+    from warpdrive_tpu_torch.ops import knn_obs
+
+    cfg = _iters_config("tag_continuous", NEW_TRAIN_ITERS,
+                        use_full_observation=True)
+    E = cfg["trainer"]["num_envs"]
+    systems = []
+    for device in (DEVICE, "cpu"):
+        env = TorchTagContinuous(**cfg["env"])
+        engine = EnvEngine(env_obj=env, num_envs=E, seed=0, device=device)
+        systems.append({"engine": engine, "env": env,
+                        "state": dict(engine.state)})
+    assert systems[0]["env"].obs_size == 764
+    knn_obs.reset_launch_counts()
+    _check_step_against_cpu(*systems, "tag_continuous, full observation",
+                            steps=FULL_STEP_STATES)
+    assert sum(knn_obs.LAUNCH_COUNTS.values()) == 0
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, launches, times = _drive_training(cfg)
+    peak = torch.cuda.max_memory_allocated()
+    assert launches == {name: 0 for name in knn_obs.LAUNCH_COUNTS}, launches
+    T = trainer.training_batch_size_per_env
+    obs_bytes = sum(v.numel() * v.element_size()
+                    for k, v in trainer._batch.items()
+                    if k.startswith("obs_"))
+    roll_ms, upd_ms, rate = means = _training_means(trainer)
+    print(f"training tag_continuous, full observation: "
+          f"{trainer.num_iters} iterations of {E} envs x {T} steps x "
+          f"{trainer.engine.n_agents} agents x 764 features in "
+          f"{times['train_s']:.3f} s (setup {times['setup_s']:.3f} s); "
+          f"iterations 2-{trainer.num_iters}, mean: rollout {roll_ms:.3f} "
+          f"ms, update {upd_ms:.3f} ms, {rate:.0f} env-steps/s; observation "
+          f"batch {obs_bytes / 1e9:.3f} GB; device memory peak "
+          f"{peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB above the "
+          f"{base / 1e9:.3f} GB allocated before) of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} "
+          f"GB; launches {launches}")
+    _update_card_vs_cpu(trainer, envs=FULL_OBS_UPDATE_ENVS, float64=True)
+    return trainer, launches, means
+
+
+def _chem_configs() -> dict:
+    """tests/test_chem_search.py's configs: one atom on an 8 x 8 synthetic
+    landscape with the z-slab 2-6 (2-D and 3-D modes), two atoms on a
+    random 6 x 6 x 3 mesh."""
+    import numpy as np
+
+    from warpdrive_tpu_torch.envs.chem_search import make_synthetic_landscape
+
+    def one_atom(is_3d):
+        return {"ienergy": 0.5, "max_denergy": 2.0, "nx": 8, "ny": 8,
+                "nz": 8, "z_slab_lower": 2, "z_slab_upper": 6,
+                "initial_state": [1, 1, 3],
+                "final_state": [6, 6, 4 if is_3d else 3],
+                "terminate_reward": 10.0, "min_reward": -1.0,
+                "episode_length": 25,
+                "en_array": make_synthetic_landscape(8, 8, 4, seed=4)}
+
+    en6 = np.random.RandomState(8).uniform(
+        -1.0, 1.0, size=(6, 6, 3, 6, 6, 3)).astype(np.float32)
+    two_atom = {"ienergy": 0.2, "max_denergy": 2.0, "nx": 6, "ny": 6,
+                "nz": 6, "z_slab_lower": 1, "z_slab_upper": 4,
+                "initial_state": [1, 1, 2, 4, 4, 2],
+                "final_state": [5, 5, 2, 0, 0, 2], "terminate_reward": 10.0,
+                "min_reward": -1.0, "episode_length": 20, "en_array": en6}
+    return {
+        "one atom, 2-D": ("SingleAgentOneAtomChemSearch", one_atom(False)),
+        "one atom, 3-D": ("SingleAgentOneAtomChemSearch", one_atom(True)),
+        "two atoms": ("SingleAgentTwoAtomChemSearch", two_atom),
+        "DummyEnv": ("DummyEnv", {"num_agents": 5, "episode_length": 10,
+                                  "target": 16}),
+    }
+
+
+def _check_chem_and_dummy_steps():
+    """Phase 4m: the chem-search envs and DummyEnv, the CUDA step against
+    the CPU step over ``FULL_STEP_STATES`` rolled states at ``CHEM_ENVS``
+    envs: positions (and every integer array) equal, observations and
+    rewards within ``NEW_STEP_TOL``; no kNN launch."""
+    from warpdrive_tpu_torch.envs import register_all_envs
+    from warpdrive_tpu_torch.envs.engine import EnvEngine
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.tools.consistency import step_against_cpu
+    from warpdrive_tpu_torch.utils.env_registrar import env_registrar
+
+    register_all_envs()
+    knn_obs.reset_launch_counts()
+    for label, (env_name, settings) in _chem_configs().items():
+        cls = env_registrar.get(env_name, backend="torch")
+        engines = [EnvEngine(env_obj=cls(**settings), num_envs=CHEM_ENVS,
+                             seed=3, device=device)
+                   for device in (DEVICE, "cpu")]
+        (diffs, secs) = _timed(lambda: step_against_cpu(
+            *engines, steps=FULL_STEP_STATES))
+        print(f"CUDA step vs CPU step [{label}], {FULL_STEP_STATES} states "
+              f"at {CHEM_ENVS} envs in {secs:.3f} s: max abs diff "
+              + ", ".join(f"{k} {v:.3g}" for k, v in sorted(diffs.items()))
+              + f" (tolerance {NEW_STEP_TOL}); positions and integer "
+              "arrays equal")
+        assert max(diffs.values()) <= NEW_STEP_TOL, diffs
+    assert sum(knn_obs.LAUNCH_COUNTS.values()) == 0
+    return {name: 0 for name in knn_obs.LAUNCH_COUNTS}
+
+
 def _drive_item9(pendulum, tag_trainer):
     """Evaluation and episode fetching on the card, each with the kernels'
     launch counts set to 0 just before and read just after:
@@ -2153,6 +2453,16 @@ def main(argv=None) -> int:
         _drive_tuned_training()
     _check_update_options(tuned)
 
+    # 4k. the asymmetric_pursuit run config (separate placeholders, Dict
+    # observations, action masks), counts from 0
+    pursuit, pursuit_launches, pursuit_means = _drive_asymmetric_pursuit()
+
+    # 4l. tag_continuous with the full observation, counts from 0
+    full_obs, full_obs_launches, full_obs_means = _drive_full_obs_training()
+
+    # 4m. the chem-search envs and DummyEnv, counts from 0
+    chem_launches = _check_chem_and_dummy_steps()
+
     # 5. kernel vs plain and their times at the main paths' shapes
     many_args = _knn_args(many["pallas_flat_exact"]["env"],
                           many["pallas_flat_exact"]["state"])
@@ -2293,8 +2603,13 @@ def main(argv=None) -> int:
             (f"training iteration [{name}]",
              lambda t=t: t._iteration(t.current_timestep), "iteration",
              means[name][0] + means[name][1])
-            for trainers, means in ((full_trainers, full_train_means),
-                                    (ddpg_trainers, ddpg_means))
+            for trainers, means in (
+                (full_trainers, full_train_means),
+                (ddpg_trainers, ddpg_means),
+                ({"asymmetric_pursuit": pursuit},
+                 {"asymmetric_pursuit": pursuit_means}),
+                ({"tag_continuous, full observation": full_obs},
+                 {"tag_continuous, full observation": full_obs_means}))
             for name, t in trainers.items()
         ]
         tuned_t = tuned.current_timestep
@@ -2309,10 +2624,13 @@ def main(argv=None) -> int:
         _profile(windows)
 
     # launches on the main paths: 4a, 4c and 4j for K1, 4b and 4i for K2,
-    # 4d for K3, 4c for K4 and K5, 4e for K6-K8, 4c and 4e for K9
+    # 4d for K3, 4c for K4 and K5, 4e for K6-K8, 4c and 4e for K9; 4k-4m
+    # launch none
     all_launches = {name: launches[name] + train_launches[name]
                     + item9_launches[name] + fast_launches[name]
                     + tuned_launches[name] + tuned_rec_launches[name]
+                    + pursuit_launches[name] + full_obs_launches[name]
+                    + chem_launches[name]
                     + sum(c[name] for c in many_launches.values())
                     + sum(c[name] for c in knn_launches.values())
                     for name in knn_obs.LAUNCH_COUNTS}

@@ -178,10 +178,17 @@ def test_pool_reset_with_injected_rows_matches_jax(force):
 
 
 def test_engine_rejects_unported_modes():
+    """The split path keeps the shared Box placeholder, as in the JAX
+    package: separate per-policy placeholders are refused for it.  The
+    full-observation mode is ported and builds."""
     kwargs = dict(FLAGSHIP_ENV_KWARGS, num_runners=10, seed=1)
     env = TorchTagContinuous(**kwargs, knn_algorithm="ladder")
-    with pytest.raises(NotImplementedError, match="separate"):
+    policy_map = {"tagger": sorted(env.taggers), "runner": sorted(env.runners)}
+    with pytest.raises(AssertionError, match="split path"):
         EnvEngine(env_obj=env, num_envs=2, device="cpu",
+                  policy_tag_to_agent_id_map=policy_map,
                   create_separate_placeholders_for_each_policy=True)
-    with pytest.raises(NotImplementedError, match="full-observation"):
-        TorchTagContinuous(**dict(kwargs, use_full_observation=True))
+    full = TorchTagContinuous(**dict(kwargs, use_full_observation=True))
+    engine = EnvEngine(env_obj=full, num_envs=2, device="cpu")
+    assert engine.state[Constants.OBSERVATIONS].shape == (
+        2, full.num_agents, 7 * (full.num_agents - 1) + 1)

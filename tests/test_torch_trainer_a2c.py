@@ -219,10 +219,9 @@ def test_left_out_features_raise(tmp_path):
     assert trainer.update_options["runner"].remat
     assert {"iteration_ms", "rollout_ms", "update_ms"} <= set(
         trainer.profile_phases(repeats=1))
-    cfg = _config(port_config.load_run_config)
-    cfg["name"] = "asymmetric_pursuit"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_train.setup_trainer(cfg, device="cpu")
+    # every run config of the JAX package is ported (asymmetric_pursuit
+    # was the last, ROADMAP queue 1 item 8)
+    assert port_train._NOT_PORTED == {}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             port_train.setup_trainer(_config(port_config.load_run_config),

@@ -6,7 +6,12 @@ The port's counterpart of ``warpdrive_tpu/envs/engine.py``.  It
 * builds the batched device state from the env's host-side reset and its
   DataFeeds (single-env arrays replicated across replicas) and registers
   the env's reset pools,
-* creates the shared observation/action/reward placeholders,
+* creates the observation/action/reward placeholders: shared (one
+  ``observations`` array, or one ``observations_<key>`` per key of a Dict
+  observation) or separate per policy (``observations_<tag>[_<key>]``,
+  ``sampled_actions_<tag>``, ``rewards_<tag>``), agent-dim-first or
+  agent-dim-last, and names them (``group_info``, ``obs_entry_names``,
+  ``reward_entry_names``),
 * exposes the functions a rollout composes, each taking and returning a
   dict of batched tensors without touching its input: ``step`` (write the
   actions, then the env's whole ``step_fn``, or on the split path
@@ -17,11 +22,12 @@ The port's counterpart of ``warpdrive_tpu/envs/engine.py``.  It
   at-reset snapshot would leave them one step stale),
 * offers the gym-like conveniences ``reset_all_envs``,
   ``reset_only_done_envs`` and ``step_all_envs``, which keep the engine's
-  own ``state``,
-* and ``rewards_of``, the all-agent rewards a trainer records.
+  own ``state``, with the aliases ``reset`` and ``obs_at_reset``,
+* and ``rewards_of``, the all-agent rewards a trainer records (per-policy
+  rewards merged on the agent axis in the separate mode).
 
-Separate per-policy placeholders and Dict observations raise
-``NotImplementedError``.
+The split path and reset pools need the shared Box placeholder, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -39,11 +45,22 @@ from warpdrive_tpu_torch.utils.device import resolve_device
 from warpdrive_tpu_torch.utils.env_registrar import (
     env_registrar as default_registrar,
 )
-from warpdrive_tpu_torch.utils.spaces import Box
+from warpdrive_tpu_torch.utils.spaces import (
+    Box,
+    normalize_space_map,
+    recursive_obs_dict_to_spaces_dict,
+)
 
 _OBS = Constants.OBSERVATIONS
 _ACTIONS = Constants.ACTIONS
 _REWARDS = Constants.REWARDS
+
+
+def _infer_agent_space(example_obs):
+    """Box for an array observation, a DictSpace for a dict one."""
+    if isinstance(example_obs, dict):
+        return recursive_obs_dict_to_spaces_dict(example_obs)
+    return Box(-np.inf, np.inf, shape=np.asarray(example_obs).shape)
 
 
 class EnvEngine:
@@ -58,6 +75,7 @@ class EnvEngine:
         num_envs: int = 2,
         env_registrar=None,
         seed: int = 0,
+        policy_tag_to_agent_id_map: dict = None,
         create_separate_placeholders_for_each_policy: bool = False,
         obs_dim_corresponding_to_num_agents: str = "first",
         device="cuda",
@@ -85,11 +103,44 @@ class EnvEngine:
         assert len(self._agent_ids) == self.n_agents
         if not isinstance(getattr(self.env, "observation_space", None), dict):
             self.env.observation_space = {
-                aid: Box(-np.inf, np.inf, shape=np.asarray(obs[aid]).shape)
-                for aid in self._agent_ids
+                aid: _infer_agent_space(obs[aid]) for aid in self._agent_ids
             }
-        self.action_space = self.env.action_space
-        self.observation_space = self.env.observation_space
+        # an env may declare gym/gymnasium spaces: converted once, here
+        self.action_space = normalize_space_map(self.env.action_space)
+        self.observation_space = normalize_space_map(
+            self.env.observation_space)
+
+        # --- placeholder modes ----------------------------------------------
+        self.separate_placeholders = bool(
+            create_separate_placeholders_for_each_policy)
+        self.obs_dim_corresponding_to_num_agents = (
+            obs_dim_corresponding_to_num_agents)
+        self._policy_ids = None
+        if policy_tag_to_agent_id_map is not None:
+            self._policy_ids = {
+                tag: np.asarray(sorted(int(i) for i in ids), dtype=np.int32)
+                for tag, ids in policy_tag_to_agent_id_map.items()
+            }
+            # disjoint groups, and in the separate mode every agent covered
+            # (an unmapped agent would read zero rewards from rewards_of)
+            all_ids = np.concatenate(list(self._policy_ids.values())).tolist()
+            assert len(all_ids) == len(set(all_ids)), (
+                "policy_tag_to_agent_id_map groups overlap")
+            if self.separate_placeholders:
+                assert set(all_ids) == set(range(self.n_agents)), (
+                    "separate-placeholder mode requires the policy map to "
+                    f"cover all {self.n_agents} agents; got {sorted(all_ids)}"
+                )
+        if self.separate_placeholders:
+            assert self._policy_ids is not None, (
+                "create_separate_placeholders_for_each_policy requires "
+                "policy_tag_to_agent_id_map at engine construction"
+            )
+            self._policy_index = {
+                tag: torch.as_tensor(ids, dtype=torch.long,
+                                     device=self.device)
+                for tag, ids in self._policy_ids.items()
+            }
 
         # --- batched device state -------------------------------------------
         self.store = StateStore(
@@ -110,36 +161,89 @@ class EnvEngine:
             obs,
             self.observation_space,
             self.action_space,
+            policy_tag_to_agent_id_map=(
+                None if self._policy_ids is None
+                else {t: ids.tolist() for t, ids in self._policy_ids.items()}
+            ),
             create_separate_placeholders_for_each_policy=(
-                create_separate_placeholders_for_each_policy
-            ),
+                self.separate_placeholders),
             obs_dim_corresponding_to_num_agents=(
-                obs_dim_corresponding_to_num_agents
-            ),
+                obs_dim_corresponding_to_num_agents),
         )
-        self._act_dtype = torch.from_numpy(
-            np.zeros((), dtype=placeholder_meta["groups"][None]["action"][1])
-        ).dtype
+        self.placeholder_groups = placeholder_meta["groups"]
+        self._shared_box = (not self.separate_placeholders
+                            and self.placeholder_groups[None]["mode"] == "box")
+        if self.has_split_step:
+            assert self._shared_box, (
+                "the split path requires the shared Box observations "
+                "placeholder")
 
+        if not self.separate_placeholders:
+            self._act_dtype = self.store.state[_ACTIONS].dtype
         self.auto_reset = self._make_auto_reset()
         self.state = self.store.state
         self._first_reset_done = False
 
+    # ------------------------------------------------- placeholder name maps
+    def group_info(self, tag: str = None) -> dict:
+        """Placeholder-group metadata ``{"mode", "keys", "action"}`` of a
+        policy (separate mode) or of the shared group."""
+        if self.separate_placeholders:
+            assert tag is not None, "separate mode needs a policy tag"
+            return self.placeholder_groups[tag]
+        return self.placeholder_groups[None]
+
+    def obs_entry_names(self, tag: str = None) -> list:
+        """State names of the observation arrays: ``observations`` or
+        ``observations_<key>`` (shared), ``observations_<tag>[_<key>]``
+        (separate mode, ``tag`` required); Dict keys in the env's order."""
+        group = self.group_info(tag)
+        suffix = f"_{tag}" if self.separate_placeholders else ""
+        if group["mode"] == "box":
+            return [_OBS + suffix]
+        return [f"{_OBS}{suffix}_{key}" for key in group["keys"]]
+
+    def reward_entry_names(self) -> list:
+        """State names of the reward arrays, policies in sorted order."""
+        if self.separate_placeholders:
+            return [f"{_REWARDS}_{tag}" for tag in sorted(self._policy_ids)]
+        return [_REWARDS]
+
+    def _obs_names(self) -> list:
+        """Every observation array's state name, across groups."""
+        if self.separate_placeholders:
+            return [name for tag in sorted(self._policy_ids)
+                    for name in self.obs_entry_names(tag)]
+        return self.obs_entry_names()
+
+    def rewards_of(self, state: dict) -> torch.Tensor:
+        """All-agent rewards ``(envs, agents)`` of a state; the separate
+        mode's per-policy arrays are scattered onto the agent axis."""
+        if not self.separate_placeholders:
+            return state[_REWARDS]
+        out = torch.zeros((self.n_envs, self.n_agents), dtype=torch.float32,
+                          device=self.device)
+        for tag in sorted(self._policy_ids):
+            out[:, self._policy_index[tag]] = state[f"{_REWARDS}_{tag}"]
+        return out
+
     def _make_auto_reset(self):
-        """The done-driven reset; with reset pools, followed by the
-        observation refresh of the replicas it reset."""
+        """The done-driven reset, which restores every snapshot-flagged
+        array (every observation placeholder among them); with reset pools,
+        followed by the observation refresh of the replicas it reset."""
         base_auto_reset = make_auto_reset_fn(
             self.store.snapshot, self.store.pools
         )
         if not self.store.pools:
             return base_auto_reset
         observe_fn = getattr(self.env, "observe_fn", None)
-        if observe_fn is None:
+        if observe_fn is None or not self._shared_box:
             # without the refresh every pool reset would serve one step of
             # observations of the fixed snapshot beside a pool row's state
             raise NotImplementedError(
-                "reset pools need the env's observe_fn, which refreshes the "
-                "observations of the replicas a pool reset has reset"
+                "reset pools need the shared Box observations placeholder "
+                "and the env's observe_fn, which refreshes the observations "
+                "of the replicas a pool reset has reset"
             )
 
         def auto_reset(state: dict, generator: torch.Generator = None,
@@ -159,15 +263,16 @@ class EnvEngine:
 
         return auto_reset
 
-    def rewards_of(self, state: dict) -> torch.Tensor:
-        """All-agent rewards ``(envs, agents)`` of a state."""
-        return state[_REWARDS]
-
     # ------------------------------------------------------------ the steps
-    def _as_actions(self, actions) -> torch.Tensor:
+    def _with_components(self, actions) -> torch.Tensor:
+        """``actions`` on the device with their component axis."""
         a = torch.as_tensor(actions, device=self.device)
-        if a.ndim == 2:  # (envs, agents) -> add the action-type axis
-            a = a[..., None]
+        return a[..., None] if a.ndim == 2 else a
+
+    def _as_actions(self, actions) -> torch.Tensor:
+        """``(envs, agents[, components])`` all-agent actions in the shared
+        placeholder's dtype."""
+        a = self._with_components(actions)
         return a.to(self._act_dtype)
 
     def step_physics(self, state: dict, actions) -> dict:
@@ -182,9 +287,22 @@ class EnvEngine:
         return self.env.observe_batch_fn(dict(state))
 
     def write_actions(self, state: dict, actions) -> dict:
-        """Write ``actions`` into the ``sampled_actions`` placeholder."""
+        """Write ``actions`` into the action placeholder(s): ``(envs,
+        agents[, components])`` over all agents, or in the separate mode
+        also ``{tag: (envs, A_p[, components])}``."""
         state = dict(state)
-        state[_ACTIONS] = self._as_actions(actions)
+        if not self.separate_placeholders:
+            state[_ACTIONS] = self._as_actions(actions)
+            return state
+        if not isinstance(actions, dict):
+            a = self._with_components(actions)
+            actions = {tag: a.index_select(1, idx)
+                       for tag, idx in self._policy_index.items()}
+        for tag, a in actions.items():
+            name = f"{_ACTIONS}_{tag}"
+            a = self._with_components(a)
+            state[name] = a[..., : state[name].shape[-1]].to(
+                state[name].dtype)
         return state
 
     def step(self, state: dict, actions=None) -> dict:
@@ -199,15 +317,23 @@ class EnvEngine:
         return out
 
     # ------------------------------------------------------- stateful facade
-    def reset_all_envs(self) -> torch.Tensor:
-        """Force-reset every replica and return the batched observations.
-        The very first call returns the initial state as built."""
+    def _obs_view(self):
+        """The observation placeholders of the engine's state: one tensor
+        in the shared Box mode, else ``{state name: tensor}``."""
+        if self._shared_box:
+            return self.state[_OBS]
+        return {name: self.state[name] for name in self._obs_names()}
+
+    def reset_all_envs(self):
+        """Force-reset every replica and return the batched observations
+        (a dict of them by state name unless shared Box).  The very first
+        call returns the initial state as built."""
         if self._first_reset_done:
             self.state = self.auto_reset(
                 self.state, self.store.generator, force=True
             )
         self._first_reset_done = True
-        return self.state[_OBS]
+        return self._obs_view()
 
     def reset_only_done_envs(self):
         """Reset the finished replicas only."""
@@ -215,13 +341,24 @@ class EnvEngine:
         self.state = self.auto_reset(self.state, self.store.generator)
 
     def step_all_envs(self, actions) -> dict:
-        """Step every replica with ``actions`` of shape
-        ``(envs, agents[, components])`` and return the device tensors of
-        observations, rewards and done flags."""
+        """Step every replica with ``actions`` (see :meth:`write_actions`)
+        and return the device tensors of the done flags, every observation
+        array and every reward array, by state name."""
         self._first_reset_done = True
         self.state = self.step(self.state, actions)
-        return {
-            Constants.DONE: self.state[Constants.DONE],
-            _OBS: self.state[_OBS],
-            _REWARDS: self.state[_REWARDS],
-        }
+        out = {Constants.DONE: self.state[Constants.DONE]}
+        for name in self._obs_names() + self.reward_entry_names():
+            out[name] = self.state[name]
+        return out
+
+    # gym-style aliases
+    def reset(self):
+        return self.reset_all_envs()
+
+    def obs_at_reset(self):
+        """The single-env at-reset observation(s) as numpy: one array in
+        the shared Box mode, else ``{state name: array}``."""
+        if self._shared_box:
+            return self.store.snapshot[_OBS].cpu().numpy()
+        return {name: self.store.snapshot[name].cpu().numpy()
+                for name in self._obs_names()}

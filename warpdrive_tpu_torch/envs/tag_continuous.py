@@ -7,10 +7,11 @@ The port's counterpart of ``warpdrive_tpu/envs/tag_continuous.py``:
   implementation (the engine's host-side ``reset()`` and the data feed need
   it, and the port imports nothing of the JAX package);
 * ``TorchTagContinuous`` adds the batched device step: ``physics_fn`` over
-  ``(envs, agents)`` tensors, ``observe_fn`` (the ``passes``, ``ladder``,
-  ``topk``, ``approx`` and ``packed`` kNN algorithms in plain PyTorch) and
-  ``observe_batch_fn``, which sends every ``pallas*`` name to the port's
-  kNN kernels (``ops/knn_obs.py``).
+  ``(envs, agents)`` tensors, ``observe_fn`` (the full observation, or the
+  ``passes``, ``ladder``, ``topk``, ``approx`` and ``packed`` kNN
+  algorithms in plain PyTorch) and ``observe_batch_fn``, which sends every
+  ``pallas*`` name of the kNN mode to the port's kNN kernels
+  (``ops/knn_obs.py``).
 
 Game rules:
 
@@ -459,16 +460,13 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
       -- plain PyTorch.
 
     ``knn_select`` is accepted and ignored: the port always picks neighbour
-    features as exact float32.
+    features as exact float32.  In the full-observation mode (the
+    constructor's default) neither applies: every observation is
+    :meth:`full_observation`, plain PyTorch, and no kNN kernel runs.
     """
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        if self.use_full_observation:
-            raise NotImplementedError(
-                "full-observation mode is not ported yet: ROADMAP queue 1, "
-                "item 1"
-            )
         self._consts_by_device = {}
 
     def _consts(self, device: torch.device) -> dict:
@@ -495,6 +493,13 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
                 "two_pi": t(np.float32(2 * np.pi)),
                 "episode_length": t(np.float32(self.episode_length)),
             }
+            if self.use_full_observation:
+                # others_of[i, k]: observer i's k-th other agent, j < i -> j,
+                # j >= i -> j + 1 (the self column dropped)
+                n = self.num_agents
+                k = np.arange(n - 1)[None, :]
+                consts["others_of"] = t(
+                    k + (k >= np.arange(n)[:, None]), torch.long)
             self._consts_by_device[device] = consts
         return consts
 
@@ -620,10 +625,40 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
         )
         return feats, still_f, t_norm
 
+    def full_observation(self, state: dict) -> torch.Tensor:
+        """The full observation ``(envs, agents, 7 (N - 1) + 1)``: for
+        observer i, channel-major, the 5 features of every other agent j
+        relative to its own (``feats[j] - feats[i]``, zero for an observer
+        out of the game), j's type and j's in-game flag, then the time (0
+        for an observer out of the game).  The self column is dropped by a
+        gather with a constant index table: exact, as the JAX package's
+        one-hot contraction at ``Precision.HIGHEST`` is."""
+        c = self._consts(state["loc_x"].device)
+        feats, still_f, t_norm = self._knn_inputs(state)  # (E, 5, N) ...
+        E, _, N = feats.shape
+        alive = state["still_in_the_game"] > 0  # (E, N)
+        rel = feats[:, :, None, :] - feats[:, :, :, None]  # [e, c, i, j]
+        rel = torch.where(alive[:, None, :, None], rel, 0.0)
+        rows = torch.cat(
+            [rel,
+             c["types_f"].expand(E, 1, N, N),
+             still_f[:, None, None, :].expand(E, 1, N, N)],
+            dim=1,
+        )  # (E, 7, N_self, N_other)
+        others = torch.gather(
+            rows, 3, c["others_of"].expand(E, 7, N, N - 1))
+        time_col = torch.where(alive, t_norm[:, None], 0.0)[..., None]
+        return torch.cat(
+            [others.permute(0, 2, 1, 3).reshape(E, N, 7 * (N - 1)),
+             time_col],
+            dim=2,
+        )
+
     def observe_batch_fn(self, state: dict) -> torch.Tensor:
-        """Batched kNN observation ``(envs, agents, 8k+1)``: the kNN kernel
-        of a ``pallas*`` name, else :meth:`observe_fn`."""
-        if self.knn_algorithm not in _KNN_VARIANTS:
+        """Batched observation ``(envs, agents, obs_size)``: the kNN kernel
+        of a ``pallas*`` name in the kNN mode, else :meth:`observe_fn`."""
+        if self.use_full_observation or \
+                self.knn_algorithm not in _KNN_VARIANTS:
             return self.observe_fn(state)
         feats, still_f, t_norm = self._knn_inputs(state)
         return knn_observation(
@@ -639,8 +674,9 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
         )
 
     def observe_fn(self, state: dict) -> torch.Tensor:
-        """kNN observation of the current batched state in plain PyTorch,
-        by the env's algorithm: the exact ``passes`` (k rounds of min,
+        """Observation of the current batched state in plain PyTorch: the
+        :meth:`full_observation`, or in the kNN mode by the env's
+        algorithm: the exact ``passes`` (k rounds of min,
         lowest-index argmin, select, mask), run for every ``pallas_*`` name
         as in the JAX package; the ``ladder`` (slot s takes the least entry
         lexicographically after slot s-1's (min, argmin)); ``topk`` and
@@ -650,6 +686,8 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
         sorts the keys ``(bits(d2) & ~(2^b - 1)) | j`` with b =
         bit_length(N - 1), so distances within its tie window order by
         index."""
+        if self.use_full_observation:
+            return self.full_observation(state)
         c = self._consts(state["loc_x"].device)
         k = self.num_other_agents_observed
         loc_x = state["loc_x"]

@@ -13,9 +13,9 @@ row of its pool, hands the drawn rows to the numpy env's ``sync_state`` and
 carries on in lockstep.
 
 The engine runs on ``device`` (``"cuda"`` unless the caller asks for
-``"cpu"``) in the shared-placeholder Box-observation mode; separate
-per-policy placeholders and Dict observations come with the engine's
-support for them.
+``"cpu"``) in any placeholder mode of the JAX package's checker: shared Box
+or Dict observations, separate per-policy placeholders (with the env's
+``policy_map()`` when no map is given), agent-dim-first or -last.
 
 Two checks hold one engine against another or against itself:
 :func:`step_against_cpu` runs a card engine's step beside the same env's
@@ -79,6 +79,24 @@ def draw_actions(rng: np.random.RandomState, engine) -> dict:
     return out
 
 
+def pack_actions(draws: dict, engine):
+    """Per-agent draws as the engine's step takes them: one ``(envs,
+    agents, components)`` tensor, or in the separate mode ``{tag: (envs,
+    A_p, components)}``."""
+    if engine.separate_placeholders:
+        return {tag: torch.from_numpy(np.stack(
+                    [draws[int(aid)] for aid in ids], axis=1))
+                for tag, ids in engine._policy_ids.items()}
+    return torch.from_numpy(
+        np.stack([draws[aid] for aid in engine._agent_ids], axis=1))
+
+
+def _to(actions, device):
+    if isinstance(actions, dict):
+        return {tag: a.to(device) for tag, a in actions.items()}
+    return actions.to(device)
+
+
 def step_against_cpu(engine, cpu_engine, steps: int = 60,
                      seed: int = 5) -> dict:
     """``engine.step`` on its device against ``cpu_engine.step`` (the same
@@ -90,12 +108,10 @@ def step_against_cpu(engine, cpu_engine, steps: int = 60,
     state = dict(engine.state)
     worst = {}
     for t in range(steps):
-        draws = draw_actions(rng, engine)
-        actions = torch.from_numpy(
-            np.stack([draws[aid] for aid in engine._agent_ids], axis=1))
+        actions = pack_actions(draw_actions(rng, engine), engine)
         host = {name: value.cpu() for name, value in state.items()}
-        out = engine.step(state, actions.to(engine.device))
-        ref = cpu_engine.step(host, actions)
+        out = engine.step(state, _to(actions, engine.device))
+        ref = cpu_engine.step(host, _to(actions, "cpu"))
         for name, value in ref.items():
             got = out[name].cpu()
             assert got.dtype == value.dtype, f"{name} dtype at t={t}"
@@ -150,6 +166,11 @@ class EnvironmentCPUvsDevice:
     :param num_envs: replicas to run (each numpy env is its own object).
     :param num_episodes: episodes to run; >= 2 exercises auto-reset.
     :param device: where the engine runs.
+    :param policy_tag_to_agent_id_map,
+        create_separate_placeholders_for_each_policy,
+        obs_dim_corresponding_to_num_agents: the engine's placeholder
+        modes; the separate mode takes the env's ``policy_map()`` when no
+        map is given.
     """
 
     def __init__(
@@ -160,6 +181,9 @@ class EnvironmentCPUvsDevice:
         num_envs: int = 3,
         num_episodes: int = 2,
         device="cuda",
+        policy_tag_to_agent_id_map: dict = None,
+        create_separate_placeholders_for_each_policy: bool = False,
+        obs_dim_corresponding_to_num_agents: str = "first",
     ):
         self.cpu_env_class = cpu_env_class
         self.device_env_class = device_env_class
@@ -167,6 +191,10 @@ class EnvironmentCPUvsDevice:
         self.num_envs = num_envs
         self.num_episodes = num_episodes
         self.device = device
+        self.policy_tag_to_agent_id_map = policy_tag_to_agent_id_map
+        self.separate = bool(create_separate_placeholders_for_each_policy)
+        self.obs_dim_corresponding_to_num_agents = (
+            obs_dim_corresponding_to_num_agents)
 
     # ------------------------------------------------------------------ run
     def test_env_reset_and_step(self, threshold_pct: float = 1.0, seed: int = 17):
@@ -176,11 +204,19 @@ class EnvironmentCPUvsDevice:
     def _run_scenario(self, scenario, config, threshold_pct, seed):
         rng = np.random.RandomState(seed)
         cpu_envs = [self.cpu_env_class(**config) for _ in range(self.num_envs)]
+        device_env = self.device_env_class(**config)
+        policy_map = self.policy_tag_to_agent_id_map
+        if policy_map is None and self.separate:
+            policy_map = device_env.policy_map()
         engine = EnvEngine(
-            env_obj=self.device_env_class(**config),
+            env_obj=device_env,
             num_envs=self.num_envs,
             seed=seed,
             device=self.device,
+            policy_tag_to_agent_id_map=policy_map,
+            create_separate_placeholders_for_each_policy=self.separate,
+            obs_dim_corresponding_to_num_agents=(
+                self.obs_dim_corresponding_to_num_agents),
         )
         agent_ids = engine._agent_ids
 
@@ -204,8 +240,7 @@ class EnvironmentCPUvsDevice:
                 cpu_rew_list.append(rew)
                 cpu_done_list.append(bool(done["__all__"]))
 
-            actions = np.stack([draws[aid] for aid in agent_ids], axis=1)
-            engine.step_all_envs(actions)
+            engine.step_all_envs(pack_actions(draws, engine))
             done_dev = _host(engine.state[Constants.DONE]) > 0
 
             self._compare_all_obs(engine, cpu_obs_list, threshold_pct,
@@ -260,12 +295,43 @@ class EnvironmentCPUvsDevice:
             arrays[target] = val
         return arrays
 
+    def _engine_obs_per_agent(self, engine) -> dict:
+        """Host views of the engine's observation placeholders per agent:
+        ``{agent_id: (envs, *feat) array | {key: (envs, *feat) array}}``."""
+        last = self.obs_dim_corresponding_to_num_agents == "last"
+
+        def agent_first(arr):  # (envs, feat, agents) -> (envs, agents, feat)
+            return np.moveaxis(arr, -1, 1) if last and arr.ndim > 2 else arr
+
+        if engine.separate_placeholders:
+            groups = list(engine._policy_ids.items())
+        else:
+            groups = [(None, np.asarray(engine._agent_ids))]
+        out = {}
+        for tag, ids in groups:
+            names = engine.obs_entry_names(tag)
+            keys = engine.group_info(tag)["keys"]
+            arrs = [agent_first(_host(engine.state[name])) for name in names]
+            for k, aid in enumerate(ids):
+                out[int(aid)] = (arrs[0][:, k] if not keys else
+                                 {key: a[:, k] for key, a in zip(keys, arrs)})
+        return out
+
     def _compare_all_obs(self, engine, cpu_obs_list, threshold_pct, label,
                          only_envs=None):
-        obs = _host(engine.state[_OBS])
+        per_agent = self._engine_obs_per_agent(engine)
         env_ids = (list(range(self.num_envs)) if only_envs is None
                    else only_envs)
-        for k, aid in enumerate(engine._agent_ids):
-            cpu = np.stack([np.asarray(cpu_obs_list[e][aid]) for e in env_ids])
-            _assert_all_close(obs[env_ids, k], cpu, threshold_pct,
-                              f"{label} (agent {aid})")
+        for aid in engine._agent_ids:
+            got = per_agent[aid]
+            if not isinstance(got, dict):
+                cpu = np.stack([np.asarray(cpu_obs_list[e][aid])
+                                for e in env_ids])
+                _assert_all_close(got[env_ids], cpu, threshold_pct,
+                                  f"{label} (agent {aid})")
+                continue
+            for key, arr in got.items():
+                cpu = np.stack([np.asarray(cpu_obs_list[e][aid][key])
+                                for e in env_ids])
+                _assert_all_close(arr[env_ids], cpu, threshold_pct,
+                                  f"{label} (agent {aid}, key {key!r})")

@@ -9,14 +9,16 @@ a path to one); ``--num_episodes`` and ``--num_envs`` override the config
 (as in the JAX CLI, ``--num_envs`` sets ``trainer.num_envs`` alone: an
 iteration keeps ``train_batch_size`` env-steps, ``train_batch_size //
 num_envs`` a replica), ``--results_dir`` sets where metrics and checkpoints go, and ``--device``
-(default ``cuda``) where the run happens.  The A2C run configs are
-ported: ``tag_continuous`` (two policies), ``tag_gridworld``,
-``tag_gridworld_with_reset_pool``, ``single_cartpole``, ``single_acrobot``
-and ``single_mountain_car`` (one shared policy); so are the DDPG ones,
-``single_pendulum`` and ``single_continuous_mountain_car``.  A config
-whose policies all name ``algorithm: DDPG`` trains with
-:class:`TrainerDDPG`, any other with :class:`TrainerA2C`.
-``asymmetric_pursuit``, the device mesh (``-n``), the auto-scaler (``-a``)
+(default ``cuda``) where the run happens.  Every run config of the JAX
+package is ported: the A2C ones ``tag_continuous`` (two policies),
+``asymmetric_pursuit`` (two policies with separate per-policy
+placeholders: the pursuers' Box and the evaders' Dict observations with an
+action mask), ``tag_gridworld``, ``tag_gridworld_with_reset_pool``,
+``single_cartpole``, ``single_acrobot`` and ``single_mountain_car`` (one
+shared policy), and the DDPG ones, ``single_pendulum`` and
+``single_continuous_mountain_car``.  A config whose policies all name
+``algorithm: DDPG`` trains with :class:`TrainerDDPG`, any other with
+:class:`TrainerA2C`.  The device mesh (``-n``), the auto-scaler (``-a``)
 and the multi-host flags raise ``NotImplementedError`` naming their
 ROADMAP items.
 """
@@ -43,10 +45,12 @@ _ENV_SETUPS = {
     "tag_gridworld": ("TagGridWorld", "shared"),
     "tag_gridworld_with_reset_pool": ("TagGridWorldWithResetPool", "shared"),
     "tag_continuous": ("TagContinuous", "tag_continuous"),
+    # separate per-policy placeholders (heterogeneous observation spaces)
+    "asymmetric_pursuit": ("AsymmetricPursuit", "separate"),
 }
 
 # the JAX package's other run configs, with the ROADMAP item that ports each
-_NOT_PORTED = {"asymmetric_pursuit": "8"}
+_NOT_PORTED = {}
 
 
 def build_policy_map(kind: str, env) -> dict:
@@ -58,6 +62,8 @@ def build_policy_map(kind: str, env) -> dict:
         taggers = [i for i in range(env.num_agents) if env.agent_type[i] == 1]
         runners = [i for i in range(env.num_agents) if env.agent_type[i] == 0]
         return {"tagger": taggers, "runner": runners}
+    if kind == "separate":
+        return env.policy_map()
     raise NotImplementedError(kind)
 
 
@@ -78,10 +84,13 @@ def setup_trainer(
     env_cls = env_registrar.get(env_name, backend="torch")
     env = env_cls(**run_config.get("env", {}))
     policy_map = build_policy_map(policy_kind, env)
+    separate = policy_kind == "separate"
     engine = EnvEngine(
         env_obj=env,
         num_envs=run_config["trainer"]["num_envs"],
         seed=int(run_config["trainer"].get("seed", 0)),
+        policy_tag_to_agent_id_map=policy_map if separate else None,
+        create_separate_placeholders_for_each_policy=separate,
         device=device,
     )
 
@@ -99,6 +108,7 @@ def setup_trainer(
         env_wrapper=engine,
         config=run_config,
         policy_tag_to_agent_id_map=policy_map,
+        create_separate_placeholders_for_each_policy=separate,
         num_devices=num_devices,
         results_dir=results_dir,
         verbose=verbose,

@@ -6,12 +6,15 @@ iteration runs, eagerly on the engine's device:
 
   rollout, ``training_batch_size_per_env`` steps of
       the observation of every agent: on the split path (TagContinuous)
-      ``observe``, the kNN observation (on a card, one kernel launch), on
-      the full-step path the observations the last step wrote
-      per-policy model forward and categorical sampling; the observations
-      are recorded in ``trainer.batch_dtype`` (e.g. ``bfloat16``), or, under
-      ``trainer.update_recompute_obs`` on the split path, not at all: the
-      pre-step state is recorded instead
+      ``observe``, the kNN observation (on a card, one kernel launch; none
+      in the full-observation mode), on the full-step path the
+      observations the last step wrote
+      per policy its flattened observations and action mask
+      (``_policy_obs_and_mask``), the model forward with the mask on the
+      logits, and categorical sampling; the observations are recorded in
+      ``trainer.batch_dtype`` (e.g. ``bfloat16``) and the mask in float32,
+      or, under ``trainer.update_recompute_obs`` on the split path, not at
+      all: the pre-step state is recorded instead
       ``step_physics`` (split) or the env's whole ``step`` (full),
       per-policy rewards and done flags
       episodic-reward bookkeeping and done-driven auto-reset (with a reset
@@ -57,7 +60,6 @@ from warpdrive_tpu_torch.training.trainer_base import TrainerBase, torch_dtype
 from warpdrive_tpu_torch.utils.constants import Constants
 
 _DONE = Constants.DONE
-_OBS = Constants.OBSERVATIONS
 _REWARDS = Constants.REWARDS
 
 
@@ -158,6 +160,11 @@ def remat_apply(module, remat: bool):
     return apply
 
 
+def _forward(model, obs, mask):
+    """``model``'s forward with the action mask where there is one."""
+    return model(obs) if mask is None else model(obs, mask)
+
+
 def _to_time_major(logits_list, values):
     return [lg.transpose(0, 1) for lg in logits_list], values.transpose(0, 1)
 
@@ -172,7 +179,10 @@ def policy_update(model, optimizer: ClippedAdam, algo, batch: dict,
     "rewards" (T, E, A), "done" (T, E)}`` with the observations either
     stored, ``"obs"`` (T, E, A, F), or derived: ``"phys"``, the pre-step
     state entries ``(T, E, ...)``, which ``observe`` maps, given as ``(R,
-    ...)`` env rows, to the policy's ``(R, A, F)`` observations.
+    ...)`` env rows, to the policy's ``(R, A, F)`` observations (or to
+    ``(observations, mask)``).  A stored ``"mask"`` (T, E, A, M), 1 keep
+    and 0 forbid, goes onto the logits of every forward, as the JAX
+    trainer's ``mask_b``.
 
     One pass (the default ``options``) forwards the whole batch.  More
     passes sweep env-axis slices, each with its own returns, gradients and
@@ -197,21 +207,25 @@ def policy_update(model, optimizer: ClippedAdam, algo, batch: dict,
     stored = "obs" in batch
 
     def derive(rows_of):
-        """The policy's observations of the env rows ``rows_of`` picks from
-        each ``(T, E, ...)`` state entry: ``(B1, B2, A, F)``."""
+        """The policy's observations and mask of the env rows ``rows_of``
+        picks from each ``(T, E, ...)`` state entry: ``(B1, B2, A, F)``."""
         picked = {k: rows_of(v) for k, v in batch["phys"].items()}
         lead = next(iter(picked.values())).shape[:2]
-        obs = observe({k: v.reshape((-1,) + v.shape[2:])
-                       for k, v in picked.items()})
-        return obs.reshape(lead + obs.shape[1:])
+        derived = observe({k: v.reshape((-1,) + v.shape[2:])
+                           for k, v in picked.items()})
+        obs, mask = derived if isinstance(derived, tuple) else (derived,
+                                                                None)
+        return tuple(None if x is None else x.reshape(lead + x.shape[1:])
+                     for x in (obs, mask))
 
     def step(loss):
         grads = torch.autograd.grad(loss, params)
         return optimizer.step(dict(zip(names, grads)), lr)
 
     if opts.passes == 1:
-        obs = batch["obs"] if stored else derive(lambda x: x)
-        logits_list, values = forward(obs)
+        obs, mask = ((batch["obs"], batch.get("mask")) if stored
+                     else derive(lambda x: x))
+        logits_list, values = _forward(forward, obs, mask)
         loss, metrics = algo.compute_loss_and_metrics(
             timestep, actions, rewards, done, logits_list, values, **loss_kw)
         metrics["Gradient norm"] = step(loss)
@@ -236,8 +250,9 @@ def _sweep(model, forward, algo, batch, timestep, step, derive, opts,
     if isinstance(algo, PPO):
         if stored:
             with torch.no_grad():
-                old_lp = _logp_and_entropy(model(batch["obs"])[0],
-                                           actions)[0]
+                old_lp = _logp_and_entropy(
+                    _forward(model, batch["obs"], batch.get("mask"))[0],
+                    actions)[0]
         else:
             # derived observations: the behaviour log-probs of each slice,
             # from these parameters, so the batch is never whole
@@ -271,15 +286,21 @@ def _sweep(model, forward, algo, batch, timestep, step, derive, opts,
             def rows(x, block=block):
                 return x.transpose(0, 1)[block]
 
-        obs = rows(batch["obs"]).contiguous() if stored else derive(rows)
+        if stored:
+            mask = batch.get("mask")
+            obs = rows(batch["obs"]).contiguous()
+            mask = None if mask is None else rows(mask).contiguous()
+        else:
+            obs, mask = derive(rows)
         act = take(actions)
         mb_old_lp = None if old_lp is None else take(old_lp)
         if behaviour is not None:
             with torch.no_grad():
-                logits0, _ = _to_time_major(
-                    *functional_call(model, behaviour, (obs,)))
+                logits0, _ = _to_time_major(*functional_call(
+                    model, behaviour,
+                    (obs,) if mask is None else (obs, mask)))
                 mb_old_lp = _logp_and_entropy(logits0, act)[0]
-        logits_list, values = _to_time_major(*forward(obs))
+        logits_list, values = _to_time_major(*_forward(forward, obs, mask))
         loss, metrics = algo.compute_loss_and_metrics(
             timestep, act, take(rewards), take(done), logits_list, values,
             old_log_prob=mb_old_lp, **loss_kw)
@@ -306,7 +327,6 @@ class TrainerA2C(TrainerBase):
         self.update_options = {}
         self._head_dims = {}
         self.engine.reset_all_envs()  # the initial state as built
-        obs_dim = self.engine.state[_OBS].shape[-1]
         init_gen = torch.Generator(device=self.device)
         init_gen.manual_seed(self.seed)
 
@@ -324,7 +344,8 @@ class TrainerA2C(TrainerBase):
             if model_cfg.get("dtype"):  # e.g. "bfloat16"
                 model_kwargs["dtype"] = torch_dtype(model_cfg["dtype"])
             self.models[tag] = model_cls(
-                obs_dim, tuple(model_cfg["fc_dims"]), tuple(heads),
+                self._policy_obs_sizes(tag)[0], tuple(model_cfg["fc_dims"]),
+                tuple(heads),
                 generator=init_gen, device=self.device, **model_kwargs,
             )
 
@@ -381,12 +402,12 @@ class TrainerA2C(TrainerBase):
 
     # ------------------------------------------------------------ rollout
     def _make_batch(self) -> dict:
-        """The rollout's buffers: per policy the observations in
-        ``trainer.batch_dtype`` -- or, under ``update_recompute_obs``, one
-        ``(T, E, ...)`` copy of every state entry but the done flags and
-        rewards --, actions and rewards, and the done flags."""
+        """The rollout's buffers: per policy its flattened observations in
+        ``trainer.batch_dtype`` and its float32 action mask where it has
+        one -- or, under ``update_recompute_obs``, one ``(T, E, ...)`` copy
+        of every state entry but the done flags and rewards --, actions and
+        rewards, and the done flags."""
         T, E = self.training_batch_size_per_env, self.num_envs
-        obs_dim = self.engine.state[_OBS].shape[-1]
         batch = {"done": torch.zeros((T, E), dtype=torch.int32,
                                      device=self.device)}
         if self._recompute_obs:
@@ -399,9 +420,14 @@ class TrainerA2C(TrainerBase):
         for tag, ids in self.policy_tag_to_agent_id_map.items():
             A, C = len(ids), len(self._head_dims[tag])
             if not self._recompute_obs:
+                features, mask = self._policy_obs_sizes(tag)
                 batch[f"obs_{tag}"] = torch.empty(
-                    (T, E, A, obs_dim), dtype=self.batch_dtype,
+                    (T, E, A, features), dtype=self.batch_dtype,
                     device=self.device)
+                if mask is not None:
+                    batch[f"mask_{tag}"] = torch.empty(
+                        (T, E, A, mask), dtype=torch.float32,
+                        device=self.device)
             batch[f"actions_{tag}"] = torch.empty(
                 (T, E, A, C), dtype=torch.int32, device=self.device)
             batch[f"rewards_{tag}"] = torch.empty(
@@ -425,35 +451,37 @@ class TrainerA2C(TrainerBase):
                 # copies: later steps must not write into the record
                 for name, buf in batch["phys"].items():
                     buf[t].copy_(state[name])
-            obs_all = engine.observe(state) if split else state[_OBS]
+            obs_all = engine.observe(state) if split else None
             per_policy = {}
             for tag in self.policies:
-                ids = self._agent_ids[tag]
                 store = batch.get(f"obs_{tag}")
-                if store is not None and store.dtype == obs_all.dtype:
-                    obs_p = torch.index_select(obs_all, 1, ids, out=store[t])
-                else:
-                    obs_p = torch.index_select(obs_all, 1, ids)
-                    if store is not None:
-                        store[t].copy_(obs_p)
+                obs_p, mask_p = self._policy_obs_and_mask(
+                    state, obs_all, tag,
+                    out=None if store is None else store[t])
+                if mask_p is not None and store is not None:
+                    batch[f"mask_{tag}"][t] = mask_p
                 if actions is None:
-                    logits_list, _ = self.models[tag](obs_p)
+                    logits_list, _ = _forward(self.models[tag], obs_p,
+                                              mask_p)
                     acts = torch.stack(
                         [sample_from_logits(logits, self.generator)
                          for logits in logits_list], dim=-1)
                 else:
-                    acts = actions[t][:, ids]
+                    acts = actions[t][:, self._agent_ids[tag]]
                 batch[f"actions_{tag}"][t] = acts
                 per_policy[tag] = acts
-            actions_all = self._scatter_actions(per_policy)
+            actions_all = self._merge_actions(per_policy)
             state = (engine.step_physics(state, actions_all) if split
                      else engine.step(state, actions_all))
 
             rewards = engine.rewards_of(state)
             done = state[_DONE]
             for tag in self.policies:
-                torch.index_select(rewards, 1, self._agent_ids[tag],
-                                   out=batch[f"rewards_{tag}"][t])
+                if engine.separate_placeholders:
+                    batch[f"rewards_{tag}"][t] = state[f"{_REWARDS}_{tag}"]
+                else:
+                    torch.index_select(rewards, 1, self._agent_ids[tag],
+                                       out=batch[f"rewards_{tag}"][t])
             batch["done"][t] = done
 
             # episodic reward bookkeeping
@@ -478,13 +506,13 @@ class TrainerA2C(TrainerBase):
                 return_logits: bool = False):
         per_policy, logits_of = {}, {}
         for tag in self.policies:
-            obs_p = torch.index_select(state[_OBS], 1, self._agent_ids[tag])
-            logits_list, _ = self.models[tag](obs_p)
+            obs_p, mask_p = self._policy_obs_and_mask(state, None, tag)
+            logits_list, _ = _forward(self.models[tag], obs_p, mask_p)
             logits_of[tag] = logits_list
             per_policy[tag] = torch.stack(
                 [sample_from_logits(logits, generator, use_argmax=use_argmax)
                  for logits in logits_list], dim=-1)
-        actions = self._scatter_actions(per_policy)
+        actions = self._merge_actions(per_policy)
         return (actions, logits_of) if return_logits else actions
 
     # ------------------------------------------------- full-state checkpoints
@@ -510,8 +538,12 @@ class TrainerA2C(TrainerBase):
 
     # ------------------------------------------------------------- update
     def _policy_batch(self, batch: dict, tag: str) -> dict:
-        obs = ({"phys": batch["phys"]} if self._recompute_obs
-               else {"obs": batch[f"obs_{tag}"]})
+        if self._recompute_obs:
+            obs = {"phys": batch["phys"]}
+        else:
+            obs = {"obs": batch[f"obs_{tag}"]}
+            if f"mask_{tag}" in batch:
+                obs["mask"] = batch[f"mask_{tag}"]
         return {**obs,
                 "actions": batch[f"actions_{tag}"],
                 "rewards": batch[f"rewards_{tag}"],
@@ -519,10 +551,14 @@ class TrainerA2C(TrainerBase):
 
     def _observe_policy(self, tag: str):
         """``update_recompute_obs``: env rows ``(R, ...)`` of the recorded
-        state -> the policy's ``(R, A, F)`` observations, one kNN launch."""
-        ids = self._agent_ids[tag]
-        return lambda rows: torch.index_select(self.engine.observe(rows), 1,
-                                               ids)
+        state -> the policy's ``(R, A, F)`` observations, one kNN launch
+        (and its mask, where the env keeps an ``action_mask`` array)."""
+        def observe(rows):
+            obs, mask = self._policy_obs_and_mask(
+                rows, self.engine.observe(rows), tag)
+            return obs if mask is None else (obs, mask)
+
+        return observe
 
     def _update(self, batch: dict, timestep, index_tables: dict = None
                 ) -> dict:

@@ -27,10 +27,14 @@ The JAX package compiles a metrics-free twin of its iteration for XLA's
 sake; here one eager iteration always builds the metric tensors and the
 loop reads them (which waits for the device) at log points only.
 
+Every placeholder mode of the engine is read through
+``_policy_obs_and_mask``: a policy's observations flattened to ``(E, A_p,
+F)`` (shared Box or Dict, separate Box or Dict, agent-dim-first or -last),
+with its action mask ``(E, A_p, M)`` from a Dict's ``action_mask`` key or a
+shared ``action_mask`` state array.
+
 Left out, each raising ``NotImplementedError`` that names its ROADMAP item:
-separate per-policy placeholders, the agent-dim-last layout and action
-masks (queue 1, item 8), ``num_devices > 1`` (item 11) and the eager
-host-env backend (item 12).
+``num_devices > 1`` (item 11) and the eager host-env backend (item 12).
 """
 
 from __future__ import annotations
@@ -46,7 +50,13 @@ import torch
 from warpdrive_tpu_torch.core.episode_log import EpisodeLogger
 from warpdrive_tpu_torch.training.data_loader import policy_agent_groups
 from warpdrive_tpu_torch.utils.constants import Constants
-from warpdrive_tpu_torch.utils.spaces import Box, Discrete, MultiDiscrete
+from warpdrive_tpu_torch.utils.spaces import (
+    Box,
+    DictSpace,
+    Discrete,
+    MultiDiscrete,
+    get_flattened_obs_size,
+)
 
 _OBS = Constants.OBSERVATIONS
 _ACTIONS = Constants.ACTIONS
@@ -164,14 +174,28 @@ class TrainerBase:
         verbose=True,
     ):
         assert env_wrapper is not None and config is not None
-        if create_separate_placeholders_for_each_policy:
-            raise not_ported("separate per-policy placeholders", "8")
-        if obs_dim_corresponding_to_num_agents != "first":
-            raise not_ported("obs_dim_corresponding_to_num_agents='last'", "8")
         if int(num_devices) > 1:
             raise not_ported("training on more than one device", "11")
         self.engine = env_wrapper
         self.device = self.engine.device
+        # the placeholder layout is the engine's; the flags must agree
+        if bool(create_separate_placeholders_for_each_policy) != \
+                self.engine.separate_placeholders:
+            raise ValueError(
+                "create_separate_placeholders_for_each_policy="
+                f"{create_separate_placeholders_for_each_policy} but the "
+                f"engine was built with {self.engine.separate_placeholders}; "
+                "pass the same flag (and the policy_tag_to_agent_id_map) to "
+                "EnvEngine"
+            )
+        assert obs_dim_corresponding_to_num_agents == \
+            self.engine.obs_dim_corresponding_to_num_agents, (
+                "engine stores obs with agent dim "
+                f"{self.engine.obs_dim_corresponding_to_num_agents!r} but the "
+                f"trainer was asked for {obs_dim_corresponding_to_num_agents!r}"
+            )
+        self.obs_dim_corresponding_to_num_agents = (
+            obs_dim_corresponding_to_num_agents)
         self.config = config
         self.verbose = verbose
         self.device_id = int(device_id)
@@ -224,8 +248,6 @@ class TrainerBase:
             tag: torch.as_tensor(ids, dtype=torch.long, device=self.device)
             for tag, ids in self.policy_tag_to_agent_id_map.items()
         }
-        if Constants.ACTION_MASK in self.engine.state:
-            raise not_ported("action masks", "8")
         self.obs_space = {}
         self.act_space = {}
         for tag, ids in self.policy_tag_to_agent_id_map.items():
@@ -292,6 +314,99 @@ class TrainerBase:
             k: v for k, v in self.engine.state.items()
             if k not in (_OBS, _ACTIONS)
         }
+
+    def _reshape_flatten(self, arr: torch.Tensor, num_agents: int
+                         ) -> torch.Tensor:
+        """``(E, A, *feat)``, or agent-dim-last ``(E, feat, A)``, to ``(E,
+        A, flat)``; a last-layout array of scalar features ``(E, A)`` only
+        takes its feature axis."""
+        E = arr.shape[0]
+        if self.obs_dim_corresponding_to_num_agents == "last":
+            if arr.ndim <= 2:
+                arr = arr.reshape(E, num_agents, -1)
+            else:
+                arr = torch.movedim(arr, -1, 1)
+        return arr.reshape(E, num_agents, -1)
+
+    def _gather_policy_mask(self, env_state: dict, tag: str):
+        """The policy's rows of a shared ``action_mask`` state array (1
+        keep, 0 forbid, concatenated over the action components) as
+        float32, or None when the env has none."""
+        mask = env_state.get(Constants.ACTION_MASK)
+        if mask is None:
+            return None
+        return torch.index_select(mask, 1, self._agent_ids[tag]).to(
+            torch.float32)
+
+    def _policy_obs_and_mask(self, env_state: dict, obs_all, tag: str,
+                             out: torch.Tensor = None):
+        """One policy's flattened observations ``(E, A_p, F)`` and action
+        mask ``(E, A_p, M)`` or None, in every placeholder mode:
+
+        * shared Box: the policy's agents of ``observations``, or of
+          ``obs_all`` where given (the split path's ``observe``);
+        * shared Dict: every ``observations_<key>`` flattened and
+          concatenated on the feature axis in key order, then the policy's
+          agents; the ``action_mask`` key is the mask, not a feature;
+        * separate mode: the same from ``observations_<tag>[_<key>]``,
+          which hold the policy's agents only.
+
+        Without a Dict mask a shared ``action_mask`` state array gives it.
+        ``out``, where given, receives the observations (converted to its
+        dtype) and the returned ones keep theirs."""
+        eng = self.engine
+        ids = self._agent_ids[tag]
+        group = eng.group_info(tag)
+        num_agents = len(ids) if eng.separate_placeholders else eng.n_agents
+        take = ((lambda x: x) if eng.separate_placeholders
+                else (lambda x: torch.index_select(x, 1, ids)))
+        mask = None
+        if group["mode"] == "box":
+            source = env_state[eng.obs_entry_names(tag)[0]] \
+                if obs_all is None else obs_all
+            flat = self._reshape_flatten(source, num_agents)
+            if out is not None and out.dtype == flat.dtype \
+                    and not eng.separate_placeholders:
+                # the rollout's hot path: gather straight into the batch
+                obs = torch.index_select(flat, 1, ids, out=out)
+                out = None
+            else:
+                obs = take(flat)
+        else:
+            parts = []
+            for key, name in zip(group["keys"], eng.obs_entry_names(tag)):
+                flat = self._reshape_flatten(env_state[name], num_agents)
+                if key == Constants.ACTION_MASK:
+                    mask = take(flat)
+                else:
+                    parts.append(flat)
+            obs = take(parts[0] if len(parts) == 1
+                       else torch.cat(parts, dim=-1))
+        if out is not None:
+            out.copy_(obs)
+        if mask is None:
+            mask = self._gather_policy_mask(env_state, tag)
+        return obs, mask
+
+    def _policy_obs_sizes(self, tag: str):
+        """``(F, M or None)``: the width of a policy's flattened
+        observations (without the mask) and of its action mask."""
+        space = self.obs_space[tag]
+        mask = None
+        if isinstance(space, DictSpace) and \
+                Constants.ACTION_MASK in space.keys():
+            mask = int(np.prod(space[Constants.ACTION_MASK].shape))
+        elif Constants.ACTION_MASK in self.engine.state:
+            mask = int(np.prod(
+                self.engine.state[Constants.ACTION_MASK].shape[2:]))
+        return get_flattened_obs_size(space), mask
+
+    def _merge_actions(self, per_policy_actions: dict):
+        """What the engine's step takes: the per-policy blocks themselves in
+        the separate mode, else the all-agent tensor."""
+        if self.engine.separate_placeholders:
+            return per_policy_actions
+        return self._scatter_actions(per_policy_actions)
 
     def _action_heads(self, tag: str):
         """Per-component head sizes, dtype and whether the space is Box."""
@@ -514,8 +629,8 @@ class TrainerBase:
     def _act_fn(self, state: dict, use_argmax: bool = True,
                 generator: torch.Generator = None,
                 return_logits: bool = False):  # pragma: no cover
-        """All agents' actions ``(E, N, C)`` for ``state`` (subclass
-        detail): the most likely (or noise-free) action with
+        """All agents' actions for ``state``, ``(E, N, C)`` or in the
+        separate mode ``{tag: (E, A_p, C)}`` (subclass detail): the most likely (or noise-free) action with
         ``use_argmax``, else one drawn from ``generator``.  With
         ``return_logits``, ``(actions, {tag: [(E, A_p, n_i) logits per
         action component]})`` from the same forward (categorical policies
@@ -603,6 +718,8 @@ class TrainerBase:
             if include_rewards_actions:
                 extra.setdefault("_rewards", []).append(
                     engine.rewards_of(state)[env_id])
+                if isinstance(actions, dict):  # the separate mode
+                    actions = self._scatter_actions(actions)
                 extra.setdefault("_actions", []).append(actions[env_id])
             extra["_done"].append(state[Constants.DONE][env_id])
 

@@ -8,7 +8,8 @@ iteration runs, eagerly on the engine's device:
   C)`` for each policy in one draw, then a rollout of
   ``training_batch_size_per_env`` steps of
       observations (split path: ``observe``; full-step path: the ones the
-      last step wrote), the actor's action, Ornstein-Uhlenbeck exploration
+      last step wrote; per policy through ``_policy_obs_and_mask``, in
+      every placeholder mode), the actor's action, Ornstein-Uhlenbeck exploration
       around it, the env step, rewards and done flags, episodic-reward
       bookkeeping and the done-driven auto-reset;
   the replay window: ``T + n_step - 1`` rows, each iteration
@@ -56,7 +57,7 @@ from warpdrive_tpu_torch.training.trainer_base import (
 from warpdrive_tpu_torch.utils.constants import Constants
 
 _DONE = Constants.DONE
-_OBS = Constants.OBSERVATIONS
+_REWARDS = Constants.REWARDS
 _NETS = ("actor", "critic")
 
 
@@ -139,7 +140,6 @@ class TrainerDDPG(TrainerBase):
         self.ou_scale = ParamScheduler(sampler.get("scale", 1.0))
 
         self.engine.reset_all_envs()  # the initial state as built
-        obs_dim = self.engine.state[_OBS].shape[-1]
         init_gen = torch.Generator(device=self.device)
         init_gen.manual_seed(self.seed)
 
@@ -161,6 +161,7 @@ class TrainerDDPG(TrainerBase):
             )
             num_c = len(heads)
             self._num_action_dims[tag] = num_c
+            obs_dim = self._policy_obs_sizes(tag)[0]
             # the Box space's symmetric bound; the config's output_w wins
             high = float(np.max(np.abs(self.act_space[tag].high)))
             model_cfg = policy_cfg["model"]
@@ -207,6 +208,7 @@ class TrainerDDPG(TrainerBase):
         self._window = {}
         for tag, ids in self.policy_tag_to_agent_id_map.items():
             A, C = len(ids), self._num_action_dims[tag]
+            obs_dim = self._policy_obs_sizes(tag)[0]
             self._ou[tag] = torch.zeros((E, A, C), dtype=torch.float32,
                                         device=self.device)
             self._window[f"obs_{tag}"] = torch.zeros(
@@ -247,10 +249,10 @@ class TrainerDDPG(TrainerBase):
             )
         per_policy = {
             tag: self.nets["actor"][tag](
-                torch.index_select(state[_OBS], 1, self._agent_ids[tag]))
+                self._policy_obs_and_mask(state, None, tag)[0])
             for tag in self.policies
         }
-        return self._scatter_actions(per_policy)
+        return self._merge_actions(per_policy)
 
     # ------------------------------------------------------------ rollout
     def _presample_ou_noise(self, stddev) -> dict:
@@ -278,10 +280,10 @@ class TrainerDDPG(TrainerBase):
             for key in ("obs", "actions", "rewards"):
                 rows[f"{key}_{tag}"] = []
         for t in range(T):
-            obs_all = engine.observe(state) if split else state[_OBS]
+            obs_all = engine.observe(state) if split else None
             per_policy = {}
             for tag in self.policies:
-                obs_p = torch.index_select(obs_all, 1, self._agent_ids[tag])
+                obs_p = self._policy_obs_and_mask(state, obs_all, tag)[0]
                 mu = self.nets["actor"][tag](obs_p)
                 acts, self._ou[tag] = sample_ou_process(
                     mu, self._ou[tag], damping=damping, stddev=stddev,
@@ -289,7 +291,7 @@ class TrainerDDPG(TrainerBase):
                 per_policy[tag] = acts
                 rows[f"obs_{tag}"].append(obs_p)
                 rows[f"actions_{tag}"].append(acts)
-            actions = self._scatter_actions(per_policy)
+            actions = self._merge_actions(per_policy)
             state = (engine.step_physics(state, actions) if split
                      else engine.step(state, actions))
 
@@ -297,7 +299,9 @@ class TrainerDDPG(TrainerBase):
             done = state[_DONE]
             for tag in self.policies:
                 rows[f"rewards_{tag}"].append(
-                    torch.index_select(rewards, 1, self._agent_ids[tag]))
+                    state[f"{_REWARDS}_{tag}"]
+                    if engine.separate_placeholders
+                    else torch.index_select(rewards, 1, self._agent_ids[tag]))
             rows["done"].append(done)
 
             # episodic reward bookkeeping
