@@ -157,6 +157,38 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       synthetic landscape with the z-slab 2-6, two atoms) and DummyEnv:
       the CUDA step against the CPU step over 60 rolled states at 10,000
       envs (positions exact, observations and rewards within 1e-6);
+   n. serving: the flagship (1024 envs x 105 agents, fc (256, 256), K1)
+      exports its runner and tagger policies to bundles through a
+      ``TrainerA2C`` holding the preset's parameters, ``load_policy`` reads
+      each back on the card, and for 20 rolled states both bundles'
+      ``act(argmax=True)`` answer the K1 observation batch (102,400 runner
+      and 5,120 tagger requests a step) with the preset's own argmax bit for
+      bit, one K1 launch a step to serve and one to roll; stochastic
+      ``act`` draws in range and, on one state repeated 20,000 times, each
+      head's frequencies within 5 sigma of its softmax; the DDPG actor of
+      ``single_pendulum`` (4h) serves the trainer's noise-free actions bit
+      for bit; ms per request batch by CUDA events;
+   o. the repo's JAX checkpoints (flax msgpack, read by the port's codec)
+      of ``artifacts/cartpole_a2c_cpu``, ``pendulum_ddpg_cpu`` and
+      ``tag_continuous_cpu`` (TagContinuous through K2,
+      ``pallas_mxu_exact``), each trainer built from the artifact's
+      ``run_config.json`` on the card and on the CPU: loaded tensors equal,
+      ``evaluate_episodes`` on both (mean returns and steps printed), and on
+      the CPU episode's states (observed on the card through K2) the card's
+      argmax equal to the CPU's except at near-ties (the CPU's top two
+      logits within 1e-5, counted), DDPG's actions within 1e-5; K2 launches
+      one a step and one for the states;
+   p. the eager host-env backend: ``single_cartpole`` (100 envs x 500
+      steps) with ``trainer.env_backend: cpp``, the C++ stepper on the host
+      and the policy on the card, 2 iterations through ``train()`` (finite
+      losses, moved parameters, a checkpoint, no kNN launch); the C++ step
+      against the Python loop over 50 rolled states (1e-5, done flags
+      equal); env-steps/s and the device's idle share;
+   q. the auto-scaler's probe, after ``torch.cuda.empty_cache()``: the
+      full-observation ``tag_continuous`` config of 4l in a fresh
+      subprocess fits at 100 envs and fails with ``OutOfMemoryError`` at
+      2,000 (168 GB of observations); then the parent allocates 1 GiB and
+      launches K1;
 5. at the main paths' shapes -- (1024, 105, 10) for K1, K3, K6, K7, K8 in
    both modes, K9 in both, K2 and K4, (100, 110, 10) for K2, (256, 1024,
    10) for K1, K4 in both modes, K5 in its four and K9 exact, and the
@@ -343,6 +375,20 @@ FULL_OBS_UPDATE_ENVS = 5
 # the chem-search envs and DummyEnv: the CUDA step against the CPU step at
 # this many envs, on the JAX tests' configs (tests/test_chem_search.py)
 CHEM_ENVS = 10_000
+# serving the flagship's bundles: this many rolled states, and this many
+# draws on one state for each head's frequencies against its softmax
+SERVING_STEPS = 20
+SERVING_DRAWS = 20_000
+# the repo's JAX checkpoints read on the card; a categorical action may
+# differ from the CPU's only where the CPU's top two logits lie this close
+JAX_ARTIFACTS = ("cartpole_a2c_cpu", "pendulum_ddpg_cpu",
+                 "tag_continuous_cpu")
+NEAR_TIE = 1e-5
+# the eager backend's C++ step against its Python loop over this many states
+EAGER_STATES = 50
+# the auto-scaler's probes of the full-observation config: one that fits
+# and one that must run out of memory
+PROBE_ENVS = (100, 2000)
 
 
 def _card_line() -> str:
@@ -2285,6 +2331,401 @@ def _check_ddpg_resume(straight):
     assert diff <= RESUME_PARAM_TOL, f"resumed nets differ by {diff}"
 
 
+def _flagship_trainer(system):
+    """A ``TrainerA2C`` over the flagship ``system``'s engine (two A2C
+    policies with its widths) holding the preset's own parameters: what a
+    user exports bundles from."""
+    from warpdrive_tpu_torch.training.trainer_a2c import TrainerA2C
+
+    fc = list(system["models"]["runner"].fc_dims)
+    E = system["num_envs"]
+    config = {
+        "name": "flagship_serving",
+        "trainer": {"num_envs": E, "train_batch_size": E,
+                    "num_episodes": E, "seed": 0},
+        "policy": {tag: {"to_train": True, "algorithm": "A2C",
+                         "model": {"type": "fully_connected",
+                                   "fc_dims": fc}}
+                   for tag in ("runner", "tagger")},
+        "saving": {},
+    }
+    trainer = TrainerA2C(
+        env_wrapper=system["engine"], config=config,
+        policy_tag_to_agent_id_map={t: v.tolist() for t, v in
+                                    system["policy_ids"].items()},
+        results_dir=tempfile.mkdtemp(prefix="chip_smoke_serving_"),
+        verbose=False)
+    for tag, model in trainer.models.items():
+        model.load_state_dict(system["models"][tag].state_dict())
+    return trainer
+
+
+def _drive_serving(pendulum, card):
+    """Phase 4n: serving at full width.  The flagship (1024 envs x 105
+    agents, fc (256, 256), K1) exports its runner and tagger policies to
+    bundles (``serving.export_policy``), each loaded back on the card
+    (``load_policy``); for ``SERVING_STEPS`` steps the K1 observation batch
+    of the rolled state is answered by both bundles' ``act(argmax=True)``
+    and every action must equal the preset's own argmax from the same
+    parameters bit for bit (102,400 runner and 5,120 tagger requests a
+    step); ``act(argmax=False)`` draws only in-range actions and, on one
+    state repeated ``SERVING_DRAWS`` times, each head's frequencies lie
+    within 5 sigma of its softmax; the DDPG actor of ``single_pendulum``
+    serves exactly the trainer's noise-free actions.  Prints the ms per
+    request batch (CUDA events).  Returns the launches, counted from 0 just
+    before the requests: one K1 launch a step to serve, one to roll."""
+    import torch
+
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.presets import build_flagship
+    from warpdrive_tpu_torch.serving import export_policy, load_policy
+
+    t0 = time.perf_counter()
+    system = build_flagship(num_envs=NUM_ENVS, fc_dims=FC_DIMS, seed=0,
+                            device=DEVICE)
+    trainer = _flagship_trainer(system)
+    bundles = tempfile.mkdtemp(prefix="chip_smoke_bundles_")
+    try:
+        acts = {}
+        for tag in ("runner", "tagger"):
+            export_policy(trainer, tag, str(Path(bundles) / tag))
+            acts[tag], manifest = load_policy(str(Path(bundles) / tag),
+                                              device=DEVICE)
+            assert manifest["fc_dims"] == list(FC_DIMS)
+        pendulum_act, _ = load_policy(
+            export_policy(pendulum, "shared", str(Path(bundles) / "ddpg")),
+            device=DEVICE)
+    finally:
+        shutil.rmtree(bundles, ignore_errors=True)
+    engine, models = system["engine"], system["models"]
+    ids = {t: torch.as_tensor(v, dtype=torch.long, device=DEVICE)
+           for t, v in system["policy_ids"].items()}
+    generator = torch.Generator(device=DEVICE)
+    generator.manual_seed(0)
+    state = system["state"]
+    knn_obs.reset_launch_counts()
+    requests = {tag: 0 for tag in ids}
+    with torch.no_grad():
+        for _ in range(SERVING_STEPS):
+            obs_all = engine.observe(state)
+            for tag, idx in ids.items():
+                obs_p = obs_all[:, idx]
+                served = acts[tag](obs_p)
+                logits_list, _ = models[tag](obs_p)
+                want = torch.stack([lg.argmax(-1).to(torch.int32)
+                                    for lg in logits_list], -1)
+                assert served.dtype == torch.int32 and \
+                    served.device.type == torch.device(DEVICE).type
+                assert torch.equal(served, want), f"served {tag} differs"
+                requests[tag] += obs_p.shape[0] * obs_p.shape[1]
+            state = system["full_loop_step"](models, state, generator)
+    torch.cuda.synchronize()
+    launches = dict(knn_obs.LAUNCH_COUNTS)
+    expected = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
+    expected["knn_obs_flat_exact"] = 2 * SERVING_STEPS
+    assert launches == expected, f"launches {launches}"
+
+    obs_all = engine.observe(state)
+    times = {}
+    for tag, idx in ids.items():
+        obs_p = obs_all[:, idx].contiguous()
+        times[tag] = _cuda_ms(lambda: acts[tag](obs_p), repeats=11, inner=20)
+        draws = acts[tag](obs_p, generator=generator, argmax=False)
+        heads = models[tag].output_dims
+        for h, n in enumerate(heads):
+            assert int(draws[..., h].min()) >= 0 and \
+                int(draws[..., h].max()) < n, f"{tag} head {h} out of range"
+        one = obs_p[:1, :1].expand(SERVING_DRAWS, 1, -1)
+        draws = acts[tag](one, generator=generator, argmax=False)
+        with torch.no_grad():
+            logits_list, _ = models[tag](obs_p[:1, :1])
+        worst = 0.0
+        for h, (n, logits) in enumerate(zip(heads, logits_list)):
+            p = torch.softmax(logits.reshape(-1).double(), -1)
+            freq = torch.bincount(draws[:, 0, h].long(),
+                                  minlength=n).double() / SERVING_DRAWS
+            sigma = torch.sqrt(p * (1 - p) / SERVING_DRAWS)
+            gap = float(((freq - p).abs() / sigma.clamp(min=1e-12)).max())
+            worst = max(worst, gap)
+            assert gap <= 5.0, f"{tag} head {h}: {gap:.2f} sigma"
+        print(f"serving [{tag}]: {requests[tag]} requests over "
+              f"{SERVING_STEPS} steps ({requests[tag] // SERVING_STEPS} a "
+              f"step), every action equal to the preset's argmax bit for "
+              f"bit; {times[tag]:.4f} ms per request batch of "
+              f"{obs_p.shape[0]} x {obs_p.shape[1]} (act, argmax); draws "
+              f"in range, {SERVING_DRAWS} draws on one state within "
+              f"{worst:.2f} sigma of the softmax (bound 5)")
+
+    obs_p, _ = pendulum._policy_obs_and_mask(pendulum.engine.state, None,
+                                             "shared")
+    with torch.no_grad():
+        want = pendulum.nets["actor"]["shared"](obs_p)
+    served = pendulum_act(obs_p)
+    assert torch.equal(served, want), "the DDPG actor bundle differs"
+    ddpg_ms = _cuda_ms(lambda: pendulum_act(obs_p), repeats=11, inner=20)
+    print(f"serving [single_pendulum DDPG actor]: {obs_p.shape[0]} requests "
+          f"equal to the trainer's noise-free actions bit for bit; "
+          f"{ddpg_ms:.4f} ms per request batch; card {card}; phase 4n "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
+def _artifact_config(artifact):
+    """The artifact's ``run_config.json`` as given, its checkpoints named
+    in each policy's ``model_ckpt_filepath``; TagContinuous observes
+    through K2 (``pallas_mxu_exact``, whose exact order selects what
+    ``passes`` selected in training)."""
+    folder = Path(__file__).resolve().parent / "artifacts" / artifact
+    cfg = json.loads((folder / "run_config.json").read_text())
+    for tag, policy in cfg["policy"].items():
+        model = policy["model"]
+        if policy.get("algorithm") == "DDPG":
+            model["model_ckpt_filepath"] = {
+                net: str(next(folder.glob(f"{tag}_{net}_*.state_dict")))
+                for net in ("actor", "critic")}
+        else:
+            model["model_ckpt_filepath"] = str(
+                next(folder.glob(f"{tag}_[0-9]*.state_dict")))
+    if cfg["name"] == "tag_continuous":
+        cfg["env"]["knn_algorithm"] = "pallas_mxu_exact"
+    return cfg
+
+
+def _loaded_nets(card, cpu) -> dict:
+    """``{label: (card module, CPU module)}`` of every net a checkpoint
+    loads: the A2C models, DDPG's actors and critics."""
+    if card.models:
+        return {tag: (m, cpu.models[tag]) for tag, m in card.models.items()}
+    return {f"{tag} {net}": (card.nets[net][tag], cpu.nets[net][tag])
+            for net in ("actor", "critic") for tag in card.policies}
+
+
+def _check_jax_checkpoints():
+    """Phase 4o: the repo's JAX checkpoints (flax msgpack, read by the
+    port's own codec) of ``artifacts/cartpole_a2c_cpu``,
+    ``pendulum_ddpg_cpu`` and ``tag_continuous_cpu``, each trainer built
+    from the artifact's ``run_config.json`` on the card and on the CPU:
+    the loaded tensors equal on both; ``evaluate_episodes`` on both (mean
+    returns and steps printed); on the states of the CPU's fetched episode
+    (observed on the card through K2 for TagContinuous), the card's argmax
+    actions equal the CPU's except where the CPU's top two logits lie
+    within ``NEAR_TIE`` (counted), DDPG's actions within
+    ``UPDATE_PARAM_TOL``.  Returns the launches, counted from 0 just before
+    the card's runs."""
+    import numpy as np
+    import torch
+
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.training.scripts.train import setup_trainer
+
+    t0 = time.perf_counter()
+    total = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
+    for artifact in JAX_ARTIFACTS:
+        cfg = _artifact_config(artifact)
+        dirs, trainers = [], {}
+        try:
+            for device in (DEVICE, "cpu"):
+                dirs.append(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+                trainers[device] = setup_trainer(
+                    copy.deepcopy(cfg), results_dir=dirs[-1], verbose=False,
+                    device=device)
+        finally:
+            for d in dirs:
+                shutil.rmtree(d, ignore_errors=True)
+        card, cpu = trainers[DEVICE], trainers["cpu"]
+        assert card.current_timestep == cpu.current_timestep > 0
+        for label, (ours, theirs) in _loaded_nets(card, cpu).items():
+            for key, value in ours.state_dict().items():
+                assert torch.equal(value.cpu(), theirs.state_dict()[key]), \
+                    f"{artifact} {label} {key}"
+
+        knn_obs.reset_launch_counts()
+        (rew, steps), card_s = _timed(card.evaluate_episodes)
+        cpu_rew, cpu_steps = cpu.evaluate_episodes()
+        names = [k for k in cpu.engine.state]
+        episode = cpu.fetch_episode_states(names, env_id=0)
+        host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in episode.items()}
+        on_card = {k: v.to(DEVICE) for k, v in host.items()}
+        split = card.engine.has_split_step
+        obs_card = card.engine.observe(on_card) if split else None
+        obs_cpu = cpu.engine.observe(host) if split else None
+        torch.cuda.synchronize()
+        launches = dict(knn_obs.LAUNCH_COUNTS)
+        total = {k: total[k] + v for k, v in launches.items()}
+        T = card.engine.episode_length
+        expected = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
+        if split:
+            expected["knn_obs_mxu"] = T + 1
+        assert launches == expected, f"{artifact}: launches {launches}"
+
+        near_ties = compared = 0
+        worst = 0.0
+        for tag in card.policies:
+            ours = card._policy_obs_and_mask(on_card, obs_card, tag)[0]
+            theirs = cpu._policy_obs_and_mask(host, obs_cpu, tag)[0]
+            with torch.no_grad():
+                if tag in card.models:
+                    got = [lg.cpu() for lg in card.models[tag](ours)[0]]
+                    want = cpu.models[tag](theirs)[0]
+                else:
+                    got = [card.nets["actor"][tag](ours).cpu()]
+                    want = [cpu.nets["actor"][tag](theirs)]
+            for g, w in zip(got, want):
+                if tag not in card.models:
+                    worst = max(worst, float((g - w).abs().max()))
+                    compared += w.numel()
+                    continue
+                top2 = torch.topk(w, 2, dim=-1).values
+                tie = (top2[..., 0] - top2[..., 1]) <= NEAR_TIE
+                differ = g.argmax(-1) != w.argmax(-1)
+                assert not bool((differ & ~tie).any()), \
+                    f"{artifact} {tag}: actions differ outside near-ties"
+                near_ties += int(tie.sum())
+                compared += tie.numel()
+        assert worst <= UPDATE_PARAM_TOL, f"{artifact}: DDPG {worst}"
+        means = {tag: (float(rew[tag].mean()), float(cpu_rew[tag].mean()))
+                 for tag in sorted(rew)}
+        print(f"JAX checkpoint [{artifact}] (timestep "
+              f"{card.current_timestep}) loaded on the card and the CPU, "
+              f"tensors equal; evaluate_episodes on the card "
+              f"{card_s:.3f} s: "
+              + "; ".join(f"{tag} mean return card {c:.4f} / CPU {h:.4f}"
+                          for tag, (c, h) in means.items())
+              + f"; mean steps card "
+              f"{float(next(iter(steps.values())).mean()):.2f} / CPU "
+              f"{float(next(iter(cpu_steps.values())).mean()):.2f}; the "
+              f"CPU episode's {host[names[0]].shape[0]} states: "
+              f"{compared} actions compared, {near_ties} near-ties (CPU top "
+              f"two within {NEAR_TIE}), DDPG max abs diff {worst:.3g}; "
+              f"launches {launches}")
+    print(f"phase 4o {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def _drive_eager_backend():
+    """Phase 4p: the eager host-env backend.  ``single_cartpole`` at its
+    run config's size (100 envs x 500 steps) with ``trainer.env_backend:
+    cpp`` (``CpuEnvEngine(native=True)``: the C++ stepper on the host, the
+    policy and update on the card) for 2 iterations through
+    ``setup_trainer`` and ``train()``: finite losses, moved parameters, a
+    checkpoint, no kNN launch; the C++ step against the Python loop over
+    ``EAGER_STATES`` rolled states at that size (state within
+    ``CLASSIC_STEP_TOL``, done flags equal); env-steps/s and the device's
+    idle share over one more iteration.  Returns the launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from warpdrive_tpu_torch.envs.cpu_engine import CpuEnvEngine
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.utils.constants import Constants
+
+    t0 = time.perf_counter()
+    cfg = _iters_config("single_cartpole", 2)
+    cfg["trainer"]["env_backend"] = "cpp"
+    trainer, launches, times = _drive_training(cfg)
+    assert isinstance(trainer.engine, CpuEnvEngine)
+    assert trainer.engine._native is not None
+    assert launches == {name: 0 for name in knn_obs.LAUNCH_COUNTS}, launches
+    E = trainer.num_envs
+    T = trainer.training_batch_size_per_env
+
+    # seeded: an unseeded env draws its own pool and starts
+    engines = [CpuEnvEngine(env_name="ClassicControlCartPoleEnv",
+                            env_config=dict(cfg["env"], seed=5), num_envs=E,
+                            native=native, device=DEVICE)
+               for native in (True, False)]
+    assert engines[0]._native is not None and engines[1]._native is None
+    rng = np.random.default_rng(0)
+    worst, resets = 0.0, 0
+    for _ in range(EAGER_STATES):
+        actions = rng.integers(0, 2, (E, 1, 1)).astype(np.int32)
+        fast, loop = (eng.step_all_envs(actions) for eng in engines)
+        for key in (Constants.OBSERVATIONS, Constants.REWARDS):
+            worst = max(worst, float((fast[key] - loop[key]).abs().max()))
+        assert torch.equal(fast[Constants.DONE], loop[Constants.DONE])
+        resets += int(loop[Constants.DONE].sum())
+        for eng in engines:
+            eng.reset_only_done_envs()
+    assert worst <= CLASSIC_STEP_TOL, f"C++ vs Python loop {worst}"
+
+    roll_ms, upd_ms, rate = _training_means(trainer)
+    timestep = trainer.current_timestep
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    trainer._iteration(timestep)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - start)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer._iteration(timestep)
+        torch.cuda.synchronize()
+    device_ms = _device_ms(prof)
+    print(f"eager backend [single_cartpole, C++ stepper on the host, "
+          f"{E} envs x {T} steps]: {trainer.num_iters} iterations in "
+          f"{times['train_s']:.3f} s; iteration 2: rollout {roll_ms:.3f} ms, "
+          f"update {upd_ms:.3f} ms, {rate:.0f} env-steps/s; one more "
+          f"iteration {wall_ms:.3f} ms wall, {E * T / (wall_ms / 1e3):.0f} "
+          f"env-steps/s, device {device_ms:.3f} ms (profiler), device idle "
+          f"share {100 * (1 - device_ms / wall_ms):.1f}%; C++ step vs "
+          f"Python loop over {EAGER_STATES} states at {E} envs: max abs "
+          f"diff {worst:.3g} (tolerance {CLASSIC_STEP_TOL}), done flags "
+          f"equal, {resets} resets; phase 4p "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
+def _check_autoscaler_probes(system, generator):
+    """Phase 4q: the auto-scaler's probe on the card, after the parent
+    frees its allocator's cache.  The full-observation ``tag_continuous``
+    config of 4l (250 steps an env) probed in a fresh subprocess at 100
+    envs must fit, and at 2,000 envs (250 x 2000 x 110 x 764 x 4 B = 168 GB
+    of observation batch alone) must fail with ``OutOfMemoryError`` in its
+    output; then the parent still allocates and launches K1."""
+    import torch
+
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.tools.autoscaler import run_probe
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = _iters_config("tag_continuous", 1, use_full_observation=True)
+    steps = cfg["trainer"]["train_batch_size"] // cfg["trainer"]["num_envs"]
+    results = {}
+    for envs in PROBE_ENVS:
+        trial = copy.deepcopy(cfg)
+        trial["trainer"]["num_envs"] = envs
+        trial["trainer"]["train_batch_size"] = envs * steps
+        results[envs] = run_probe(trial, device=DEVICE, timeout_s=600)
+        last = [line for line in results[envs]["output"].splitlines()
+                if line.startswith("PROBE_")]
+        print(f"autoscaler probe [tag_continuous full observation, {envs} "
+              f"envs x {steps} steps]: fits {results[envs]['fits']}, "
+              f"{results[envs]['seconds']:.1f} s, "
+              f"{last[-1][:200] if last else 'no PROBE line'}")
+    fit, oom = (results[e] for e in PROBE_ENVS)
+    assert fit["fits"] and fit["steps_per_sec"], fit["output"][-3000:]
+    assert not oom["fits"] and "OutOfMemoryError" in oom["output"], \
+        oom["output"][-3000:]
+
+    knn_obs.reset_launch_counts()
+    probe = torch.ones((1 << 28,), device=DEVICE)  # 1 GiB
+    assert float(probe.sum()) == float(1 << 28)
+    del probe
+    checksum = torch.zeros((), device=DEVICE)
+    system["state"], checksum = system["env_only_step"](
+        (system["state"], checksum), generator)
+    torch.cuda.synchronize()
+    assert torch.isfinite(checksum)
+    assert knn_obs.LAUNCH_COUNTS["knn_obs_flat_exact"] == 1
+    print(f"autoscaler probes: the parent held {held / 1e9:.3f} GB after "
+          f"freeing its cache; afterwards it allocated 1 GiB and launched "
+          f"K1 (checksum finite); phase 4q {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2463,6 +2904,22 @@ def main(argv=None) -> int:
     # 4m. the chem-search envs and DummyEnv, counts from 0
     chem_launches = _check_chem_and_dummy_steps()
 
+    # 4n. serving the flagship's bundles at full width (K1) and the DDPG
+    # actor's, counts from 0
+    serving_launches = _drive_serving(ddpg_trainers["single_pendulum"], card)
+
+    # 4o. the repo's JAX checkpoints on the card and the CPU (K2), counts
+    # from 0
+    ckpt_launches = _check_jax_checkpoints()
+
+    # 4p. the eager host-env backend with the C++ steppers, counts from 0
+    eager_launches = _drive_eager_backend()
+
+    # 4q. the auto-scaler's probes in subprocesses, then the parent's
+    # health; the full-observation batch (8.4 GB) is made again at need
+    full_obs._batch = None
+    _check_autoscaler_probes(system, generator)
+
     # 5. kernel vs plain and their times at the main paths' shapes
     many_args = _knn_args(many["pallas_flat_exact"]["env"],
                           many["pallas_flat_exact"]["state"])
@@ -2623,14 +3080,15 @@ def main(argv=None) -> int:
         ]
         _profile(windows)
 
-    # launches on the main paths: 4a, 4c and 4j for K1, 4b and 4i for K2,
-    # 4d for K3, 4c for K4 and K5, 4e for K6-K8, 4c and 4e for K9; 4k-4m
-    # launch none
+    # launches on the main paths: 4a, 4c, 4j and 4n for K1, 4b, 4i and 4o
+    # for K2, 4d for K3, 4c for K4 and K5, 4e for K6-K8, 4c and 4e for K9;
+    # 4k-4m and 4p launch none
     all_launches = {name: launches[name] + train_launches[name]
                     + item9_launches[name] + fast_launches[name]
                     + tuned_launches[name] + tuned_rec_launches[name]
                     + pursuit_launches[name] + full_obs_launches[name]
-                    + chem_launches[name]
+                    + chem_launches[name] + serving_launches[name]
+                    + ckpt_launches[name] + eager_launches[name]
                     + sum(c[name] for c in many_launches.values())
                     + sum(c[name] for c in knn_launches.values())
                     for name in knn_obs.LAUNCH_COUNTS}

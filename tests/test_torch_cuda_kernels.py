@@ -7,7 +7,8 @@ the training rollout and the evaluation and episode fetching of
 kernel), TagGridWorld's and CartPole's steps on the card against the CPU's
 and the observation refresh after a pool reset, and DDPG's warm-up gate,
 its update against the CPU's and a full-state resume, and the ring
-buffer's storage on the card.
+buffer's storage on the card; a served bundle, the repo's JAX checkpoints
+(K2) and the eager host-env backend with the policy on the card.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The file imports no JAX,
 so on a machine with a card and no JAX it runs without the repo's
@@ -690,3 +691,83 @@ def test_pool_reset_refreshes_observations_on_card(card, env):
     assert check_pool_reset(engine, state) == 1024
     done = torch.rand((1024,), generator=gen, device=card) < 0.3
     assert check_pool_reset(engine, state, done=done) == int(done.sum())
+
+
+# serving, the JAX package's checkpoints and the eager host-env backend on
+# the card (PR 13; no new kernel)
+@pytest.mark.cuda
+def test_serving_bundle_on_card_matches_cpu(card, tmp_path):
+    """A CartPole policy exported by ``export_policy`` and loaded on the
+    card and on the CPU: the card answers with int32 tensors on the card,
+    the same argmax actions as the CPU and as the trainer's own."""
+    from warpdrive_tpu_torch.serving import export_policy, load_policy
+
+    cfg = load_run_config("single_cartpole")
+    cfg["trainer"].update({"num_envs": 256, "train_batch_size": 2560,
+                           "num_episodes": 100})
+    cfg["env"].update({"episode_length": 50, "seed": 5})
+    trainer = setup_trainer(cfg, verbose=False, device=card,
+                            results_dir=str(tmp_path / "r"))
+    bundle = export_policy(trainer, "shared", str(tmp_path / "bundle"))
+    act, _ = load_policy(bundle, device=card)
+    act_cpu, _ = load_policy(bundle, device="cpu")
+    obs, _ = trainer._policy_obs_and_mask(trainer.engine.state, None,
+                                          "shared")
+    served = act(obs)
+    assert served.device.type == "cuda" and served.dtype == torch.int32
+    assert torch.equal(served, trainer._act_fn(trainer.engine.state))
+    assert torch.equal(served.cpu(), act_cpu(obs.cpu()))
+
+
+@pytest.mark.cuda
+def test_jax_checkpoint_evaluates_on_card_through_k2(card, tmp_path):
+    """The repo's JAX-trained ``tag_continuous`` policies (flax files) load
+    on the card from the artifact's run config and evaluate with one K2
+    launch a step (``pallas_mxu_exact``)."""
+    import json
+    from pathlib import Path
+
+    from warpdrive_tpu_torch.models.fully_connected import params_from_flax
+    from warpdrive_tpu_torch.utils import flax_msgpack
+
+    folder = Path(__file__).resolve().parent.parent / "artifacts" / \
+        "tag_continuous_cpu"
+    cfg = json.loads((folder / "run_config.json").read_text())
+    cfg["env"]["knn_algorithm"] = "pallas_mxu_exact"
+    for tag, policy in cfg["policy"].items():
+        policy["model"]["model_ckpt_filepath"] = str(
+            next(folder.glob(f"{tag}_[0-9]*.state_dict")))
+    trainer = setup_trainer(cfg, verbose=False, device=card,
+                            results_dir=str(tmp_path / "r"))
+    for tag, model in trainer.models.items():
+        want = params_from_flax(flax_msgpack.read_file(
+            cfg["policy"][tag]["model"]["model_ckpt_filepath"]))
+        for key, value in model.state_dict().items():
+            assert torch.equal(value.cpu(), want[key]), (tag, key)
+    knn_obs.reset_launch_counts()
+    rew, _ = trainer.evaluate_episodes()
+    assert knn_obs.LAUNCH_COUNTS == dict(
+        _NO_LAUNCHES, knn_obs_mxu=trainer.engine.episode_length)
+    assert all(np.isfinite(r).all() for r in rew.values())
+
+
+@pytest.mark.cuda
+def test_eager_backend_trains_with_the_policy_on_card(card, tmp_path):
+    """``single_cartpole`` with ``env_backend: cpp``: the C++ stepper on the
+    host, the engine's outputs and the model on the card, 2 iterations,
+    finite losses, no kNN launch."""
+    from warpdrive_tpu_torch.envs.cpu_engine import CpuEnvEngine
+
+    cfg = load_run_config("single_cartpole")
+    cfg["trainer"].update({"num_envs": 64, "train_batch_size": 640,
+                           "num_episodes": 26, "env_backend": "cpp"})
+    cfg["env"].update({"episode_length": 50})
+    knn_obs.reset_launch_counts()
+    trainer = setup_trainer_and_train(cfg, verbose=False, device=card,
+                                      results_dir=str(tmp_path / "r"))
+    assert isinstance(trainer.engine, CpuEnvEngine)
+    assert trainer.engine._native is not None
+    assert trainer.iters_completed == 2
+    assert all(v.device.type == "cuda"
+               for v in trainer.engine.state.values())
+    assert knn_obs.LAUNCH_COUNTS == _NO_LAUNCHES

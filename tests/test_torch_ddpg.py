@@ -596,12 +596,16 @@ def test_cli_trains_the_ddpg_configs_on_the_cpu(name, tmp_path):
 
 
 @pytest.mark.parametrize("where,key,value,item", [
-    ("trainer", "env_backend", "cpu", "item 12"),
-    ("trainer", "env_backend", "cpp", "item 12")])
+    ("trainer", "env_backend", "cpu", "eager"),
+    ("trainer", "env_backend", "cpp", "eager")])
 def test_ddpg_left_out_options_raise(where, key, value, item, tmp_path):
+    """The eager host-env backend is ported: DDPG builds on it, and what
+    it leaves out there (full-state checkpoints) raises."""
     cfg = _config(port_config.load_run_config)
     node = cfg["policy"]["shared"] if where == "policy" else cfg["trainer"]
     node[key] = value
+    trainer = port_train.setup_trainer(cfg, verbose=False, device="cpu",
+                                       results_dir=str(tmp_path / "x"))
+    assert isinstance(trainer, TrainerDDPG) and trainer._is_eager
     with pytest.raises(NotImplementedError, match=item):
-        port_train.setup_trainer(cfg, verbose=False, device="cpu",
-                                 results_dir=str(tmp_path / "x"))
+        trainer.save_full_state()

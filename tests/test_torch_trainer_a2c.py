@@ -196,18 +196,26 @@ def test_cli_main_on_a_tiny_config(tmp_path):
     assert trainer.training_batch_size_per_env == 50
     assert trainer.iters_completed == 2
     assert "tagger_400.state_dict" in os.listdir(tmp_path / "cli")
-    for flags, item in ((["-n", "2"], "11"), (["-a"], "12"),
+    # -a runs the auto-scaler (tests/test_torch_autoscaler.py)
+    for flags, item in ((["-n", "2"], "11"),
                         (["--coordinator", "localhost:1234"], "11")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             port_train.main(["-e", str(path), "--device", "cpu", *flags])
 
 
 def test_left_out_features_raise(tmp_path):
+    # the eager host-env backend is ported: both names build it, "cpp"
+    # with the C++ steppers required
     for backend in ("cpu", "cpp"):
         cfg = _config(port_config.load_run_config, env_backend=backend)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            port_train.setup_trainer(cfg, results_dir=str(tmp_path / "x"),
-                                     device="cpu")
+        trainer = port_train.setup_trainer(
+            cfg, results_dir=str(tmp_path / backend), verbose=False,
+            device="cpu")
+        assert trainer._is_eager and trainer.engine._native is not None
+    with pytest.raises(NotImplementedError, match="item 11"):
+        port_train.setup_trainer(_config(port_config.load_run_config),
+                                 num_devices=2, device="cpu",
+                                 results_dir=str(tmp_path / "n2"))
     # the update options and profile_phases are ported: they build and run
     cfg = _config(port_config.load_run_config, update_recompute_obs=True,
                   batch_dtype="bfloat16", num_episodes=10)

@@ -40,6 +40,7 @@ from warpdrive_tpu_torch.core.state import StateStore
 from warpdrive_tpu_torch.training.data_loader import (
     create_and_push_data_placeholders,
 )
+from warpdrive_tpu_torch.utils.argument_fix import Argfix
 from warpdrive_tpu_torch.utils.constants import Constants
 from warpdrive_tpu_torch.utils.device import resolve_device
 from warpdrive_tpu_torch.utils.env_registrar import (
@@ -65,14 +66,22 @@ def _infer_agent_space(example_obs):
 
 class EnvEngine:
     """Vectorized environment engine over ``num_envs`` replicas on
-    ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``)."""
+    ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``).
 
+    ``env_backend`` is ``"torch"``, the port's name for the device backend
+    (the JAX engine's ``"tpu"``); the deprecated boolean ``use_cuda`` is
+    read as ``env_backend`` (True: this backend).  The numpy reference envs
+    on the host are :class:`~warpdrive_tpu_torch.envs.cpu_engine.
+    CpuEnvEngine`'s."""
+
+    @Argfix(old_name="use_cuda", new_name="env_backend")
     def __init__(
         self,
         env_obj=None,
         env_name: str = None,
         env_config: dict = None,
         num_envs: int = 2,
+        env_backend: str = "torch",
         env_registrar=None,
         seed: int = 0,
         policy_tag_to_agent_id_map: dict = None,
@@ -80,6 +89,15 @@ class EnvEngine:
         obs_dim_corresponding_to_num_agents: str = "first",
         device="cuda",
     ):
+        if isinstance(env_backend, bool):
+            env_backend = "torch" if env_backend else "cpu"
+        if env_backend != "torch":
+            raise ValueError(
+                f"EnvEngine runs the device backend 'torch', got "
+                f"{env_backend!r}; the numpy reference envs run on the host "
+                "through envs.cpu_engine.CpuEnvEngine"
+            )
+        self.env_backend = env_backend
         self.device = resolve_device(device)
         registrar = env_registrar or default_registrar
         if env_obj is None:

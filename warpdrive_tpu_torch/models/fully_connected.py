@@ -245,6 +245,23 @@ def params_from_flax(tree: dict) -> dict:
     return state
 
 
+def params_to_flax(state_dict: dict) -> dict:
+    """The inverse of :func:`params_from_flax`: ``{"params": {name:
+    {"kernel" (in, out), "bias"}}}`` as float32 numpy arrays, layers in the
+    modules' order and ``kernel`` before ``bias``, the order flax's
+    ``init`` gives."""
+    params = {}
+    for key, tensor in state_dict.items():
+        name, kind = key.rsplit(".", 1)
+        leaf = params.setdefault(name, {"kernel": None, "bias": None})
+        array = tensor.detach().to("cpu", torch.float32).numpy()
+        if kind == "weight":
+            leaf["kernel"] = np.ascontiguousarray(array.T)
+        else:
+            leaf["bias"] = array.copy()
+    return {"params": params}
+
+
 def adam_state_from_optax(opt_state) -> dict:
     """The port's optimizer state (``training/trainer_a2c.py:ClippedAdam``)
     from the JAX trainer's per-policy optax state, given as numpy arrays:

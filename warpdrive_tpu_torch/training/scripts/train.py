@@ -18,9 +18,16 @@ action mask), ``tag_gridworld``, ``tag_gridworld_with_reset_pool``,
 shared policy), and the DDPG ones, ``single_pendulum`` and
 ``single_continuous_mountain_car``.  A config whose policies all name
 ``algorithm: DDPG`` trains with :class:`TrainerDDPG`, any other with
-:class:`TrainerA2C`.  The device mesh (``-n``), the auto-scaler (``-a``)
-and the multi-host flags raise ``NotImplementedError`` naming their
-ROADMAP items.
+:class:`TrainerA2C`.
+
+``trainer.env_backend`` picks the engine: ``"cpu"`` the eager host-env
+backend (:class:`CpuEnvEngine` over the numpy reference envs, with the C++
+steppers where they build), ``"cpp"`` the same with the C++ steppers
+required; anything else (the JAX configs say ``"tpu"``) the device engine.
+``-a/--auto_scale`` runs the vertical auto-scaler first
+(:mod:`warpdrive_tpu_torch.tools.autoscaler`: subprocess probes of one
+iteration each on ``--device``).  The device mesh (``-n``) and the
+multi-host flags raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import argparse
 import logging
 
 from warpdrive_tpu_torch.envs import register_all_envs
+from warpdrive_tpu_torch.envs.cpu_engine import CpuEnvEngine
 from warpdrive_tpu_torch.envs.engine import EnvEngine
 from warpdrive_tpu_torch.training.trainer_base import not_ported
 from warpdrive_tpu_torch.utils.config import load_run_config
@@ -73,26 +81,38 @@ def setup_trainer(
     results_dir: str = None,
     verbose: bool = True,
     device="cuda",
+    env_setup: tuple = None,
 ):
-    """Build engine and trainer from a merged run config (no training)."""
+    """Build engine and trainer from a merged run config (no training).
+    ``env_setup`` ``(registered env name, policy-map kind)`` overrides the
+    one the config's name selects."""
     register_all_envs()
     name = run_config.get("name")
     if name in _NOT_PORTED:
         raise not_ported(f"run config {name!r}", _NOT_PORTED[name])
-    env_name, policy_kind = _ENV_SETUPS[name]
+    env_name, policy_kind = (env_setup or _ENV_SETUPS[name])[:2]
 
-    env_cls = env_registrar.get(env_name, backend="torch")
+    backend = run_config["trainer"].get("env_backend")
+    eager = backend in ("cpu", "cpp")
+    env_cls = env_registrar.get(env_name, backend="cpu" if eager else "torch")
     env = env_cls(**run_config.get("env", {}))
     policy_map = build_policy_map(policy_kind, env)
     separate = policy_kind == "separate"
-    engine = EnvEngine(
-        env_obj=env,
-        num_envs=run_config["trainer"]["num_envs"],
-        seed=int(run_config["trainer"].get("seed", 0)),
-        policy_tag_to_agent_id_map=policy_map if separate else None,
-        create_separate_placeholders_for_each_policy=separate,
-        device=device,
-    )
+    if eager:
+        engine = CpuEnvEngine(
+            env_obj=env, env_config=run_config.get("env", {}),
+            num_envs=run_config["trainer"]["num_envs"],
+            native=True if backend == "cpp" else "auto", device=device,
+        )
+    else:
+        engine = EnvEngine(
+            env_obj=env,
+            num_envs=run_config["trainer"]["num_envs"],
+            seed=int(run_config["trainer"].get("seed", 0)),
+            policy_tag_to_agent_id_map=policy_map if separate else None,
+            create_separate_placeholders_for_each_policy=separate,
+            device=device,
+        )
 
     algorithms = {str(p.get("algorithm", "A2C")).upper()
                   for p in run_config["policy"].values()}
@@ -121,11 +141,12 @@ def setup_trainer_and_train(
     results_dir: str = None,
     verbose: bool = True,
     device="cuda",
+    env_setup: tuple = None,
 ):
     """Build engine and trainer from a merged run config and train."""
     trainer = setup_trainer(
         run_config, num_devices=num_devices, results_dir=results_dir,
-        verbose=verbose, device=device,
+        verbose=verbose, device=device, env_setup=env_setup,
     )
     trainer.train()
     return trainer
@@ -134,11 +155,13 @@ def setup_trainer_and_train(
 def main(argv=None):
     parser = argparse.ArgumentParser(description="warpdrive-tpu-torch training")
     parser.add_argument("-e", "--env", required=True,
-                        help="run config name or path")
+                        help="a run config's path or name: "
+                             + ", ".join(sorted(_ENV_SETUPS)))
     parser.add_argument("-n", "--num_devices", type=int, default=1,
                         help="devices in the mesh (not ported: 1 only)")
     parser.add_argument("-a", "--auto_scale", action="store_true",
-                        help="auto-scaler (not ported)")
+                        help="search the largest num_envs and batch that "
+                             "fit on --device before training")
     parser.add_argument("--num_episodes", type=int, default=None)
     parser.add_argument("--num_envs", type=int, default=None,
                         help="env replicas; train_batch_size stays, so the "
@@ -155,8 +178,6 @@ def main(argv=None):
 
     if args.num_devices > 1:
         raise not_ported("-n/--num_devices > 1", "11")
-    if args.auto_scale:
-        raise not_ported("-a/--auto_scale", "12")
     if args.coordinator or args.num_processes or args.process_id:
         raise not_ported("multi-host training", "11")
 
@@ -166,6 +187,13 @@ def main(argv=None):
         run_config["trainer"]["num_episodes"] = args.num_episodes
     if args.num_envs is not None:
         run_config["trainer"]["num_envs"] = args.num_envs
+    if args.auto_scale:
+        from warpdrive_tpu_torch.tools.autoscaler import (
+            perform_auto_vertical_scaling,
+        )
+
+        run_config = perform_auto_vertical_scaling(run_config,
+                                                   device=args.device)
     return setup_trainer_and_train(
         run_config, results_dir=args.results_dir, device=args.device
     )

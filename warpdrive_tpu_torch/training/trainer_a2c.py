@@ -444,7 +444,8 @@ class TrainerA2C(TrainerBase):
             self._batch = self._make_batch()
         batch = self._batch
         engine = self.engine
-        state = self._env_state
+        # the eager backend's engine holds the rollout's state itself
+        state = dict(engine.state) if self._is_eager else self._env_state
         split = engine.has_split_step
         for t in range(self.training_batch_size_per_env):
             if self._recompute_obs:
@@ -471,8 +472,11 @@ class TrainerA2C(TrainerBase):
                 batch[f"actions_{tag}"][t] = acts
                 per_policy[tag] = acts
             actions_all = self._merge_actions(per_policy)
-            state = (engine.step_physics(state, actions_all) if split
-                     else engine.step(state, actions_all))
+            if self._is_eager:  # the actions to the host, one host step
+                state = engine.step_all_envs(actions_all)
+            else:
+                state = (engine.step_physics(state, actions_all) if split
+                         else engine.step(state, actions_all))
 
             rewards = engine.rewards_of(state)
             done = state[_DONE]
@@ -492,7 +496,11 @@ class TrainerA2C(TrainerBase):
             self._ep_count = self._ep_count + done_mask.sum()
             self._ep_acc = self._ep_acc * (1.0 - done_mask)[:, None]
 
-            state = engine.auto_reset(state, self.generator)
+            if self._is_eager:
+                engine.reset_only_done_envs()
+                state = dict(engine.state)
+            else:
+                state = engine.auto_reset(state, self.generator)
         self._env_state = state
         # keep the engine facade on the live state; on the split path
         # observations and actions are not carried and keep their

@@ -33,12 +33,20 @@ F)`` (shared Box or Dict, separate Box or Dict, agent-dim-first or -last),
 with its action mask ``(E, A_p, M)`` from a Dict's ``action_mask`` key or a
 shared ``action_mask`` state array.
 
-Left out, each raising ``NotImplementedError`` that names its ROADMAP item:
-``num_devices > 1`` (item 11) and the eager host-env backend (item 12).
+On the eager host-env backend (an engine with ``is_eager``,
+:class:`~warpdrive_tpu_torch.envs.cpu_engine.CpuEnvEngine`) the rollout
+steps the engine itself, one host step a rollout step; evaluation and
+episode fetching run on the live engine between a snapshot of it and its
+restore; the episode logger and full-state checkpoints need the device
+engine and raise there, as the JAX package asserts.
+
+Left out, raising ``NotImplementedError`` that names its ROADMAP item:
+``num_devices > 1`` (item 11).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -48,7 +56,9 @@ import numpy as np
 import torch
 
 from warpdrive_tpu_torch.core.episode_log import EpisodeLogger
+from warpdrive_tpu_torch.models.fully_connected import params_from_flax
 from warpdrive_tpu_torch.training.data_loader import policy_agent_groups
+from warpdrive_tpu_torch.utils import flax_msgpack
 from warpdrive_tpu_torch.utils.constants import Constants
 from warpdrive_tpu_torch.utils.spaces import (
     Box,
@@ -202,8 +212,9 @@ class TrainerBase:
 
         # ---------------- config unpack and batch algebra -------------------
         trainer_cfg = config["trainer"]
-        if trainer_cfg.get("env_backend") in ("cpu", "cpp"):
-            raise not_ported("the eager host-env backend", "12")
+        # the eager host-env backend: numpy envs stepped on the host, one
+        # step a rollout step
+        self._is_eager = bool(getattr(self.engine, "is_eager", False))
         self.num_envs = int(trainer_cfg["num_envs"])
         assert self.num_envs == self.engine.n_envs
         self.num_episodes = int(trainer_cfg["num_episodes"])
@@ -564,7 +575,19 @@ class TrainerBase:
             timesteps.add(_timestep_of(path))
         self._resume_timestep(timesteps)
 
-    def _load(self, path: str):
+    def _load(self, path: str) -> dict:
+        """A net's ``state_dict`` from ``path``: a torch file (a zip,
+        ``PK``), as this package saves, or a flax msgpack file (its first
+        byte opens a msgpack map), as the JAX package saves, read through
+        :mod:`utils.flax_msgpack` and ``params_from_flax``."""
+        with open(path, "rb") as f:
+            head = f.read(2)
+        if flax_msgpack.is_msgpack_map(head):
+            state = params_from_flax(flax_msgpack.read_file(path))
+            return {k: v.to(self.device) for k, v in state.items()}
+        if head != b"PK":
+            raise ValueError(f"{path}: neither a torch file nor a flax "
+                             "msgpack file")
         return torch.load(path, map_location=self.device, weights_only=True)
 
     def _resume_timestep(self, timesteps: set):
@@ -587,7 +610,9 @@ class TrainerBase:
         iteration count, every generator's state, and the store's at-reset
         snapshot and reset pools (an env built without a seed draws its own)
         -- so that a fresh trainer built from the same config resumes
-        exactly where this one stands.  Returns the path."""
+        exactly where this one stands.  Returns the path.  Not on the eager
+        backend, whose env state is Python objects."""
+        self._assert_device_engine("full-state checkpointing")
         path = path or os.path.join(
             self.save_dir, f"full_state_{self.current_timestep}.ckpt")
         store = self.engine.store
@@ -607,6 +632,7 @@ class TrainerBase:
 
     def load_full_state(self, path: str):
         """Restore a :meth:`save_full_state` checkpoint."""
+        self._assert_device_engine("full-state checkpointing")
         payload = torch.load(path, map_location="cpu", weights_only=True)
         self._load_training_state(_to_device(payload["training"],
                                              self.device))
@@ -637,11 +663,34 @@ class TrainerBase:
         only)."""
         raise NotImplementedError
 
-    def _episode_start(self) -> dict:
-        """Force-reset the engine's own state (not the trainer's rollout
-        state) and return a copy to step an episode from."""
-        self.engine.reset_all_envs()
-        return dict(self.engine.state)
+    def _assert_device_engine(self, what: str):
+        if self._is_eager:
+            raise NotImplementedError(
+                f"{what} needs the device engine (EnvEngine); the eager "
+                "host-env backend does not support it")
+
+    @contextlib.contextmanager
+    def _episode(self):
+        """A copy of a forced reset of the engine's own state (not the
+        trainer's rollout state) to step an episode from.  The eager
+        backend's engine is the rollout's too: it is snapshot before and
+        restored after."""
+        snap = (self.engine.snapshot_runtime_state() if self._is_eager
+                else None)
+        try:
+            self.engine.reset_all_envs()
+            yield dict(self.engine.state)
+        finally:
+            if snap is not None:
+                self.engine.restore_runtime_state(snap)
+
+    def _episode_step(self, state: dict, actions) -> dict:
+        """One step of an evaluation or fetched episode: the engine's pure
+        ``step``, or on the eager backend a step of the live engine."""
+        if self._is_eager:
+            self.engine.step_all_envs(actions)
+            return dict(self.engine.state)
+        return self.engine.step(state, actions)
 
     @torch.no_grad()
     def evaluate_episodes(self, use_argmax: bool = True):
@@ -657,18 +706,18 @@ class TrainerBase:
         """
         engine = self.engine
         E, N = self.num_envs, engine.n_agents
-        state = self._episode_start()
         alive = torch.ones((E,), dtype=torch.bool, device=self.device)
         rew_sum = torch.zeros((E, N), dtype=torch.float32, device=self.device)
         step_sum = torch.zeros((E,), dtype=torch.int32, device=self.device)
-        for _ in range(engine.episode_length):
-            actions = self._act_fn(state, use_argmax=use_argmax,
-                                   generator=self.eval_generator)
-            state = engine.step(state, actions)
-            alive = alive & (state[Constants.DONE] == 0)
-            rew_sum = rew_sum + engine.rewards_of(state) \
-                * alive.to(torch.float32)[:, None]
-            step_sum = step_sum + alive.to(torch.int32)
+        with self._episode() as state:
+            for _ in range(engine.episode_length):
+                actions = self._act_fn(state, use_argmax=use_argmax,
+                                       generator=self.eval_generator)
+                state = self._episode_step(state, actions)
+                alive = alive & (state[Constants.DONE] == 0)
+                rew_sum = rew_sum + engine.rewards_of(state) \
+                    * alive.to(torch.float32)[:, None]
+                step_sum = step_sum + alive.to(torch.int32)
         rew_sum = rew_sum.cpu().numpy()
         step_sum = step_sum.cpu().numpy()
         episodic_reward_sum, episodic_step_sum = {}, {}
@@ -697,31 +746,31 @@ class TrainerBase:
         engine = self.engine
         for name in list_of_states:
             assert name in engine.state, f"{name!r} is not a state array"
-        state = self._episode_start()
-        recs = {name: [state[name][env_id]] for name in list_of_states}
         extra = {"_done": []}
-        for _ in range(engine.episode_length):
-            if include_probabilities:
-                actions, logits_of = self._act_fn(
-                    state, use_argmax=False, generator=self.eval_generator,
-                    return_logits=True)
-                for tag, logits_list in logits_of.items():
-                    for i, logits in enumerate(logits_list):
-                        extra.setdefault(f"_probs_{tag}_{i}", []).append(
-                            torch.softmax(logits[env_id], dim=-1))
-            else:
-                actions = self._act_fn(state, use_argmax=False,
-                                       generator=self.eval_generator)
-            state = engine.step(state, actions)
-            for name in list_of_states:
-                recs[name].append(state[name][env_id])
-            if include_rewards_actions:
-                extra.setdefault("_rewards", []).append(
-                    engine.rewards_of(state)[env_id])
-                if isinstance(actions, dict):  # the separate mode
-                    actions = self._scatter_actions(actions)
-                extra.setdefault("_actions", []).append(actions[env_id])
-            extra["_done"].append(state[Constants.DONE][env_id])
+        with self._episode() as state:
+            recs = {name: [state[name][env_id]] for name in list_of_states}
+            for _ in range(engine.episode_length):
+                if include_probabilities:
+                    actions, logits_of = self._act_fn(
+                        state, use_argmax=False,
+                        generator=self.eval_generator, return_logits=True)
+                    for tag, logits_list in logits_of.items():
+                        for i, logits in enumerate(logits_list):
+                            extra.setdefault(f"_probs_{tag}_{i}", []).append(
+                                torch.softmax(logits[env_id], dim=-1))
+                else:
+                    actions = self._act_fn(state, use_argmax=False,
+                                           generator=self.eval_generator)
+                state = self._episode_step(state, actions)
+                for name in list_of_states:
+                    recs[name].append(state[name][env_id])
+                if include_rewards_actions:
+                    extra.setdefault("_rewards", []).append(
+                        engine.rewards_of(state)[env_id])
+                    if isinstance(actions, dict):  # the separate mode
+                        actions = self._scatter_actions(actions)
+                    extra.setdefault("_actions", []).append(actions[env_id])
+                extra["_done"].append(state[Constants.DONE][env_id])
 
         host = {key: torch.stack(v).cpu().numpy()
                 for key, v in {**recs, **extra}.items()}
@@ -748,13 +797,16 @@ class TrainerBase:
         likely (DDPG: noise-free) actions from a forced reset.  Each step is
         logged up to and including the env's first done step, then no
         more, so the log mask stays contiguous.  Returns ``{name:
-        (last_step + 1, ...)}`` numpy arrays."""
+        (last_step + 1, ...)}`` numpy arrays.  On the eager backend use
+        :meth:`fetch_episode_states`."""
+        self._assert_device_engine("fetch_logged_episode")
         engine = self.engine
         logger = EpisodeLogger(engine.store)
         assert logger.log_names, (
             "no state array was pushed with log_data_across_episode=True"
         )
-        state = self._episode_start()
+        engine.reset_all_envs()
+        state = dict(engine.state)
         buffers = logger.init_buffers(state, env_id)
         done_seen = torch.zeros((), dtype=torch.bool, device=self.device)
         done_t = []
@@ -789,13 +841,17 @@ class TrainerBase:
         and the ``..._repeats`` lists.  The breakdown goes onto
         ``perf_stats``, so later logs carry it.
 
-        The models, optimizer states, rollout env state, episodic
-        accounting and generators are restored afterwards: training goes on
-        as if the call had not been made."""
+        The models, optimizer states, rollout env state (on the eager
+        backend, the engine's envs), episodic accounting and generators are
+        restored afterwards: training goes on as if the call had not been
+        made."""
         saved = _clone_tree(self._training_state())
-        engine_state = _clone_tree(dict(self.engine.state))
+        engine = self.engine
+        engine_state = (engine.snapshot_runtime_state() if self._is_eager
+                        else _clone_tree(dict(engine.state)))
+        store = getattr(engine, "store", None)  # none on the eager backend
         generators = (self.generator.get_state(),
-                      self.engine.store.generator.get_state())
+                      None if store is None else store.generator.get_state())
         t = self.current_timestep
         steps = self.training_batch_size_per_env * self.num_envs
 
@@ -826,9 +882,13 @@ class TrainerBase:
                 lambda: self._update_phase(batch, t))
         finally:
             self._load_training_state(saved)
-            self.engine.state = engine_state
+            if self._is_eager:
+                engine.restore_runtime_state(engine_state)
+            else:
+                engine.state = engine_state
             self.generator.set_state(generators[0])
-            self.engine.store.generator.set_state(generators[1])
+            if store is not None:
+                store.generator.set_state(generators[1])
 
         result = {
             "iteration_ms": iter_ms,

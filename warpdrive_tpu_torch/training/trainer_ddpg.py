@@ -273,7 +273,8 @@ class TrainerDDPG(TrainerBase):
         which a test may pass in); returns the new rows, time-major."""
         engine = self.engine
         split = engine.has_split_step
-        state = self._env_state
+        # the eager backend's engine holds the rollout's state itself
+        state = dict(engine.state) if self._is_eager else self._env_state
         T = self.training_batch_size_per_env
         rows = {"done": []}
         for tag in self.policies:
@@ -292,8 +293,11 @@ class TrainerDDPG(TrainerBase):
                 rows[f"obs_{tag}"].append(obs_p)
                 rows[f"actions_{tag}"].append(acts)
             actions = self._merge_actions(per_policy)
-            state = (engine.step_physics(state, actions) if split
-                     else engine.step(state, actions))
+            if self._is_eager:  # the actions to the host, one host step
+                state = engine.step_all_envs(actions)
+            else:
+                state = (engine.step_physics(state, actions) if split
+                         else engine.step(state, actions))
 
             rewards = engine.rewards_of(state)
             done = state[_DONE]
@@ -312,7 +316,11 @@ class TrainerDDPG(TrainerBase):
             self._ep_count = self._ep_count + done_mask.sum()
             self._ep_acc = self._ep_acc * (1.0 - done_mask)[:, None]
 
-            state = engine.auto_reset(state, self.generator)
+            if self._is_eager:
+                engine.reset_only_done_envs()
+                state = dict(engine.state)
+            else:
+                state = engine.auto_reset(state, self.generator)
         self._env_state = state
         engine.state = {**engine.state, **state}
         return {k: torch.stack(v) for k, v in rows.items()}
