@@ -189,6 +189,19 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       subprocess fits at 100 envs and fails with ``OutOfMemoryError`` at
       2,000 (168 GB of observations); then the parent allocates 1 GiB and
       launches K1;
+   r. multi-device training of the shipped ``tag_continuous`` run config
+      at full width (100 envs x 110 agents, K2), 2 iterations each: a
+      one-rank NCCL group through the distributed path, its parameters
+      equal to the plain trainer's bit for bit (its NCCL version and
+      all-reduces an iteration printed); two gloo ranks sharing the card,
+      50 envs each, whose rollouts replaying the one-process actions are
+      exactly their rows of it, whose update from the same start is
+      within 1e-5 of the one-process update, and whose ``train()`` leaves
+      the parameters equal on both and the files written once by the
+      lead; a dp1 x tp2 pair within 1e-5 of the unsharded iteration; and
+      ``dryrun_multichip(4)`` on the card (a 2 x 2 mesh of gloo ranks,
+      K1); ms per iteration of one process, the one-rank group and the
+      two ranks (gloo's share of the update), beside the card;
 5. at the main paths' shapes -- (1024, 105, 10) for K1, K3, K6, K7, K8 in
    both modes, K9 in both, K2 and K4, (100, 110, 10) for K2, (256, 1024,
    10) for K1, K4 in both modes, K5 in its four and K9 exact, and the
@@ -2726,6 +2739,306 @@ def _check_autoscaler_probes(system, generator):
           f"K1 (checksum finite); phase 4q {time.perf_counter() - t0:.1f} s")
 
 
+# phase 4r: the shipped tag_continuous run config at full width over
+# process meshes; this many iterations through train(), and the tolerance
+# of a two-rank (or tensor-parallel) update against the one-process update
+MULTI_ITERS = 2
+MULTI_PARAM_TOL = 1e-5
+
+
+def _multi_config():
+    """The shipped ``tag_continuous`` run config (100 envs x 110 agents,
+    250 steps an iteration, K2 ``pallas_mxu_exact``) for ``MULTI_ITERS``
+    iterations, metrics at each."""
+    from warpdrive_tpu_torch.utils.config import load_run_config
+
+    cfg = load_run_config("tag_continuous")
+    cfg["trainer"]["seed"] = 0
+    T = cfg["trainer"]["train_batch_size"] // cfg["trainer"]["num_envs"]
+    cfg["trainer"]["num_episodes"] = (MULTI_ITERS * T
+                                      * cfg["trainer"]["num_envs"]
+                                      // cfg["env"]["episode_length"])
+    cfg["saving"]["metrics_log_freq"] = 1
+    return cfg
+
+
+def _host_params(trainer) -> dict:
+    return {tag: {k: v.detach().cpu().clone()
+                  for k, v in m.state_dict().items()}
+            for tag, m in trainer.models.items()}
+
+
+def _params_diff(a: dict, b: dict) -> float:
+    return max(float((a[tag][k] - b[tag][k]).abs().max())
+               for tag in a for k in a[tag])
+
+
+def _row_digests(batch: dict, rows=None) -> dict:
+    """An exact digest of every env row of each ``(T, E, ...)`` tensor of
+    a rollout batch: the row's 32-bit words against fixed int64 weights,
+    summed with wraparound; equal rows give equal digests."""
+    import torch
+
+    out = {}
+    for key, x in sorted(batch.items()):
+        if not isinstance(x, torch.Tensor):
+            continue
+        words = x.transpose(0, 1).contiguous().view(torch.int32)
+        words = words.reshape(words.shape[0], -1).to(torch.int64)
+        gen = torch.Generator().manual_seed(words.shape[1])
+        weights = torch.randint(1, 2**62, (words.shape[1],), generator=gen,
+                                dtype=torch.int64).to(words.device)
+        out[key] = (words * weights).sum(dim=1).cpu()
+        if rows is not None:
+            out[key] = out[key][rows]
+    return out
+
+
+def _timed_iterations(trainer, mesh=None, n=2) -> dict:
+    """``n`` iterations after ``train()``: the wall ms of each (the device
+    caught up), their update ms (CUDA events) and, under a mesh, the ms
+    the collectives took (the device caught up before and after each)."""
+    from warpdrive_tpu_torch.parallel.mesh import GroupStats
+
+    if mesh is not None:
+        mesh.timed, mesh.stats = True, GroupStats()
+    walls = []
+    for _ in range(n):
+        trainer._sync()
+        t0 = time.perf_counter()
+        trainer._iteration(trainer.current_timestep)
+        trainer._sync()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    trainer._resolve_phase_marks()
+    update_ms = sum(u for _, u in trainer.phase_ms[-n:])
+    out = {"iteration_ms": statistics.mean(walls), "update_ms": update_ms / n}
+    if mesh is not None:
+        out["collective_ms"] = 1e3 * mesh.stats.seconds / n
+        out["collectives"] = dict(mesh.stats.calls)
+        mesh.timed = False
+    return out
+
+
+def _multi_rank_gloo(device, cfg, results_dir, actions, digests, update):
+    """4r (b), one of two gloo ranks on the card: replaying the recorded
+    actions, the rank's rollout against its rows of the one-process
+    rollout (digests); one update from the shared start against the
+    one-process update; then ``train()`` and two timed iterations."""
+    import torch
+
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.training.scripts.train import setup_trainer
+
+    knn_obs.reset_launch_counts()
+    trainer = setup_trainer(copy.deepcopy(cfg), num_devices=2,
+                            results_dir=results_dir, verbose=False,
+                            device=device)
+    batch = trainer._rollout(actions.to(device))
+    got = _row_digests(batch)
+    want = {k: v[trainer.env_rows] for k, v in digests.items()}
+    mismatched = [k for k in want if not torch.equal(got[k], want[k])]
+    assert not mismatched, f"rows of {mismatched} differ from one process"
+    trainer._update(batch, 0)
+    update_diff = _params_diff(_host_params(trainer), update)
+    assert update_diff <= MULTI_PARAM_TOL, update_diff
+    trainer.train()
+    timed = _timed_iterations(trainer, trainer.mesh)
+    return {"rows": (trainer.env_rows.start, trainer.env_rows.stop),
+            "update_diff": update_diff, "params": _host_params(trainer),
+            "iters": trainer.iters_completed, "timed": timed,
+            "launches": dict(knn_obs.LAUNCH_COUNTS)}
+
+
+def _multi_rank_tp(device, cfg, results_dir):
+    """4r (c), one of a dp1 x tp2 pair on the card: one iteration from the
+    seed."""
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.training.scripts.train import setup_trainer
+
+    knn_obs.reset_launch_counts()
+    trainer = setup_trainer(copy.deepcopy(cfg), num_devices=2, tp=2,
+                            results_dir=results_dir, verbose=False,
+                            device=device)
+    trainer._iteration(0)
+    shards = {tag: {n: tuple(m.shape) for n, m in opt.mu.items()}
+              for tag, opt in trainer.optimizers.items()}
+    return {"params": _host_params(trainer), "shards": shards,
+            "launches": dict(knn_obs.LAUNCH_COUNTS)}
+
+
+def _drive_multi_device(card, device=DEVICE, one_rank_backend="nccl",
+                        ranks_device="cuda:0"):
+    """Phase 4r: the shipped ``tag_continuous`` run config at full width
+    (100 envs x 110 agents, K2) over process meshes.
+
+    (a) a one-rank NCCL group trains ``MULTI_ITERS`` iterations through
+    the distributed path (the env cut, the SUM all-reduces, the global
+    denominators and metrics), and its parameters equal the plain
+    trainer's of the same seed bit for bit: a sum over one rank is the
+    identity.  (b) two gloo ranks on the card, 50 envs each: replaying the
+    one-process rollout's actions, each rank's rollout (through K2) is its
+    rows of that rollout exactly; one update from the same start is within
+    ``MULTI_PARAM_TOL`` of the one-process update; ``train()`` leaves the
+    parameters equal on both ranks bit for bit, and only the lead has
+    written results and checkpoints.  (c) a dp1 x tp2 pair on the card:
+    one iteration within ``MULTI_PARAM_TOL`` of the unsharded one.  Then
+    ``dryrun_multichip(4)`` on the card (a 2 x 2 mesh of gloo ranks; K1).
+    Prints the NCCL version, the all-reduces an iteration runs, and ms per
+    iteration of one process, the one-rank group and the two ranks with
+    gloo's share of the update, beside the card.  Returns the launches
+    of every rank, counted from 0 just before each run.  ``device``,
+    ``one_rank_backend`` and ``ranks_device`` let the phase be rehearsed
+    on the CPU (``"cpu"``, ``"gloo"``, ``"cpu"``)."""
+    import torch
+    import torch.distributed as dist
+
+    from warpdrive_tpu_torch.entry import dryrun_multichip
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.parallel.launch import free_port, launch
+    from warpdrive_tpu_torch.parallel.mesh import initialize_multihost
+    from warpdrive_tpu_torch.training.scripts.train import setup_trainer
+
+    t0 = time.perf_counter()
+    cfg = _multi_config()
+    total = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_multi_"))
+    try:
+        # the plain trainer: the reference of (a), timed as one process
+        plain = setup_trainer(copy.deepcopy(cfg), results_dir=str(tmp / "p"),
+                              verbose=False, device=device)
+        plain.train()
+        plain_params = _host_params(plain)
+        plain_timed = _timed_iterations(plain)
+
+        # (a) the one-rank NCCL group
+        initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0,
+                             backend=one_rank_backend, device=ranks_device)
+        try:
+            knn_obs.reset_launch_counts()
+            one = setup_trainer(copy.deepcopy(cfg), num_devices=1,
+                                results_dir=str(tmp / "a"), verbose=False,
+                                device=device)
+            mesh = one.mesh
+            mesh.stats.calls.clear()
+            one.train()
+            launches = dict(knn_obs.LAUNCH_COUNTS)
+            reduces = mesh.stats.calls.get("all_reduce", 0)
+            T = one.training_batch_size_per_env
+            on_card = torch.device(device).type == "cuda"
+            assert launches == dict({name: 0 for name in launches},
+                                    knn_obs_mxu=MULTI_ITERS * T * on_card), \
+                launches
+            for name, count in launches.items():
+                total[name] += count
+            diff = _params_diff(_host_params(one), plain_params)
+            assert diff == 0.0, f"one-rank NCCL group vs plain: {diff}"
+            assert dist.get_backend() == one_rank_backend
+            assert mesh.world_size == 1
+            one_timed = _timed_iterations(one, mesh)
+        finally:
+            dist.destroy_process_group()
+        version = ("NCCL " + ".".join(map(str, torch.cuda.nccl.version()))
+                   if one_rank_backend == "nccl" else one_rank_backend)
+        print(f"4r (a) one-rank {one_rank_backend} group ({version}): "
+              f"{MULTI_ITERS} iterations, parameters equal to the plain "
+              f"trainer's bit for bit; {reduces / MULTI_ITERS:.0f} "
+              f"all-reduces an iteration (with its log point), K2 launches "
+              f"{launches['knn_obs_mxu']}")
+
+        # (b) two gloo ranks sharing the card, against one process
+        ref = setup_trainer(copy.deepcopy(cfg), results_dir=str(tmp / "r"),
+                            verbose=False, device=device)
+        start = _host_params(ref)
+        batch = ref._rollout()
+        actions = torch.zeros(
+            (T, ref.num_envs, ref.engine.n_agents, 2), dtype=torch.int32)
+        for tag, ids in ref.policy_tag_to_agent_id_map.items():
+            actions[:, :, ids] = batch[f"actions_{tag}"].cpu()
+        digests = _row_digests(batch)
+        # the replay starts from the state as built: a fresh trainer
+        ref = setup_trainer(copy.deepcopy(cfg), results_dir=str(tmp / "r2"),
+                            verbose=False, device=device)
+        assert _params_diff(_host_params(ref), start) == 0.0
+        replayed = ref._rollout(actions.to(device))
+        assert all(torch.equal(v, digests[k])
+                   for k, v in _row_digests(replayed).items())
+        ref._update(replayed, 0)
+        update = _host_params(ref)
+        del batch, replayed, ref
+        torch.cuda.empty_cache()
+        results = launch(_multi_rank_gloo, 2,
+                         args=(cfg, str(tmp / "b"), actions, digests,
+                               update),
+                         device=ranks_device, backend="gloo", timeout_s=600)
+        E = cfg["trainer"]["num_envs"]
+        assert [r["rows"] for r in results] == [(0, E // 2), (E // 2, E)]
+        assert _params_diff(results[0]["params"], results[1]["params"]) \
+            == 0.0, "the two ranks' parameters differ"
+        files = sorted(p.name for p in (tmp / "b").iterdir())
+        ts = results[0]["iters"] * T * E
+        assert files == sorted(["run_config.json", "results.json",
+                                f"runner_{ts}.state_dict",
+                                f"tagger_{ts}.state_dict"]), files
+        with open(tmp / "b" / "results.json", encoding="utf-8") as f:
+            records = f.read().splitlines()
+        assert len(records) == MULTI_ITERS, records  # written once
+        for r in results:
+            for name, count in r["launches"].items():
+                total[name] += count
+        two = results[0]["timed"]
+        share = two["collective_ms"] / two["update_ms"]
+        print(f"4r (b) two gloo ranks on one card, {E // 2} envs each: "
+              f"rollouts "
+              f"equal to their rows of one process's, update within "
+              f"{max(r['update_diff'] for r in results):.3g} of one "
+              f"process's, parameters equal on both ranks after train(); "
+              f"lead-only files {files}; collectives an iteration "
+              f"{two['collectives']}")
+
+        # (c) a dp1 x tp2 pair against the unsharded iteration
+        ref = setup_trainer(copy.deepcopy(cfg), results_dir=str(tmp / "c0"),
+                            verbose=False, device=device)
+        ref._iteration(0)
+        unsharded = _host_params(ref)
+        del ref
+        torch.cuda.empty_cache()
+        tp = launch(_multi_rank_tp, 2, args=(cfg, str(tmp / "c")),
+                    device=ranks_device, backend="gloo", timeout_s=600)
+        tp_diff = max(_params_diff(r["params"], unsharded) for r in tp)
+        assert tp_diff <= MULTI_PARAM_TOL, f"tp2 vs unsharded: {tp_diff}"
+        assert _params_diff(tp[0]["params"], tp[1]["params"]) == 0.0
+        cut = sum(s != tuple(unsharded[tag][n].shape)
+                  for tag, shapes in tp[0]["shards"].items()
+                  for n, s in shapes.items())
+        assert cut > 0, "tp2 cut no parameter"
+        for r in tp:
+            for name, count in r["launches"].items():
+                total[name] += count
+        print(f"4r (c) dp1 x tp2 on one card: one iteration within "
+              f"{tp_diff:.3g} of the unsharded one, {cut} parameters cut")
+
+        # the dry run's three program shapes on a 2 x 2 mesh (K1)
+        dry = dryrun_multichip(4, device=ranks_device, backend="gloo")
+        for r in dry:
+            for name, count in r["launches"].items():
+                total[name] += count
+        assert ranks_device == "cpu" or all(
+            r["launches"]["knn_obs_flat_exact"] > 0 for r in dry)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"4r ms per iteration ({card}): one process "
+          f"{plain_timed['iteration_ms']:.3f} (update "
+          f"{plain_timed['update_ms']:.3f}); one-rank {one_rank_backend} "
+          f"group "
+          f"{one_timed['iteration_ms']:.3f} (update "
+          f"{one_timed['update_ms']:.3f}, collectives "
+          f"{one_timed['collective_ms']:.3f}); two gloo ranks on one card "
+          f"{two['iteration_ms']:.3f} (update {two['update_ms']:.3f}, gloo "
+          f"{two['collective_ms']:.3f} = {100 * share:.1f}% of the update); "
+          f"phase 4r {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2920,6 +3233,11 @@ def main(argv=None) -> int:
     full_obs._batch = None
     _check_autoscaler_probes(system, generator)
 
+    # 4r. the tag_continuous run config over process meshes: a one-rank
+    # NCCL group, two gloo ranks and a dp1 x tp2 pair on the card, and the
+    # multi-device dry run; counts from 0 before each run
+    multi_launches = _drive_multi_device(card)
+
     # 5. kernel vs plain and their times at the main paths' shapes
     many_args = _knn_args(many["pallas_flat_exact"]["env"],
                           many["pallas_flat_exact"]["state"])
@@ -3080,10 +3398,11 @@ def main(argv=None) -> int:
         ]
         _profile(windows)
 
-    # launches on the main paths: 4a, 4c, 4j and 4n for K1, 4b, 4i and 4o
-    # for K2, 4d for K3, 4c for K4 and K5, 4e for K6-K8, 4c and 4e for K9;
-    # 4k-4m and 4p launch none
+    # launches on the main paths: 4a, 4c, 4j, 4n and 4r for K1, 4b, 4i, 4o
+    # and 4r for K2, 4d for K3, 4c for K4 and K5, 4e for K6-K8, 4c and 4e
+    # for K9; 4k-4m and 4p launch none
     all_launches = {name: launches[name] + train_launches[name]
+                    + multi_launches[name]
                     + item9_launches[name] + fast_launches[name]
                     + tuned_launches[name] + tuned_rec_launches[name]
                     + pursuit_launches[name] + full_obs_launches[name]

@@ -196,10 +196,14 @@ def test_cli_main_on_a_tiny_config(tmp_path):
     assert trainer.training_batch_size_per_env == 50
     assert trainer.iters_completed == 2
     assert "tagger_400.state_dict" in os.listdir(tmp_path / "cli")
-    # -a runs the auto-scaler (tests/test_torch_autoscaler.py)
-    for flags, item in ((["-n", "2"], "11"),
-                        (["--coordinator", "localhost:1234"], "11")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    # -a runs the auto-scaler (tests/test_torch_autoscaler.py); -n 2 on the
+    # CPU trains two gloo ranks (tests/test_torch_multiprocess.py); on cuda
+    # it needs two cards, and a coordinator needs the world's size and this
+    # process's id, each checked before anything starts
+    for flags, match in ((["-n", "2", "--device", "cuda"], "2 GPUs"),
+                         (["--coordinator", "localhost:1234"],
+                          "--num_processes")):
+        with pytest.raises(ValueError, match=match):
             port_train.main(["-e", str(path), "--device", "cpu", *flags])
 
 
@@ -212,7 +216,9 @@ def test_left_out_features_raise(tmp_path):
             cfg, results_dir=str(tmp_path / backend), verbose=False,
             device="cpu")
         assert trainer._is_eager and trainer.engine._native is not None
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # several devices need a process group of that many ranks
+    # (tests/test_torch_multiprocess.py trains inside one)
+    with pytest.raises(ValueError, match="initialized process group"):
         port_train.setup_trainer(_config(port_config.load_run_config),
                                  num_devices=2, device="cpu",
                                  results_dir=str(tmp_path / "n2"))

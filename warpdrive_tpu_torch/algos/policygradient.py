@@ -15,9 +15,22 @@ The port's counterpart of ``warpdrive_tpu/algos/policygradient.py``:
 
 Batches are time-major: actions (T, E, A, C), rewards (T, E, A), dones
 (T, E), logits a list of C tensors (T, E, A, n_c), values (T, E, A).
+
+With an env ``group`` (a process mesh, :class:`~warpdrive_tpu_torch.
+parallel.mesh.Mesh`, whose ``all_reduce`` sums over its env group) the
+batch holds this
+rank's env rows (none, on a rank that holds no row of a minibatch) and
+every reduction over the env axis is global: the loss is the rank's
+numerator over the global denominator (the weight sum is all-reduced
+before the backward pass), so the ranks' gradients SUM to the global
+loss's; normalization and the downsampling's positive count are global;
+the metrics are :class:`~warpdrive_tpu_torch.parallel.mesh.Deferred`,
+combined at log points.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.nn import functional as F
@@ -26,6 +39,7 @@ from warpdrive_tpu_torch.algos.returns import (
     discounted_returns,
     normalize_across_env_agents,
 )
+from warpdrive_tpu_torch.parallel.mesh import MetricOps
 from warpdrive_tpu_torch.training.param_scheduler import ParamScheduler
 
 _EPSILON = 1e-10
@@ -36,18 +50,25 @@ def env_selection_weights(
     negative_positive_ratio: float,
     generator: torch.Generator = None,
     uniform: torch.Tensor = None,
+    group=None,
 ) -> torch.Tensor:
     """
     Per-env keep weights for success-based downsampling: keep every env
     that hit done==2 ("positive"), keep each other env with probability
     ``pos_count * ratio / neg_count`` (everything when there is no
-    positive).  ``uniform`` (E,) in [0, 1) replaces the draw from
-    ``generator``.  Returns (E,) float32 weights in {0, 1}.
+    positive), the counts over every rank of ``group``.  ``uniform`` (E,)
+    in [0, 1) replaces the draw from ``generator``.  Returns (E,) float32
+    weights in {0, 1}.
     """
     E = done_flags_batch.shape[1]
     positives = (done_flags_batch == 2).any(dim=0)
-    pos_count = positives.sum().to(torch.float32)
-    neg_count = torch.clamp(E - pos_count, min=1.0)
+    counts = torch.stack([positives.sum().to(torch.float32),
+                          torch.full((), float(E),
+                                     device=done_flags_batch.device)])
+    if group is not None:
+        group.all_reduce(counts)
+    pos_count, num_envs = counts[0], counts[1]
+    neg_count = torch.clamp(num_envs - pos_count, min=1.0)
     keep_prob = torch.clamp(
         pos_count * negative_positive_ratio / neg_count, max=1.0
     )
@@ -58,10 +79,22 @@ def env_selection_weights(
     return (positives | (uniform < keep_prob)).to(torch.float32)
 
 
-def _wmean(x: torch.Tensor, env_weights: torch.Tensor) -> torch.Tensor:
-    """Mean over all elements, with per-env weights broadcast on axis 1."""
+def _weight_total(env_weights: torch.Tensor, group=None) -> torch.Tensor:
+    """The env weights' sum over every rank."""
+    total = env_weights.sum()
+    if group is not None:
+        group.all_reduce(total)
+    return total
+
+
+def _wmean(x: torch.Tensor, env_weights: torch.Tensor,
+           weight_total: torch.Tensor) -> torch.Tensor:
+    """Mean over all elements, with per-env weights broadcast on axis 1:
+    the weighted sum over ``weight_total`` (every rank's weight sum) times
+    the entries of one env row."""
     w = env_weights.reshape((1, -1) + (1,) * (x.ndim - 2))
-    denom = torch.clamp(w.sum() * x.numel() / x.shape[1], min=_EPSILON)
+    per_env = x.shape[0] * math.prod(x.shape[2:])
+    denom = torch.clamp(weight_total * per_env, min=_EPSILON)
     return (x * w).sum() / denom
 
 
@@ -99,9 +132,9 @@ class A2C:
         self.entropy_coeff_schedule = ParamScheduler(entropy_coeff)
 
     # PPO overrides this hook; A2C ignores ``old_log_prob``
-    def _policy_loss(self, log_prob, advantages, env_weights,
+    def _policy_loss(self, log_prob, advantages, env_weights, weight_total,
                      old_log_prob=None):
-        return _wmean(-log_prob * advantages, env_weights)
+        return _wmean(-log_prob * advantages, env_weights, weight_total)
 
     def compute_loss_and_metrics(
         self,
@@ -115,80 +148,79 @@ class A2C:
         generator: torch.Generator = None,
         downsample_uniform: torch.Tensor = None,
         old_log_prob: torch.Tensor = None,  # (T, E, A), detached
+        group=None,
     ):
-        """:returns: ``(loss, metrics)``, both tensors; reading a metric
-        value waits for the device, so callers read them at log points
-        only.  ``old_log_prob`` reaches PPO's ratio."""
+        """:returns: ``(loss, metrics)``, both tensors (with ``group``,
+        the metrics that need every rank :class:`Deferred`); reading a
+        metric value waits for the device, so callers read them at log
+        points only.  ``old_log_prob`` reaches PPO's ratio."""
         values_detached = value_functions_batch.detach()
+        ops = MetricOps(group)
 
         if negative_positive_ratio > 0:
             env_w = env_selection_weights(
                 done_flags_batch, negative_positive_ratio, generator,
-                uniform=downsample_uniform,
+                uniform=downsample_uniform, group=group,
             )
         else:
             env_w = torch.ones((rewards_batch.shape[1],), dtype=torch.float32,
                                device=rewards_batch.device)
+        w_total = _weight_total(env_w, group)
 
         returns = discounted_returns(
             rewards_batch, done_flags_batch, values_detached,
             self.discount_factor_gamma,
         )
-        norm_returns = normalize_across_env_agents(returns,
-                                                   self.normalize_return)
+        norm_returns = normalize_across_env_agents(
+            returns, self.normalize_return, group=group)
 
-        vf_loss = _wmean((norm_returns - value_functions_batch) ** 2, env_w)
+        vf_loss = _wmean((norm_returns - value_functions_batch) ** 2, env_w,
+                         w_total)
 
         advantages = norm_returns - values_detached
         norm_advantages = normalize_across_env_agents(
-            advantages, self.normalize_advantage
+            advantages, self.normalize_advantage, group=group
         )
 
         log_prob, entropy = _logp_and_entropy(logits_batch, actions_batch)
         mean_entropy = sum(
-            _wmean(entropy[c], env_w) for c in range(entropy.shape[0])
+            _wmean(entropy[c], env_w, w_total)
+            for c in range(entropy.shape[0])
         )
 
         policy_loss = self._policy_loss(log_prob, norm_advantages, env_w,
-                                        old_log_prob=old_log_prob)
+                                        w_total, old_log_prob=old_log_prob)
 
         vf_coeff_t = float(self.vf_loss_coeff_schedule.value_at(timestep))
         ent_coeff_t = float(self.entropy_coeff_schedule.value_at(timestep))
         loss = policy_loss + vf_coeff_t * vf_loss - ent_coeff_t * mean_entropy
 
         with torch.no_grad():
-            variance_explained = torch.clamp(
-                1.0 - norm_advantages.var(correction=0)
-                / (norm_returns.var(correction=0) + _EPSILON),
-                min=-1.0,
-            )
             actions_f = actions_batch.to(torch.float32)
             metrics = {
                 "VF loss coefficient": vf_coeff_t,
                 "Entropy coefficient": ent_coeff_t,
-                "Total loss": loss.detach(),
-                "Policy loss": policy_loss.detach(),
-                "Value function loss": vf_loss.detach(),
-                "Mean rewards": rewards_batch.mean(),
-                "Max. rewards": rewards_batch.max(),
-                "Min. rewards": rewards_batch.min(),
-                "Mean value function": values_detached.mean(),
-                "Mean advantages": advantages.mean(),
-                "Mean (norm.) advantages": norm_advantages.mean(),
-                "Mean (discounted) returns": returns.mean(),
-                "Mean normalized returns": norm_returns.mean(),
-                "Mean entropy": mean_entropy.detach(),
+                "Total loss": ops.value(loss.detach()),
+                "Policy loss": ops.value(policy_loss.detach()),
+                "Value function loss": ops.value(vf_loss.detach()),
+                "Mean rewards": ops.mean(rewards_batch),
+                "Max. rewards": ops.max(rewards_batch),
+                "Min. rewards": ops.min(rewards_batch),
+                "Mean value function": ops.mean(values_detached),
+                "Mean advantages": ops.mean(advantages),
+                "Mean (norm.) advantages": ops.mean(norm_advantages),
+                "Mean (discounted) returns": ops.mean(returns),
+                "Mean normalized returns": ops.mean(norm_returns),
+                "Mean entropy": ops.value(mean_entropy.detach()),
                 "Variance explained by the value function":
-                    variance_explained,
-                "Std. of action over agents":
-                    actions_f.std(dim=2, correction=0).mean(),
-                "Std. of action over envs":
-                    actions_f.std(dim=1, correction=0).mean(),
-                "Std. of action over time":
-                    actions_f.std(dim=0, correction=0).mean(),
+                    ops.variance_explained(norm_advantages, norm_returns,
+                                           _EPSILON),
+                "Std. of action over agents": ops.std_mean(actions_f, 2),
+                "Std. of action over envs": ops.std_mean(actions_f, 1),
+                "Std. of action over time": ops.std_mean(actions_f, 0),
             }
             if negative_positive_ratio > 0:
-                metrics["Num of Sampled Envs"] = env_w.sum()
+                metrics["Num of Sampled Envs"] = ops.value(env_w.sum())
         return loss, metrics
 
 
@@ -218,7 +250,7 @@ class PPO(A2C):
         assert 0 <= clip_param <= 1
         self.clip_param = float(clip_param)
 
-    def _policy_loss(self, log_prob, advantages, env_weights,
+    def _policy_loss(self, log_prob, advantages, env_weights, weight_total,
                      old_log_prob=None):
         if old_log_prob is None:
             old_log_prob = log_prob.detach()
@@ -228,4 +260,5 @@ class PPO(A2C):
             torch.clamp(ratio, 1.0 - self.clip_param, 1.0 + self.clip_param)
             * advantages
         )
-        return _wmean(-torch.minimum(surr1, surr2), env_weights)
+        return _wmean(-torch.minimum(surr1, surr2), env_weights,
+                      weight_total)

@@ -75,11 +75,26 @@ def n_step_returns(
 
 
 def normalize_across_env_agents(x: torch.Tensor, enabled: bool,
-                                eps: float = 1e-10) -> torch.Tensor:
+                                eps: float = 1e-10, group=None
+                                ) -> torch.Tensor:
     """Normalize over the (env, agent) axes per timestep, with the
-    population standard deviation as JAX's ``std`` takes it."""
+    population standard deviation as JAX's ``std`` takes it: the mean,
+    then the mean of the centred squares.  With an env ``group`` (a
+    :class:`~warpdrive_tpu_torch.parallel.mesh.Mesh`, summing over its env
+    group) both are taken over every rank's envs; a rank may hold none."""
     if not enabled:
         return x
-    mean = x.mean(dim=(1, 2), keepdim=True)
-    std = x.std(dim=(1, 2), keepdim=True, correction=0)
-    return (x - mean) / (std + eps)
+    T = x.shape[0]
+    sums = torch.cat([x.sum(dim=(1, 2)),
+                      torch.full((1,), float(x.shape[1] * x.shape[2]),
+                                 dtype=x.dtype, device=x.device)])
+    if group is not None:
+        group.all_reduce(sums)
+    count = sums[T]
+    mean = (sums[:T] / count).reshape(T, 1, 1)
+    centred = x - mean
+    squares = (centred * centred).sum(dim=(1, 2))
+    if group is not None:
+        group.all_reduce(squares)
+    std = torch.sqrt(squares / count).reshape(T, 1, 1)
+    return centred / (std + eps)

@@ -91,6 +91,9 @@ class CpuEnvEngine:
         self.envs = [self._make_env() for _ in range(num_envs)]
         self.env = self.envs[0]
         self.n_envs = int(num_envs)
+        # the eager backend does not shard: no mesh, every env row here
+        self.mesh = None
+        self.env_rows = slice(0, self.n_envs)
         self.n_agents = int(self.env.num_agents)
         self.episode_length = int(self.env.episode_length)
         self._done = np.zeros((num_envs,), np.int32)

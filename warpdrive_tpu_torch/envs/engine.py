@@ -26,6 +26,11 @@ The port's counterpart of ``warpdrive_tpu/envs/engine.py``.  It
 * and ``rewards_of``, the all-agent rewards a trainer records (per-policy
   rewards merged on the agent axis in the separate mode).
 
+Under a process mesh (``parallel.mesh.apply_env_sharding``) the state holds
+the rank's env rows ``env_rows`` only: ``n_envs`` stays global, the steps
+run on the rank's rows, and the facade's views (``reset_all_envs``,
+``step_all_envs``) gather every rank's rows, so every rank must call them.
+
 The split path and reset pools need the shared Box placeholder, as in the
 JAX package.
 """
@@ -112,6 +117,10 @@ class EnvEngine:
             self.step_physics = None
             self.observe = None
         self.n_envs = int(num_envs)
+        # the global env rows this process holds: all of them until
+        # parallel.mesh.apply_env_sharding cuts the state
+        self.mesh = None
+        self.env_rows = slice(0, self.n_envs)
         self.n_agents = int(self.env.num_agents)
         self.episode_length = int(self.env.episode_length)
 
@@ -234,13 +243,18 @@ class EnvEngine:
                     for name in self.obs_entry_names(tag)]
         return self.obs_entry_names()
 
+    @property
+    def local_envs(self) -> int:
+        """The env rows this process holds."""
+        return self.env_rows.stop - self.env_rows.start
+
     def rewards_of(self, state: dict) -> torch.Tensor:
         """All-agent rewards ``(envs, agents)`` of a state; the separate
         mode's per-policy arrays are scattered onto the agent axis."""
         if not self.separate_placeholders:
             return state[_REWARDS]
-        out = torch.zeros((self.n_envs, self.n_agents), dtype=torch.float32,
-                          device=self.device)
+        out = torch.zeros((self.local_envs, self.n_agents),
+                          dtype=torch.float32, device=self.device)
         for tag in sorted(self._policy_ids):
             out[:, self._policy_index[tag]] = state[f"{_REWARDS}_{tag}"]
         return out
@@ -335,12 +349,18 @@ class EnvEngine:
         return out
 
     # ------------------------------------------------------- stateful facade
+    def _global(self, x: torch.Tensor) -> torch.Tensor:
+        """Every env row of a state tensor: under a mesh, the env group's
+        rows gathered."""
+        return x if self.mesh is None else self.mesh.all_gather(x)
+
     def _obs_view(self):
         """The observation placeholders of the engine's state: one tensor
         in the shared Box mode, else ``{state name: tensor}``."""
         if self._shared_box:
-            return self.state[_OBS]
-        return {name: self.state[name] for name in self._obs_names()}
+            return self._global(self.state[_OBS])
+        return {name: self._global(self.state[name])
+                for name in self._obs_names()}
 
     def reset_all_envs(self):
         """Force-reset every replica and return the batched observations
@@ -361,13 +381,24 @@ class EnvEngine:
     def step_all_envs(self, actions) -> dict:
         """Step every replica with ``actions`` (see :meth:`write_actions`)
         and return the device tensors of the done flags, every observation
-        array and every reward array, by state name."""
+        array and every reward array, by state name.  Under a mesh the
+        actions may be given for every env (only the rank's rows are
+        taken) or for the rank's rows."""
         self._first_reset_done = True
+        if self.mesh is not None:
+            actions = self._local_actions(actions)
         self.state = self.step(self.state, actions)
-        out = {Constants.DONE: self.state[Constants.DONE]}
+        out = {Constants.DONE: self._global(self.state[Constants.DONE])}
         for name in self._obs_names() + self.reward_entry_names():
-            out[name] = self.state[name]
+            out[name] = self._global(self.state[name])
         return out
+
+    def _local_actions(self, actions):
+        """The rank's rows of actions given for every env."""
+        if isinstance(actions, dict):
+            return {k: self._local_actions(v) for k, v in actions.items()}
+        a = torch.as_tensor(actions, device=self.device)
+        return a[self.env_rows] if a.shape[0] == self.n_envs else a
 
     # gym-style aliases
     def reset(self):

@@ -26,19 +26,33 @@ steppers where they build), ``"cpp"`` the same with the C++ steppers
 required; anything else (the JAX configs say ``"tpu"``) the device engine.
 ``-a/--auto_scale`` runs the vertical auto-scaler first
 (:mod:`warpdrive_tpu_torch.tools.autoscaler`: subprocess probes of one
-iteration each on ``--device``).  The device mesh (``-n``) and the
-multi-host flags raise ``NotImplementedError`` naming their ROADMAP item.
+iteration each on ``--device``).
+
+Several devices, one process each (``parallel/``): ``-n N`` spawns N ranks
+on this host (:func:`warpdrive_tpu_torch.parallel.launch.launch`), rank
+``r`` on ``cuda:r`` over NCCL, or over gloo with ``--device cpu``; more
+ranks than visible cards raise before anything is spawned.  Each rank
+trains its ``num_envs / N`` env rows of the one global run (``num_envs``,
+``train_batch_size`` and ``num_episodes`` stay global) and only rank 0
+writes results and checkpoints.  Across hosts, start one copy a device
+with the same ``--coordinator host:port`` (process 0's rendezvous), the
+``--num_processes`` and its own ``--process_id`` (or ``WDT_COORDINATOR``,
+``WDT_NUM_PROCESSES``, ``WDT_PROCESS_ID``); without ``-n`` the mesh then
+spans every process.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 from warpdrive_tpu_torch.envs import register_all_envs
 from warpdrive_tpu_torch.envs.cpu_engine import CpuEnvEngine
 from warpdrive_tpu_torch.envs.engine import EnvEngine
-from warpdrive_tpu_torch.training.trainer_base import not_ported
+from warpdrive_tpu_torch.parallel import launch as local_launch
+from warpdrive_tpu_torch.parallel import mesh as pmesh
+from warpdrive_tpu_torch.training.trainer_base import _to_host, not_ported
 from warpdrive_tpu_torch.utils.config import load_run_config
 from warpdrive_tpu_torch.utils.env_registrar import env_registrar
 
@@ -82,10 +96,22 @@ def setup_trainer(
     verbose: bool = True,
     device="cuda",
     env_setup: tuple = None,
+    tp: int = 1,
 ):
     """Build engine and trainer from a merged run config (no training).
     ``env_setup`` ``(registered env name, policy-map kind)`` overrides the
-    one the config's name selects."""
+    one the config's name selects.  Inside an initialized process group
+    the engine's env rows are cut over it (``parallel.mesh.
+    apply_env_sharding``; ``num_devices`` must be the group's size, and
+    ``tp > 1`` makes a ``(num_devices / tp) x tp`` mesh whose model axis
+    cuts the parameters); outside one ``num_devices > 1`` raises."""
+    num_devices = int(num_devices)
+    if num_devices > 1 and not pmesh.dist.is_initialized():
+        raise ValueError(
+            f"num_devices={num_devices} needs an initialized process group "
+            f"of {num_devices} ranks: start them with "
+            "warpdrive_tpu_torch.parallel.launch.launch (the CLI's -n), or "
+            "call parallel.mesh.initialize_multihost in each process")
     register_all_envs()
     name = run_config.get("name")
     if name in _NOT_PORTED:
@@ -113,6 +139,8 @@ def setup_trainer(
             create_separate_placeholders_for_each_policy=separate,
             device=device,
         )
+        if pmesh.dist.is_initialized():
+            pmesh.apply_env_sharding(engine, num_devices=num_devices, tp=tp)
 
     algorithms = {str(p.get("algorithm", "A2C")).upper()
                   for p in run_config["policy"].values()}
@@ -158,7 +186,8 @@ def main(argv=None):
                         help="a run config's path or name: "
                              + ", ".join(sorted(_ENV_SETUPS)))
     parser.add_argument("-n", "--num_devices", type=int, default=1,
-                        help="devices in the mesh (not ported: 1 only)")
+                        help="devices in the mesh: N local ranks, one a "
+                             "device (with --coordinator, the world's)")
     parser.add_argument("-a", "--auto_scale", action="store_true",
                         help="search the largest num_envs and batch that "
                              "fit on --device before training")
@@ -171,15 +200,23 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda; cpu runs the plain "
                              "versions of the kernels)")
-    for flag in ("--coordinator", "--num_processes", "--process_id"):
-        parser.add_argument(flag, type=str, default=None,
-                            help="multi-host bring-up (not ported)")
+    # multi-host bring-up: one copy of this script a device, the same
+    # coordinator, each its own process id
+    parser.add_argument("--coordinator", type=str,
+                        default=os.environ.get("WDT_COORDINATOR"),
+                        help="host:port of process 0's rendezvous")
+    parser.add_argument("--num_processes", type=int,
+                        default=int(os.environ.get("WDT_NUM_PROCESSES", "0"))
+                        or None)
+    parser.add_argument("--process_id", type=int,
+                        default=(int(os.environ["WDT_PROCESS_ID"])
+                                 if "WDT_PROCESS_ID" in os.environ else None))
     args = parser.parse_args(argv)
-
-    if args.num_devices > 1:
-        raise not_ported("-n/--num_devices > 1", "11")
-    if args.coordinator or args.num_processes or args.process_id:
-        raise not_ported("multi-host training", "11")
+    if args.coordinator and (args.num_processes is None
+                             or args.process_id is None):
+        raise ValueError("--coordinator needs --num_processes and "
+                         "--process_id (or WDT_NUM_PROCESSES and "
+                         "WDT_PROCESS_ID)")
 
     logging.basicConfig(level=logging.INFO)
     run_config = load_run_config(args.env)
@@ -194,9 +231,49 @@ def main(argv=None):
 
         run_config = perform_auto_vertical_scaling(run_config,
                                                    device=args.device)
+    if args.coordinator:
+        return _train_multihost(run_config, args)
+    if args.num_devices > 1:
+        return local_launch.launch(
+            _train_rank, args.num_devices,
+            args=(run_config, args.num_devices, args.results_dir),
+            device=args.device, timeout_s=None)
     return setup_trainer_and_train(
         run_config, results_dir=args.results_dir, device=args.device
     )
+
+
+def _train_rank(device, run_config: dict, num_devices: int,
+                results_dir: str) -> dict:
+    """One rank of ``-n``: its share of the run; returns its parameters
+    (host copies) and iteration count."""
+    trainer = setup_trainer_and_train(
+        run_config, num_devices=num_devices, results_dir=results_dir,
+        device=device)
+    state = trainer._training_state()
+    nets = state["models"] if "models" in state else state["nets"]
+    return {"iters_completed": trainer.iters_completed,
+            "params": _to_host(nets)}
+
+
+def _train_multihost(run_config: dict, args):
+    """This process's share of a run across hosts: join the group, train
+    over every process (or ``-n`` of them), leave the group."""
+    device = pmesh.torch.device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = pmesh.torch.device(
+            "cuda", int(os.environ.get("LOCAL_RANK", args.process_id))
+            % max(pmesh.torch.cuda.device_count(), 1))
+    pmesh.initialize_multihost(args.coordinator, args.num_processes,
+                               args.process_id, device=device)
+    try:
+        num_devices = (args.num_devices if args.num_devices > 1
+                       else pmesh.dist.get_world_size())
+        return setup_trainer_and_train(
+            run_config, num_devices=num_devices,
+            results_dir=args.results_dir, device=device)
+    finally:
+        pmesh.dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -41,6 +41,18 @@ optimizer states, the rollout's env state and the episodic accounting.
 The policy matrix products and their backward pass are ``torch.matmul`` and
 autograd, which the JAX package leaves to XLA; they run in float32, or in
 the model's ``dtype``.
+
+Under a process mesh (``parallel/mesh.py``) each rank rolls out its env
+rows; an update's loss is its rows' numerator over the global denominator,
+the gradients are all-reduced (SUM) over the env group, clipped by the
+global norm and stepped identically on every rank, so the parameters stay
+replicated without a broadcast.  A shuffled sweep uses one permutation of
+the GLOBAL env axis an epoch, rank 0's (or the injected table), and each
+rank trains on the rows of each minibatch that it holds -- no data moves
+between ranks, and a rank that holds none of a minibatch still joins its
+all-reduces.  With ``tp > 1`` :class:`ClippedAdam` steps the rank's shard
+of each cut parameter and gathers the cut parameters across the model
+group for the next forward.
 """
 
 from __future__ import annotations
@@ -54,6 +66,7 @@ from torch.utils.checkpoint import checkpoint
 
 from warpdrive_tpu_torch.algos.policygradient import A2C, PPO, _logp_and_entropy
 from warpdrive_tpu_torch.models.factory import ModelFactory
+from warpdrive_tpu_torch.parallel.mesh import MODEL_AXIS, tp_axis, tp_shard
 from warpdrive_tpu_torch.sampling.samplers import sample_from_logits
 from warpdrive_tpu_torch.training.param_scheduler import ParamScheduler
 from warpdrive_tpu_torch.training.trainer_base import TrainerBase, torch_dtype
@@ -71,36 +84,79 @@ class ClippedAdam:
     Unlike ``torch.nn.utils.clip_grad_norm_``, which scales by
     ``max_norm / (norm + 1e-6)`` always, optax scales by ``max_norm / norm``
     and only when ``norm >= max_norm``; this class follows optax.
+
+    With a ``mesh`` of ``tp > 1`` (tensor parallelism, the JAX package's
+    ``shard_params_tp`` placement) each parameter cut on
+    :func:`~warpdrive_tpu_torch.parallel.mesh.tp_axis` is stepped on this
+    rank's shard only (a view of the whole parameter), with moments of the
+    shard's shape; the squared norms of the shards are summed over the
+    model group for the global-norm clip, and after the step the cut
+    parameters are gathered across the model group, whole on every rank
+    for the next forward.  ``state_dict`` gives the whole moments (the
+    single-process format) and ``load_state_dict`` cuts them.
     """
 
     def __init__(self, params: dict, max_norm: float = None, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8, mesh=None):
         self.params = params  # name -> Parameter
         self.max_norm = max_norm
         self.b1, self.b2, self.eps = b1, b2, eps
         self.count = 0
-        self.mu = {n: torch.zeros_like(p) for n, p in params.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in params.items()}
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        self._axes = {n: (tp_axis(p.shape, self.mesh.tp)
+                          if self.mesh is not None else None)
+                      for n, p in params.items()}
+        self.mu = {n: torch.zeros_like(self._shard(p))
+                   for n, p in params.items()}
+        self.nu = {n: torch.zeros_like(self._shard(p))
+                   for n, p in params.items()}
+
+    def _shard(self, whole: torch.Tensor) -> torch.Tensor:
+        return whole if self.mesh is None else tp_shard(whole, self.mesh)
+
+    def _whole(self, name: str, shard: torch.Tensor) -> torch.Tensor:
+        ax = self._axes[name]
+        if ax is None:
+            return shard
+        return self.mesh.all_gather(shard, ax, MODEL_AXIS)
 
     def state_dict(self) -> dict:
         return {"count": self.count,
-                "mu": {n: t.clone() for n, t in self.mu.items()},
-                "nu": {n: t.clone() for n, t in self.nu.items()}}
+                "mu": {n: self._whole(n, t).clone()
+                       for n, t in self.mu.items()},
+                "nu": {n: self._whole(n, t).clone()
+                       for n, t in self.nu.items()}}
 
     def load_state_dict(self, state: dict):
         """Take ``{"count", "mu", "nu"}`` (e.g. from
-        ``models.fully_connected.adam_state_from_optax``)."""
+        ``models.fully_connected.adam_state_from_optax``), whole."""
         self.count = int(state["count"])
         for name, p in self.params.items():
-            self.mu[name] = state["mu"][name].to(p.device, p.dtype).clone()
-            self.nu[name] = state["nu"][name].to(p.device, p.dtype).clone()
+            for moments in ("mu", "nu"):
+                whole = state[moments][name].to(p.device, p.dtype)
+                getattr(self, moments)[name] = self._shard(whole).clone()
+
+    def _global_norm(self, grads: dict) -> torch.Tensor:
+        if self.mesh is None:
+            return torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        # the cut shards' squares summed over the model group, the whole
+        # parameters' once
+        cut = [n for n in grads if self._axes[n] is not None]
+        squares = torch.zeros((1,), device=next(iter(grads.values())).device)
+        for n in cut:
+            squares += torch.sum(grads[n] * grads[n])
+        squares = self.mesh.all_reduce(squares, MODEL_AXIS)[0]
+        return torch.sqrt(squares + sum(
+            torch.sum(g * g) for n, g in grads.items() if n not in cut))
 
     @torch.no_grad()
     def step(self, grads: dict, lr) -> torch.Tensor:
-        """Apply one update for ``grads`` (name -> gradient) at learning
-        rate ``lr``; returns the gradients' global norm before clipping."""
+        """Apply one update for ``grads`` (name -> gradient of the whole
+        parameter) at learning rate ``lr``; returns the gradients' global
+        norm before clipping."""
         device = next(iter(self.params.values())).device
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        grads = {n: self._shard(g) for n, g in grads.items()}
+        g_norm = self._global_norm(grads)
         if self.max_norm is not None:
             keep = g_norm < self.max_norm
             grads = {n: torch.where(keep, g, (g / g_norm) * self.max_norm)
@@ -120,7 +176,11 @@ class ClippedAdam:
             nu = (1 - self.b2) * (g * g) + self.b2 * self.nu[name]
             self.mu[name], self.nu[name] = mu, nu
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            p.add_((-update) * lr_t)
+            self._shard(p).add_((-update) * lr_t)
+        if self.mesh is not None:  # whole for the next forward
+            for name, p in self.params.items():
+                if self._axes[name] is not None:
+                    p.copy_(self._whole(name, self._shard(p)))
         return g_norm
 
 
@@ -174,7 +234,7 @@ def policy_update(model, optimizer: ClippedAdam, algo, batch: dict,
                   generator: torch.Generator = None,
                   options: UpdateOptions = None,
                   index_table: torch.Tensor = None,
-                  observe=None) -> dict:
+                  observe=None, mesh=None) -> dict:
     """One policy's update on its batch ``{"actions" (T, E, A, C),
     "rewards" (T, E, A), "done" (T, E)}`` with the observations either
     stored, ``"obs"`` (T, E, A, F), or derived: ``"phys"``, the pre-step
@@ -196,14 +256,21 @@ def policy_update(model, optimizer: ClippedAdam, algo, batch: dict,
     pass holds its ratio to the
     behaviour log-probs of the parameters before the first pass: from one
     forward of the stored batch, or of each derived slice.  Returns the
-    metric tensors of the last pass, with its own gradient norm."""
+    metric tensors of the last pass, with its own gradient norm.
+
+    Under a ``mesh`` the batch holds the rank's env rows: the loss and
+    metrics are global over the env group (``group`` of the algorithms),
+    the gradients are summed over it before the optimizer's step, and a
+    sweep's slices are of the global env axis (a shuffled one from rank
+    0's permutation), each rank taking its rows of each."""
     opts = options or UpdateOptions()
     names = [n for n, _ in model.named_parameters()]
     params = [optimizer.params[n] for n in names]
     forward = remat_apply(model, opts.remat)
     actions, rewards, done = batch["actions"], batch["rewards"], batch["done"]
     loss_kw = dict(negative_positive_ratio=negative_positive_ratio,
-                   generator=generator)
+                   generator=generator,
+                   group=mesh)
     stored = "obs" in batch
 
     def derive(rows_of):
@@ -220,6 +287,8 @@ def policy_update(model, optimizer: ClippedAdam, algo, batch: dict,
 
     def step(loss):
         grads = torch.autograd.grad(loss, params)
+        if mesh is not None:
+            grads = mesh.reduce_grads(grads)
         return optimizer.step(dict(zip(names, grads)), lr)
 
     if opts.passes == 1:
@@ -231,17 +300,20 @@ def policy_update(model, optimizer: ClippedAdam, algo, batch: dict,
         metrics["Gradient norm"] = step(loss)
     else:
         metrics = _sweep(model, forward, algo, batch, timestep, step, derive,
-                         opts, index_table, generator, loss_kw)
+                         opts, index_table, generator, loss_kw, mesh)
     metrics["Current timestep"] = float(timestep)
     metrics["Learning rate"] = float(lr)
     return metrics
 
 
 def _sweep(model, forward, algo, batch, timestep, step, derive, opts,
-           index_table, generator, loss_kw) -> dict:
+           index_table, generator, loss_kw, mesh=None) -> dict:
     """The epoch x minibatch passes of :func:`policy_update`."""
     actions, rewards, done = batch["actions"], batch["rewards"], batch["done"]
-    E = done.shape[1]
+    # the slices are of the global env axis; this rank holds rows lo..hi
+    E = done.shape[1] * (1 if mesh is None else mesh.dp)
+    lo = 0 if mesh is None else mesh.env_rank * done.shape[1]
+    hi = lo + done.shape[1]
     assert E % opts.num_minibatches == 0, (
         "num_minibatches must divide num_envs (env-axis slicing)")
     mb = E // opts.num_minibatches
@@ -261,15 +333,22 @@ def _sweep(model, forward, algo, batch, timestep, step, derive, opts,
 
     if opts.shuffle:
         if index_table is None:
+            # every rank draws (its stream stays where the plain trainer's
+            # would be) and takes rank 0's permutation
             index_table = torch.stack([
                 torch.randperm(E, generator=generator, device=done.device)
                 for _ in range(opts.num_epochs)
             ]).reshape(opts.passes, mb)
+            if mesh is not None:
+                mesh.broadcast(index_table)
         assert tuple(index_table.shape) == (opts.passes, mb)
         blocks = list(index_table.to(done.device, torch.long))
+        if mesh is not None:  # this rank's rows of each, in table order
+            blocks = [b[(b >= lo) & (b < hi)] - lo for b in blocks]
     else:
         assert index_table is None, "contiguous slices draw no table"
-        blocks = [slice(m * mb, (m + 1) * mb)
+        blocks = [slice(min(max(m * mb, lo), hi) - lo,
+                        min(max((m + 1) * mb, lo), hi) - lo)
                   for m in range(opts.num_minibatches)] * opts.num_epochs
 
     for block in blocks:
@@ -348,6 +427,8 @@ class TrainerA2C(TrainerBase):
                 tuple(heads),
                 generator=init_gen, device=self.device, **model_kwargs,
             )
+            if self.mesh is not None:  # every rank starts from rank 0's
+                self.mesh.broadcast_module(self.models[tag])
 
             algo_name = policy_cfg.get("algorithm", "A2C").upper()
             common = dict(
@@ -386,14 +467,15 @@ class TrainerA2C(TrainerBase):
             max_norm = (policy_cfg.get("max_grad_norm", 0.5)
                         if policy_cfg.get("clip_grad_norm", True) else None)
             self.optimizers[tag] = ClippedAdam(
-                dict(self.models[tag].named_parameters()), max_norm=max_norm
+                dict(self.models[tag].named_parameters()), max_norm=max_norm,
+                mesh=self.mesh,
             )
             ckpt = model_cfg.get("model_ckpt_filepath", "")
             if ckpt:
                 self.load_model_checkpoint({tag: ckpt})
 
         self._env_state = self._rollout_env_state()
-        self._ep_acc = torch.zeros((self.num_envs, self.engine.n_agents),
+        self._ep_acc = torch.zeros((self.local_envs, self.engine.n_agents),
                                    dtype=torch.float32, device=self.device)
         self._ep_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         self._ep_count = torch.zeros((), dtype=torch.float32,
@@ -407,7 +489,7 @@ class TrainerA2C(TrainerBase):
         one -- or, under ``update_recompute_obs``, one ``(T, E, ...)`` copy
         of every state entry but the done flags and rewards --, actions and
         rewards, and the done flags."""
-        T, E = self.training_batch_size_per_env, self.num_envs
+        T, E = self.training_batch_size_per_env, self.local_envs
         batch = {"done": torch.zeros((T, E), dtype=torch.int32,
                                      device=self.device)}
         if self._recompute_obs:
@@ -439,7 +521,8 @@ class TrainerA2C(TrainerBase):
         """``training_batch_size_per_env`` steps from the trainer's env
         state; returns the batch, time-major.  ``actions`` (T, E, N, C),
         when given, replaces the policies' draws (for tests that replay
-        recorded actions)."""
+        recorded actions); under a mesh, of the global envs or of the
+        rank's rows."""
         if self._batch is None:
             self._batch = self._make_batch()
         batch = self._batch
@@ -447,6 +530,8 @@ class TrainerA2C(TrainerBase):
         # the eager backend's engine holds the rollout's state itself
         state = dict(engine.state) if self._is_eager else self._env_state
         split = engine.has_split_step
+        if actions is not None and actions.shape[1] != self.local_envs:
+            actions = actions[:, self.env_rows]
         for t in range(self.training_batch_size_per_env):
             if self._recompute_obs:
                 # copies: later steps must not write into the record
@@ -585,6 +670,7 @@ class TrainerA2C(TrainerBase):
                 index_table=(index_tables or {}).get(tag),
                 observe=(self._observe_policy(tag) if self._recompute_obs
                          else None),
+                mesh=self.mesh,
             )
         return metrics
 

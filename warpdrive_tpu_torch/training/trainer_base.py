@@ -40,8 +40,18 @@ episode fetching run on the live engine between a snapshot of it and its
 restore; the episode logger and full-state checkpoints need the device
 engine and raise there, as the JAX package asserts.
 
-Left out, raising ``NotImplementedError`` that names its ROADMAP item:
-``num_devices > 1`` (item 11).
+Under a process mesh (an engine sharded by
+``parallel.mesh.apply_env_sharding``; the JAX trainer's ``engine.mesh``)
+every rank trains on its env rows: ``num_envs``, ``train_batch_size`` and
+``num_episodes`` stay global.  The model init draws from the shared config
+seed (a lazily drawn seed is rank 0's) and the parameters are then
+broadcast from rank 0; the rollout, reset, evaluation and downsampling
+draws come from a per-rank stream (``seed + 1000 * env rank``), so that no
+two ranks draw the same noise.  Metrics, episodic sums and counts, and the
+evaluation's and fetching's arrays are global; only the lead rank writes
+files, and every rank joins what they gather.  Full-state checkpoints are
+written and read in the single-process format, the env rows gathered, so a
+file of W ranks resumes on any number of ranks that divides the envs.
 """
 
 from __future__ import annotations
@@ -57,6 +67,13 @@ import torch
 
 from warpdrive_tpu_torch.core.episode_log import EpisodeLogger
 from warpdrive_tpu_torch.models.fully_connected import params_from_flax
+from warpdrive_tpu_torch.parallel.mesh import (
+    Deferred,
+    gather_carry,
+    reduce_metrics,
+    shard_carry,
+    to_host,
+)
 from warpdrive_tpu_torch.training.data_loader import policy_agent_groups
 from warpdrive_tpu_torch.utils import flax_msgpack
 from warpdrive_tpu_torch.utils.constants import Constants
@@ -184,10 +201,18 @@ class TrainerBase:
         verbose=True,
     ):
         assert env_wrapper is not None and config is not None
-        if int(num_devices) > 1:
-            raise not_ported("training on more than one device", "11")
         self.engine = env_wrapper
         self.device = self.engine.device
+        # the process mesh the engine's env rows are cut over, if any
+        self.mesh = getattr(self.engine, "mesh", None)
+        if int(num_devices) > 1 and self.mesh is None:
+            raise ValueError(
+                f"num_devices={num_devices} needs an engine sharded with "
+                "parallel.mesh.apply_env_sharding inside a process group of "
+                "that many ranks (parallel.launch.launch, or the CLI's -n)")
+        self.env_rows = getattr(self.engine, "env_rows",
+                                slice(0, self.engine.n_envs))
+        self.local_envs = self.env_rows.stop - self.env_rows.start
         # the placeholder layout is the engine's; the flags must agree
         if bool(create_separate_placeholders_for_each_policy) != \
                 self.engine.separate_placeholders:
@@ -268,13 +293,19 @@ class TrainerBase:
 
         # ---------------- seeding --------------------------------------------
         seed = trainer_cfg.get("seed")
-        seed = int(np.random.randint(10_000_000) if seed is None else seed)
-        self.seed = seed + self.device_id
+        if seed is None:
+            seed = np.random.randint(10_000_000)
+            if self.mesh is not None:  # every rank's own draw: rank 0's
+                seed = int(self.mesh.broadcast(torch.tensor(
+                    [seed], dtype=torch.int64, device=self.device))[0])
+        self.seed = int(seed) + self.device_id
+        # the rollout's draws: a stream of each env rank's own
+        env_rank = 0 if self.mesh is None else self.mesh.env_rank
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(self.seed)
+        self.generator.manual_seed(self.seed + 1000 * env_rank)
         # evaluation and episode fetching draw from their own generator
         self.eval_generator = torch.Generator(device=self.device)
-        self.eval_generator.manual_seed(self.seed + 1)
+        self.eval_generator.manual_seed(self.seed + 1000 * env_rank + 1)
 
         # ---------------- saving / metrics ----------------------------------
         saving_cfg = config["saving"]
@@ -290,10 +321,13 @@ class TrainerBase:
                 str(int(time.time())),
             )
         self.save_dir = results_dir
-        os.makedirs(self.save_dir, exist_ok=True)
-        with open(os.path.join(self.save_dir, "run_config.json"), "w",
-                  encoding="utf-8") as f:
-            json.dump(config, f, indent=2, default=str)
+        # only the lead rank writes files
+        self.is_lead = self.mesh is None or self.mesh.is_lead
+        if self.is_lead:
+            os.makedirs(self.save_dir, exist_ok=True)
+            with open(os.path.join(self.save_dir, "run_config.json"), "w",
+                      encoding="utf-8") as f:
+                json.dump(config, f, indent=2, default=str)
 
         self.perf_stats = PerfStats()
         self.metrics = Metrics()
@@ -435,7 +469,7 @@ class TrainerBase:
         ``(E, N, C)`` all-agent tensor."""
         num_c = max(a.shape[-1] for a in per_policy_actions.values())
         first = next(iter(per_policy_actions.values()))
-        actions = torch.zeros((self.num_envs, self.engine.n_agents, num_c),
+        actions = torch.zeros((self.local_envs, self.engine.n_agents, num_c),
                               dtype=first.dtype, device=self.device)
         for tag, acts in per_policy_actions.items():
             actions[:, self._agent_ids[tag], : acts.shape[-1]] = acts
@@ -463,7 +497,13 @@ class TrainerBase:
         mid = self.clock.mark()
         metrics = self._update_phase(batch, timestep)
         self._pending_marks.append((start, mid, self.clock.mark()))
-        mean_ep_reward = self._ep_sum / torch.clamp(self._ep_count, min=1.0)
+        if self.mesh is None:
+            mean_ep_reward = self._ep_sum / torch.clamp(self._ep_count,
+                                                        min=1.0)
+        else:  # every rank's episodes
+            mean_ep_reward = Deferred(
+                sums=[self._ep_sum, self._ep_count],
+                finish=lambda s, m: s[0] / torch.clamp(s[1], min=1.0))
         for tag in metrics:
             metrics[tag]["Mean episodic reward"] = mean_ep_reward
         return metrics
@@ -485,10 +525,7 @@ class TrainerBase:
             window_iters += 1
 
             if log_now:
-                metrics_host = {
-                    tag: {key: float(v) for key, v in m.items()}
-                    for tag, m in metrics.items()
-                }
+                metrics_host = reduce_metrics(metrics, self.mesh)
                 self._sync()
                 self.perf_stats.add_window(
                     window_iters, window_iters * steps_per_iter,
@@ -505,7 +542,7 @@ class TrainerBase:
                         metrics_host[tag]["Mean episodic steps (test)"] = (
                             float(eval_steps[tag].mean()))
                 self._log_metrics(metrics_host)
-                if self.verbose:
+                if self.verbose and self.is_lead:
                     print(f"Iteration {iteration + 1}/{self.num_iters} | "
                           f"timestep {self.current_timestep:,}")
                     self.metrics.pretty_print(metrics_host)
@@ -540,7 +577,9 @@ class TrainerBase:
         return total
 
     def _log_metrics(self, metrics: dict):
-        """Append one record to ``results.json``."""
+        """Append one record to ``results.json`` (the lead rank)."""
+        if not self.is_lead:
+            return
         record = {
             "iterations completed": self.iters_completed,
             "num timesteps": self.current_timestep,
@@ -558,8 +597,11 @@ class TrainerBase:
                             f"{policy}{suffix}_{timestep}.state_dict")
 
     def save_model_checkpoint(self, timestep: int = None):
-        """One ``state_dict`` file per trained policy."""
+        """One ``state_dict`` file per trained policy, written by the lead
+        rank (the parameters are whole on every rank: nothing to gather)."""
         timestep = self.current_timestep if timestep is None else timestep
+        if not self.is_lead:
+            return
         for policy in self.policies_to_train:
             torch.save(_host_state(self.models[policy]),
                        self._ckpt_path(policy, timestep))
@@ -611,31 +653,78 @@ class TrainerBase:
         snapshot and reset pools (an env built without a seed draws its own)
         -- so that a fresh trainer built from the same config resumes
         exactly where this one stands.  Returns the path.  Not on the eager
-        backend, whose env state is Python objects."""
+        backend, whose env state is Python objects.
+
+        Under a mesh every rank must call this: the file is the
+        single-process format, with every rank's env rows gathered and the
+        episodic sums and counts summed (the lead rank writes it); the
+        generators are the lead's, and ``rank_generators`` holds each env
+        rank's, which a run on as many env ranks takes back."""
         self._assert_device_engine("full-state checkpointing")
         path = path or os.path.join(
             self.save_dir, f"full_state_{self.current_timestep}.ckpt")
         store = self.engine.store
+        training = self._training_state()
+        generators = self._generator_states()
+        rank_generators = [generators]
+        if self.mesh is not None:
+            training = gather_carry(training, self.mesh, self.local_envs)
+            training["episodes"] = {
+                **training["episodes"],
+                **{k: self.mesh.all_reduce(training["episodes"][k].clone())
+                   for k in ("sum", "count")}}
+            rank_generators = self._gather_generator_states(generators)
         payload = {
-            "training": self._training_state(),
+            "training": training,
             "resets": {"snapshot": store.snapshot, "pools": store.pools},
             "current_timestep": self.current_timestep,
             "iters_completed": self.iters_completed,
-            "generators": {
-                "trainer": self.generator.get_state(),
-                "eval": self.eval_generator.get_state(),
-                "store": self.engine.store.generator.get_state(),
-            },
+            "generators": generators,
+            "rank_generators": rank_generators,
         }
-        torch.save(_to_host(payload), path)
+        if self.is_lead:
+            torch.save(_to_host(payload), path)
         return path
 
+    def _generators(self) -> dict:
+        return {"trainer": self.generator, "eval": self.eval_generator,
+                "store": self.engine.store.generator}
+
+    def _generator_states(self) -> dict:
+        return {k: g.get_state() for k, g in self._generators().items()}
+
+    def _gather_generator_states(self, states: dict) -> list:
+        """Every env rank's generator states, in env-rank order."""
+        names = list(states)
+        sizes = [states[k].numel() for k in names]
+        flat = torch.cat([states[k] for k in names])
+        every = self.mesh.all_gather(flat).reshape(self.mesh.dp, -1)
+        out = []
+        for row in every:
+            parts = torch.split(row, sizes)
+            out.append({k: p.clone() for k, p in zip(names, parts)})
+        return out
+
     def load_full_state(self, path: str):
-        """Restore a :meth:`save_full_state` checkpoint."""
+        """Restore a :meth:`save_full_state` checkpoint, written on any
+        number of ranks.  Under a mesh each rank keeps its env rows, the
+        lead env rank the episodic sums and counts, and each env rank takes
+        its own generators when the file holds as many; otherwise env rank
+        0 takes the file's and every other env rank a stream of its own
+        derived from the seed and the iteration."""
         self._assert_device_engine("full-state checkpointing")
         payload = torch.load(path, map_location="cpu", weights_only=True)
-        self._load_training_state(_to_device(payload["training"],
-                                             self.device))
+        training = payload["training"]
+        env_rank, dp = 0, 1
+        if self.mesh is not None:
+            env_rank, dp = self.mesh.env_rank, self.mesh.dp
+            training = shard_carry(training, self.mesh, self.num_envs)
+            if env_rank:
+                training["episodes"] = {
+                    **training["episodes"],
+                    **{k: torch.zeros_like(training["episodes"][k])
+                       for k in ("sum", "count")}}
+        self._load_training_state(_to_device(training, self.device))
         # in place: the engine's reset function holds these tensors
         store = self.engine.store
         for kind, saved in payload["resets"].items():
@@ -645,10 +734,15 @@ class TrainerBase:
                 live[name].copy_(tensor)
         self.current_timestep = int(payload["current_timestep"])
         self.iters_completed = int(payload["iters_completed"])
-        gens = payload["generators"]
-        self.generator.set_state(gens["trainer"])
-        self.eval_generator.set_state(gens["eval"])
-        self.engine.store.generator.set_state(gens["store"])
+        per_rank = payload.get("rank_generators") or []
+        gens = per_rank[env_rank] if len(per_rank) == dp else \
+            payload["generators"]
+        for name, generator in self._generators().items():
+            generator.set_state(gens[name])
+            if len(per_rank) != dp and env_rank:
+                generator.manual_seed(self.seed + 1000 * env_rank
+                                      + 7919 * self.iters_completed
+                                      + len(name))
         self.engine.state = {**self.engine.state, **self._env_state}
 
     # --------------------------------------------------- evaluation, fetching
@@ -705,7 +799,7 @@ class TrainerBase:
         ``(num_envs,)``.
         """
         engine = self.engine
-        E, N = self.num_envs, engine.n_agents
+        E, N = self.local_envs, engine.n_agents
         alive = torch.ones((E,), dtype=torch.bool, device=self.device)
         rew_sum = torch.zeros((E, N), dtype=torch.float32, device=self.device)
         step_sum = torch.zeros((E,), dtype=torch.int32, device=self.device)
@@ -718,8 +812,9 @@ class TrainerBase:
                 rew_sum = rew_sum + engine.rewards_of(state) \
                     * alive.to(torch.float32)[:, None]
                 step_sum = step_sum + alive.to(torch.int32)
-        rew_sum = rew_sum.cpu().numpy()
-        step_sum = step_sum.cpu().numpy()
+        # every rank's envs under a mesh
+        rew_sum = to_host(rew_sum, self.mesh, 0)
+        step_sum = to_host(step_sum, self.mesh, 0)
         episodic_reward_sum, episodic_step_sum = {}, {}
         for tag, ids in self.policy_tag_to_agent_id_map.items():
             episodic_reward_sum[tag] = rew_sum[:, ids]
@@ -746,6 +841,7 @@ class TrainerBase:
         engine = self.engine
         for name in list_of_states:
             assert name in engine.state, f"{name!r} is not a state array"
+        owner, env_id = self._owner_of(env_id)
         extra = {"_done": []}
         with self._episode() as state:
             recs = {name: [state[name][env_id]] for name in list_of_states}
@@ -772,7 +868,7 @@ class TrainerBase:
                     extra.setdefault("_actions", []).append(actions[env_id])
                 extra["_done"].append(state[Constants.DONE][env_id])
 
-        host = {key: torch.stack(v).cpu().numpy()
+        host = {key: self._from_owner(torch.stack(v), owner).cpu().numpy()
                 for key, v in {**recs, **extra}.items()}
         done_t = host["_done"] > 0
         end = int(np.argmax(done_t)) + 1 if done_t.any() else \
@@ -805,6 +901,7 @@ class TrainerBase:
         assert logger.log_names, (
             "no state array was pushed with log_data_across_episode=True"
         )
+        owner, env_id = self._owner_of(env_id)
         engine.reset_all_envs()
         state = dict(engine.state)
         buffers = logger.init_buffers(state, env_id)
@@ -820,10 +917,26 @@ class TrainerBase:
             done = state[Constants.DONE][env_id]
             done_seen = done_seen | (done > 0)
             done_t.append(done)
-        done_t = torch.stack(done_t).cpu().numpy() > 0
+        buffers = {k: self._from_owner(v, owner) for k, v in buffers.items()}
+        done_t = self._from_owner(torch.stack(done_t), owner).cpu().numpy() > 0
         last_step = int(np.argmax(done_t)) + 1 if done_t.any() else \
             engine.episode_length
         return logger.fetch(buffers, last_step)
+
+    def _owner_of(self, env_id: int):
+        """``(env rank holding global env row env_id, its local row)``;
+        every other rank records its row 0 and takes the owner's record
+        (:meth:`_from_owner`)."""
+        if self.mesh is None:
+            return 0, env_id
+        owner = self.mesh.env_rank_of_row(env_id, self.num_envs)
+        local = env_id - self.env_rows.start
+        return owner, (local if owner == self.mesh.env_rank else 0)
+
+    def _from_owner(self, x: torch.Tensor, owner: int) -> torch.Tensor:
+        if self.mesh is None:
+            return x
+        return self.mesh.broadcast(x.contiguous(), src=owner, axis="env")
 
     # ------------------------------------------------------------ profiling
     def profile_phases(self, repeats: int = 3) -> dict:

@@ -35,6 +35,14 @@ critic's activations in the update's backward pass.
 Checkpoints are per net, ``{policy}_{actor|critic}_{timestep}.state_dict``;
 loading takes ``{policy: {"actor": path, "critic": path}}`` and resets the
 targets of the nets it loads to them.
+
+Under a process mesh (``parallel/mesh.py``) the replay window holds the
+rank's env rows (its env axis, dim 1, cut), the OU noise is drawn from the
+rank's own stream, the losses take global denominators, both gradients are
+summed over the env group before the optimizers step (with ``tp > 1`` on
+the rank's shards, :class:`ClippedAdam`), and the Polyak updates run on the
+replicated nets; the warm-up gate is the host's count, the same on every
+rank.
 """
 
 from __future__ import annotations
@@ -75,7 +83,8 @@ def global_norm(grads) -> torch.Tensor:
 
 def ddpg_policy_update(nets: dict, targets: dict, optimizers: dict, algo,
                        batch: dict, timestep, lrs: dict, tau: float,
-                       step: bool = True, remat: bool = False) -> dict:
+                       step: bool = True, remat: bool = False,
+                       mesh=None) -> dict:
     """One policy's DDPG update on its replay window ``{"obs" (W, E, A, F),
     "actions" (W, E, A, C), "rewards" (W, E, A), "done" (W, E)}``.
     ``nets``, ``targets``, ``optimizers`` and ``lrs`` are keyed
@@ -83,8 +92,10 @@ def ddpg_policy_update(nets: dict, targets: dict, optimizers: dict, algo,
     optimizer steps, so the actor's goes through the critic as it was;
     with ``step`` the optimizers step and the targets move toward the
     updated nets, without it nothing moves.  ``remat`` recomputes the
-    online nets' activations in the backward pass.  Returns the metric
-    tensors."""
+    online nets' activations in the backward pass.  Under a ``mesh`` the
+    window holds the rank's env rows, the losses and metrics are global
+    and each net's gradients are summed over the env group.  Returns the
+    metric tensors."""
     actor = remat_apply(nets["actor"], remat)
     critic = remat_apply(nets["critic"], remat)
     obs_b, act_b = batch["obs"], batch["actions"]
@@ -96,15 +107,17 @@ def ddpg_policy_update(nets: dict, targets: dict, optimizers: dict, algo,
 
     q = critic(obs_b, act_b)
     critic_loss, critic_metrics = algo.critic_loss_and_metrics(
-        act_b, batch["rewards"], batch["done"], q, next_q)
+        act_b, batch["rewards"], batch["done"], q, next_q, group=mesh)
     grads = {"critic": torch.autograd.grad(
         critic_loss, list(nets["critic"].parameters()))}
 
-    actor_loss, j = algo.actor_loss(critic(obs_b, actor(obs_b)))
+    actor_loss, j = algo.actor_loss(critic(obs_b, actor(obs_b)), group=mesh)
     grads["actor"] = torch.autograd.grad(actor_loss,
                                          list(nets["actor"].parameters()))
+    if mesh is not None:
+        grads = {net: mesh.reduce_grads(g) for net, g in grads.items()}
 
-    metrics = algo.with_actor_terms(critic_metrics, actor_loss, j)
+    metrics = algo.with_actor_terms(critic_metrics, actor_loss, j, mesh)
     if step:
         # the optimizer returns the global norm it clipped by
         norms = {}
@@ -177,6 +190,9 @@ class TrainerDDPG(TrainerBase):
                 obs_dim + num_c, tuple(critic_cfg["fc_dims"]),
                 generator=init_gen, device=self.device,
             )
+            if self.mesh is not None:  # every rank starts from rank 0's
+                for net in _NETS:
+                    self.mesh.broadcast_module(self.nets[net][tag])
 
             assert policy_cfg.get("algorithm", "DDPG").upper() == "DDPG"
             self.algorithms[tag] = DDPG(
@@ -200,10 +216,11 @@ class TrainerDDPG(TrainerBase):
                 self.targets[net][tag] = copy.deepcopy(model)
                 self.lr_schedules[net][tag] = ParamScheduler(lrs[net])
                 self.optimizers[net][tag] = ClippedAdam(
-                    dict(model.named_parameters()), max_norm=max_norm)
+                    dict(model.named_parameters()), max_norm=max_norm,
+                    mesh=self.mesh)
 
         self._env_state = self._rollout_env_state()
-        E = self.num_envs
+        E = self.local_envs
         self._ou = {}
         self._window = {}
         for tag, ids in self.policy_tag_to_agent_id_map.items():
@@ -352,6 +369,7 @@ class TrainerDDPG(TrainerBase):
                 {net: self.lr_schedules[net][tag].value_at(timestep)
                  for net in _NETS},
                 self.tau[tag], step=is_full, remat=self.remat[tag],
+                mesh=self.mesh,
             )
         return metrics
 
