@@ -2866,8 +2866,7 @@ def _multi_rank_tp(device, cfg, results_dir):
             "launches": dict(knn_obs.LAUNCH_COUNTS)}
 
 
-def _drive_multi_device(card, device=DEVICE, one_rank_backend="nccl",
-                        ranks_device="cuda:0"):
+def _drive_multi_device(card):
     """Phase 4r: the shipped ``tag_continuous`` run config at full width
     (100 envs x 110 agents, K2) over process meshes.
 
@@ -2886,9 +2885,7 @@ def _drive_multi_device(card, device=DEVICE, one_rank_backend="nccl",
     Prints the NCCL version, the all-reduces an iteration runs, and ms per
     iteration of one process, the one-rank group and the two ranks with
     gloo's share of the update, beside the card.  Returns the launches
-    of every rank, counted from 0 just before each run.  ``device``,
-    ``one_rank_backend`` and ``ranks_device`` let the phase be rehearsed
-    on the CPU (``"cpu"``, ``"gloo"``, ``"cpu"``)."""
+    of every rank, counted from 0 just before each run."""
     import torch
     import torch.distributed as dist
 
@@ -2905,41 +2902,38 @@ def _drive_multi_device(card, device=DEVICE, one_rank_backend="nccl",
     try:
         # the plain trainer: the reference of (a), timed as one process
         plain = setup_trainer(copy.deepcopy(cfg), results_dir=str(tmp / "p"),
-                              verbose=False, device=device)
+                              verbose=False, device=DEVICE)
         plain.train()
         plain_params = _host_params(plain)
         plain_timed = _timed_iterations(plain)
 
         # (a) the one-rank NCCL group
         initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0,
-                             backend=one_rank_backend, device=ranks_device)
+                             backend="nccl", device="cuda:0")
         try:
             knn_obs.reset_launch_counts()
             one = setup_trainer(copy.deepcopy(cfg), num_devices=1,
                                 results_dir=str(tmp / "a"), verbose=False,
-                                device=device)
+                                device=DEVICE)
             mesh = one.mesh
             mesh.stats.calls.clear()
             one.train()
             launches = dict(knn_obs.LAUNCH_COUNTS)
             reduces = mesh.stats.calls.get("all_reduce", 0)
             T = one.training_batch_size_per_env
-            on_card = torch.device(device).type == "cuda"
             assert launches == dict({name: 0 for name in launches},
-                                    knn_obs_mxu=MULTI_ITERS * T * on_card), \
-                launches
+                                    knn_obs_mxu=MULTI_ITERS * T), launches
             for name, count in launches.items():
                 total[name] += count
             diff = _params_diff(_host_params(one), plain_params)
             assert diff == 0.0, f"one-rank NCCL group vs plain: {diff}"
-            assert dist.get_backend() == one_rank_backend
+            assert dist.get_backend() == "nccl"
             assert mesh.world_size == 1
             one_timed = _timed_iterations(one, mesh)
         finally:
             dist.destroy_process_group()
-        version = ("NCCL " + ".".join(map(str, torch.cuda.nccl.version()))
-                   if one_rank_backend == "nccl" else one_rank_backend)
-        print(f"4r (a) one-rank {one_rank_backend} group ({version}): "
+        version = "NCCL " + ".".join(map(str, torch.cuda.nccl.version()))
+        print(f"4r (a) one-rank NCCL group ({version}): "
               f"{MULTI_ITERS} iterations, parameters equal to the plain "
               f"trainer's bit for bit; {reduces / MULTI_ITERS:.0f} "
               f"all-reduces an iteration (with its log point), K2 launches "
@@ -2947,7 +2941,7 @@ def _drive_multi_device(card, device=DEVICE, one_rank_backend="nccl",
 
         # (b) two gloo ranks sharing the card, against one process
         ref = setup_trainer(copy.deepcopy(cfg), results_dir=str(tmp / "r"),
-                            verbose=False, device=device)
+                            verbose=False, device=DEVICE)
         start = _host_params(ref)
         batch = ref._rollout()
         actions = torch.zeros(
@@ -2957,9 +2951,9 @@ def _drive_multi_device(card, device=DEVICE, one_rank_backend="nccl",
         digests = _row_digests(batch)
         # the replay starts from the state as built: a fresh trainer
         ref = setup_trainer(copy.deepcopy(cfg), results_dir=str(tmp / "r2"),
-                            verbose=False, device=device)
+                            verbose=False, device=DEVICE)
         assert _params_diff(_host_params(ref), start) == 0.0
-        replayed = ref._rollout(actions.to(device))
+        replayed = ref._rollout(actions.to(DEVICE))
         assert all(torch.equal(v, digests[k])
                    for k, v in _row_digests(replayed).items())
         ref._update(replayed, 0)
@@ -2969,7 +2963,7 @@ def _drive_multi_device(card, device=DEVICE, one_rank_backend="nccl",
         results = launch(_multi_rank_gloo, 2,
                          args=(cfg, str(tmp / "b"), actions, digests,
                                update),
-                         device=ranks_device, backend="gloo", timeout_s=600)
+                         device="cuda:0", backend="gloo", timeout_s=600)
         E = cfg["trainer"]["num_envs"]
         assert [r["rows"] for r in results] == [(0, E // 2), (E // 2, E)]
         assert _params_diff(results[0]["params"], results[1]["params"]) \
@@ -2997,13 +2991,13 @@ def _drive_multi_device(card, device=DEVICE, one_rank_backend="nccl",
 
         # (c) a dp1 x tp2 pair against the unsharded iteration
         ref = setup_trainer(copy.deepcopy(cfg), results_dir=str(tmp / "c0"),
-                            verbose=False, device=device)
+                            verbose=False, device=DEVICE)
         ref._iteration(0)
         unsharded = _host_params(ref)
         del ref
         torch.cuda.empty_cache()
         tp = launch(_multi_rank_tp, 2, args=(cfg, str(tmp / "c")),
-                    device=ranks_device, backend="gloo", timeout_s=600)
+                    device="cuda:0", backend="gloo", timeout_s=600)
         tp_diff = max(_params_diff(r["params"], unsharded) for r in tp)
         assert tp_diff <= MULTI_PARAM_TOL, f"tp2 vs unsharded: {tp_diff}"
         assert _params_diff(tp[0]["params"], tp[1]["params"]) == 0.0
@@ -3018,18 +3012,17 @@ def _drive_multi_device(card, device=DEVICE, one_rank_backend="nccl",
               f"{tp_diff:.3g} of the unsharded one, {cut} parameters cut")
 
         # the dry run's three program shapes on a 2 x 2 mesh (K1)
-        dry = dryrun_multichip(4, device=ranks_device, backend="gloo")
+        dry = dryrun_multichip(4, device="cuda:0", backend="gloo")
         for r in dry:
             for name, count in r["launches"].items():
                 total[name] += count
-        assert ranks_device == "cpu" or all(
-            r["launches"]["knn_obs_flat_exact"] > 0 for r in dry)
+        assert all(r["launches"]["knn_obs_flat_exact"] > 0 for r in dry), \
+            [r["launches"] for r in dry]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"4r ms per iteration ({card}): one process "
           f"{plain_timed['iteration_ms']:.3f} (update "
-          f"{plain_timed['update_ms']:.3f}); one-rank {one_rank_backend} "
-          f"group "
+          f"{plain_timed['update_ms']:.3f}); one-rank NCCL group "
           f"{one_timed['iteration_ms']:.3f} (update "
           f"{one_timed['update_ms']:.3f}, collectives "
           f"{one_timed['collective_ms']:.3f}); two gloo ranks on one card "

@@ -192,7 +192,7 @@ def _check_ddpg(tmp_path):
     results = launch(ddpg_update_rank, WORLD,
                      args=(_ddpg_config(port_config.load_run_config), WORLD,
                            1, str(tmp_path / "port"), start, _host(rows)),
-                     threads=1, timeout_s=300)
+                     device="cpu", threads=1, timeout_s=300)
     for got in results:
         assert got["filled"] == [10, 12]
         for net in ("actor", "critic"):
@@ -232,7 +232,7 @@ def test_two_rank_update_matches_jax_mesh(case, jax_batch, tmp_path):
               str(tmp_path / "port"),
               _port_state(carry, jtrainer.policies), jax_batch,
               tables or None),
-        threads=1, timeout_s=300)
+        device="cpu", threads=1, timeout_s=300)
     for got in results:
         _assert_params(got["params"], params, case)
         for tag in got["params"]:
@@ -274,7 +274,7 @@ def test_downsampled_update_matches_one_rank(jax_batch, tmp_path):
     two = launch(a2c_update_rank, WORLD,
                  args=(cfg, WORLD, 1, str(tmp_path / "two"), state, batch,
                        None, uniform),
-                 threads=1, timeout_s=300)
+                 device="cpu", threads=1, timeout_s=300)
     kept = one["metrics"]["runner"]["Num of Sampled Envs"]
     assert 3 <= kept < NUM_ENVS  # the positives and some negatives
     for got in two:

@@ -55,8 +55,8 @@ def test_two_ranks_train_resume_and_write_once(tmp_path):
     cfg = cartpole_config(str(tmp_path))
     results = tmp_path / "results"
     two = str(tmp_path / "two.ckpt")
-    got = launch(train_rank, 2, args=(cfg, str(results), two), threads=1,
-                 timeout_s=300)
+    got = launch(train_rank, 2, args=(cfg, str(results), two), device="cpu",
+                 threads=1, timeout_s=300)
     assert [r["iters"] for r in got] == [4, 4]  # train() ran to its end
     assert [r["lead"] for r in got] == [True, False]
     for name, value in got[0]["params"].items():
@@ -95,7 +95,8 @@ def test_two_ranks_train_resume_and_write_once(tmp_path):
         out = str(tmp_path / f"{label}.ckpt")
         assert launch(resume_rank, 2,
                       args=(cfg, str(tmp_path / label), path_in, out),
-                      threads=1, timeout_s=300) in ([1, 1], [4, 4])
+                      device="cpu", threads=1,
+                      timeout_s=300) in ([1, 1], [4, 4])
         _assert_same(_payload(out), _payload(path_in))
     _assert_same(torch.load(str(tmp_path / "2_to_2.ckpt"),
                             weights_only=True)["rank_generators"],
@@ -124,7 +125,7 @@ def test_evaluation_and_fetching_are_global(tmp_path):
     cfg = tag_continuous_config(str(tmp_path))
     one = evaluation_rank("cpu", cfg, 1, str(tmp_path / "one"), 3)
     two = launch(evaluation_rank, 2, args=(cfg, 2, str(tmp_path / "two"), 3),
-                 threads=1, timeout_s=300)
+                 device="cpu", threads=1, timeout_s=300)
     for got in two:
         for tag, value in one["rewards"].items():
             assert got["rewards"][tag].shape == (4, len(value[0]))
@@ -144,7 +145,7 @@ def test_evaluation_and_fetching_are_global(tmp_path):
 def test_dryrun_multichip_on_a_2x2_mesh():
     from warpdrive_tpu_torch.entry import dryrun_multichip
 
-    got = dryrun_multichip(4)
+    got = dryrun_multichip(4, device="cpu")
     assert [r["mesh"] for r in got] == [(2, 2)] * 4
     for r in got[1:]:  # every rank reports the global losses
         assert r["losses"] == got[0]["losses"]

@@ -55,7 +55,7 @@ def test_tensor_parallel_update_matches_jax_2d_mesh(case, jax_batch,
         args=(_config(port_config.load_run_config, policy), dp * tp, tp,
               str(tmp_path / "port"), _port_state(carry, jtrainer.policies),
               jax_batch, tables or None),
-        threads=1, timeout_s=300)
+        device="cpu", threads=1, timeout_s=300)
     for rank, got in enumerate(results):
         _assert_params(got["params"], params, f"{case} rank {rank}")
         cut = 0

@@ -23,7 +23,7 @@ from warpdrive_tpu_torch.algos.returns import (
     n_step_returns,
     normalize_across_env_agents,
 )
-from warpdrive_tpu_torch.parallel.mesh import Deferred, MetricOps
+from warpdrive_tpu_torch.parallel.mesh import MetricOps
 
 _EPSILON = 1e-10
 
@@ -116,15 +116,13 @@ class DDPG:
         return -global_mean(norm_j, group), j
 
     @staticmethod
-    def with_actor_terms(critic_metrics: dict, actor_loss, j,
+    def with_actor_terms(critic_metrics: dict, critic_loss, actor_loss, j,
                          group=None) -> dict:
         """The full metric dict, in the JAX package's order."""
         ops = MetricOps(group)
         actor_loss = actor_loss.detach()
-        critic = critic_metrics["Critic loss"]
         metrics = {
-            "Total loss": (actor_loss + critic if group is None else
-                           Deferred(sums=[actor_loss + critic.sums[0]])),
+            "Total loss": ops.value(actor_loss + critic_loss.detach()),
             "Actor loss": ops.value(actor_loss),
         }
         for name, value in critic_metrics.items():
@@ -150,4 +148,4 @@ class DDPG:
         )
         actor_loss, j = self.actor_loss(j_functions_batch)
         return actor_loss, critic_loss, self.with_actor_terms(
-            critic_metrics, actor_loss, j)
+            critic_metrics, critic_loss, actor_loss, j)

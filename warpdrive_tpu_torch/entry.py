@@ -10,9 +10,11 @@ The port's counterparts of ``__graft_entry__.py``:
   least 4, else ``n`` on the env axis -- run one training iteration each of
   three program shapes on tiny sizes, the env axis cut over the mesh:
   full-observation A2C + PPO, the kNN observation's A2C (K1,
-  ``pallas_flat_exact``, on a card) and DDPG on Pendulum.  Gloo ranks on the
-  CPU by default, or on the card when asked (``device="cuda:0"`` with
-  ``backend="gloo"`` puts every rank on one card).
+  ``pallas_flat_exact``, on a card) and DDPG on Pendulum.  By default every
+  rank is a gloo rank on the first card (NCCL refuses two ranks on one GPU);
+  ``device="cpu"`` runs the ranks on the CPU, and ``device="cuda"`` with
+  ``backend="nccl"`` one rank a card (raising when there are fewer cards
+  than ranks).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ def entry(device="cuda"):
                                       generator)
 
 
-def dryrun_multichip(n_devices: int, device="cpu", backend: str = None,
+def dryrun_multichip(n_devices: int, device="cuda:0", backend: str = "gloo",
                      timeout_s: float = 600) -> list:
     """One sharded training iteration of each of the three program shapes
     on ``n_devices`` ranks; returns each rank's ``{"mesh": (dp, tp),

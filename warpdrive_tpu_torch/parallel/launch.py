@@ -37,6 +37,7 @@ from warpdrive_tpu_torch.parallel.mesh import (
     default_backend,
     initialize_multihost,
 )
+from warpdrive_tpu_torch.utils.device import resolve_device
 
 
 def free_port() -> int:
@@ -87,13 +88,14 @@ def _rank_main(rank, world_size, port, backend, device, fn, args, outdir,
         os._exit(code)
 
 
-def launch(fn, world_size: int, args=(), device="cpu", backend: str = None,
+def launch(fn, world_size: int, args=(), device="cuda", backend: str = None,
            timeout_s: float = 600, threads: int = None) -> list:
     """Run ``fn(device, *args)`` on ``world_size`` spawned ranks; returns
     their results in rank order.  ``timeout_s`` None waits as long as the
     ranks run.  ``threads`` sets each rank's
-    ``torch.set_num_threads``.  Raises ``ValueError`` before spawning when
-    NCCL is asked for more ranks than there are cards."""
+    ``torch.set_num_threads``.  Raises before spawning when NCCL is asked
+    for more ranks than there are cards (``ValueError``), or a card when
+    there is none."""
     world_size = int(world_size)
     backend = backend or default_backend(device)
     if backend == "nccl":
@@ -103,6 +105,7 @@ def launch(fn, world_size: int, args=(), device="cpu", backend: str = None,
                 f"{world_size} NCCL ranks need {world_size} GPUs, "
                 f"{cards} visible; one rank a card (use device='cpu' for a "
                 "gloo rehearsal)")
+    resolve_device(device)
     ctx = multiprocessing.get_context("spawn")
     outdir = tempfile.mkdtemp(prefix="wdt_launch_")
     port = free_port()
@@ -121,13 +124,13 @@ def launch(fn, world_size: int, args=(), device="cpu", backend: str = None,
             failed = [r for r, p in enumerate(procs)
                       if p.exitcode not in (None, 0)]
             if failed:
-                raise RuntimeError(_failure(outdir, procs, failed[0]))
+                raise RuntimeError(_failure(outdir, procs, failed))
             if time.monotonic() > deadline:
                 raise TimeoutError(f"ranks still running after {timeout_s} s")
             time.sleep(0.05)
         failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
         if failed:
-            raise RuntimeError(_failure(outdir, procs, failed[0]))
+            raise RuntimeError(_failure(outdir, procs, failed))
         return [torch.load(os.path.join(outdir, f"rank{r}.pt"),
                            weights_only=False)
                 for r in range(world_size)]
@@ -141,11 +144,21 @@ def launch(fn, world_size: int, args=(), device="cpu", backend: str = None,
         shutil.rmtree(outdir, ignore_errors=True)
 
 
-def _failure(outdir: str, procs, rank: int) -> str:
-    path = os.path.join(outdir, f"rank{rank}.err")
+def _failure(outdir: str, procs, failed: list) -> str:
+    """The report of the rank that failed first: of the failed ranks, the
+    one whose traceback was written first (a rank's failure breaks its
+    peers' collectives, which fail after it)."""
+
+    def written(rank):
+        path = os.path.join(outdir, f"rank{rank}.err")
+        return os.stat(path).st_mtime_ns if os.path.exists(path) else None
+
+    times = {r: written(r) for r in failed}
+    rank = min(failed, key=lambda r: (times[r] is None, times[r] or 0, r))
     detail = ""
-    if os.path.exists(path):
-        with open(path, encoding="utf-8") as f:
+    if times[rank] is not None:
+        with open(os.path.join(outdir, f"rank{rank}.err"),
+                  encoding="utf-8") as f:
             detail = f.read()
     return (f"rank {rank} of {len(procs)} exited with code "
             f"{procs[rank].exitcode}\n{detail}")

@@ -71,6 +71,19 @@ def default_backend(device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
+def local_device(device, process_id: int = None) -> torch.device:
+    """``device``, a bare ``cuda`` made this process's card: ``LOCAL_RANK``
+    (as ``torchrun`` sets it), else the process id (``RANK`` without one),
+    modulo the visible cards."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    if process_id is None:
+        process_id = os.environ.get("RANK", 0)
+    local = int(os.environ.get("LOCAL_RANK", process_id))
+    return torch.device("cuda", local % max(torch.cuda.device_count(), 1))
+
+
 def initialize_multihost(coordinator_address: str = None,
                          num_processes: int = None, process_id: int = None,
                          backend: str = None, device="cuda",
@@ -80,12 +93,13 @@ def initialize_multihost(coordinator_address: str = None,
     without a coordinator, the ``MASTER_ADDR``/``MASTER_PORT``/
     ``WORLD_SIZE``/``RANK`` variables (``env://``, as ``torchrun`` sets
     them).  ``backend`` defaults to the device's; collectives and the
-    rendezvous wait at most ``timeout_s`` seconds.  A CUDA device is made
-    current first, as NCCL needs."""
+    rendezvous wait at most ``timeout_s`` seconds.  A CUDA device (a bare
+    ``cuda``: :func:`local_device`) is made current first, as NCCL
+    needs."""
     if dist.is_initialized():
         raise RuntimeError("the process group is already initialized")
     backend = backend or default_backend(device)
-    dev = torch.device(device)
+    dev = local_device(device, process_id)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     kwargs = dict(backend=backend, timeout=timedelta(seconds=timeout_s))
@@ -314,35 +328,46 @@ def shard_state(state: dict, mesh: Mesh, num_envs: int) -> dict:
             for k, v in state.items()}
 
 
-def shard_carry(carry, mesh: Mesh, num_envs: int, _time_major=False):
-    """The rank's share of a trainer's training state (nested dicts):
-    nets and optimizer states whole, the replay window cut on dim 1, any
-    other tensor of ``num_envs`` rows on dim 0."""
-    rows = mesh.env_rows(num_envs)
+def carry_env_dims(carry, num_envs: int):
+    """The env-axis dim of each tensor of a single-process training state
+    (nested dicts), by the cut rule: None for nets and optimizer states,
+    dim 1 for the replay window's tensors, dim 0 for any other tensor of
+    ``num_envs`` rows, None for everything else."""
 
     def walk(tree, time_major):
         if isinstance(tree, dict):
-            return {k: (v if k in _PARAM_KEYS
+            return {k: (None if k in _PARAM_KEYS
                         else walk(v, time_major or k in _REPLAY_KEYS))
                     for k, v in tree.items()}
-        return _cut(tree, env_cut_dim("", tree, num_envs, time_major), rows)
-
-    return walk(carry, _time_major)
-
-
-def gather_carry(carry, mesh: Mesh, local_envs: int):
-    """The inverse of :func:`shard_carry`: every env-cut tensor (of
-    ``local_envs`` rows on its env axis) gathered over the env group."""
-
-    def walk(tree, time_major):
-        if isinstance(tree, dict):
-            return {k: (v if k in _PARAM_KEYS
-                        else walk(v, time_major or k in _REPLAY_KEYS))
-                    for k, v in tree.items()}
-        dim = env_cut_dim("", tree, local_envs, time_major)
-        return tree if dim is None else mesh.all_gather(tree, dim)
+        return env_cut_dim("", tree, num_envs, time_major)
 
     return walk(carry, False)
+
+
+def _map_cut(fn, carry, dims):
+    """``fn(tensor, dim)`` at every leaf of ``carry`` whose entry in the
+    ``dims`` tree is a dim; every other leaf and subtree as it is."""
+    if dims is None:
+        return carry
+    if isinstance(carry, dict):
+        return {k: _map_cut(fn, v, dims.get(k)) for k, v in carry.items()}
+    return fn(carry, dims)
+
+
+def shard_carry(carry, mesh: Mesh, num_envs: int, dims=None):
+    """The rank's share of a training state (nested dicts): the tensors
+    that ``dims`` (a tree of env-axis dims, by default
+    :func:`carry_env_dims` of ``carry``) names cut to the rank's rows,
+    everything else whole."""
+    rows = mesh.env_rows(num_envs)
+    dims = carry_env_dims(carry, num_envs) if dims is None else dims
+    return _map_cut(lambda x, d: _cut(x, d, rows), carry, dims)
+
+
+def gather_carry(carry, mesh: Mesh, dims):
+    """The inverse of :func:`shard_carry` with the same ``dims``: exactly
+    the tensors it cut gathered over the env group, on their env axis."""
+    return _map_cut(mesh.all_gather, carry, dims)
 
 
 def to_host(x: torch.Tensor, mesh: Mesh = None, dim: int = None
@@ -361,7 +386,8 @@ def apply_env_sharding(engine, num_devices: int = None, mesh: Mesh = None,
     built the whole initial state from its seed, so rank ``r`` starts bit
     for bit at its rows of the single-process engine; ``n_envs`` stays
     global and ``engine.env_rows`` names the rows; every rank must have
-    built the same state (raises otherwise).  The store's generator
+    built the same state (raises otherwise); ``engine.env_dims`` records
+    each state key's env-axis dim (None: whole).  The store's generator
     (pool rows of forced resets) becomes a per-rank stream: env rank ``d``
     reseeds it ``seed + 1000 d``.
 
@@ -380,6 +406,9 @@ def apply_env_sharding(engine, num_devices: int = None, mesh: Mesh = None,
     _check_same_everywhere(engine, mesh)
     engine.mesh = mesh
     engine.env_rows = rows
+    # the cut of each state key, decided on the whole state
+    engine.env_dims = {k: env_cut_dim(k, v, engine.n_envs)
+                       for k, v in engine.state.items()}
     engine.state = shard_state(engine.state, mesh, engine.n_envs)
     engine.store.state = engine.state
     if mesh.env_rank:
@@ -436,7 +465,11 @@ def shard_params_tp(params: dict, mesh: Mesh) -> dict:
 class Deferred:
     """A metric whose value needs every env rank: the rank's ``sums``
     (summed over the ranks) and ``maxes`` (maximized), combined by
-    ``finish(sums, maxes)`` at a log point (:func:`reduce_metrics`)."""
+    ``finish(sums, maxes)``.  ``finish`` may return another
+    :class:`Deferred`, a second pass over the first one's results (the
+    centred squares of a variance about the global mean).  Finished over
+    the env group at a log point (:func:`reduce_metrics`), or on the rank
+    alone (:meth:`local`)."""
 
     def __init__(self, sums=(), maxes=(), finish=None):
         self.sums = [torch.as_tensor(s, dtype=torch.float32).reshape(-1)
@@ -444,6 +477,35 @@ class Deferred:
         self.maxes = [torch.as_tensor(m, dtype=torch.float32).reshape(-1)
                       for m in maxes]
         self.finish = finish or (lambda s, m: (s or m)[0])
+
+    def local(self) -> torch.Tensor:
+        """The value over this rank's rows alone."""
+        return _finish_all([self], None)[0]
+
+
+def _finish_all(deferred: list, mesh) -> list:
+    """The values of ``deferred`` (other entries pass as they are): each
+    pass one SUM and one MAX all-reduce over the env group for all of
+    them, or none without a mesh."""
+    out = list(deferred)
+    pending = [i for i, d in enumerate(out) if isinstance(d, Deferred)]
+    while pending:
+        for kind, op in (("sums", dist.ReduceOp.SUM),
+                         ("maxes", dist.ReduceOp.MAX)):
+            parts = [p for i in pending for p in getattr(out[i], kind)]
+            if mesh is not None and parts:
+                flat = torch.cat([p.to(mesh.device) for p in parts])
+                mesh.all_reduce(flat, op=op)
+                parts = torch.split(flat, [p.numel() for p in parts])
+            reduced = iter(parts)
+            for i in pending:
+                setattr(out[i], f"_{kind}",
+                        [x if x.numel() > 1 else x[0]
+                         for _, x in zip(getattr(out[i], kind), reduced)])
+        out = [d.finish(d._sums, d._maxes) if i in pending else d
+               for i, d in enumerate(out)]
+        pending = [i for i in pending if isinstance(out[i], Deferred)]
+    return out
 
 
 def _max_of(x: torch.Tensor) -> torch.Tensor:
@@ -454,101 +516,78 @@ def _max_of(x: torch.Tensor) -> torch.Tensor:
 
 
 class MetricOps:
-    """The metric reductions of the algorithms: plain tensors without an
-    env group, :class:`Deferred` global ones with it."""
+    """The metric reductions of the algorithms, each one formula: with an
+    env group a :class:`Deferred` over every rank's rows, without one the
+    same finished at once on the rank's tensors."""
 
     def __init__(self, group=None):
         self.group = group
 
+    def out(self, d: Deferred):
+        return d if self.group is not None else d.local()
+
     def value(self, x: torch.Tensor):
         """A loss term each rank holds a part of (its numerator over the
         global denominator): the sum over ranks."""
-        return x if self.group is None else Deferred(sums=[x])
+        return self.out(Deferred(sums=[x]))
 
     def mean(self, x: torch.Tensor):
-        if self.group is None:
-            return x.mean()
-        return Deferred(sums=[x.float().sum(), float(x.numel())],
-                        finish=lambda s, m: s[0] / s[1])
+        return self.out(Deferred(sums=[x.float().sum(), float(x.numel())],
+                                 finish=lambda s, m: s[0] / s[1]))
 
     def max(self, x: torch.Tensor):
-        return x.max() if self.group is None else Deferred(maxes=[_max_of(x)])
+        return self.out(Deferred(maxes=[_max_of(x)]))
 
     def min(self, x: torch.Tensor):
-        if self.group is None:
-            return x.min()
-        return Deferred(maxes=[_max_of(-x)], finish=lambda s, m: -m[0])
+        return self.out(Deferred(maxes=[_max_of(-x)],
+                                 finish=lambda s, m: -m[0]))
 
     def std_mean(self, x: torch.Tensor, dim: int):
         """The mean over the other axes of the population std along
-        ``dim``; along the env axis (1) from global moments."""
-        if self.group is None:
-            return x.std(dim=dim, correction=0).mean()
+        ``dim``; along the env axis (1) in two passes over every rank's
+        rows: the mean, then the centred squares."""
         if dim != 1:
             std = x.std(dim=dim, correction=0)
-            return Deferred(sums=[std.sum(), float(std.numel())],
-                            finish=lambda s, m: s[0] / s[1])
+            return self.mean(std)
+        x = x.float()
 
-        def finish(s, m):
-            n = s[2]
-            var = torch.clamp(s[1] / n - (s[0] / n) ** 2, min=0.0)
-            return torch.sqrt(var).mean()
+        def centred(s, m):
+            n = s[1]
+            mean = (s[0] / n).reshape(x.sum(dim=1).shape).unsqueeze(1)
+            return Deferred(sums=[((x - mean) ** 2).sum(dim=1)],
+                            finish=lambda s2, m2: torch.sqrt(s2[0] / n).mean())
 
-        return Deferred(sums=[x.sum(dim=1), (x * x).sum(dim=1),
-                              float(x.shape[1])], finish=finish)
+        return self.out(Deferred(sums=[x.sum(dim=1), float(x.shape[1])],
+                                 finish=centred))
 
     def variance_explained(self, adv: torch.Tensor, ret: torch.Tensor,
                            eps: float):
-        """``max(1 - var(adv) / (var(ret) + eps), -1)`` over all
-        entries."""
-        if self.group is None:
-            return torch.clamp(1.0 - adv.var(correction=0)
-                               / (ret.var(correction=0) + eps), min=-1.0)
+        """``max(1 - var(adv) / (var(ret) + eps), -1)`` over all entries,
+        the variances in two passes: the means, then the centred
+        squares."""
 
-        def finish(s, m):
-            n = s[4]
-            var_a = s[1] / n - (s[0] / n) ** 2
-            var_r = s[3] / n - (s[2] / n) ** 2
-            return torch.clamp(1.0 - var_a / (var_r + eps), min=-1.0)
+        def centred(s, m):
+            n = s[2]
+            return Deferred(
+                sums=[((adv - s[0] / n) ** 2).sum(),
+                      ((ret - s[1] / n) ** 2).sum()],
+                finish=lambda s2, m2: torch.clamp(
+                    1.0 - (s2[0] / n) / (s2[1] / n + eps), min=-1.0))
 
-        return Deferred(sums=[adv.sum(), (adv * adv).sum(), ret.sum(),
-                              (ret * ret).sum(), float(adv.numel())],
-                        finish=finish)
+        return self.out(Deferred(
+            sums=[adv.sum(), ret.sum(), float(adv.numel())],
+            finish=centred))
 
 
 def reduce_metrics(metrics: dict, mesh: Mesh = None) -> dict:
     """``{tag: {name: float}}`` of a metric dict: :class:`Deferred` values
-    combined over the env group (one SUM and one MAX all-reduce for all of
-    them; every rank must call this at the same log point), tensors and
-    numbers read as they are."""
-    deferred = [v for m in metrics.values() for v in m.values()
-                if isinstance(v, Deferred)]
-    if deferred:
-        assert mesh is not None, "deferred metrics need the mesh"
-        device = mesh.device
-        for kind in ("sums", "maxes"):
-            parts = [p.to(device) for d in deferred for p in getattr(d, kind)]
-            if not parts:
-                continue
-            flat = torch.cat(parts)
-            mesh.all_reduce(flat, op=(dist.ReduceOp.SUM if kind == "sums"
-                                      else dist.ReduceOp.MAX))
-            start = 0
-            for d in deferred:
-                reduced = []
-                for p in getattr(d, kind):
-                    reduced.append(flat[start:start + p.numel()])
-                    start += p.numel()
-                setattr(d, f"_{kind}", reduced)
-    out = {}
-    for tag, m in metrics.items():
-        out[tag] = {}
-        for name, v in m.items():
-            if isinstance(v, Deferred):
-                s = [x if x.numel() > 1 else x[0] for x in v._sums] \
-                    if v.sums else []
-                mx = [x if x.numel() > 1 else x[0] for x in v._maxes] \
-                    if v.maxes else []
-                v = v.finish(s, mx)
-            out[tag][name] = float(v)
+    finished over the env group (one SUM and one MAX all-reduce a pass for
+    all of them; every rank must call this at the same log point), or on
+    the rank alone without a mesh; tensors and numbers read as they
+    are."""
+    names = [(tag, name) for tag, m in metrics.items() for name in m]
+    values = _finish_all([metrics[tag][name] for tag, name in names], mesh)
+    out = {tag: {} for tag in metrics}
+    for (tag, name), v in zip(names, values):
+        out[tag][name] = float(v)
     return out

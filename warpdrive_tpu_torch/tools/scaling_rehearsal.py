@@ -116,18 +116,22 @@ def _build_trainer(shape: str, n_envs: int, outdir: str, device):
 
 
 def _timed_rank(device, shape: str, n_envs: int, outdir: str) -> float:
-    """One rank: a warm-up iteration, then ``TIMED_ITERS`` chained ones
-    between two barriers; returns the global env-steps a second."""
+    """One rank: a warm-up iteration, then ``TIMED_ITERS`` ones, each
+    between two barriers; returns the global env-steps a second of the
+    median iteration (a ratio of two runs on a shared host: the median
+    leaves out the iterations another process's burst slowed)."""
     import torch.distributed as dist
 
     trainer = _build_trainer(shape, n_envs, outdir, device)
     trainer._iteration(0)
-    dist.barrier()
-    t0 = time.perf_counter()
+    seconds = []
     for i in range(TIMED_ITERS):
+        dist.barrier()
+        t0 = time.perf_counter()
         trainer._iteration(i + 1)
-    dist.barrier()
-    return TIMED_ITERS * n_envs * T_STEPS / (time.perf_counter() - t0)
+        dist.barrier()
+        seconds.append(time.perf_counter() - t0)
+    return n_envs * T_STEPS / float(np.median(seconds))
 
 
 def _measure_scale(outdir: str, n_envs: int, timeout_s: int,

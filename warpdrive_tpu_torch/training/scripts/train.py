@@ -259,11 +259,7 @@ def _train_rank(device, run_config: dict, num_devices: int,
 def _train_multihost(run_config: dict, args):
     """This process's share of a run across hosts: join the group, train
     over every process (or ``-n`` of them), leave the group."""
-    device = pmesh.torch.device(args.device)
-    if device.type == "cuda" and device.index is None:
-        device = pmesh.torch.device(
-            "cuda", int(os.environ.get("LOCAL_RANK", args.process_id))
-            % max(pmesh.torch.cuda.device_count(), 1))
+    device = pmesh.local_device(args.device, args.process_id)
     pmesh.initialize_multihost(args.coordinator, args.num_processes,
                                args.process_id, device=device)
     try:

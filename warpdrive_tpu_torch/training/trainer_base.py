@@ -69,6 +69,7 @@ from warpdrive_tpu_torch.core.episode_log import EpisodeLogger
 from warpdrive_tpu_torch.models.fully_connected import params_from_flax
 from warpdrive_tpu_torch.parallel.mesh import (
     Deferred,
+    MetricOps,
     gather_carry,
     reduce_metrics,
     shard_carry,
@@ -497,13 +498,10 @@ class TrainerBase:
         mid = self.clock.mark()
         metrics = self._update_phase(batch, timestep)
         self._pending_marks.append((start, mid, self.clock.mark()))
-        if self.mesh is None:
-            mean_ep_reward = self._ep_sum / torch.clamp(self._ep_count,
-                                                        min=1.0)
-        else:  # every rank's episodes
-            mean_ep_reward = Deferred(
-                sums=[self._ep_sum, self._ep_count],
-                finish=lambda s, m: s[0] / torch.clamp(s[1], min=1.0))
+        # over every rank's episodes
+        mean_ep_reward = MetricOps(self.mesh).out(Deferred(
+            sums=[self._ep_sum, self._ep_count],
+            finish=lambda s, m: s[0] / torch.clamp(s[1], min=1.0)))
         for tag in metrics:
             metrics[tag]["Mean episodic reward"] = mean_ep_reward
         return metrics
@@ -646,6 +644,15 @@ class TrainerBase:
     def _load_training_state(self, state: dict):  # pragma: no cover
         raise NotImplementedError
 
+    def _training_state_dims(self) -> dict:
+        """Under a mesh, the env-axis dim of each env-cut tensor of
+        :meth:`_training_state` (the tree ``shard_carry`` and
+        ``gather_carry`` cut and gather by): the rollout's env state as the
+        engine cut it, and the episodic accumulator's env rows."""
+        return {"env_state": {k: self.engine.env_dims[k]
+                              for k in self._env_state},
+                "episodes": {"acc": 0}}
+
     def save_full_state(self, path: str = None) -> str:
         """Write the whole training state -- parameters, optimizer moments
         and counts, the rollout's env state, episodic accounting, the
@@ -668,7 +675,8 @@ class TrainerBase:
         generators = self._generator_states()
         rank_generators = [generators]
         if self.mesh is not None:
-            training = gather_carry(training, self.mesh, self.local_envs)
+            training = gather_carry(training, self.mesh,
+                                    self._training_state_dims())
             training["episodes"] = {
                 **training["episodes"],
                 **{k: self.mesh.all_reduce(training["episodes"][k].clone())
@@ -718,7 +726,8 @@ class TrainerBase:
         env_rank, dp = 0, 1
         if self.mesh is not None:
             env_rank, dp = self.mesh.env_rank, self.mesh.dp
-            training = shard_carry(training, self.mesh, self.num_envs)
+            training = shard_carry(training, self.mesh, self.num_envs,
+                                   self._training_state_dims())
             if env_rank:
                 training["episodes"] = {
                     **training["episodes"],

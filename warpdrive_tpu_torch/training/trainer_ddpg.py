@@ -117,7 +117,8 @@ def ddpg_policy_update(nets: dict, targets: dict, optimizers: dict, algo,
     if mesh is not None:
         grads = {net: mesh.reduce_grads(g) for net, g in grads.items()}
 
-    metrics = algo.with_actor_terms(critic_metrics, actor_loss, j, mesh)
+    metrics = algo.with_actor_terms(critic_metrics, critic_loss, actor_loss,
+                                   j, mesh)
     if step:
         # the optimizer returns the global norm it clipped by
         norms = {}
@@ -430,6 +431,11 @@ class TrainerDDPG(TrainerBase):
             "episodes": {"acc": self._ep_acc, "sum": self._ep_sum,
                          "count": self._ep_count},
         }
+
+    def _training_state_dims(self) -> dict:
+        return {**super()._training_state_dims(),
+                "window": {k: 1 for k in self._window},
+                "ou": {tag: 0 for tag in self._ou}}
 
     def _load_training_state(self, state: dict):
         for net in _NETS:
