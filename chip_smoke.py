@@ -63,7 +63,11 @@ Phases, each of which raises (and so exits non-zero) on a failure:
    b. A2C training of the shipped ``tag_continuous`` run config at full
       width (100 envs x 110 agents, 250 steps per iteration, ``fc_dims=(256,
       256)``) for its 10 iterations, through ``setup_trainer`` and
-      ``train()``: each rollout step must launch K2 exactly once, losses must
+      ``train()`` (on the card the captured programs of
+      ``core/program.py``: the full ones on the first iteration and at log
+      points, the hot ones elsewhere; so every training run of phase 4
+      but 4p's and 4r's meshes): each rollout step must launch K2 exactly
+      once (a replay credited with its capture's launches), losses must
       be finite, parameters must move and each policy must leave a
       checkpoint; then one update on the card against the same update on
       the CPU;
@@ -202,6 +206,28 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       ``dryrun_multichip(4)`` on the card (a 2 x 2 mesh of gloo ranks,
       K1); ms per iteration of one process, the one-rank group and the
       two ranks (gloo's share of the update), beside the card;
+   s. the compiled iteration: captured programs (``core/program.py``)
+      against the eager steps and iterations they replace, from identical
+      carries and generator states, bit for bit (states, parameters, Adam
+      moments and counts, episodic sums, batches, generators): the
+      flagship ``env_only_step`` and ``full_loop_step`` (1024 envs, K1)
+      and the 1024-agent ``env_only_step`` (256 envs, K1), 100 steps, then
+      3 turns of 100 (eager, captured), compared again; the shipped
+      ``tag_continuous`` run config uncut (K2), 5 iterations (the first
+      programmed one full, the rest hot, the full metrics equal to the
+      eager ones), the last 3 in turns; the tuned flagship stage (2000 x
+      100, mb400, bf16, K1), 2 iterations in turns, and 1 under
+      ``update_recompute_obs``; ``profile_trace`` and ``graceful_close``;
+      the five configurations of ``tests/test_torch_program.py`` at its
+      small sizes (PPO over shuffled minibatches with remat and bf16, a
+      reset pool, Dict observations and masks), 3 iterations each.  Each
+      step or iteration launches its kernel exactly as the eager one does
+      (a replay's launches credited from its capture), and the profiler's
+      count of kNN kernels equals the credited count over 10 replays of
+      each loop step and of each rollout step and 5 update passes under
+      recompute.  Prints ms per step or iteration in turns, rollout and update
+      ms, the device's idle share of each side, the capture seconds and
+      each side's peak memory growth;
 5. at the main paths' shapes -- (1024, 105, 10) for K1, K3, K6, K7, K8 in
    both modes, K9 in both, K2 and K4, (100, 110, 10) for K2, (256, 1024,
    10) for K1, K4 in both modes, K5 in its four and K9 exact, and the
@@ -1421,7 +1447,9 @@ def _device_ms(prof) -> float:
     from torch.autograd import DeviceType
 
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+               if e.device_type == DeviceType.CUDA
+               # a scheduled window's step range spans its kernels
+               and not e.key.startswith("ProfilerStep")) / 1e3
 
 
 def _stepper(system, generator, loop):
@@ -1594,9 +1622,9 @@ def _drive_ddpg_training():
             after_first = {}
             iteration = trainer._iteration
 
-            def watched(timestep, iteration=iteration,
+            def watched(timestep, full=True, iteration=iteration,
                         after_first=after_first, trainer=trainer):
-                metrics = iteration(timestep)
+                metrics = iteration(timestep, full=full)
                 if not after_first:
                     after_first.update(_ddpg_nets(trainer))
                 return metrics
@@ -2080,16 +2108,18 @@ def _drive_asymmetric_pursuit():
     masked = []
 
     def count_masked(trainer):
-        rollout = trainer._rollout_phase
+        # train() on the card runs the captured rollout
+        assert trainer._programmed
+        rollout = trainer._rollout_programmed
 
-        def checked(timestep):
-            batch = rollout(timestep)
+        def checked():
+            batch = rollout()
             chosen = batch["mask_evader"].gather(
                 3, batch["actions_evader"].long())
             masked.append(((chosen == 0).sum(), chosen.numel()))
             return batch
 
-        trainer._rollout_phase = checked
+        trainer._rollout_programmed = checked
 
     trainer, launches, times = _drive_training(cfg, count_masked)
     assert launches == {name: 0 for name in knn_obs.LAUNCH_COUNTS}, launches
@@ -2906,6 +2936,7 @@ def _drive_multi_device(card):
         plain.train()
         plain_params = _host_params(plain)
         plain_timed = _timed_iterations(plain)
+        _release_programs(plain)
 
         # (a) the one-rank NCCL group
         initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0,
@@ -2994,6 +3025,7 @@ def _drive_multi_device(card):
                             verbose=False, device=DEVICE)
         ref._iteration(0)
         unsharded = _host_params(ref)
+        _release_programs(ref)
         del ref
         torch.cuda.empty_cache()
         tp = launch(_multi_rank_tp, 2, args=(cfg, str(tmp / "c")),
@@ -3029,6 +3061,591 @@ def _drive_multi_device(card):
           f"{two['iteration_ms']:.3f} (update {two['update_ms']:.3f}, gloo "
           f"{two['collective_ms']:.3f} = {100 * share:.1f}% of the update); "
           f"phase 4r {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
+
+
+# phase 4s: the compiled iteration -- captured programs against the eager
+# steps and iterations they replace, on identical carries and generator
+# states: the flagship loops and the 1024-agent loop this many steps a
+# turn, every side this many turns, and this many steps or passes in each
+# profiled window
+COMPILED_STEPS = 100
+COMPILED_TURNS = 3
+COMPILED_PROFILE_STEPS = 10
+# the tuned stage's update passes in a profiled window (its whole update
+# is ~1 M device events, too many for the profiler)
+COMPILED_PROFILE_PASSES = 20
+# the tuned stage's iterations of each side, each timed (an eager one takes
+# ~15 s: 800 passes of ~1,240 eager ops)
+TUNED_COMPILED_ITERS = 2
+
+
+def _profiled(fn, calls, host=True):
+    """``fn()`` once as the profiler's warm-up step (not recorded: a
+    window's first kernels can go missing), then ``calls`` x ``fn()``
+    recorded, the device caught up before each step ends; with ``host``
+    the host's activity too (an eager iteration's host ops are ~10^5
+    events: the device's alone are cheaper to read).  Returns the device
+    ms and the kNN kernels' launches the profiler recorded (by their
+    device functions' names) and the launches the wrappers counted and the
+    replays credited over the recorded calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from warpdrive_tpu_torch.ops import knn_obs
+
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    torch.cuda.synchronize()
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        before = dict(knn_obs.LAUNCH_COUNTS)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    counted = sum(knn_obs.launches_since(before).values())
+    knn = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and any(name in e.key for name in _KERNEL_SYMBOLS))
+    return _device_ms(prof), knn, counted
+
+
+def _wall_ms(fn, calls=1):
+    """Host ms of ``calls`` x ``fn()``, the device caught up before and
+    after."""
+    _, seconds = _timed(lambda: [fn() for _ in range(calls)])
+    return 1e3 * seconds
+
+
+def _trainer_carry(trainer) -> dict:
+    """Every tensor an A2C iteration reads and writes, on the host side of
+    a comparison: parameters, Adam moments and counts, the env state, the
+    episodic accounting, the batch and the rollout generator's state."""
+    import torch
+
+    return {
+        "models": {t: m.state_dict() for t, m in trainer.models.items()},
+        "optimizers": {t: {"count": torch.tensor(o.count), "mu": o.mu,
+                           "nu": o.nu}
+                       for t, o in trainer.optimizers.items()},
+        "env_state": trainer._env_state,
+        "episodes": {"acc": trainer._ep_acc, "sum": trainer._ep_sum,
+                     "count": trainer._ep_count},
+        "batch": trainer._batch,
+        "generator": trainer.generator.get_state(),
+    }
+
+
+def _flat(tree, path=""):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for key, value in tree.items():
+            yield from _flat(value, f"{path}/{key}")
+
+
+def _assert_bitwise(label, a, b):
+    """Two trees of tensors equal bit for bit (dtype, shape and values)."""
+    import torch
+
+    left, right = dict(_flat(a)), dict(_flat(b))
+    assert left.keys() == right.keys(), \
+        f"{label}: {left.keys() ^ right.keys()}"
+    for path, x in left.items():
+        y = right[path]
+        same = (x.dtype == y.dtype and x.shape == y.shape
+                and torch.equal(x.reshape(-1).view(torch.uint8)
+                                if x.is_floating_point() else x,
+                                y.reshape(-1).view(torch.uint8)
+                                if y.is_floating_point() else y))
+        assert same, f"{label}: {path} differs"
+    return len(left)
+
+
+def _compiled_loop(label, system, loop, start, kernel, steps):
+    """One preset loop, eager against its captured form
+    (``presets.captured_loop``) from the same state and generator state:
+    ``steps`` steps each (the captured form's first call warms it up and
+    captures it), compared bit for bit; then ``COMPILED_TURNS`` timed turns
+    of ``steps`` steps each, in turns (eager, captured), compared again;
+    then a profiled window of each, whose kNN launches the profiler counts
+    against the credited ones.  Returns the launches, by kernel."""
+    import torch
+
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.presets import captured_loop
+
+    def clone(state):
+        return {k: v.clone() for k, v in state.items()}
+
+    t0 = time.perf_counter()
+    eager_gen = torch.Generator(device=DEVICE).manual_seed(7)
+    state = {"state": clone(start),
+             "checksum": torch.zeros((), device=DEVICE)}
+
+    def eager():
+        if loop == "env_only_step":
+            state["state"], state["checksum"] = system[loop](
+                (state["state"], state["checksum"]), eager_gen)
+        else:
+            state["state"] = system[loop](system["models"], state["state"],
+                                          eager_gen)
+
+    program = captured_loop(system, loop,
+                            torch.Generator(device=DEVICE).manual_seed(7),
+                            state=clone(start))
+    total = dict.fromkeys(knn_obs.LAUNCH_COUNTS, 0)
+
+    def counted(fn, n):
+        knn_obs.reset_launch_counts()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        got = dict(knn_obs.LAUNCH_COUNTS)
+        want = dict.fromkeys(got, 0)
+        want[kernel] = n
+        assert got == want, f"{label}: launches {got}, expected {want}"
+        for name, count in got.items():
+            total[name] += count
+
+    def carry():
+        return {k: program.buffers[k] for k in ("state", "checksum")}
+
+    counted(eager, steps)
+    counted(program, steps)
+    compared = _assert_bitwise(label, carry(), state)
+    walls = {"eager": [], "captured": []}
+    for _ in range(COMPILED_TURNS):
+        for mode, fn in (("eager", eager), ("captured", program)):
+            knn_obs.reset_launch_counts()
+            walls[mode].append(_wall_ms(fn, steps) / steps)
+            for name, count in knn_obs.LAUNCH_COUNTS.items():
+                total[name] += count
+    _assert_bitwise(label, carry(), state)
+    idle = {}
+    for mode, fn in (("eager", eager), ("captured", program)):
+        knn_obs.reset_launch_counts()
+        device_ms, profiled, counted = _profiled(
+            fn, COMPILED_PROFILE_STEPS, host=mode == "captured")
+        if mode == "captured":
+            assert profiled == counted == COMPILED_PROFILE_STEPS, (
+                f"{label}: the profiler saw {profiled} kNN launches, "
+                f"{counted} credited")
+        for name, count in knn_obs.LAUNCH_COUNTS.items():
+            total[name] += count
+        device_ms /= COMPILED_PROFILE_STEPS
+        idle[mode] = (device_ms,
+                      100 * (1 - device_ms / statistics.median(walls[mode])),
+                      profiled)
+    _assert_bitwise(label, carry(), state)
+    print(f"4s {label}: captured equals eager bit for bit ({compared} "
+          f"tensors) after {steps}, {steps * (1 + COMPILED_TURNS)} and "
+          f"{steps * (1 + COMPILED_TURNS) + 1 + COMPILED_PROFILE_STEPS} "
+          "steps; "
+          f"capture {program.capture_s:.3f} s; ms/step in turns (eager, "
+          f"captured): " + ", ".join(
+              f"({e:.4f}, {c:.4f})"
+              for e, c in zip(walls["eager"], walls["captured"]))
+          + "; device ms/step (eager, captured) "
+          f"({idle['eager'][0]:.4f}, {idle['captured'][0]:.4f}), idle "
+          f"({idle['eager'][1]:.1f}%, {idle['captured'][1]:.1f}%); "
+          f"{kernel} launches in a window of {COMPILED_PROFILE_STEPS} "
+          f"steps, profiled (eager, captured) ({idle['eager'][2]}, "
+          f"{idle['captured'][2]}), captured ones credited; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def _compiled_training(label, cfg, tmp, iterations, kernel, launches_of,
+                       turns=COMPILED_TURNS):
+    """A2C training, the eager iteration against the programmed one, from
+    two trainers of one config (identical carries and generators):
+    ``iterations`` iterations compared bit for bit after each (the first
+    programmed one full, the others hot, as ``train()`` runs them; the full
+    one's metrics equal the eager ones'), the last ``turns`` of them (or
+    all) timed in turns; the launches of each exactly ``launches_of(T)``
+    of ``kernel``.  Prints ms per iteration in turns, rollout and update
+    ms, the programs' capture seconds and the peak device memory of each
+    side.  Returns both trainers and the launches."""
+    import math
+
+    import torch
+
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.parallel.mesh import reduce_metrics
+
+    from warpdrive_tpu_torch.training.scripts.train import setup_trainer
+
+    t_start = time.perf_counter()
+    eager, programmed = (
+        setup_trainer(copy.deepcopy(cfg),
+                      results_dir=str(tmp / f"{label}_{side}"),
+                      verbose=False, device=DEVICE)
+        for side in ("eager", "programmed"))
+    setup_s = time.perf_counter() - t_start
+    assert programmed._programmed, "train() on the card runs programs"
+    T = eager.training_batch_size_per_env
+    steps = T * eager.num_envs
+    total = dict.fromkeys(knn_obs.LAUNCH_COUNTS, 0)
+    walls = {"eager": [], "programmed": []}
+    peaks = {}
+    for i in range(iterations):
+        t = i * steps
+        for side, run in (
+                ("eager", lambda: eager._iteration_eager(t)),
+                ("programmed",
+                 lambda: programmed._iteration_programmed(t, full=i == 0))):
+            knn_obs.reset_launch_counts()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            reserved = torch.cuda.memory_reserved()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            metrics = run()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            if i == 0:
+                peaks[side] = (
+                    (torch.cuda.max_memory_allocated() - base) / 2**30,
+                    (torch.cuda.memory_reserved() - reserved) / 2**30)
+                if side == "eager":
+                    eager_metrics = reduce_metrics(metrics)
+                else:
+                    got = reduce_metrics(metrics)
+                    for tag, m in eager_metrics.items():
+                        for name, value in m.items():
+                            other = got[tag][name]
+                            assert value == other or (
+                                math.isnan(value) and math.isnan(other)), \
+                                f"{label} {tag} {name}: {value} vs {other}"
+            if i >= iterations - turns:
+                walls[side].append(wall)
+            got = dict(knn_obs.LAUNCH_COUNTS)
+            want = dict.fromkeys(got, 0)
+            want[kernel] = launches_of(T, eager)
+            assert got == want, f"{label} {side}: {got}, expected {want}"
+            for name, count in got.items():
+                total[name] += count
+        compared = _assert_bitwise(f"{label}, iteration {i + 1}",
+                                   _trainer_carry(programmed),
+                                   _trainer_carry(eager))
+    for trainer in (eager, programmed):
+        trainer._resolve_phase_marks()
+    later = slice(1, None) if iterations > 1 else slice(None)
+    phases = {side: [statistics.mean(x) for x in zip(*t.phase_ms[later])]
+              for side, t in (("eager", eager), ("programmed", programmed))}
+    captures = {(key if isinstance(key, str) else " ".join(key)):
+                round(p.capture_s, 3)
+                for key, p in programmed._programs.items()
+                if p.capture_s is not None}
+    print(f"4s {label}: programmed equals eager bit for bit ({compared} "
+          f"tensors) after each of {iterations} iterations (the first full, "
+          f"then hot), the full metrics equal; ms per iteration in turns "
+          f"(eager, programmed): " + ", ".join(
+              f"({e:.3f}, {p:.3f})"
+              for e, p in zip(walls["eager"], walls["programmed"]))
+          + f"; rollout and update ms (eager) {phases['eager'][0]:.3f}, "
+          f"{phases['eager'][1]:.3f}, (programmed) "
+          f"{phases['programmed'][0]:.3f}, {phases['programmed'][1]:.3f}; "
+          f"capture s {captures}; peak allocated and reserved growth in the "
+          f"first iteration, GiB: eager {peaks['eager'][0]:.3f}, "
+          f"{peaks['eager'][1]:.3f}, programmed {peaks['programmed'][0]:.3f}"
+          f", {peaks['programmed'][1]:.3f}; launches {total}; setup "
+          f"{setup_s:.1f} s, {time.perf_counter() - t_start:.1f} s in all")
+    return eager, programmed, total, walls
+
+
+def _compiled_idle(label, eager_fn, programmed_fn, calls, kernel=None):
+    """The device's idle share of ``calls`` x each side's function, after
+    one call each (a program's capture): device ms (profiler) against the
+    wall ms of the same calls without it (the profiler lengthens every
+    kernel, so a device-bound program can read below 0).  Where ``kernel``
+    is given, the launches counted or credited and the profiler's count
+    are printed beside it: a window of ~10^4 kernels has lost one event of
+    the profiler's (``_check_credited`` holds them equal on shorter
+    windows).  Returns the shares and every call's launches."""
+    from warpdrive_tpu_torch.ops import knn_obs
+
+    t0 = time.perf_counter()
+    out, launches = {}, dict.fromkeys(knn_obs.LAUNCH_COUNTS, 0)
+    for side, fn in (("eager", eager_fn), ("programmed", programmed_fn)):
+        knn_obs.reset_launch_counts()
+        fn()
+        wall = _wall_ms(fn, calls)
+        device_ms, profiled, counted = _profiled(
+            fn, calls, host=side == "programmed")
+        for name, count in knn_obs.LAUNCH_COUNTS.items():
+            launches[name] += count
+        out[side] = (device_ms, wall, 100 * (1 - device_ms / wall), counted,
+                     profiled)
+    print(f"4s {label}, {calls} calls a side: " + "; ".join(
+        f"{side} device {d:.3f} ms of wall {w:.3f} ms, idle {i:.1f}%"
+        + (f", {kernel} launches counted {c}, profiled {p}" if kernel
+           else "")
+        for side, (d, w, i, c, p) in out.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+    return out, launches
+
+
+def _release_programs(*trainers):
+    """Release the trainers' captured programs (``release_programs``: their
+    graphs' memory pools; a programmed iteration captures them again), then
+    free what the device's cache holds, trainers that are gone included (a
+    trainer and its programs' bodies refer to each other)."""
+    import gc
+
+    import torch
+
+    for trainer in trainers:
+        trainer.release_programs()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _memory_line(label):
+    """The device memory this process holds, allocated and reserved."""
+    import torch
+
+    print(f"device memory {label}: allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+
+
+def _program_check_configs() -> list:
+    """The five configurations of ``tests/test_torch_program.py`` at its
+    small sizes, on the card: ``(label, run config, K2 launches an
+    iteration of T steps)`` -- the ``tag_continuous`` run config cut to 5
+    envs x 20 agents, PPO over 2 epochs x 4 shuffled minibatches with remat
+    and a bf16 model and batch, ``update_recompute_obs`` (K2 in each of its
+    2 x 2 passes too), ``single_cartpole`` with a reset pool and
+    ``asymmetric_pursuit`` (no kernel)."""
+    from warpdrive_tpu_torch.utils.config import load_run_config
+
+    def saving(cfg):
+        cfg["saving"].update({"metrics_log_freq": 10**9,
+                              "model_params_save_freq": 10**9})
+        return cfg
+
+    def small_tag(policy=None, **trainer):
+        cfg = load_run_config("tag_continuous")
+        cfg["env"].update({"num_taggers": 2, "num_runners": 8,
+                           "episode_length": 12,
+                           "num_other_agents_observed": 4})
+        cfg["trainer"].update({"num_envs": 8, "train_batch_size": 80,
+                               "num_episodes": 24, "seed": 7, **trainer})
+        for tag in ("runner", "tagger"):
+            cfg["policy"][tag]["model"]["fc_dims"] = [16, 16]
+            cfg["policy"][tag].update(policy or {})
+        return saving(cfg)
+
+    cut = load_run_config("tag_continuous")
+    cut["env"].update({"num_taggers": 2, "num_runners": 18,
+                       "episode_length": 12})
+    cut["trainer"].update({"num_envs": 5, "train_batch_size": 50,
+                           "num_episodes": 15, "seed": 3})
+    ppo = small_tag(dict(algorithm="PPO", num_epochs=2, num_minibatches=4,
+                         shuffle_minibatches=True, remat=True),
+                    batch_dtype="bfloat16")
+    for tag in ("runner", "tagger"):
+        ppo["policy"][tag]["model"]["dtype"] = "bfloat16"
+    cartpole = load_run_config("single_cartpole")
+    cartpole["env"].update({"episode_length": 20, "reset_pool_size": 16,
+                            "seed": 5})
+    cartpole["trainer"].update({"num_envs": 8, "train_batch_size": 80,
+                                "num_episodes": 12, "seed": 3})
+    pursuit = load_run_config("asymmetric_pursuit")
+    pursuit["env"].update({"episode_length": 12, "seed": 2})
+    pursuit["trainer"].update({"num_envs": 4, "train_batch_size": 40,
+                               "num_episodes": 10, "seed": 3})
+    for tag in ("pursuer", "evader"):
+        pursuit["policy"][tag]["model"]["fc_dims"] = [16, 16]
+    return [
+        ("tag_continuous cut to 5 x 20", saving(cut), lambda T: T),
+        ("PPO 2 x 4 shuffled, remat, bf16", ppo, lambda T: T),
+        ("update_recompute_obs", small_tag(dict(num_minibatches=2),
+                                           update_recompute_obs=True),
+         lambda T: T + 2 * 2),
+        ("single_cartpole with a pool", saving(cartpole), lambda T: 0),
+        ("asymmetric_pursuit", saving(pursuit), lambda T: 0),
+    ]
+
+
+def _check_credited(label, program, calls, kernel):
+    """``calls`` replays of ``program`` (after a warm-up replay), each
+    launching ``kernel`` once inside its graph: the launches credited to
+    ``kernel`` must equal ``calls`` and the profiler's count of kNN
+    kernels.  Returns every replay's launches."""
+    from warpdrive_tpu_torch.ops import knn_obs
+
+    knn_obs.reset_launch_counts()
+    _, profiled, credited = _profiled(program, calls)
+    launches = dict(knn_obs.LAUNCH_COUNTS)
+    assert launches[kernel] == calls + 1 and profiled == credited == calls, (
+        f"{label}: {credited} {kernel} launches credited over {calls} "
+        f"replays, {profiled} profiled")
+    print(f"4s {label}: {kernel} launches credited = profiled = {calls} "
+          f"over {calls} replays")
+    return launches
+
+
+def _runner_passes(eager, programmed):
+    """The runner's hot update pass, one call a pass: eager (on the eager
+    trainer's batch) and the programmed trainer's program, each sweep
+    begun again (at timestep 0) when its passes are spent."""
+    lr = eager.lr_schedules["runner"].value_at(0)
+
+    def cycling(update, one_pass):
+        calls = [0]
+
+        def call():
+            if calls[0] % update.opts.passes == 0:
+                update.begin(0, lr)
+            calls[0] += 1
+            one_pass()
+
+        return call
+
+    eager_pass = eager._update_pass("runner", eager._batch)
+    return (cycling(eager_pass, lambda: eager_pass.run_pass(full=False)),
+            cycling(programmed._update_passes["runner"],
+                    programmed._programs["runner", "hot"]))
+
+
+def _drive_compiled_iteration(rolled, many_state, run_config):
+    """Phase 4s: the compiled iteration on the card against the eager one,
+    on identical carries and generator states.
+
+    (a) the flagship's ``env_only_step`` and ``full_loop_step`` (1024 envs,
+    K1) from the rolled state of phase 3 and the 1024-agent
+    ``env_only_step`` (256 envs, K1) from 4c's state, each against its
+    ``presets.captured_loop`` form (``_compiled_loop``); (b) the shipped
+    ``tag_continuous`` run config uncut (K2), 2 iterations compared and
+    timed in turns (``_compiled_training``), then the idle share of one
+    iteration of each side; (c) the tuned flagship stage (``_tuned_config``:
+    2000 x 100, mb400, bf16, K1), 2 iterations in turns, compared, then
+    the idle shares of the rollout and of 20 update passes;
+    one iteration under ``update_recompute_obs`` (K1 in every pass),
+    compared, and 20 of its passes profiled.  (d) ``profile_trace`` and
+    ``graceful_close`` of (b)'s programmed trainer, then the five
+    configurations of ``tests/test_torch_program.py`` at its small sizes
+    (``_program_check_configs``), 3 iterations each.  Every comparison is
+    bit for bit: parameters, Adam moments and counts, env state, episodic
+    accounting, batch and the generator's state.  Returns the launches, by
+    kernel."""
+    import gc
+
+    import torch
+
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.presets import build_flagship, build_many_agents
+
+    t_start = time.perf_counter()
+    total = dict.fromkeys(knn_obs.LAUNCH_COUNTS, 0)
+
+    def add(counts):
+        for name, count in counts.items():
+            total[name] += count
+
+    flagship = build_flagship(num_envs=NUM_ENVS, fc_dims=FC_DIMS, seed=0,
+                              device=DEVICE)
+    for loop in ("env_only_step", "full_loop_step"):
+        add(_compiled_loop(f"flagship {loop}, {NUM_ENVS} envs", flagship,
+                           loop, rolled, "knn_obs_flat_exact",
+                           COMPILED_STEPS))
+    many = build_many_agents(num_envs=MANY_AGENT_ENVS, seed=0,
+                             knn_algorithm="pallas_flat_exact",
+                             device=DEVICE)
+    add(_compiled_loop(f"1024-agent env_only_step, {MANY_AGENT_ENVS} envs",
+                       many, "env_only_step", many_state,
+                       "knn_obs_flat_exact", COMPILED_STEPS))
+    del flagship, many
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_compiled_"))
+    try:
+        cfg = copy.deepcopy(run_config)
+        eager, programmed, counts, _ = _compiled_training(
+            "tag_continuous training", cfg, tmp, 2 + COMPILED_TURNS,
+            "knn_obs_mxu", lambda T, trainer: T)
+        add(counts)
+        t = 10**6
+        add(_compiled_idle(
+            "tag_continuous iteration", lambda: eager._iteration_eager(t),
+            lambda: programmed._iteration_programmed(t, full=False), 1,
+            "knn_obs_mxu")[1])
+        programmed._row.zero_()  # the rollout step writes rows 0-10
+        add(_check_credited("tag_continuous rollout step",
+                            programmed._programs["rollout"],
+                            COMPILED_PROFILE_STEPS, "knn_obs_mxu"))
+        knn_obs.reset_launch_counts()
+        t0 = time.perf_counter()
+        trace = Path(programmed.profile_trace(str(tmp / "trace"),
+                                              iterations=1))
+        programmed.graceful_close()
+        add(knn_obs.LAUNCH_COUNTS)
+        print(f"4s profile_trace: {trace.name}, "
+              f"{trace.stat().st_size / 2**20:.1f} MiB; graceful_close; "
+              f"{time.perf_counter() - t0:.1f} s")
+        _release_programs(eager, programmed)
+        del eager, programmed
+
+        for label, cfg, k2_of in _program_check_configs():
+            eager, programmed, counts, _ = _compiled_training(
+                label, cfg, tmp, 3, "knn_obs_mxu",
+                lambda T, trainer, k2_of=k2_of: k2_of(T))
+            add(counts)
+            _release_programs(eager, programmed)
+        del eager, programmed
+
+        eager, programmed, counts, _ = _compiled_training(
+            "tuned flagship stage", _tuned_config(TUNED_COMPILED_ITERS), tmp,
+            TUNED_COMPILED_ITERS, "knn_obs_flat_exact", lambda T, trainer: T)
+        add(counts)
+        add(_compiled_idle(
+            "tuned flagship rollout", eager._rollout,
+            programmed._rollout_programmed, 1, "knn_obs_flat_exact")[1])
+        programmed._row.zero_()
+        add(_check_credited("tuned flagship rollout step",
+                            programmed._programs["rollout"],
+                            COMPILED_PROFILE_STEPS, "knn_obs_flat_exact"))
+        add(_compiled_idle(
+            "tuned flagship update passes",
+            *_runner_passes(eager, programmed), COMPILED_PROFILE_PASSES)[1])
+        _release_programs(eager, programmed)
+        del eager, programmed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        eager, programmed, counts, _ = _compiled_training(
+            "tuned flagship stage, update_recompute_obs",
+            _tuned_config(1, recompute=True), tmp, 1, "knn_obs_flat_exact",
+            lambda T, trainer: T + len(trainer.policies_to_train)
+            * TUNED_MINIBATCHES, turns=1)
+        add(counts)
+        eager_passes, programmed_passes = _runner_passes(eager, programmed)
+        add(_compiled_idle(
+            "tuned flagship recompute passes", eager_passes,
+            programmed_passes, COMPILED_PROFILE_PASSES,
+            "knn_obs_flat_exact")[1])
+        add(_check_credited("tuned flagship recompute pass",
+                            programmed_passes, COMPILED_PROFILE_STEPS // 2,
+                            "knn_obs_flat_exact"))
+        _release_programs(eager, programmed)
+        del eager, programmed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 4s {time.perf_counter() - t_start:.1f} s; launches "
+          f"{total}")
     return total
 
 
@@ -3222,14 +3839,26 @@ def main(argv=None) -> int:
     eager_launches = _drive_eager_backend()
 
     # 4q. the auto-scaler's probes in subprocesses, then the parent's
-    # health; the full-observation batch (8.4 GB) is made again at need
+    # health; the full-observation batch (8.4 GB) is made again at need,
+    # and every trainer's captured programs (their graphs' memory pools)
+    # are captured again at need
     full_obs._batch = None
+    _release_programs(trainer, *full_trainers.values(), tuned, tuned_rec,
+                      pursuit, full_obs)
+    _memory_line("before 4q")
     _check_autoscaler_probes(system, generator)
 
     # 4r. the tag_continuous run config over process meshes: a one-rank
     # NCCL group, two gloo ranks and a dp1 x tp2 pair on the card, and the
     # multi-device dry run; counts from 0 before each run
+    _memory_line("before 4r")
     multi_launches = _drive_multi_device(card)
+    _memory_line("before 4s")
+
+    # 4s. the compiled iteration: captured loops and programmed training
+    # against the eager ones, counts from 0 before each run
+    compiled_launches = _drive_compiled_iteration(
+        rolled, many["pallas_flat_exact"]["state"], run_config)
 
     # 5. kernel vs plain and their times at the main paths' shapes
     many_args = _knn_args(many["pallas_flat_exact"]["env"],
@@ -3391,11 +4020,11 @@ def main(argv=None) -> int:
         ]
         _profile(windows)
 
-    # launches on the main paths: 4a, 4c, 4j, 4n and 4r for K1, 4b, 4i, 4o
-    # and 4r for K2, 4d for K3, 4c for K4 and K5, 4e for K6-K8, 4c and 4e
-    # for K9; 4k-4m and 4p launch none
+    # launches on the main paths: 4a, 4c, 4j, 4n, 4r and 4s for K1, 4b,
+    # 4i, 4o, 4r and 4s for K2, 4d for K3, 4c for K4 and K5, 4e for K6-K8,
+    # 4c and 4e for K9; 4k-4m and 4p launch none
     all_launches = {name: launches[name] + train_launches[name]
-                    + multi_launches[name]
+                    + multi_launches[name] + compiled_launches[name]
                     + item9_launches[name] + fast_launches[name]
                     + tuned_launches[name] + tuned_rec_launches[name]
                     + pursuit_launches[name] + full_obs_launches[name]

@@ -149,11 +149,18 @@ class A2C:
         downsample_uniform: torch.Tensor = None,
         old_log_prob: torch.Tensor = None,  # (T, E, A), detached
         group=None,
+        coeffs=None,
+        with_metrics: bool = True,
     ):
         """:returns: ``(loss, metrics)``, both tensors (with ``group``,
         the metrics that need every rank :class:`Deferred`); reading a
         metric value waits for the device, so callers read them at log
-        points only.  ``old_log_prob`` reaches PPO's ratio."""
+        points only.  ``old_log_prob`` reaches PPO's ratio.  ``coeffs``,
+        ``(vf_loss_coeff, entropy_coeff)`` as 0-dim float32 device tensors
+        (a captured update's, filled from the schedules before each
+        iteration), replaces the schedules' values at ``timestep``.
+        Without ``with_metrics`` (the metrics-free update of a hot
+        iteration) ``metrics`` is empty and the loss the same."""
         values_detached = value_functions_batch.detach()
         ops = MetricOps(group)
 
@@ -191,9 +198,14 @@ class A2C:
         policy_loss = self._policy_loss(log_prob, norm_advantages, env_w,
                                         w_total, old_log_prob=old_log_prob)
 
-        vf_coeff_t = float(self.vf_loss_coeff_schedule.value_at(timestep))
-        ent_coeff_t = float(self.entropy_coeff_schedule.value_at(timestep))
+        if coeffs is None:
+            coeffs = (
+                float(self.vf_loss_coeff_schedule.value_at(timestep)),
+                float(self.entropy_coeff_schedule.value_at(timestep)))
+        vf_coeff_t, ent_coeff_t = coeffs
         loss = policy_loss + vf_coeff_t * vf_loss - ent_coeff_t * mean_entropy
+        if not with_metrics:
+            return loss, {}
 
         with torch.no_grad():
             actions_f = actions_batch.to(torch.float32)

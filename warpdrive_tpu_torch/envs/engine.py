@@ -209,6 +209,9 @@ class EnvEngine:
             self._act_dtype = self.store.state[_ACTIONS].dtype
         self.auto_reset = self._make_auto_reset()
         self.state = self.store.state
+        # the entries a captured program holds (pin_state): written into,
+        # never rebound
+        self._pinned = {}
         self._first_reset_done = False
 
     # ------------------------------------------------- placeholder name maps
@@ -362,21 +365,40 @@ class EnvEngine:
         return {name: self._global(self.state[name])
                 for name in self._obs_names()}
 
+    def pin_state(self, names) -> dict:
+        """The engine's state entries ``names`` as static buffers: from now
+        on the facade (``reset_all_envs``, ``reset_only_done_envs``,
+        ``step_all_envs``) writes these entries in place instead of
+        rebinding them, so a captured program that holds them
+        (``presets.captured_loop``) and the facade stay on one state.
+        Returns ``{name: tensor}``."""
+        for name in names:
+            if name not in self._pinned:
+                self._pinned[name] = self.state[name]
+        return {name: self._pinned[name] for name in names}
+
+    def _set_state(self, new: dict):
+        """``self.state = new``, the pinned entries written in place."""
+        for name, buf in self._pinned.items():
+            if new[name] is not buf:
+                buf.copy_(new[name])
+        self.state = {**new, **self._pinned}
+
     def reset_all_envs(self):
         """Force-reset every replica and return the batched observations
         (a dict of them by state name unless shared Box).  The very first
         call returns the initial state as built."""
         if self._first_reset_done:
-            self.state = self.auto_reset(
+            self._set_state(self.auto_reset(
                 self.state, self.store.generator, force=True
-            )
+            ))
         self._first_reset_done = True
         return self._obs_view()
 
     def reset_only_done_envs(self):
         """Reset the finished replicas only."""
         self._first_reset_done = True
-        self.state = self.auto_reset(self.state, self.store.generator)
+        self._set_state(self.auto_reset(self.state, self.store.generator))
 
     def step_all_envs(self, actions) -> dict:
         """Step every replica with ``actions`` (see :meth:`write_actions`)
@@ -387,7 +409,7 @@ class EnvEngine:
         self._first_reset_done = True
         if self.mesh is not None:
             actions = self._local_actions(actions)
-        self.state = self.step(self.state, actions)
+        self._set_state(self.step(self.state, actions))
         out = {Constants.DONE: self._global(self.state[Constants.DONE])}
         for name in self._obs_names() + self.reward_entry_names():
             out[name] = self._global(self.state[name])

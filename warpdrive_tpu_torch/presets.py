@@ -13,6 +13,14 @@ over batched tensors:
 Each step runs the kNN observation once, so on a CUDA device each launches
 the kNN kernel once.
 
+:func:`captured_loop` gives each of these steps its captured form, the
+counterpart of ``jax.jit`` over the JAX package's pure step functions
+(``warpdrive_tpu/presets.py:6``): a :class:`~warpdrive_tpu_torch.core.
+program.Program` over a static ``(state, checksum)`` carry (and, for
+``full_loop_step``, the models) whose every call is one replay of one CUDA
+graph on a card, the kNN kernel inside it.  The eager step functions stay
+as they are: they are the captured forms' plain versions.
+
 ``build_many_agents`` is the 1024-agent configuration of the JAX package's
 bench (``bench.py:576-598``): the flagship's settings with 20 taggers and
 1004 runners on a 60-unit square, no policies, and the same
@@ -30,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from warpdrive_tpu_torch.core.program import Program, assign_state
 from warpdrive_tpu_torch.models.fully_connected import FullyConnected
 from warpdrive_tpu_torch.sampling.samplers import sample_from_logits
 from warpdrive_tpu_torch.utils.constants import Constants
@@ -284,3 +293,44 @@ def build_env_only_loop(env_name: str, num_envs: int, seed: int = 0,
         "num_envs": num_envs,
         "num_agents": engine.n_agents,
     }
+
+
+def captured_loop(system: dict, loop: str, generator: torch.Generator,
+                  state: dict = None, pool=None) -> Program:
+    """The captured form of ``system[loop]`` (``"env_only_step"`` of any
+    of this module's systems, or ``"full_loop_step"`` of
+    :func:`build_flagship`'s): a :class:`Program` over the carry
+    ``{"state": ..., "checksum": ...}`` (its ``buffers``) that advances it
+    one step a call, drawing from ``generator``; ``program.buffers
+    ["state"]`` and ``["checksum"]`` are the carry.
+
+    The carry's state is the engine's own, pinned
+    (``EnvEngine.pin_state``): the program and the engine's facade share
+    it.  ``state``, when given, is written into it first; the checksum
+    starts at 0 (``full_loop_step`` leaves it there)."""
+    engine = system["engine"]
+    step = system[loop]
+    carry = {"state": engine.pin_state(list(system["state"])),
+             "checksum": torch.zeros((), dtype=torch.float32,
+                                     device=engine.device)}
+    if state is not None:
+        assign_state(carry["state"], state)
+    buffers = dict(carry)
+    if loop == "full_loop_step":
+        models = system["models"]
+        buffers["models"] = {tag: list(m.parameters())
+                             for tag, m in models.items()}
+
+        def body():
+            assign_state(carry["state"],
+                         step(models, carry["state"], generator))
+    elif loop == "env_only_step":
+        def body():
+            new, checksum = step((carry["state"], carry["checksum"]),
+                                 generator)
+            assign_state(carry["state"], new)
+            carry["checksum"].copy_(checksum)
+    else:
+        raise ValueError(f"no captured form of {loop!r}")
+    return Program(body, buffers, engine.device, generators=[generator],
+                   pool=pool, name=f"captured {loop}")

@@ -2,9 +2,11 @@
 Parameter schedules (learning rate, entropy and value-loss coefficients).
 
 The port's counterpart of ``warpdrive_tpu/training/param_scheduler.py``: a
-constant or a piecewise-linear-in-timestep schedule.  The port's update runs
-eagerly, so both evaluations are host-side: :meth:`get_param_value` in
-float64, :meth:`value_at` as the float32 value the JAX update multiplies by.
+constant or a piecewise-linear-in-timestep schedule, evaluated on the host:
+:meth:`get_param_value` in float64, :meth:`value_at` as the float32 value
+the JAX update multiplies by.  A captured update reads its schedules from
+0-dim device scalars, which :meth:`write_to` fills with that float32 value
+before each iteration (a host value would be baked into the graph).
 """
 
 from __future__ import annotations
@@ -48,3 +50,8 @@ class ParamScheduler:
         f32 = np.float32
         return f32(np.interp(f32(timestep), self._times.astype(f32),
                              self._values.astype(f32)))
+
+    def write_to(self, scalar, timestep):
+        """Fill the 0-dim float32 tensor ``scalar`` with
+        :meth:`value_at` ``(timestep)``, bit for bit."""
+        scalar.fill_(float(self.value_at(timestep)))

@@ -2,9 +2,10 @@
 TrainerA2C: on-policy trainer for A2C and PPO policies.
 
 The port's counterpart of ``warpdrive_tpu/training/trainer_a2c.py``.  One
-iteration runs, eagerly on the engine's device:
+iteration runs on the engine's device:
 
-  rollout, ``training_batch_size_per_env`` steps of
+  rollout, ``training_batch_size_per_env`` steps (:meth:`TrainerA2C.
+  _rollout_step`, each writing row t of the batch) of
       the observation of every agent: on the split path (TagContinuous)
       ``observe``, the kNN observation (on a card, one kernel launch; none
       in the full-observation mode), on the full-step path the
@@ -19,7 +20,7 @@ iteration runs, eagerly on the engine's device:
       per-policy rewards and done flags
       episodic-reward bookkeeping and done-driven auto-reset (with a reset
       pool, the refresh of the reset envs' observations)
-  then, per trained policy, :func:`policy_update`:
+  then, per trained policy, the passes of :class:`UpdatePass`:
       one pass over the whole batch, or ``num_epochs`` x
       ``num_minibatches`` passes over env-axis slices (shuffled or
       contiguous, each forwarded env-major, PPO against fixed behaviour
@@ -30,6 +31,19 @@ iteration runs, eagerly on the engine's device:
       scheduled learning rate, the rule of the JAX trainer's
       ``optax.chain(clip_by_global_norm(max_norm), scale_by_adam(),
       scale(-1))`` times ``lr_t``, read once an update.
+
+On a card (the device backend, no process mesh) ``train()`` runs the
+rollout step and the update pass as captured programs
+(``core/program.py``), the JAX trainer's jitted iteration: the rollout-step
+program T times, then per policy the host's :meth:`UpdatePass.begin`, the
+PPO prologue program and the pass program once a pass, in its hot
+(metrics-free) or full variant (``_iteration_programmed``).  Everything
+they read and write is a static buffer written in place: the env state,
+episodic sums, batch, parameters, Adam moments and count, the schedules'
+0-dim scalars and the step and pass counters.  Elsewhere -- the CPU, the
+eager host-env backend, a process mesh -- the eager iteration calls the
+same bodies op by op (``_iteration_eager``), which is the programs' plain
+version.
 
 Evaluation and episode fetching act through ``_act_fn`` (the most likely
 action, or one drawn from the evaluation generator), and
@@ -57,6 +71,7 @@ group for the next forward.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 import numpy as np
@@ -65,6 +80,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from warpdrive_tpu_torch.algos.policygradient import A2C, PPO, _logp_and_entropy
+from warpdrive_tpu_torch.core.program import Program, assign_state
 from warpdrive_tpu_torch.models.factory import ModelFactory
 from warpdrive_tpu_torch.parallel.mesh import MODEL_AXIS, tp_axis, tp_shard
 from warpdrive_tpu_torch.sampling.samplers import sample_from_logits
@@ -101,7 +117,12 @@ class ClippedAdam:
         self.params = params  # name -> Parameter
         self.max_norm = max_norm
         self.b1, self.b2, self.eps = b1, b2, eps
-        self.count = 0
+        device = next(iter(params.values())).device
+        # the step count and the decay rates on the device: a captured
+        # update step reads them there (a host value would be baked in)
+        self._count = torch.zeros((), dtype=torch.int32, device=device)
+        self._b1 = torch.tensor(np.float32(b1), device=device)
+        self._b2 = torch.tensor(np.float32(b2), device=device)
         self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
         self._axes = {n: (tp_axis(p.shape, self.mesh.tp)
                           if self.mesh is not None else None)
@@ -110,6 +131,16 @@ class ClippedAdam:
                    for n, p in params.items()}
         self.nu = {n: torch.zeros_like(self._shard(p))
                    for n, p in params.items()}
+
+    @property
+    def count(self) -> int:
+        """The number of steps taken (read from the device)."""
+        return int(self._count)
+
+    def buffers(self) -> dict:
+        """Every tensor a step reads and writes in place."""
+        return {"count": self._count, "mu": self.mu, "nu": self.nu,
+                "params": self.params}
 
     def _shard(self, whole: torch.Tensor) -> torch.Tensor:
         return whole if self.mesh is None else tp_shard(whole, self.mesh)
@@ -129,12 +160,13 @@ class ClippedAdam:
 
     def load_state_dict(self, state: dict):
         """Take ``{"count", "mu", "nu"}`` (e.g. from
-        ``models.fully_connected.adam_state_from_optax``), whole."""
-        self.count = int(state["count"])
+        ``models.fully_connected.adam_state_from_optax``), whole, into the
+        live buffers."""
+        self._count.fill_(int(state["count"]))
         for name, p in self.params.items():
             for moments in ("mu", "nu"):
                 whole = state[moments][name].to(p.device, p.dtype)
-                getattr(self, moments)[name] = self._shard(whole).clone()
+                getattr(self, moments)[name].copy_(self._shard(whole))
 
     def _global_norm(self, grads: dict) -> torch.Tensor:
         if self.mesh is None:
@@ -152,29 +184,31 @@ class ClippedAdam:
     @torch.no_grad()
     def step(self, grads: dict, lr) -> torch.Tensor:
         """Apply one update for ``grads`` (name -> gradient of the whole
-        parameter) at learning rate ``lr``; returns the gradients' global
-        norm before clipping."""
-        device = next(iter(self.params.values())).device
+        parameter) at learning rate ``lr`` (a 0-dim float32 device tensor,
+        or a number), writing the moments and parameters in place; returns
+        the gradients' global norm before clipping.
+
+        The bias corrections ``1 - b1**count`` and ``1 - b2**count`` and
+        the learning rate are 0-dim float32 device tensors (CUDA divides by
+        a host scalar through its reciprocal), and each moment is one
+        expression copied into its buffer: ``addcmul_`` or ``add_(...,
+        alpha=)`` would contract to an FMA and change the bits."""
+        device = self._count.device
         grads = {n: self._shard(g) for n, g in grads.items()}
         g_norm = self._global_norm(grads)
         if self.max_norm is not None:
             keep = g_norm < self.max_norm
             grads = {n: torch.where(keep, g, (g / g_norm) * self.max_norm)
                      for n, g in grads.items()}
-        self.count += 1
-        # bias corrections and the learning rate as 0-dim device tensors:
-        # CUDA divides by a host scalar through its reciprocal
-        f32 = np.float32
-        bc1 = torch.tensor(f32(1) - f32(self.b1) ** f32(self.count),
-                           device=device)
-        bc2 = torch.tensor(f32(1) - f32(self.b2) ** f32(self.count),
-                           device=device)
-        lr_t = torch.tensor(f32(lr), device=device)
+        self._count.add_(1)
+        bc1 = 1 - torch.pow(self._b1, self._count)
+        bc2 = 1 - torch.pow(self._b2, self._count)
+        lr_t = lr if torch.is_tensor(lr) else torch.tensor(np.float32(lr),
+                                                           device=device)
         for name, p in self.params.items():
-            g = grads[name]
-            mu = (1 - self.b1) * g + self.b1 * self.mu[name]
-            nu = (1 - self.b2) * (g * g) + self.b2 * self.nu[name]
-            self.mu[name], self.nu[name] = mu, nu
+            g, mu, nu = grads[name], self.mu[name], self.nu[name]
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             self._shard(p).add_((-update) * lr_t)
         if self.mesh is not None:  # whole for the next forward
@@ -210,12 +244,14 @@ def remat_apply(module, remat: bool):
     """``module``'s forward; with ``remat`` under
     ``torch.utils.checkpoint`` (non-reentrant), which stores none of its
     activations and recomputes them in the backward pass: the same values
-    and gradients."""
+    and gradients.  The models draw nothing, so the RNG state is not saved
+    (saving the CUDA one raises during a graph capture)."""
     if not remat:
         return module
 
     def apply(*args):
-        return checkpoint(module, *args, use_reentrant=False)
+        return checkpoint(module, *args, use_reentrant=False,
+                          preserve_rng_state=False)
 
     return apply
 
@@ -229,162 +265,264 @@ def _to_time_major(logits_list, values):
     return [lg.transpose(0, 1) for lg in logits_list], values.transpose(0, 1)
 
 
+class UpdatePass:
+    """One policy's update on a fixed batch, pass by pass: the body of the
+    JAX trainer's minibatch scan (``warpdrive_tpu/training/
+    trainer_a2c.py:685``) and of the captured update-pass program.
+
+    The batch is ``{"actions" (T, E, A, C), "rewards" (T, E, A), "done"
+    (T, E)}`` with the observations either stored, ``"obs"`` (T, E, A, F),
+    or derived: ``"phys"``, the pre-step state entries ``(T, E, ...)``,
+    which ``observe`` maps, given as ``(R, ...)`` env rows, to the policy's
+    ``(R, A, F)`` observations (or to ``(observations, mask)``).  A stored
+    ``"mask"`` (T, E, A, M), 1 keep and 0 forbid, goes onto the logits of
+    every forward, as the JAX trainer's ``mask_b``.
+
+    One pass (the default ``options``) forwards the whole batch.  More
+    passes sweep env-axis slices, each with its own returns, gradients and
+    optimizer step: pass p takes row p of a ``(passes, E // num_minibatches)``
+    table of env indices, read through a device pass counter -- contiguous
+    blocks, or one permutation of the envs an epoch drawn by :meth:`begin`
+    -- so that one captured pass serves every pass.  A slice's rows go
+    through the model env-major, ``(E_mb, T, A, F)``, copied into one
+    contiguous block, and its logits and values back to time-major for the
+    loss; this is the layout the JAX trainer's ``env_major`` relayout gives
+    its slices, so every value of that option runs this one path.  PPO over
+    more than one pass holds its ratio to the behaviour log-probs of the
+    parameters before the first pass (:meth:`prologue`): from one forward
+    of the stored batch into a static buffer, or of each derived slice
+    from a static copy of the parameters.  The learning rate and the loss
+    coefficients are 0-dim device scalars that :meth:`begin` fills from
+    the schedules.
+
+    Under a ``mesh`` the batch holds the rank's env rows: the loss and
+    metrics are global over the env group (``group`` of the algorithms),
+    the gradients are summed over it before the optimizer's step, and a
+    sweep's slices are of the global env axis (a shuffled one from rank
+    0's permutation), each rank taking its rows of each on the host (so
+    that pass is never captured)."""
+
+    def __init__(self, model, optimizer: ClippedAdam, algo, batch: dict,
+                 options: UpdateOptions = None, observe=None, mesh=None,
+                 negative_positive_ratio: float = -1.0,
+                 generator: torch.Generator = None):
+        self.opts = opts = options or UpdateOptions()
+        self.model, self.optimizer, self.algo = model, optimizer, algo
+        self.batch = batch
+        self.names = [n for n, _ in model.named_parameters()]
+        self.params = [optimizer.params[n] for n in self.names]
+        self.forward = remat_apply(model, opts.remat)
+        self.observe, self.mesh, self.generator = observe, mesh, generator
+        self.negative_positive_ratio = negative_positive_ratio
+        self.stored = "obs" in batch
+        done = batch["done"]
+        device = done.device
+
+        def scalar():
+            return torch.zeros((), dtype=torch.float32, device=device)
+
+        self.lr, self.vf_coeff, self.ent_coeff = scalar(), scalar(), scalar()
+        self.pass_index = torch.zeros((1,), dtype=torch.long, device=device)
+        self.table = self.old_lp = self.behaviour = None
+        self._blocks, self._host_pass = None, 0  # under a mesh
+        if opts.passes > 1:
+            # the slices are of the global env axis
+            E = done.shape[1] * (1 if mesh is None else mesh.dp)
+            assert E % opts.num_minibatches == 0, (
+                "num_minibatches must divide num_envs (env-axis slicing)")
+            self.mb = E // opts.num_minibatches
+            if mesh is None:
+                self.table = torch.arange(E, device=device).reshape(
+                    opts.num_minibatches, self.mb).repeat(opts.num_epochs, 1)
+            if isinstance(algo, PPO):
+                if self.stored:
+                    self.old_lp = torch.empty(batch["actions"].shape[:3],
+                                              dtype=torch.float32,
+                                              device=device)
+                else:
+                    # derived observations: the behaviour log-probs of each
+                    # slice, from these parameters, so the batch is never
+                    # whole
+                    self.behaviour = {n: p.detach().clone()
+                                      for n, p in model.named_parameters()}
+
+    @property
+    def needs_prologue(self) -> bool:
+        return self.old_lp is not None or self.behaviour is not None
+
+    def buffers(self) -> dict:
+        """Every tensor a pass reads and writes in place."""
+        return {"optimizer": self.optimizer.buffers(), "batch": self.batch,
+                "scalars": [self.lr, self.vf_coeff, self.ent_coeff],
+                "pass": self.pass_index, "table": self.table,
+                "old_lp": self.old_lp, "behaviour": self.behaviour}
+
+    def begin(self, timestep, lr, index_table: torch.Tensor = None):
+        """The host's work before the passes: the learning rate ``lr`` and
+        the schedules' values at ``timestep`` into their scalars, the pass
+        counter to 0 and, for a shuffled sweep, the table: one permutation
+        of the envs an epoch drawn from the generator, or ``index_table``
+        ``(passes, E // num_minibatches)``."""
+        opts, mesh = self.opts, self.mesh
+        self.lr.fill_(float(lr))
+        self.algo.vf_loss_coeff_schedule.write_to(self.vf_coeff, timestep)
+        self.algo.entropy_coeff_schedule.write_to(self.ent_coeff, timestep)
+        self.pass_index.zero_()
+        self._host_pass = 0
+        if opts.passes == 1:
+            return
+        device = self.batch["done"].device
+        E = self.mb * opts.num_minibatches
+        if opts.shuffle:
+            if index_table is None:
+                # every rank draws (its stream stays where the plain
+                # trainer's would be) and takes rank 0's permutation
+                index_table = torch.stack([
+                    torch.randperm(E, generator=self.generator, device=device)
+                    for _ in range(opts.num_epochs)
+                ]).reshape(opts.passes, self.mb)
+                if mesh is not None:
+                    mesh.broadcast(index_table)
+            assert tuple(index_table.shape) == (opts.passes, self.mb)
+            if mesh is None:
+                self.table.copy_(index_table)
+                return
+            # this rank's rows of each, in table order
+            lo = mesh.env_rank * self.batch["done"].shape[1]
+            hi = lo + self.batch["done"].shape[1]
+            self._blocks = [b[(b >= lo) & (b < hi)] - lo
+                            for b in index_table.to(device, torch.long)]
+            return
+        assert index_table is None, "contiguous slices draw no table"
+        if mesh is not None:
+            lo = mesh.env_rank * self.batch["done"].shape[1]
+            hi = lo + self.batch["done"].shape[1]
+            mb = self.mb
+            self._blocks = [slice(min(max(m * mb, lo), hi) - lo,
+                                  min(max((m + 1) * mb, lo), hi) - lo)
+                            for m in range(opts.num_minibatches)
+                            ] * opts.num_epochs
+
+    @torch.no_grad()
+    def prologue(self):
+        """PPO over more than one pass: the behaviour log-probs of the
+        stored batch, or the behaviour parameters, into their buffers."""
+        if self.old_lp is not None:
+            batch = self.batch
+            self.old_lp.copy_(_logp_and_entropy(
+                _forward(self.model, batch["obs"], batch.get("mask"))[0],
+                batch["actions"])[0])
+        if self.behaviour is not None:
+            for name, p in self.model.named_parameters():
+                self.behaviour[name].copy_(p)
+
+    def _derive(self, rows_of):
+        """The policy's observations and mask of the env rows ``rows_of``
+        picks from each ``(T, E, ...)`` state entry: ``(B1, B2, A, F)``."""
+        picked = {k: rows_of(v) for k, v in self.batch["phys"].items()}
+        lead = next(iter(picked.values())).shape[:2]
+        derived = self.observe({k: v.reshape((-1,) + v.shape[2:])
+                                for k, v in picked.items()})
+        obs, mask = derived if isinstance(derived, tuple) else (derived,
+                                                                None)
+        return tuple(None if x is None else x.reshape(lead + x.shape[1:])
+                     for x in (obs, mask))
+
+    def _slicers(self):
+        """``(take, rows)`` of this pass's env block: time-major ``(T,
+        E_mb, ...)`` and env-major ``(E_mb, T, ...)`` selections."""
+        if self.mesh is None:
+            block = self.table.index_select(0, self.pass_index).reshape(-1)
+        else:
+            block = self._blocks[self._host_pass]
+        if isinstance(block, slice):
+            return (lambda x: x[:, block],
+                    lambda x: x.transpose(0, 1)[block])
+        return (lambda x: x.index_select(1, block),
+                lambda x: x.transpose(0, 1).index_select(0, block))
+
+    def run_pass(self, full: bool = True) -> dict:
+        """One pass: forward, loss, gradients and the optimizer's step, in
+        place; the pass counter advances.  ``full`` returns the pass's
+        metric tensors with its gradient norm; otherwise (the hot, metrics-
+        free pass) none are computed and ``{}`` is returned, with the same
+        parameters."""
+        batch, opts = self.batch, self.opts
+        actions, rewards, done = (batch["actions"], batch["rewards"],
+                                  batch["done"])
+        old_lp = None
+        if opts.passes == 1:
+            obs, mask = ((batch["obs"], batch.get("mask")) if self.stored
+                         else self._derive(lambda x: x))
+            logits_list, values = _forward(self.forward, obs, mask)
+        else:
+            take, rows = self._slicers()
+            if self.stored:
+                mask = batch.get("mask")
+                obs = rows(batch["obs"]).contiguous()
+                mask = None if mask is None else rows(mask).contiguous()
+            else:
+                obs, mask = self._derive(rows)
+            actions, rewards, done = take(actions), take(rewards), take(done)
+            if self.old_lp is not None:
+                old_lp = take(self.old_lp)
+            if self.behaviour is not None:
+                with torch.no_grad():
+                    logits0, _ = _to_time_major(*functional_call(
+                        self.model, self.behaviour,
+                        (obs,) if mask is None else (obs, mask)))
+                    old_lp = _logp_and_entropy(logits0, actions)[0]
+            logits_list, values = _to_time_major(
+                *_forward(self.forward, obs, mask))
+        loss, metrics = self.algo.compute_loss_and_metrics(
+            None, actions, rewards, done, logits_list, values,
+            negative_positive_ratio=self.negative_positive_ratio,
+            generator=self.generator, old_log_prob=old_lp, group=self.mesh,
+            coeffs=(self.vf_coeff, self.ent_coeff), with_metrics=full)
+        grads = torch.autograd.grad(loss, self.params)
+        if self.mesh is not None:
+            grads = self.mesh.reduce_grads(grads)
+        g_norm = self.optimizer.step(dict(zip(self.names, grads)), self.lr)
+        self.pass_index.add_(1)
+        self._host_pass += 1
+        if full:
+            metrics["Gradient norm"] = g_norm
+        return metrics
+
+    @staticmethod
+    def finish(metrics: dict, timestep, lr) -> dict:
+        """A full update's metrics with the host's timestep and learning
+        rate."""
+        return {**metrics, "Current timestep": float(timestep),
+                "Learning rate": float(lr)}
+
+    def run(self, timestep, lr, index_table: torch.Tensor = None) -> dict:
+        """Every pass, eagerly, with metrics: :meth:`begin`, the
+        :meth:`prologue` where PPO needs one, then ``passes`` x
+        :meth:`run_pass`.  Returns the metric tensors of the last pass."""
+        self.begin(timestep, lr, index_table)
+        if self.needs_prologue:
+            self.prologue()
+        for _ in range(self.opts.passes):
+            metrics = self.run_pass(full=True)
+        return self.finish(metrics, timestep, lr)
+
+
 def policy_update(model, optimizer: ClippedAdam, algo, batch: dict,
                   timestep, lr, negative_positive_ratio: float = -1.0,
                   generator: torch.Generator = None,
                   options: UpdateOptions = None,
                   index_table: torch.Tensor = None,
                   observe=None, mesh=None) -> dict:
-    """One policy's update on its batch ``{"actions" (T, E, A, C),
-    "rewards" (T, E, A), "done" (T, E)}`` with the observations either
-    stored, ``"obs"`` (T, E, A, F), or derived: ``"phys"``, the pre-step
-    state entries ``(T, E, ...)``, which ``observe`` maps, given as ``(R,
-    ...)`` env rows, to the policy's ``(R, A, F)`` observations (or to
-    ``(observations, mask)``).  A stored ``"mask"`` (T, E, A, M), 1 keep
-    and 0 forbid, goes onto the logits of every forward, as the JAX
-    trainer's ``mask_b``.
-
-    One pass (the default ``options``) forwards the whole batch.  More
-    passes sweep env-axis slices, each with its own returns, gradients and
-    optimizer step; a shuffled sweep draws one permutation of the envs an
-    epoch from ``generator`` unless ``index_table`` ``(passes, E //
-    num_minibatches)`` gives them.  A slice's rows go through the model
-    env-major, ``(E_mb, T, A, F)``, copied into one contiguous block, and
-    its logits and values back to time-major for the loss; this is the
-    layout the JAX trainer's ``env_major`` relayout gives its slices, so
-    every value of that option runs this one path.  PPO over more than one
-    pass holds its ratio to the
-    behaviour log-probs of the parameters before the first pass: from one
-    forward of the stored batch, or of each derived slice.  Returns the
-    metric tensors of the last pass, with its own gradient norm.
-
-    Under a ``mesh`` the batch holds the rank's env rows: the loss and
-    metrics are global over the env group (``group`` of the algorithms),
-    the gradients are summed over it before the optimizer's step, and a
-    sweep's slices are of the global env axis (a shuffled one from rank
-    0's permutation), each rank taking its rows of each."""
-    opts = options or UpdateOptions()
-    names = [n for n, _ in model.named_parameters()]
-    params = [optimizer.params[n] for n in names]
-    forward = remat_apply(model, opts.remat)
-    actions, rewards, done = batch["actions"], batch["rewards"], batch["done"]
-    loss_kw = dict(negative_positive_ratio=negative_positive_ratio,
-                   generator=generator,
-                   group=mesh)
-    stored = "obs" in batch
-
-    def derive(rows_of):
-        """The policy's observations and mask of the env rows ``rows_of``
-        picks from each ``(T, E, ...)`` state entry: ``(B1, B2, A, F)``."""
-        picked = {k: rows_of(v) for k, v in batch["phys"].items()}
-        lead = next(iter(picked.values())).shape[:2]
-        derived = observe({k: v.reshape((-1,) + v.shape[2:])
-                           for k, v in picked.items()})
-        obs, mask = derived if isinstance(derived, tuple) else (derived,
-                                                                None)
-        return tuple(None if x is None else x.reshape(lead + x.shape[1:])
-                     for x in (obs, mask))
-
-    def step(loss):
-        grads = torch.autograd.grad(loss, params)
-        if mesh is not None:
-            grads = mesh.reduce_grads(grads)
-        return optimizer.step(dict(zip(names, grads)), lr)
-
-    if opts.passes == 1:
-        obs, mask = ((batch["obs"], batch.get("mask")) if stored
-                     else derive(lambda x: x))
-        logits_list, values = _forward(forward, obs, mask)
-        loss, metrics = algo.compute_loss_and_metrics(
-            timestep, actions, rewards, done, logits_list, values, **loss_kw)
-        metrics["Gradient norm"] = step(loss)
-    else:
-        metrics = _sweep(model, forward, algo, batch, timestep, step, derive,
-                         opts, index_table, generator, loss_kw, mesh)
-    metrics["Current timestep"] = float(timestep)
-    metrics["Learning rate"] = float(lr)
-    return metrics
-
-
-def _sweep(model, forward, algo, batch, timestep, step, derive, opts,
-           index_table, generator, loss_kw, mesh=None) -> dict:
-    """The epoch x minibatch passes of :func:`policy_update`."""
-    actions, rewards, done = batch["actions"], batch["rewards"], batch["done"]
-    # the slices are of the global env axis; this rank holds rows lo..hi
-    E = done.shape[1] * (1 if mesh is None else mesh.dp)
-    lo = 0 if mesh is None else mesh.env_rank * done.shape[1]
-    hi = lo + done.shape[1]
-    assert E % opts.num_minibatches == 0, (
-        "num_minibatches must divide num_envs (env-axis slicing)")
-    mb = E // opts.num_minibatches
-    stored = "obs" in batch
-    old_lp, behaviour = None, None
-    if isinstance(algo, PPO):
-        if stored:
-            with torch.no_grad():
-                old_lp = _logp_and_entropy(
-                    _forward(model, batch["obs"], batch.get("mask"))[0],
-                    actions)[0]
-        else:
-            # derived observations: the behaviour log-probs of each slice,
-            # from these parameters, so the batch is never whole
-            behaviour = {n: p.detach().clone()
-                         for n, p in model.named_parameters()}
-
-    if opts.shuffle:
-        if index_table is None:
-            # every rank draws (its stream stays where the plain trainer's
-            # would be) and takes rank 0's permutation
-            index_table = torch.stack([
-                torch.randperm(E, generator=generator, device=done.device)
-                for _ in range(opts.num_epochs)
-            ]).reshape(opts.passes, mb)
-            if mesh is not None:
-                mesh.broadcast(index_table)
-        assert tuple(index_table.shape) == (opts.passes, mb)
-        blocks = list(index_table.to(done.device, torch.long))
-        if mesh is not None:  # this rank's rows of each, in table order
-            blocks = [b[(b >= lo) & (b < hi)] - lo for b in blocks]
-    else:
-        assert index_table is None, "contiguous slices draw no table"
-        blocks = [slice(min(max(m * mb, lo), hi) - lo,
-                        min(max((m + 1) * mb, lo), hi) - lo)
-                  for m in range(opts.num_minibatches)] * opts.num_epochs
-
-    for block in blocks:
-        if opts.shuffle:
-            def take(x, block=block):  # time-major (T, E_mb, ...)
-                return x.index_select(1, block)
-
-            def rows(x, block=block):  # env-major (E_mb, T, ...)
-                return x.transpose(0, 1).index_select(0, block)
-        else:
-            def take(x, block=block):
-                return x[:, block]
-
-            def rows(x, block=block):
-                return x.transpose(0, 1)[block]
-
-        if stored:
-            mask = batch.get("mask")
-            obs = rows(batch["obs"]).contiguous()
-            mask = None if mask is None else rows(mask).contiguous()
-        else:
-            obs, mask = derive(rows)
-        act = take(actions)
-        mb_old_lp = None if old_lp is None else take(old_lp)
-        if behaviour is not None:
-            with torch.no_grad():
-                logits0, _ = _to_time_major(*functional_call(
-                    model, behaviour,
-                    (obs,) if mask is None else (obs, mask)))
-                mb_old_lp = _logp_and_entropy(logits0, act)[0]
-        logits_list, values = _to_time_major(*_forward(forward, obs, mask))
-        loss, metrics = algo.compute_loss_and_metrics(
-            timestep, act, take(rewards), take(done), logits_list, values,
-            old_log_prob=mb_old_lp, **loss_kw)
-        metrics["Gradient norm"] = step(loss)
-    return metrics
+    """One policy's update on its ``batch`` at learning rate ``lr``, every
+    pass of :class:`UpdatePass` run eagerly; a shuffled sweep draws its
+    permutations from ``generator`` unless ``index_table`` ``(passes, E //
+    num_minibatches)`` gives them.  Returns the metric tensors of the last
+    pass, with its own gradient norm."""
+    return UpdatePass(
+        model, optimizer, algo, batch, options, observe=observe, mesh=mesh,
+        negative_positive_ratio=negative_positive_ratio, generator=generator,
+    ).run(timestep, lr, index_table)
 
 
 class TrainerA2C(TrainerBase):
@@ -481,6 +619,18 @@ class TrainerA2C(TrainerBase):
         self._ep_count = torch.zeros((), dtype=torch.float32,
                                      device=self.device)
         self._batch = None  # the rollout's buffers, made at first use
+        # the rollout's step counter: the batch row a step writes
+        self._row = torch.zeros((1,), dtype=torch.long, device=self.device)
+        # on a card, train() runs captured programs (built at the first
+        # iteration); the eager host-env backend and a process mesh keep
+        # the eager iteration
+        self._programmed = (self.device.type == "cuda" and not self._is_eager
+                            and self.mesh is None)
+        if self.device.type == "cuda" and not self._programmed:
+            logging.info("program: eager (%s)", "host-env backend"
+                         if self._is_eager else "process mesh")
+        self._programs = None
+        self._update_passes = None
 
     # ------------------------------------------------------------ rollout
     def _make_batch(self) -> dict:
@@ -519,79 +669,198 @@ class TrainerA2C(TrainerBase):
     @torch.no_grad()
     def _rollout(self, actions: torch.Tensor = None) -> dict:
         """``training_batch_size_per_env`` steps from the trainer's env
-        state; returns the batch, time-major.  ``actions`` (T, E, N, C),
-        when given, replaces the policies' draws (for tests that replay
-        recorded actions); under a mesh, of the global envs or of the
-        rank's rows."""
+        state, each a call of :meth:`_rollout_step`; returns the batch,
+        time-major.  ``actions`` (T, E, N, C), when given, replaces the
+        policies' draws (for tests that replay recorded actions); under a
+        mesh, of the global envs or of the rank's rows."""
+        if self._batch is None:
+            self._batch = self._make_batch()
+        if actions is not None and actions.shape[1] != self.local_envs:
+            actions = actions[:, self.env_rows]
+        self._row.zero_()
+        for t in range(self.training_batch_size_per_env):
+            self._rollout_step(self._batch,
+                               None if actions is None else actions[t])
+        self._rollout_done()
+        return self._batch
+
+    def _rollout_done(self):
+        """Keep the engine facade on the live state; on the split path
+        observations and actions are not carried and keep their
+        placeholders.  (The eager backend's engine holds the state.)"""
+        if not self._is_eager:
+            self.engine.state = {**self.engine.state, **self._env_state}
+
+    @torch.no_grad()
+    def _rollout_step(self, batch: dict, actions: torch.Tensor = None):
+        """One rollout step: the body of the JAX trainer's rollout scan
+        (``warpdrive_tpu/training/trainer_a2c.py:372``) and of the captured
+        rollout-step program.  It writes row ``self._row`` (a device step
+        counter) of every batch buffer with ``index_copy_``, as
+        ``lax.scan`` stacks its outputs, so the program does not depend on
+        T; advances the static env state and the episodic accounting in
+        place; and advances the counter.  ``actions`` ``(E, N, C)`` replace
+        the draws (eager only).  On the eager backend the engine steps its
+        own state on the host."""
+        engine = self.engine
+        row = self._row
+        state = dict(engine.state) if self._is_eager else self._env_state
+        split = engine.has_split_step
+        if self._recompute_obs:
+            # copies: later steps must not write into the record
+            for name, buf in batch["phys"].items():
+                buf.index_copy_(0, row, state[name][None])
+        obs_all = engine.observe(state) if split else None
+        per_policy = {}
+        for tag in self.policies:
+            obs_p, mask_p = self._policy_obs_and_mask(state, obs_all, tag)
+            store = batch.get(f"obs_{tag}")
+            if store is not None:
+                store.index_copy_(0, row, obs_p[None].to(store.dtype))
+                if mask_p is not None:
+                    record = batch[f"mask_{tag}"]
+                    record.index_copy_(0, row, mask_p[None].to(record.dtype))
+            if actions is None:
+                logits_list, _ = _forward(self.models[tag], obs_p, mask_p)
+                acts = torch.stack(
+                    [sample_from_logits(logits, self.generator)
+                     for logits in logits_list], dim=-1)
+            else:
+                acts = actions[:, self._agent_ids[tag]]
+            record = batch[f"actions_{tag}"]
+            record.index_copy_(0, row, acts[None].to(record.dtype))
+            per_policy[tag] = acts
+        actions_all = self._merge_actions(per_policy)
+        if self._is_eager:  # the actions to the host, one host step
+            state = engine.step_all_envs(actions_all)
+        else:
+            state = (engine.step_physics(state, actions_all) if split
+                     else engine.step(state, actions_all))
+
+        rewards = engine.rewards_of(state)
+        done = state[_DONE]
+        for tag in self.policies:
+            policy_rewards = (
+                state[f"{_REWARDS}_{tag}"] if engine.separate_placeholders
+                else torch.index_select(rewards, 1, self._agent_ids[tag]))
+            record = batch[f"rewards_{tag}"]
+            record.index_copy_(0, row, policy_rewards[None].to(record.dtype))
+        batch["done"].index_copy_(0, row, done[None].to(torch.int32))
+
+        # episodic reward bookkeeping, in place
+        acc = self._ep_acc + rewards
+        done_mask = (done > 0).to(torch.float32)
+        self._ep_sum.copy_(self._ep_sum + (acc.mean(dim=1)
+                                           * done_mask).sum())
+        self._ep_count.copy_(self._ep_count + done_mask.sum())
+        self._ep_acc.copy_(acc * (1.0 - done_mask)[:, None])
+
+        if self._is_eager:
+            engine.reset_only_done_envs()
+        else:
+            assign_state(self._env_state,
+                         engine.auto_reset(state, self.generator))
+        row.add_(1)
+
+    # ------------------------------------------------------- the programs
+    def _build_programs(self):
+        """The captured programs over the static carry (env state,
+        episodic accounting, batch, parameters, optimizer states): the
+        rollout step, and per trained policy the update pass in its hot
+        (metrics-free) and full variants and, for PPO over more than one
+        pass, the prologue.  They share one graph memory pool.  The
+        rollout step computes no metric, so its two variants are one
+        program."""
         if self._batch is None:
             self._batch = self._make_batch()
         batch = self._batch
-        engine = self.engine
-        # the eager backend's engine holds the rollout's state itself
-        state = dict(engine.state) if self._is_eager else self._env_state
-        split = engine.has_split_step
-        if actions is not None and actions.shape[1] != self.local_envs:
-            actions = actions[:, self.env_rows]
-        for t in range(self.training_batch_size_per_env):
-            if self._recompute_obs:
-                # copies: later steps must not write into the record
-                for name, buf in batch["phys"].items():
-                    buf[t].copy_(state[name])
-            obs_all = engine.observe(state) if split else None
-            per_policy = {}
-            for tag in self.policies:
-                store = batch.get(f"obs_{tag}")
-                obs_p, mask_p = self._policy_obs_and_mask(
-                    state, obs_all, tag,
-                    out=None if store is None else store[t])
-                if mask_p is not None and store is not None:
-                    batch[f"mask_{tag}"][t] = mask_p
-                if actions is None:
-                    logits_list, _ = _forward(self.models[tag], obs_p,
-                                              mask_p)
-                    acts = torch.stack(
-                        [sample_from_logits(logits, self.generator)
-                         for logits in logits_list], dim=-1)
-                else:
-                    acts = actions[t][:, self._agent_ids[tag]]
-                batch[f"actions_{tag}"][t] = acts
-                per_policy[tag] = acts
-            actions_all = self._merge_actions(per_policy)
-            if self._is_eager:  # the actions to the host, one host step
-                state = engine.step_all_envs(actions_all)
-            else:
-                state = (engine.step_physics(state, actions_all) if split
-                         else engine.step(state, actions_all))
+        pool = (torch.cuda.graph_pool_handle()
+                if self.device.type == "cuda" else None)
 
-            rewards = engine.rewards_of(state)
-            done = state[_DONE]
-            for tag in self.policies:
-                if engine.separate_placeholders:
-                    batch[f"rewards_{tag}"][t] = state[f"{_REWARDS}_{tag}"]
-                else:
-                    torch.index_select(rewards, 1, self._agent_ids[tag],
-                                       out=batch[f"rewards_{tag}"][t])
-            batch["done"][t] = done
+        def program(body, buffers, name):
+            return Program(body, buffers, self.device,
+                           generators=[self.generator], pool=pool, name=name)
 
-            # episodic reward bookkeeping
-            self._ep_acc = self._ep_acc + rewards
-            done_mask = (done > 0).to(torch.float32)
-            self._ep_sum = self._ep_sum + (self._ep_acc.mean(dim=1)
-                                           * done_mask).sum()
-            self._ep_count = self._ep_count + done_mask.sum()
-            self._ep_acc = self._ep_acc * (1.0 - done_mask)[:, None]
+        models = {tag: list(m.parameters()) for tag, m in self.models.items()}
+        programs = {"rollout": program(
+            lambda: self._rollout_step(batch),
+            {"env_state": self._env_state, "batch": batch, "row": self._row,
+             "episodes": [self._ep_acc, self._ep_sum, self._ep_count],
+             "models": models},
+            "rollout step")}
+        self._update_passes = {}
+        for tag in self.policies_to_train:
+            update = self._update_pass(tag, batch)
+            self._update_passes[tag] = update
+            buffers = update.buffers()
+            for variant in ("hot", "full"):
+                programs[tag, variant] = program(
+                    lambda u=update, full=variant == "full":
+                        u.run_pass(full=full),
+                    buffers, f"{tag} update pass ({variant})")
+            if update.needs_prologue:
+                programs[tag, "prologue"] = program(
+                    update.prologue, buffers, f"{tag} update prologue")
+        self._programs = programs
 
-            if self._is_eager:
-                engine.reset_only_done_envs()
-                state = dict(engine.state)
-            else:
-                state = engine.auto_reset(state, self.generator)
-        self._env_state = state
-        # keep the engine facade on the live state; on the split path
-        # observations and actions are not carried and keep their
-        # placeholders
-        engine.state = {**engine.state, **state}
-        return batch
+    def release_programs(self):
+        """Drop the captured programs, and with them their graphs' memory
+        pool and the update passes' hold on the batch; the next programmed
+        iteration builds and captures them again."""
+        self._programs = self._update_passes = None
+
+    def _rollout_programmed(self) -> dict:
+        """The rollout as ``training_batch_size_per_env`` calls of the
+        rollout-step program; returns the static batch."""
+        if self._programs is None:
+            self._build_programs()
+        self._row.zero_()
+        step = self._programs["rollout"]
+        for _ in range(self.training_batch_size_per_env):
+            step()
+        self._rollout_done()
+        return self._batch
+
+    def _update_programmed(self, timestep, full: bool = True) -> dict:
+        """Every trained policy's update on the static batch: the host's
+        :meth:`UpdatePass.begin`, the prologue program where PPO needs one,
+        then ``passes`` calls of the hot or the full pass program.  The
+        full variant returns the metric tensors per policy, the hot one
+        ``{}``."""
+        if self._programs is None:
+            self._build_programs()
+        metrics = {}
+        for tag in self.policies_to_train:
+            update = self._update_passes[tag]
+            lr = self.lr_schedules[tag].value_at(timestep)
+            update.begin(timestep, lr)
+            if update.needs_prologue:
+                self._programs[tag, "prologue"]()
+            one_pass = self._programs[tag, "full" if full else "hot"]
+            for _ in range(update.opts.passes):
+                out = one_pass()
+            if full:
+                metrics[tag] = update.finish(out, timestep, lr)
+        return metrics
+
+    def _iteration_programmed(self, timestep, full: bool = True) -> dict:
+        """One iteration through the programs: the counterpart of the JAX
+        trainer's jitted ``_iteration_fn`` (``full``) and metrics-free
+        ``_iteration_fn_fast``, with the phase marks between replays."""
+        start = self.clock.mark()
+        self._rollout_programmed()
+        mid = self.clock.mark()
+        metrics = self._update_programmed(timestep, full)
+        self._pending_marks.append((start, mid, self.clock.mark()))
+        return self._with_episodic_reward(metrics)
+
+    def _phase_fns(self, timestep):
+        if not self._programmed:
+            return super()._phase_fns(timestep)
+        return (lambda: (self._rollout_programmed(),
+                         self._update_programmed(timestep, full=False)),
+                self._rollout_programmed,
+                lambda batch: self._update_programmed(timestep, full=False))
 
     # ------------------------------------------------- acting outside training
     def _act_fn(self, state: dict, use_argmax: bool = True,
@@ -620,14 +889,16 @@ class TrainerA2C(TrainerBase):
         }
 
     def _load_training_state(self, state: dict):
+        """Into the live buffers: a built program keeps its storages."""
         for tag, model in self.models.items():
             model.load_state_dict(state["models"][tag])
             self.optimizers[tag].load_state_dict(state["optimizers"][tag])
-        self._env_state = dict(state["env_state"])
+        assign_state(self._env_state, {
+            k: v.to(self.device) for k, v in state["env_state"].items()})
         episodes = state["episodes"]
-        self._ep_acc = episodes["acc"]
-        self._ep_sum = episodes["sum"]
-        self._ep_count = episodes["count"]
+        self._ep_acc.copy_(episodes["acc"])
+        self._ep_sum.copy_(episodes["sum"])
+        self._ep_count.copy_(episodes["count"])
 
     # ------------------------------------------------------------- update
     def _policy_batch(self, batch: dict, tag: str) -> dict:
@@ -653,25 +924,23 @@ class TrainerA2C(TrainerBase):
 
         return observe
 
+    def _update_pass(self, tag: str, batch: dict) -> UpdatePass:
+        return UpdatePass(
+            self.models[tag], self.optimizers[tag], self.algorithms[tag],
+            self._policy_batch(batch, tag), self.update_options[tag],
+            observe=(self._observe_policy(tag) if self._recompute_obs
+                     else None),
+            mesh=self.mesh, negative_positive_ratio=self.neg_pos_env_ratio,
+            generator=self.generator)
+
     def _update(self, batch: dict, timestep, index_tables: dict = None
                 ) -> dict:
-        """Every trained policy's update on ``batch``; metric tensors per
-        policy.  ``index_tables`` ``{tag: (passes, E_mb)}`` replaces a
-        shuffled sweep's draws."""
-        metrics = {}
-        for tag in self.policies_to_train:
-            metrics[tag] = policy_update(
-                self.models[tag], self.optimizers[tag], self.algorithms[tag],
-                self._policy_batch(batch, tag), timestep,
-                self.lr_schedules[tag].value_at(timestep),
-                negative_positive_ratio=self.neg_pos_env_ratio,
-                generator=self.generator,
-                options=self.update_options[tag],
-                index_table=(index_tables or {}).get(tag),
-                observe=(self._observe_policy(tag) if self._recompute_obs
-                         else None),
-                mesh=self.mesh,
-            )
-        return metrics
+        """Every trained policy's update on ``batch``, eagerly; metric
+        tensors per policy.  ``index_tables`` ``{tag: (passes, E_mb)}``
+        replaces a shuffled sweep's draws."""
+        return {tag: self._update_pass(tag, batch).run(
+                    timestep, self.lr_schedules[tag].value_at(timestep),
+                    (index_tables or {}).get(tag))
+                for tag in self.policies_to_train}
 
     _update_phase = _update

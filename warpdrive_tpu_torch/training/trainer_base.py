@@ -21,11 +21,21 @@ The port's counterpart of ``warpdrive_tpu/training/trainer_base.py``:
   forced reset of the engine's own state, which the trainer's rollout
   state (``_env_state``) does not share;
 * ``profile_phases``: the iteration, the rollout and the update timed
-  apart, with the training state restored afterwards.
+  apart, and ``profile_trace``: a ``torch.profiler`` trace of iterations,
+  each with the training state restored afterwards; ``graceful_close``.
 
-The JAX package compiles a metrics-free twin of its iteration for XLA's
-sake; here one eager iteration always builds the metric tensors and the
-loop reads them (which waits for the device) at log points only.
+An iteration runs one of two ways.  A trainer that runs programs (A2C and
+PPO on a card, on the device backend, without a process mesh:
+``_programmed``) runs captured CUDA graphs, the counterpart of the JAX
+trainer's jitted iteration: the metrics-free (hot) programs on every
+iteration but the first and the log points, which run the full ones, as
+the JAX ``train()`` chooses between ``_iteration_fn_fast`` and
+``_iteration_fn`` (``warpdrive_tpu/training/trainer_base.py:505-519``).
+Every other trainer runs the eager iteration (the same bodies called op by
+op, metrics always built).  Either way the loop reads the metric tensors
+(which waits for the device) at log points only, and waits for the device
+every ``trainer.dispatch_sync_freq`` iterations (default 50, as in JAX), so
+that the host runs at most that far ahead of it.
 
 Every placeholder mode of the engine is read through
 ``_policy_obs_and_mask``: a policy's observations flattened to ``(E, A_p,
@@ -251,6 +261,12 @@ class TrainerBase:
         self.n_step = int(trainer_cfg.get("n_step", 1))
         self.use_evaluator = bool(trainer_cfg.get("evaluator", False))
         self.neg_pos_env_ratio = float(trainer_cfg.get("neg_pos_env_ratio", -1))
+        # train() waits for the device every this many iterations (0:
+        # never between log points), as the JAX trainer does
+        self.dispatch_sync_freq = int(trainer_cfg.get("dispatch_sync_freq",
+                                                      50))
+        # whether _iteration runs captured programs (a subclass decides)
+        self._programmed = False
 
         self.episode_length = self.engine.episode_length
         self.training_batch_size_per_env = self.train_batch_size // self.num_envs
@@ -350,15 +366,15 @@ class TrainerBase:
 
     # ------------------------------------------------------------ utilities
     def _rollout_env_state(self) -> dict:
-        """The env state carried through the rollout.  On the split path
+        """The env state carried through the rollout: copies of the
+        engine's entries, the trainer's own.  On the split path
         observations are recomputed from it each step and actions are
         handed to the physics, so neither placeholder is carried; a full
         step writes both, so there they are."""
-        if not self.engine.has_split_step:
-            return dict(self.engine.state)
+        split = self.engine.has_split_step
         return {
-            k: v for k, v in self.engine.state.items()
-            if k not in (_OBS, _ACTIONS)
+            k: v.clone() for k, v in self.engine.state.items()
+            if not (split and k in (_OBS, _ACTIONS))
         }
 
     def _reshape_flatten(self, arr: torch.Tensor, num_agents: int
@@ -384,8 +400,7 @@ class TrainerBase:
         return torch.index_select(mask, 1, self._agent_ids[tag]).to(
             torch.float32)
 
-    def _policy_obs_and_mask(self, env_state: dict, obs_all, tag: str,
-                             out: torch.Tensor = None):
+    def _policy_obs_and_mask(self, env_state: dict, obs_all, tag: str):
         """One policy's flattened observations ``(E, A_p, F)`` and action
         mask ``(E, A_p, M)`` or None, in every placeholder mode:
 
@@ -397,9 +412,7 @@ class TrainerBase:
         * separate mode: the same from ``observations_<tag>[_<key>]``,
           which hold the policy's agents only.
 
-        Without a Dict mask a shared ``action_mask`` state array gives it.
-        ``out``, where given, receives the observations (converted to its
-        dtype) and the returned ones keep theirs."""
+        Without a Dict mask a shared ``action_mask`` state array gives it."""
         eng = self.engine
         ids = self._agent_ids[tag]
         group = eng.group_info(tag)
@@ -410,14 +423,7 @@ class TrainerBase:
         if group["mode"] == "box":
             source = env_state[eng.obs_entry_names(tag)[0]] \
                 if obs_all is None else obs_all
-            flat = self._reshape_flatten(source, num_agents)
-            if out is not None and out.dtype == flat.dtype \
-                    and not eng.separate_placeholders:
-                # the rollout's hot path: gather straight into the batch
-                obs = torch.index_select(flat, 1, ids, out=out)
-                out = None
-            else:
-                obs = take(flat)
+            obs = take(self._reshape_flatten(source, num_agents))
         else:
             parts = []
             for key, name in zip(group["keys"], eng.obs_entry_names(tag)):
@@ -428,8 +434,6 @@ class TrainerBase:
                     parts.append(flat)
             obs = take(parts[0] if len(parts) == 1
                        else torch.cat(parts, dim=-1))
-        if out is not None:
-            out.copy_(obs)
         if mask is None:
             mask = self._gather_policy_mask(env_state, tag)
         return obs, mask
@@ -492,13 +496,29 @@ class TrainerBase:
         policy."""
         raise NotImplementedError
 
-    def _iteration(self, timestep) -> dict:
+    def _iteration(self, timestep, full: bool = True) -> dict:
+        """One training iteration: through the captured programs where the
+        trainer runs them (``full``: the full variant, with metrics; else
+        the hot one, which returns ``{}``), else eagerly (always with
+        metrics)."""
+        if self._programmed:
+            return self._iteration_programmed(timestep, full)
+        return self._iteration_eager(timestep)
+
+    def _iteration_eager(self, timestep) -> dict:
+        """The eager iteration: the plain counterpart of the programs."""
         start = self.clock.mark()
         batch = self._rollout_phase(timestep)
         mid = self.clock.mark()
         metrics = self._update_phase(batch, timestep)
         self._pending_marks.append((start, mid, self.clock.mark()))
-        # over every rank's episodes
+        return self._with_episodic_reward(metrics)
+
+    def _with_episodic_reward(self, metrics: dict) -> dict:
+        """Each policy's metrics with the mean episodic reward over every
+        rank's episodes (none to add to a hot iteration's ``{}``)."""
+        if not metrics:
+            return metrics
         mean_ep_reward = MetricOps(self.mesh).out(Deferred(
             sums=[self._ep_sum, self._ep_count],
             finish=lambda s, m: s[0] / torch.clamp(s[1], min=1.0)))
@@ -508,19 +528,27 @@ class TrainerBase:
 
     def train(self):
         """``num_iters`` iterations, metrics every ``metrics_log_freq``,
-        checkpoints every ``model_params_save_freq`` and at the end."""
+        checkpoints every ``model_params_save_freq`` and at the end.  A
+        programmed trainer runs the full programs on its first iteration
+        and at log points and the hot ones elsewhere."""
         steps_per_iter = self.training_batch_size_per_env * self.num_envs
         window_start = time.perf_counter()
         window_iters = 0
+        first_iteration = self.iters_completed
         for iteration in range(self.iters_completed, self.num_iters):
             log_now = (
                 (iteration + 1) % self.metrics_log_freq == 0
                 or iteration == self.num_iters - 1
             )
-            metrics = self._iteration(self.current_timestep)
+            metrics = self._iteration(
+                self.current_timestep,
+                full=log_now or iteration == first_iteration)
             self.current_timestep += steps_per_iter
             self.iters_completed += 1
             window_iters += 1
+            if (not log_now and self.dispatch_sync_freq > 0
+                    and (iteration + 1) % self.dispatch_sync_freq == 0):
+                self._sync()  # keep the host at most this far ahead
 
             if log_now:
                 metrics_host = reduce_metrics(metrics, self.mesh)
@@ -948,25 +976,21 @@ class TrainerBase:
         return self.mesh.broadcast(x.contiguous(), src=owner, axis="env")
 
     # ------------------------------------------------------------ profiling
-    def profile_phases(self, repeats: int = 3) -> dict:
-        """Time an iteration, a rollout and an update apart, each after one
-        warm-up call and then ``repeats`` times: iterations chained as
-        ``train()`` runs them, rollouts chained from the state the last one
-        left, and updates chained through their parameters on one real
-        rollout batch.  Each repeat is timed on the device's clock (CUDA
-        events on a card) and ends with a one-element host fetch.  The
-        best repeat is reported beside every repeat's time, as the JAX
-        trainer's ``profile_phases`` reports them:
-        ``{"iteration_ms", "rollout_ms", "update_ms",
-        "update_ms_residual" (max(iteration - rollout, 0)),
-        "update_ms_direct", "steps_per_sec", "rollout_steps_per_sec"}``
-        and the ``..._repeats`` lists.  The breakdown goes onto
-        ``perf_stats``, so later logs carry it.
+    def _phase_fns(self, timestep):
+        """``(iteration, rollout, update(batch))`` as the profilers run
+        them, without phase marks: the eager phases here; a programmed
+        trainer's hot programs."""
+        return (lambda: self._update_phase(self._rollout_phase(timestep),
+                                           timestep),
+                lambda: self._rollout_phase(timestep),
+                lambda batch: self._update_phase(batch, timestep))
 
-        The models, optimizer states, rollout env state (on the eager
-        backend, the engine's envs), episodic accounting and generators are
-        restored afterwards: training goes on as if the call had not been
-        made."""
+    @contextlib.contextmanager
+    def _state_restored(self):
+        """Run the body, then restore the models, optimizer states,
+        rollout env state (on the eager backend, the engine's envs),
+        episodic accounting and generators, in place: training goes on as
+        if the body had not run."""
         saved = _clone_tree(self._training_state())
         engine = self.engine
         engine_state = (engine.snapshot_runtime_state() if self._is_eager
@@ -974,8 +998,40 @@ class TrainerBase:
         store = getattr(engine, "store", None)  # none on the eager backend
         generators = (self.generator.get_state(),
                       None if store is None else store.generator.get_state())
+        try:
+            yield
+        finally:
+            self._load_training_state(saved)
+            if self._is_eager:
+                engine.restore_runtime_state(engine_state)
+            else:
+                engine.state = engine_state
+            self.generator.set_state(generators[0])
+            if store is not None:
+                store.generator.set_state(generators[1])
+
+    def profile_phases(self, repeats: int = 3) -> dict:
+        """Time an iteration, a rollout and an update apart, each after one
+        warm-up call and then ``repeats`` times: iterations chained as
+        ``train()`` runs them, rollouts chained from the state the last one
+        left, and updates chained through their parameters on one real
+        rollout batch.  A programmed trainer times its hot programs, which
+        every non-log iteration runs, as the JAX trainer times its hot
+        program.  Each repeat is timed on the device's clock (CUDA events
+        on a card) and ends with a one-element host fetch.  The best repeat
+        is reported beside every repeat's time, as the JAX trainer's
+        ``profile_phases`` reports them:
+        ``{"iteration_ms", "rollout_ms", "update_ms",
+        "update_ms_residual" (max(iteration - rollout, 0)),
+        "update_ms_direct", "steps_per_sec", "rollout_steps_per_sec"}``
+        and the ``..._repeats`` lists.  The breakdown goes onto
+        ``perf_stats``, so later logs carry it.
+
+        The training state is restored afterwards (``_state_restored``):
+        training goes on as if the call had not been made."""
         t = self.current_timestep
         steps = self.training_batch_size_per_env * self.num_envs
+        iteration, rollout, update = self._phase_fns(t)
 
         # a parameter: updated in place, so it stays the live one
         probe = _first_tensor(self._training_state()).reshape(-1)[:1]
@@ -995,22 +1051,11 @@ class TrainerBase:
                 times.append(self.clock.ms(start, stop))
             return min(times), times
 
-        try:
-            iter_ms, iter_reps = timeit(
-                lambda: self._update_phase(self._rollout_phase(t), t))
-            rollout_ms, rollout_reps = timeit(lambda: self._rollout_phase(t))
-            batch = self._rollout_phase(t)
-            update_ms, update_reps = timeit(
-                lambda: self._update_phase(batch, t))
-        finally:
-            self._load_training_state(saved)
-            if self._is_eager:
-                engine.restore_runtime_state(engine_state)
-            else:
-                engine.state = engine_state
-            self.generator.set_state(generators[0])
-            if store is not None:
-                store.generator.set_state(generators[1])
+        with self._state_restored():
+            iter_ms, iter_reps = timeit(iteration)
+            rollout_ms, rollout_reps = timeit(rollout)
+            batch = rollout()
+            update_ms, update_reps = timeit(lambda: update(batch))
 
         result = {
             "iteration_ms": iter_ms,
@@ -1032,6 +1077,39 @@ class TrainerBase:
             "Profiled rollout steps per sec": result["rollout_steps_per_sec"],
         }
         return result
+
+    def profile_trace(self, logdir: str, iterations: int = 3) -> str:
+        """Write a ``torch.profiler`` trace of ``iterations`` training
+        iterations -- a programmed trainer's hot ones, which every non-log
+        iteration runs -- to ``logdir/trace_<timestep>.json``, a Chrome
+        trace that TensorBoard and Perfetto read; the counterpart of the
+        JAX trainer's ``profile_trace`` (``jax.profiler``).  One iteration
+        runs before the trace (building and capturing the programs there,
+        as JAX compiles outside its trace), and the training state is
+        restored afterwards.  Returns the trace's path."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        iteration = self._phase_fns(self.current_timestep)[0]
+        with self._state_restored():
+            iteration()
+            self._sync()
+            with profile(activities=activities) as prof:
+                for _ in range(iterations):
+                    iteration()
+                self._sync()
+        os.makedirs(logdir, exist_ok=True)
+        path = os.path.join(logdir, f"trace_{self.current_timestep}.json")
+        prof.export_chrome_trace(path)
+        return path
+
+    def graceful_close(self):
+        """Wait for the device and log, as the JAX trainer's
+        ``graceful_close`` does (there is no curand heap to free)."""
+        self._sync()
+        logging.info("Trainer exits gracefully")
 
 
 def _host_state(module: torch.nn.Module) -> dict:
