@@ -66,7 +66,8 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       ``train()`` (on the card the captured programs of
       ``core/program.py``: the full ones on the first iteration and at log
       points, the hot ones elsewhere; so every training run of phase 4
-      but 4p's and 4r's meshes): each rollout step must launch K2 exactly
+      but 4r's gloo ranks; 4p's eager backend its update alone): each
+      rollout step must launch K2 exactly
       once (a replay credited with its capture's launches), losses must
       be finite, parameters must move and each policy must leave a
       checkpoint; then one update on the card against the same update on
@@ -228,6 +229,34 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       recompute.  Prints ms per step or iteration in turns, rollout and update
       ms, the device's idle share of each side, the capture seconds and
       each side's peak memory growth;
+   t. the rest of the compiled execution model, each program against its
+      eager counterpart from identical carries and generator states, bit
+      for bit: (a) DDPG training of ``single_pendulum`` (10,000 x 5) and
+      ``single_continuous_mountain_car`` (1000 x 10) at full width, 4
+      iterations across the warm-up gate (the noise-draw, rollout-step,
+      replay-append and update programs; nets, targets, Adam moments and
+      counts, window, OU state, env state, generator), ms an iteration and
+      the idle share of each side; (b) ``evaluate_episodes``,
+      ``fetch_episode_states`` and ``fetch_logged_episode`` of 4b's
+      ``tag_continuous`` trainer (K2, uncut) and the first two of the
+      Pendulum trainer, each programmed call against the same call with
+      every program's body called op by op (``plain_calls``), outputs and
+      generators bit for bit, ms a step, and the K2 launches credited to
+      10 replays of the evaluation step equal to the profiler's count; (c)
+      the flagship (1024 envs, K1) through the engine facade, 2 x 100
+      ``step_all_envs`` with ``reset_only_done_envs`` then
+      ``reset_all_envs``, replayed programs against their bodies called op
+      by op, ms a step and the credited K1 launches against the
+      profiler's; (d) 4p's
+      ``single_cartpole`` on the eager backend (C++ stepper): the update
+      programs against the eager update, 2 iterations, and the update's
+      idle share; (e) a one-rank NCCL group on ``tag_continuous`` (K2): its
+      programs (collectives captured) and its eager iteration against the
+      plain programmed trainer, 2 iterations; 4r's gloo ranks log that
+      they run eagerly; (f, right after 4l) 4l's full-observation update
+      with float64 parameters on the card against the same on the CPU,
+      bisected (heads, loss, gradients, parameters; ``ClippedAdam`` alone on
+      the CPU's gradients within 1e-9);
 5. at the main paths' shapes -- (1024, 105, 10) for K1, K3, K6, K7, K8 in
    both modes, K9 in both, K2 and K4, (100, 110, 10) for K2, (256, 1024,
    10) for K1, K4 in both modes, K5 in its four and K9 exact, and the
@@ -249,6 +278,7 @@ beside its wall ms per step and the device's idle share.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import shutil
@@ -2859,10 +2889,26 @@ def _multi_rank_gloo(device, cfg, results_dir, actions, digests, update):
     from warpdrive_tpu_torch.ops import knn_obs
     from warpdrive_tpu_torch.training.scripts.train import setup_trainer
 
+    import logging
+
     knn_obs.reset_launch_counts()
-    trainer = setup_trainer(copy.deepcopy(cfg), num_devices=2,
-                            results_dir=results_dir, verbose=False,
-                            device=device)
+    # a gloo rank keeps the eager iteration and says so (4t (e))
+    logged = []
+    handler = logging.Handler()
+    handler.emit = lambda record: logged.append(record.getMessage())
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        trainer = setup_trainer(copy.deepcopy(cfg), num_devices=2,
+                                results_dir=results_dir, verbose=False,
+                                device=device)
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    eager = (not trainer._programmed
+             and "program: eager (gloo process mesh)" in logged)
     batch = trainer._rollout(actions.to(device))
     got = _row_digests(batch)
     want = {k: v[trainer.env_rows] for k, v in digests.items()}
@@ -2876,7 +2922,7 @@ def _multi_rank_gloo(device, cfg, results_dir, actions, digests, update):
     return {"rows": (trainer.env_rows.start, trainer.env_rows.stop),
             "update_diff": update_diff, "params": _host_params(trainer),
             "iters": trainer.iters_completed, "timed": timed,
-            "launches": dict(knn_obs.LAUNCH_COUNTS)}
+            "launches": dict(knn_obs.LAUNCH_COUNTS), "eager": eager}
 
 
 def _multi_rank_tp(device, cfg, results_dir):
@@ -3010,6 +3056,10 @@ def _drive_multi_device(card):
         for r in results:
             for name, count in r["launches"].items():
                 total[name] += count
+        assert all(r["eager"] for r in results), \
+            "a gloo rank ran programs or did not log that it is eager"
+        print("4t (e) both gloo ranks logged 'program: eager (gloo process "
+              "mesh)' and ran the eager iteration")
         two = results[0]["timed"]
         share = two["collective_ms"] / two["update_ms"]
         print(f"4r (b) two gloo ranks on one card, {E // 2} envs each: "
@@ -3364,7 +3414,8 @@ def _compiled_training(label, cfg, tmp, iterations, kernel, launches_of,
     return eager, programmed, total, walls
 
 
-def _compiled_idle(label, eager_fn, programmed_fn, calls, kernel=None):
+def _compiled_idle(label, eager_fn, programmed_fn, calls, kernel=None,
+                   phase="4s"):
     """The device's idle share of ``calls`` x each side's function, after
     one call each (a program's capture): device ms (profiler) against the
     wall ms of the same calls without it (the profiler lengthens every
@@ -3387,7 +3438,7 @@ def _compiled_idle(label, eager_fn, programmed_fn, calls, kernel=None):
             launches[name] += count
         out[side] = (device_ms, wall, 100 * (1 - device_ms / wall), counted,
                      profiled)
-    print(f"4s {label}, {calls} calls a side: " + "; ".join(
+    print(f"{phase} {label}, {calls} calls a side: " + "; ".join(
         f"{side} device {d:.3f} ms of wall {w:.3f} ms, idle {i:.1f}%"
         + (f", {kernel} launches counted {c}, profiled {p}" if kernel
            else "")
@@ -3479,7 +3530,7 @@ def _program_check_configs() -> list:
     ]
 
 
-def _check_credited(label, program, calls, kernel):
+def _check_credited(label, program, calls, kernel, phase="4s"):
     """``calls`` replays of ``program`` (after a warm-up replay), each
     launching ``kernel`` once inside its graph: the launches credited to
     ``kernel`` must equal ``calls`` and the profiler's count of kNN
@@ -3492,8 +3543,8 @@ def _check_credited(label, program, calls, kernel):
     assert launches[kernel] == calls + 1 and profiled == credited == calls, (
         f"{label}: {credited} {kernel} launches credited over {calls} "
         f"replays, {profiled} profiled")
-    print(f"4s {label}: {kernel} launches credited = profiled = {calls} "
-          f"over {calls} replays")
+    print(f"{phase} {label}: {kernel} launches credited = profiled = "
+          f"{calls} over {calls} replays")
     return launches
 
 
@@ -3647,6 +3698,586 @@ def _drive_compiled_iteration(rolled, many_state, run_config):
     print(f"phase 4s {time.perf_counter() - t_start:.1f} s; launches "
           f"{total}")
     return total
+
+
+# phase 4t: the rest of the compiled execution model -- DDPG's programs, the
+# evaluation and fetch programs, the engine facade's, the eager backend's
+# update programs and a one-rank NCCL group's, each against its eager
+# counterpart on identical carries and generator states; the facade's
+# flagship steps, and the full observation's float64 update card vs CPU
+FACADE_STEPS = 100
+EAGER_BACKEND_ITERS = 2
+# ClippedAdam's step with float64 moments and parameters, on the card and on
+# the CPU from the same gradients: the same float64 operations (the bias
+# corrections' float32 powers aside, an ulp apart at most), far below this
+FLOAT64_UPDATE_TOL = 1e-9
+
+
+def _ddpg_carry(trainer) -> dict:
+    """Every tensor a DDPG iteration reads and writes: nets, targets, Adam
+    moments and counts, the window, the OU state, the env state, the
+    episodic accounting and the rollout generator's state."""
+    import torch
+
+    return {
+        "nets": {net: {t: m.state_dict() for t, m in by_tag.items()}
+                 for net, by_tag in trainer.nets.items()},
+        "targets": {net: {t: m.state_dict() for t, m in by_tag.items()}
+                    for net, by_tag in trainer.targets.items()},
+        "optimizers": {net: {t: {"count": torch.tensor(o.count), "mu": o.mu,
+                                 "nu": o.nu}
+                             for t, o in by_tag.items()}
+                       for net, by_tag in trainer.optimizers.items()},
+        "window": trainer._window, "ou": trainer._ou,
+        "env_state": trainer._env_state,
+        "episodes": {"acc": trainer._ep_acc, "sum": trainer._ep_sum,
+                     "count": trainer._ep_count},
+        "filled": torch.tensor(trainer.filled),
+        "generator": trainer.generator.get_state(),
+    }
+
+
+def _metrics_equal(label, want, got, meshes=(None, None)):
+    """Two metric dicts (each reduced over its mesh) equal."""
+    import math
+
+    from warpdrive_tpu_torch.parallel.mesh import reduce_metrics
+
+    want, got = (reduce_metrics(m, mesh) for m, mesh in zip((want, got),
+                                                            meshes))
+    assert want.keys() == got.keys(), label
+    for tag, m in want.items():
+        assert m.keys() == got[tag].keys(), f"{label} {tag}"
+        for name, value in m.items():
+            other = got[tag][name]
+            assert value == other or (math.isnan(value)
+                                      and math.isnan(other)), \
+                f"{label} {tag} {name}: {value} vs {other}"
+
+
+def _drive_ddpg_programs():
+    """4t (a): DDPG training of ``DDPG_TRAINING`` at full width, the eager
+    iteration against the programmed one from two trainers of one config,
+    ``DDPG_TRAIN_ITERS`` iterations (the first full, across the warm-up
+    gate, the rest hot), compared bit for bit after each; then the device's
+    idle share of one iteration of each side (and compared again).  No kNN
+    launch.  Returns the wall ms an iteration of each side."""
+    import torch
+
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.training.scripts.train import setup_trainer
+
+    no_launches = dict.fromkeys(knn_obs.LAUNCH_COUNTS, 0)
+    out = {}
+    for name in DDPG_TRAINING:
+        t_start = time.perf_counter()
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_4t_"))
+        try:
+            eager, programmed = (
+                setup_trainer(_ddpg_config(name),
+                              results_dir=str(tmp / side), verbose=False,
+                              device=DEVICE)
+                for side in ("eager", "programmed"))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        assert programmed._programmed, "DDPG on the card runs programs"
+        steps = eager.training_batch_size_per_env * eager.num_envs
+        walls = {"eager": [], "programmed": []}
+        gate = []
+        for i in range(DDPG_TRAIN_ITERS):
+            t = i * steps
+            got = {}
+            for side, run in (
+                    ("eager", lambda: eager._iteration_eager(t)),
+                    ("programmed", lambda: programmed._iteration_programmed(
+                        t, full=i == 0))):
+                knn_obs.reset_launch_counts()
+                got[side], secs = _timed(run)
+                walls[side].append(1e3 * secs)
+                assert dict(knn_obs.LAUNCH_COUNTS) == no_launches
+            if i == 0:
+                _metrics_equal(f"DDPG {name}", got["eager"],
+                               got["programmed"])
+            gate.append(programmed.filled >= programmed.buffer_capacity)
+            compared = _assert_bitwise(f"DDPG {name}, iteration {i + 1}",
+                                       _ddpg_carry(programmed),
+                                       _ddpg_carry(eager))
+        assert gate == [False] + [True] * (DDPG_TRAIN_ITERS - 1), gate
+        t = DDPG_TRAIN_ITERS * steps
+        idle, _ = _compiled_idle(
+            f"DDPG {name} iteration", lambda: eager._iteration_eager(t),
+            lambda: programmed._iteration_programmed(t, full=False), 1,
+            phase="4t (a)")
+        _assert_bitwise(f"DDPG {name}, after the idle windows",
+                        _ddpg_carry(programmed), _ddpg_carry(eager))
+        captures = {(k if isinstance(k, str) else " ".join(k)):
+                    round(p.capture_s, 3)
+                    for k, p in programmed._programs.items()
+                    if p.capture_s is not None}
+        print(f"4t (a) DDPG {name} ({eager.num_envs} envs x "
+              f"{eager.training_batch_size_per_env} steps, window "
+              f"{eager.buffer_capacity}): programmed equals eager bit for bit "
+              f"({compared} tensors) after each of {DDPG_TRAIN_ITERS} "
+              f"iterations (the first full and short of the window, the "
+              f"full metrics equal; the rest hot) and after the idle "
+              f"windows; ms an iteration (eager, programmed): " + ", ".join(
+                  f"({e:.3f}, {p:.3f})"
+                  for e, p in zip(walls["eager"], walls["programmed"]))
+              + f"; idle eager {idle['eager'][2]:.1f}%, programmed "
+              f"{idle['programmed'][2]:.1f}%; capture s {captures}; "
+              f"{time.perf_counter() - t_start:.1f} s; no kNN launch")
+        out[name] = {side: statistics.median(w[1:])
+                     for side, w in walls.items()}
+        _release_programs(eager, programmed)
+        del eager, programmed
+    return out
+
+
+def _same_arrays(label, a, b):
+    """Two trees of numpy arrays equal bit for bit."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), label
+        for k in a:
+            _same_arrays(f"{label}/{k}", a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), label
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_arrays(f"{label}/{i}", x, y)
+    else:
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape \
+            and a.tobytes() == b.tobytes(), f"{label} differs"
+
+
+def _drive_episode_programs(tag_trainer, pendulum):
+    """4t (b): evaluation and episode fetching, each programmed call
+    against the same call run eagerly (``plain_calls``: every program's
+    body called op by op) from the same evaluation and store generator
+    states: ``evaluate_episodes`` (most likely actions) and
+    ``fetch_episode_states`` of the ``tag_continuous`` trainer (K2, uncut)
+    and of the Pendulum trainer, and the former's ``fetch_logged_episode``;
+    outputs and generators bit for bit, ms a step of each side; then the K2
+    launches credited to 10 replays of the evaluation step against the
+    profiler's count.  Returns the launches."""
+    import torch
+
+    from warpdrive_tpu_torch.core.program import plain_calls
+    from warpdrive_tpu_torch.ops import knn_obs
+
+    total = dict.fromkeys(knn_obs.LAUNCH_COUNTS, 0)
+    t_start = time.perf_counter()
+
+    def gens(trainer):
+        return (trainer.eval_generator, trainer.engine.store.generator)
+
+    tag_names = ["loc_x", "loc_y", "still_in_the_game"]
+    cases = [
+        ("tag_continuous", tag_trainer, "knn_obs_mxu", (
+            ("evaluate_episodes",
+             lambda: tag_trainer.evaluate_episodes(use_argmax=True)),
+            ("fetch_episode_states", lambda: tag_trainer.fetch_episode_states(
+                tag_names, env_id=3, include_rewards_actions=True,
+                include_probabilities=True)),
+            ("fetch_logged_episode",
+             lambda: tag_trainer.fetch_logged_episode(env_id=3)))),
+        ("single_pendulum", pendulum, None, (
+            ("evaluate_episodes",
+             lambda: pendulum.evaluate_episodes(use_argmax=True)),
+            ("fetch_episode_states", lambda: pendulum.fetch_episode_states(
+                ["state"], env_id=5, include_rewards_actions=True)))),
+    ]
+    for label, trainer, kernel, runs in cases:
+        T = trainer.engine.episode_length
+        for run_label, run in runs:
+            run()  # built and captured (or replayed, if 4i built it)
+            start = [g.get_state() for g in gens(trainer)]
+            results, ms, launches = {}, {}, {}
+            for side in ("programmed", "eager"):
+                for g, state in zip(gens(trainer), start):
+                    g.set_state(state)
+                knn_obs.reset_launch_counts()
+                if side == "eager":
+                    with plain_calls():
+                        results[side], secs = _timed(run)
+                else:
+                    results[side], secs = _timed(run)
+                ms[side] = 1e3 * secs / T
+                launches[side] = dict(knn_obs.LAUNCH_COUNTS)
+                for name, count in launches[side].items():
+                    total[name] += count
+                if side == "programmed":
+                    ends = [g.get_state() for g in gens(trainer)]
+            for g, state in zip(gens(trainer), ends):
+                assert torch.equal(g.get_state(), state), \
+                    f"{label} {run_label}: the generators differ"
+            _same_arrays(f"{label} {run_label}", results["eager"],
+                         results["programmed"])
+            want = dict.fromkeys(knn_obs.LAUNCH_COUNTS, 0)
+            if kernel:
+                want[kernel] = T
+            assert launches["eager"] == launches["programmed"] == want, \
+                f"{label} {run_label}: launches {launches}"
+            print(f"4t (b) {run_label} [{label}, {trainer.num_envs} envs x "
+                  f"{trainer.engine.n_agents} agents, episode {T}]: "
+                  f"programmed equals eager bit for bit, generators too; ms "
+                  f"a step eager {ms['eager']:.4f}, programmed "
+                  f"{ms['programmed']:.4f}; launches a side {want}")
+    program = tag_trainer._episode_programs[("evaluate", True)]
+    for name, count in _check_credited(
+            "tag_continuous evaluation step", program,
+            COMPILED_PROFILE_STEPS, "knn_obs_mxu", phase="4t (b)").items():
+        total[name] += count
+    print(f"4t (b) {time.perf_counter() - t_start:.1f} s; launches {total}")
+    return total
+
+
+def _drive_facade_programs():
+    """4t (c): the flagship (1024 envs, K1) through the engine facade: two
+    engines of one build, one replaying the facade's programs, one calling
+    their bodies op by op (``plain_calls``); ``FACADE_STEPS`` x
+    ``step_all_envs`` (the same
+    device-drawn actions) and ``reset_only_done_envs``, then
+    ``reset_all_envs``, twice (the first pass with every step's outputs
+    digested, the second timed), compared bit for bit (every step's
+    outputs, every state entry and the store's generator); ms a step of
+    each side, and the K1 launches credited to 10 replays of the step
+    against the profiler's count.  Returns the launches."""
+    import torch
+
+    from warpdrive_tpu_torch.core.program import plain_calls
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.presets import build_flagship
+
+    t_start = time.perf_counter()
+    engines = {}
+    for side in ("eager", "programmed"):
+        engines[side] = build_flagship(num_envs=NUM_ENVS, fc_dims=FC_DIMS,
+                                       seed=0, device=DEVICE)["engine"]
+    eng = engines["eager"]
+    E, N = eng.n_envs, eng.n_agents
+    nvec = [int(n) for n in eng.action_space[0].nvec]
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    actions = [torch.stack([torch.randint(0, n, (E, N), generator=gen,
+                                          device=DEVICE, dtype=torch.int32)
+                            for n in nvec], -1)
+               for _ in range(FACADE_STEPS)]
+    total = dict.fromkeys(knn_obs.LAUNCH_COUNTS, 0)
+    ms, digests = {}, {}
+    for side, engine in engines.items():
+        engine.reset_all_envs()  # the state as built
+        def plain(side=side):
+            return (plain_calls() if side == "eager"
+                    else contextlib.nullcontext())
+
+        # a pass with every step's outputs digested, then a timed one
+        for timed in (False, True):
+            knn_obs.reset_launch_counts()
+            outs = []
+
+            def steps(engine=engine, outs=outs, timed=timed):
+                for a in actions:
+                    out = engine.step_all_envs(a)
+                    if not timed:
+                        outs.append(_row_digests(
+                            {k: v[None] for k, v in out.items()}))
+                    engine.reset_only_done_envs()
+
+            with plain():
+                _, secs = _timed(steps)
+            launches = dict(knn_obs.LAUNCH_COUNTS)
+            assert launches == dict(dict.fromkeys(launches, 0),
+                                    knn_obs_flat_exact=FACADE_STEPS), \
+                f"facade {side}: launches {launches}"
+            for name, count in launches.items():
+                total[name] += count
+            if timed:
+                ms[side] = 1e3 * secs / FACADE_STEPS
+            else:
+                digests[side] = outs
+        with plain():
+            engine.reset_all_envs()
+    for i, (a, b) in enumerate(zip(digests["eager"],
+                                   digests["programmed"])):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), f"facade step {i + 1}: {k}"
+    compared = _assert_bitwise(
+        "facade state", dict(engines["programmed"].state),
+        dict(engines["eager"].state))
+    assert torch.equal(engines["programmed"].store.generator.get_state(),
+                       engines["eager"].store.generator.get_state())
+    program = engines["programmed"]._facade_programs["step"]
+    for name, count in _check_credited(
+            "flagship facade step", program, COMPILED_PROFILE_STEPS,
+            "knn_obs_flat_exact", phase="4t (c)").items():
+        total[name] += count
+    captures = {k: round(p.capture_s, 3)
+                for k, p in engines["programmed"]._facade_programs.items()
+                if p.capture_s is not None}
+    print(f"4t (c) flagship facade ({E} envs x {N} agents): "
+          f"2 x {FACADE_STEPS} step_all_envs + reset_only_done_envs, then "
+          f"reset_all_envs: programmed equals eager bit for bit ({compared} "
+          f"state tensors, every step's outputs, the store's generator); ms "
+          f"a step eager {ms['eager']:.4f}, programmed "
+          f"{ms['programmed']:.4f}; capture s "
+          f"{captures}; "
+          f"{time.perf_counter() - t_start:.1f} s; launches {total}")
+    return total
+
+
+def _drive_eager_backend_programs():
+    """4t (d): 4p's ``single_cartpole`` (100 envs x 500 steps) with
+    ``trainer.env_backend: cpp``: two trainers with identically seeded
+    envs, the eager iteration against the programmed one (the host-stepped
+    rollout into the static batch, then the update programs),
+    ``EAGER_BACKEND_ITERS`` iterations compared bit for bit (parameters,
+    Adam moments and counts, batch, generator, the engine's outputs); then
+    the device's idle share of an update of each side, compared again.
+    No kNN launch."""
+    import torch
+
+    from warpdrive_tpu_torch.envs.cpu_engine import CpuEnvEngine
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.training.scripts.train import setup_trainer
+
+    t_start = time.perf_counter()
+    cfg = _iters_config("single_cartpole", EAGER_BACKEND_ITERS)
+    cfg["trainer"]["env_backend"] = "cpp"
+    cfg["env"]["seed"] = 5
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_4t_"))
+    try:
+        eager, programmed = (
+            setup_trainer(copy.deepcopy(cfg), results_dir=str(tmp / side),
+                          verbose=False, device=DEVICE)
+            for side in ("eager", "programmed"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert isinstance(programmed.engine, CpuEnvEngine)
+    assert programmed._programmed
+
+    def carry(trainer):
+        out = _trainer_carry(trainer)
+        del out["env_state"]  # the host engine's: its outputs instead
+        out["engine"] = dict(trainer.engine.state)
+        return out
+
+    steps = eager.training_batch_size_per_env * eager.num_envs
+    walls = {"eager": [], "programmed": []}
+    for i in range(EAGER_BACKEND_ITERS):
+        t = i * steps
+        got = {}
+        for side, run in (
+                ("eager", lambda: eager._iteration_eager(t)),
+                ("programmed", lambda: programmed._iteration_programmed(
+                    t, full=i == 0))):
+            knn_obs.reset_launch_counts()
+            got[side], secs = _timed(run)
+            walls[side].append(1e3 * secs)
+            assert sum(knn_obs.LAUNCH_COUNTS.values()) == 0
+        if i == 0:
+            _metrics_equal("eager backend", got["eager"], got["programmed"])
+        compared = _assert_bitwise(f"eager backend, iteration {i + 1}",
+                                   carry(programmed), carry(eager))
+    assert "rollout" not in programmed._programs
+    t = EAGER_BACKEND_ITERS * steps
+    idle, _ = _compiled_idle(
+        "eager backend update",
+        lambda: eager._update(eager._batch, t),
+        lambda: programmed._update_programmed(t, full=False), 1,
+        phase="4t (d)")
+    _assert_bitwise("eager backend, after the idle windows",
+                    carry(programmed), carry(eager))
+    phases = {side: tr.phase_ms for side, tr in
+              (("eager", eager), ("programmed", programmed))}
+    eager._resolve_phase_marks()
+    programmed._resolve_phase_marks()
+    print(f"4t (d) eager backend [single_cartpole, C++ stepper, "
+          f"{eager.num_envs} envs x {eager.training_batch_size_per_env} "
+          f"steps]: programmed update equals the eager one bit for bit "
+          f"({compared} tensors) after each of {EAGER_BACKEND_ITERS} "
+          f"iterations; ms an iteration (eager, programmed): " + ", ".join(
+              f"({e:.3f}, {p:.3f})"
+              for e, p in zip(walls["eager"], walls["programmed"]))
+          + "; update ms (eager, programmed): " + ", ".join(
+              f"({e[1]:.3f}, {p[1]:.3f})"
+              for e, p in zip(phases["eager"], phases["programmed"]))
+          + f"; update idle eager {idle['eager'][2]:.1f}%, programmed "
+          f"{idle['programmed'][2]:.1f}%; "
+          f"{time.perf_counter() - t_start:.1f} s; no kNN launch")
+    _release_programs(eager, programmed)
+
+
+def _drive_nccl_programs():
+    """4t (e): the shipped ``tag_continuous`` run config (K2) in a
+    one-rank NCCL group: a trainer that runs programs (their collectives
+    captured; the communicator made by ``Mesh.warm_up`` before any
+    capture), the same group's trainer run eagerly and the plain
+    programmed trainer, ``MULTI_ITERS`` iterations each (the first full),
+    all three carries bit for bit and the group's two sides' full metrics
+    equal (the plain trainer finishes its metrics on its rank, the group
+    over it: float32 rounding apart).  Returns the launches."""
+    import torch.distributed as dist
+
+    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.parallel.launch import free_port
+    from warpdrive_tpu_torch.parallel.mesh import initialize_multihost
+    from warpdrive_tpu_torch.training.scripts.train import setup_trainer
+
+    t_start = time.perf_counter()
+    cfg = _multi_config()
+    total = dict.fromkeys(knn_obs.LAUNCH_COUNTS, 0)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_4t_nccl_"))
+    # the plain trainer before the group (inside one, a trainer joins it)
+    trainers = {"plain": setup_trainer(copy.deepcopy(cfg),
+                                       results_dir=str(tmp / "p"),
+                                       verbose=False, device=DEVICE)}
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                         device="cuda:0")
+    try:
+        for side in ("nccl programmed", "nccl eager"):
+            trainers[side] = setup_trainer(
+                copy.deepcopy(cfg), num_devices=1,
+                results_dir=str(tmp / side.replace(" ", "_")),
+                verbose=False, device=DEVICE)
+        assert trainers["plain"].mesh is None
+        assert trainers["nccl programmed"].mesh.backend == "nccl"
+        assert trainers["nccl programmed"]._programmed
+        T = cfg["trainer"]["train_batch_size"] // cfg["trainer"]["num_envs"]
+        steps = T * cfg["trainer"]["num_envs"]
+        walls = {side: [] for side in trainers}
+        for i in range(MULTI_ITERS):
+            t = i * steps
+            got = {}
+            for side, trainer in trainers.items():
+                knn_obs.reset_launch_counts()
+                if side == "nccl eager":
+                    run = (lambda trainer=trainer:
+                           trainer._iteration_eager(t))
+                else:
+                    run = (lambda trainer=trainer:
+                           trainer._iteration_programmed(t, full=i == 0))
+                got[side], secs = _timed(run)
+                walls[side].append(1e3 * secs)
+                launches = dict(knn_obs.LAUNCH_COUNTS)
+                assert launches == dict(dict.fromkeys(launches, 0),
+                                        knn_obs_mxu=T), (side, launches)
+                for name, count in launches.items():
+                    total[name] += count
+            if i == 0:
+                # the group's metrics are finished over it (Deferred), the
+                # plain trainer's on its rank: equal between the group's
+                # two sides, within float32 rounding of the plain ones
+                mesh = trainers["nccl eager"].mesh
+                _metrics_equal("4t (e) the group's full metrics",
+                               got["nccl eager"], got["nccl programmed"],
+                               (mesh, mesh))
+            for side in ("nccl programmed", "nccl eager"):
+                compared = _assert_bitwise(
+                    f"4t (e) {side} vs plain, iteration {i + 1}",
+                    _trainer_carry(trainers[side]),
+                    _trainer_carry(trainers["plain"]))
+        captured = sorted(
+            " ".join(k) if isinstance(k, tuple) else k
+            for k, p in trainers["nccl programmed"]._programs.items()
+            if p.graph is not None)
+        assert captured, "the NCCL trainer captured no program"
+        print(f"4t (e) one-rank NCCL group [tag_continuous, K2]: the "
+              f"programmed trainer (captured: {captured}) and the group's "
+              f"eager iteration each equal the plain programmed trainer bit "
+              f"for bit ({compared} tensors) after each of {MULTI_ITERS} "
+              f"iterations, the group's full metrics equal; ms an iteration "
+              + "; ".join(f"{side} " + ", ".join(f"{w:.3f}" for w in ws)
+                          for side, ws in walls.items())
+              + f"; {time.perf_counter() - t_start:.1f} s; launches {total}")
+        _release_programs(*trainers.values())
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
+def _full_obs_float64_update(trainer):
+    """4t (f): 4l's full-observation update (its batch, the first
+    ``FULL_OBS_UPDATE_ENVS`` envs) with float64 parameters, Adam moments and
+    batch on the card against the same on the CPU, from copies of the
+    trained parameters and Adam state, bisected: the heads' outputs (the
+    model returns them in float32, as the JAX model does), the loss, the
+    gradients and the parameters after the update; then ``ClippedAdam``
+    alone, stepped on the card with the CPU's gradients, against the CPU's
+    parameters (within ``FLOAT64_UPDATE_TOL``).  Returns the largest
+    parameter difference of each policy's update."""
+    import torch
+
+    from warpdrive_tpu_torch.training.trainer_a2c import (
+        ClippedAdam,
+        _forward,
+        policy_update,
+    )
+
+    class Recording(ClippedAdam):
+        def step(self, grads, lr):
+            self.grads = {n: g.detach().clone() for n, g in grads.items()}
+            return super().step(grads, lr)
+
+    def fresh(tag, device):
+        model = copy.deepcopy(trainer.models[tag]).to(device, torch.float64)
+        opt = Recording(dict(model.named_parameters()),
+                        max_norm=trainer.optimizers[tag].max_norm)
+        opt.load_state_dict(trainer.optimizers[tag].state_dict())
+        return model, opt
+
+    def host(tree):
+        return {k: v.detach().cpu() for k, v in tree.items()}
+
+    def diff(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in b)
+
+    worst = {}
+    timestep = trainer.current_timestep
+    for tag in trainer.policies_to_train:
+        batch = {k: v[:, :FULL_OBS_UPDATE_ENVS].contiguous()
+                 for k, v in trainer._policy_batch(trainer._batch,
+                                                   tag).items()}
+        lr = trainer.lr_schedules[tag].value_at(timestep)
+        runs = {}
+        for device in (DEVICE, "cpu"):
+            model, opt = fresh(tag, device)
+            b = {k: v.to(device, torch.float64) if v.is_floating_point()
+                 else v.to(device) for k, v in batch.items()}
+            with torch.no_grad():
+                heads, value = _forward(model, b["obs"], b.get("mask"))
+            outputs = {f"head_{i}": h for i, h in enumerate(heads)}
+            outputs["value"] = value
+            metrics = policy_update(model, opt, trainer.algorithms[tag], b,
+                                    timestep, lr)
+            runs[device] = {"outputs": host(outputs),
+                            "loss": float(metrics["Total loss"]),
+                            "grads": host(opt.grads),
+                            "params": host(model.state_dict())}
+        card, cpu = runs[DEVICE], runs["cpu"]
+        grad_scale = max(float(g.abs().max()) for g in cpu["grads"].values())
+        # ClippedAdam alone: the CPU's gradients stepped on the card
+        model, opt = fresh(tag, DEVICE)
+        ClippedAdam.step(opt, {n: g.to(DEVICE)
+                               for n, g in cpu["grads"].items()}, lr)
+        adam_alone = diff(host(model.state_dict()), cpu["params"])
+        worst[tag] = diff(card["params"], cpu["params"])
+        print(f"4t (f) full-observation update with float64 parameters "
+              f"[{tag}, {FULL_OBS_UPDATE_ENVS} envs x "
+              f"{trainer.training_batch_size_per_env} steps], card vs CPU: "
+              f"heads and value (float32) max abs diff "
+              f"{diff(card['outputs'], cpu['outputs']):.3g}; loss "
+              f"{card['loss']!r} vs {cpu['loss']!r}; gradients max abs diff "
+              f"{diff(card['grads'], cpu['grads']):.3g} of a largest "
+              f"{grad_scale:.3g}; parameters after the update "
+              f"{worst[tag]:.3g} (learning rate {lr:.3g}); ClippedAdam "
+              f"alone on the CPU's gradients {adam_alone:.3g} (tolerance "
+              f"{FLOAT64_UPDATE_TOL})")
+        assert all(torch.isfinite(v).all() for v in card["params"].values())
+        assert adam_alone <= FLOAT64_UPDATE_TOL, f"{tag}: {adam_alone}"
+    return worst
 
 
 def main(argv=None) -> int:
@@ -3823,6 +4454,8 @@ def main(argv=None) -> int:
 
     # 4l. tag_continuous with the full observation, counts from 0
     full_obs, full_obs_launches, full_obs_means = _drive_full_obs_training()
+    # 4t (f). its update in float64, card against CPU
+    _full_obs_float64_update(full_obs)
 
     # 4m. the chem-search envs and DummyEnv, counts from 0
     chem_launches = _check_chem_and_dummy_steps()
@@ -3859,6 +4492,21 @@ def main(argv=None) -> int:
     # against the eager ones, counts from 0 before each run
     compiled_launches = _drive_compiled_iteration(
         rolled, many["pallas_flat_exact"]["state"], run_config)
+
+    # 4t. the rest of the compiled execution model against its eager
+    # counterparts, counts from 0 before each run: DDPG, evaluation and
+    # fetching, the facade, the eager backend, a one-rank NCCL group
+    t_4t = time.perf_counter()
+    _drive_ddpg_programs()
+    programs_launches = _drive_episode_programs(
+        trainer, ddpg_trainers["single_pendulum"])
+    for name, count in _drive_facade_programs().items():
+        programs_launches[name] += count
+    _drive_eager_backend_programs()
+    for name, count in _drive_nccl_programs().items():
+        programs_launches[name] += count
+    print(f"phase 4t {time.perf_counter() - t_4t:.1f} s; launches "
+          f"{programs_launches}")
 
     # 5. kernel vs plain and their times at the main paths' shapes
     many_args = _knn_args(many["pallas_flat_exact"]["env"],
@@ -4020,11 +4668,13 @@ def main(argv=None) -> int:
         ]
         _profile(windows)
 
-    # launches on the main paths: 4a, 4c, 4j, 4n, 4r and 4s for K1, 4b,
-    # 4i, 4o, 4r and 4s for K2, 4d for K3, 4c for K4 and K5, 4e for K6-K8,
+    # launches on the main paths: 4a, 4c, 4j, 4n, 4r, 4s and 4t for K1,
+    # 4b, 4i, 4o, 4r, 4s and 4t for K2, 4d for K3, 4c for K4 and K5, 4e for
+    # K6-K8,
     # 4c and 4e for K9; 4k-4m and 4p launch none
     all_launches = {name: launches[name] + train_launches[name]
                     + multi_launches[name] + compiled_launches[name]
+                    + programs_launches[name]
                     + item9_launches[name] + fast_launches[name]
                     + tuned_launches[name] + tuned_rec_launches[name]
                     + pursuit_launches[name] + full_obs_launches[name]

@@ -17,6 +17,7 @@ so on a machine with a card and no JAX it runs without the repo's
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 """
 
+import contextlib
 import copy
 
 import numpy as np
@@ -27,6 +28,7 @@ from test_torch_knn_warp_order import near_tie_coords
 from warpdrive_tpu_torch.envs.classic_control.cartpole import (
     TorchClassicControlCartPoleEnv,
 )
+from warpdrive_tpu_torch.core.program import plain_calls
 from warpdrive_tpu_torch.envs.engine import EnvEngine
 from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
 from warpdrive_tpu_torch.envs.tag_gridworld import (
@@ -771,3 +773,56 @@ def test_eager_backend_trains_with_the_policy_on_card(card, tmp_path):
     assert all(v.device.type == "cuda"
                for v in trainer.engine.state.values())
     assert knn_obs.LAUNCH_COUNTS == _NO_LAUNCHES
+
+
+@pytest.mark.cuda
+def test_ddpg_programs_equal_the_eager_iteration_on_card(card, tmp_path):
+    """Captured DDPG programs against the eager iteration on the card, 3
+    iterations across the warm-up gate (the first full, then hot, then
+    full): nets, targets, Adam states, window and OU state bit for bit."""
+    eager = _ddpg_trainer("single_pendulum", tmp_path / "eager")
+    programmed = _ddpg_trainer("single_pendulum", tmp_path / "programmed")
+    assert programmed._programmed
+    for i, full in enumerate((True, False, True)):
+        programmed._iteration_programmed(i * 640, full=full)
+        eager._iteration_eager(i * 640)
+    assert _max_diff(_ddpg_params(programmed), _ddpg_params(eager)) == 0.0
+    for net in ("actor", "critic"):
+        a = programmed.optimizers[net]["shared"].state_dict()
+        b = eager.optimizers[net]["shared"].state_dict()
+        assert a["count"] == b["count"] == 2
+        for moment in ("mu", "nu"):
+            for k, v in a[moment].items():
+                assert torch.equal(v, b[moment][k]), (net, moment, k)
+    for key, v in programmed._window.items():
+        assert torch.equal(v, eager._window[key]), key
+    assert torch.equal(programmed._ou["shared"], eager._ou["shared"])
+    assert programmed._programs["rollout"].graph is not None
+
+
+@pytest.mark.cuda
+def test_facade_programs_equal_the_eager_facade_on_card(card):
+    """The flagship (8 envs, K1) through the engine facade: 20 steps and
+    soft resets, then a forced reset, replayed programs against their
+    bodies called op by op (``plain_calls``) bit for bit; one K1 launch a
+    step either way."""
+    engines = [build_flagship(num_envs=8, fc_dims=(8, 8), seed=2,
+                              device=card)["engine"] for _ in range(2)]
+    gen = torch.Generator(device=card).manual_seed(4)
+    nvec = [int(n) for n in engines[0].action_space[0].nvec]
+    actions = [torch.stack([torch.randint(0, n, (8, engines[0].n_agents),
+                                          generator=gen, device=card)
+                            for n in nvec], -1) for _ in range(20)]
+    for engine, plain in zip(engines, (True, False)):
+        with plain_calls() if plain else contextlib.nullcontext():
+            engine.reset_all_envs()
+            knn_obs.reset_launch_counts()
+            for a in actions:
+                engine.step_all_envs(a)
+                engine.reset_only_done_envs()
+            engine.reset_all_envs()
+        torch.cuda.synchronize()
+        assert knn_obs.LAUNCH_COUNTS["knn_obs_flat_exact"] == 20
+    for name, value in engines[0].state.items():
+        assert torch.equal(value, engines[1].state[name]), name
+    assert engines[1]._facade_programs["step"].graph is not None

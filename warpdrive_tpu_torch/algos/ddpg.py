@@ -63,10 +63,12 @@ class DDPG:
         value_functions_batch,  # (T, E, A) Q(s, a), the critic's graph
         next_value_functions_batch,  # (T-1, E, A) target Q(s', pi'(s'))
         group=None,
+        with_metrics: bool = True,
     ):
         """The critic's side alone: ``(critic_loss, metrics)``, the metrics
         without the actor's terms ("Total loss", "Actor loss", "Mean J
-        function"), which :meth:`with_actor_terms` adds."""
+        function"), which :meth:`with_actor_terms` adds; without
+        ``with_metrics`` (the metrics-free update) ``{}``."""
         valid = rewards_batch.shape[0] - self.n_step + 1
         ops = MetricOps(group)
         returns = n_step_returns(
@@ -79,6 +81,8 @@ class DDPG:
 
         values = value_functions_batch[:valid]
         critic_loss = global_mean((norm_returns - values) ** 2, group)
+        if not with_metrics:
+            return critic_loss, {}
 
         with torch.no_grad():
             advantages = norm_returns - values

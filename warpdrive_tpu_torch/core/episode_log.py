@@ -6,7 +6,9 @@ env replica, record the state of every array the env flagged
 ``log_data_across_episode`` at every timestep of an episode into
 time-major ``(episode_length + 1, *single_env_shape)`` buffers on the
 device, with a mask of the steps written.  ``log_step`` returns new
-buffers and leaves its input as it was, as the JAX version does.
+buffers and leaves its input as it was, as the JAX version does;
+``reset_buffers`` and ``log_step_into`` write static buffers in place, at
+a device step counter and env index, as a captured logging step needs.
 """
 
 from __future__ import annotations
@@ -53,6 +55,29 @@ class EpisodeLogger:
         mask[t] = 1
         new_buffers[_MASK] = mask
         return new_buffers
+
+    def reset_buffers(self, buffers: dict, state: dict, env_id: int = 0):
+        """:meth:`init_buffers` into the static ``buffers``, in place."""
+        for name in self.log_names:
+            buffers[name].zero_()
+            buffers[name][0] = state[name][env_id]
+        buffers[_MASK].zero_()
+        buffers[_MASK][0] = 1
+
+    def log_step_into(self, buffers: dict, state: dict, t: torch.Tensor,
+                      env: torch.Tensor, frozen: torch.Tensor = None):
+        """Record env row ``env``'s state at timestep ``t`` (both ``(1,)``
+        long device tensors) into ``buffers``, in place; where ``frozen``
+        (a ``(1,)`` bool device tensor) is set, row ``t`` keeps what it
+        holds."""
+        for name in self.log_names + [_MASK]:
+            buf = buffers[name]
+            new = (state[name].index_select(0, env) if name != _MASK
+                   else torch.ones((1,), dtype=buf.dtype, device=buf.device))
+            if frozen is not None:
+                keep = frozen.reshape((1,) * buf.ndim)
+                new = torch.where(keep, buf.index_select(0, t), new)
+            buf.index_copy_(0, t, new)
 
     @staticmethod
     def verify_mask(buffers: dict, last_step: int) -> bool:

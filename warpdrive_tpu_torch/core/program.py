@@ -38,6 +38,10 @@ capture or replay raises; nothing falls back to eager calls.
 
 On the CPU a call runs the body directly, with the same static buffers
 and in-place writes, so the CPU tests exercise the code a card captures.
+So does every program called inside :func:`plain_calls`: the plain
+version of the captured programs, which a comparison on the card runs on
+the same buffers, and what a body that steps envs on the host (which no
+graph can hold) runs under.
 
 Every call checks that each buffer still has the storage it had when the
 program was built: a graph keeps the addresses it captured, so a buffer
@@ -47,6 +51,7 @@ stale tensor.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -102,6 +107,20 @@ def launches_of(fn):
         knn_obs.LAUNCH_COUNTS.update(before)
 
 
+_PLAIN_CALLS = [0]
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Inside, every :class:`Program` calls its body directly, on a card
+    too (nothing is captured or replayed)."""
+    _PLAIN_CALLS[0] += 1
+    try:
+        yield
+    finally:
+        _PLAIN_CALLS[0] -= 1
+
+
 class Program:
     """``body()`` over the static ``buffers`` on ``device``: captured and
     replayed on a card, called directly elsewhere.
@@ -145,7 +164,7 @@ class Program:
 
     def __call__(self):
         self.check_buffers()
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or _PLAIN_CALLS[0]:
             return self.body()
         if self.graph is None:
             return self._warm_up_and_capture()

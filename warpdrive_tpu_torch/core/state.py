@@ -14,6 +14,10 @@ device and carries the env-replica axis first.  Pushing data:
 * registers reset pools mapping a target array to a bank of candidate reset
   values.
 
+Queries, as the JAX store answers them: ``is_on_device``, ``get_shape``,
+``get_dtype`` (a ``torch.dtype``), ``reset_pool``, ``pull`` (a numpy copy)
+and ``names``.
+
 Built-in entries: ``_done_`` (int32 per env, 0 = running, 1 = terminated,
 2 = terminated-with-success) and ``_timestep_`` (int32 per env).
 
@@ -140,3 +144,29 @@ class StateStore:
             )
         assert target not in self.pools, f"target {target!r} already has a pool"
         self.pools[target] = torch.as_tensor(pool, device=self.device).clone()
+
+    # ----------------------------------------------------------------- query
+    def is_on_device(self, name: str) -> bool:
+        """Whether ``name`` is a batched state tensor (not a meta scalar or
+        a pool)."""
+        return name in self.state
+
+    def get_shape(self, name: str) -> tuple:
+        """The batched shape of ``name``, the env replica axis first."""
+        return tuple(self.state[name].shape)
+
+    def get_dtype(self, name: str) -> torch.dtype:
+        return self.state[name].dtype
+
+    def reset_pool(self, target: str) -> torch.Tensor:
+        """The bank of reset values of ``target``, ``(pool_size,
+        *single_env_shape)``."""
+        return self.pools[target]
+
+    def pull(self, name: str) -> np.ndarray:
+        """A host copy of one state tensor (the reference data manager's
+        ``pull_data_from_device``)."""
+        return self.state[name].detach().cpu().numpy().copy()
+
+    def names(self) -> list:
+        return list(self.state.keys())

@@ -22,7 +22,12 @@ The port's counterpart of ``warpdrive_tpu/envs/engine.py``.  It
   at-reset snapshot would leave them one step stale),
 * offers the gym-like conveniences ``reset_all_envs``,
   ``reset_only_done_envs`` and ``step_all_envs``, which keep the engine's
-  own ``state``, with the aliases ``reset`` and ``obs_at_reset``,
+  own ``state``, with the aliases ``reset`` and ``obs_at_reset``: each is
+  a program over the whole state pinned in place, replayed on a card (the
+  JAX engine's ``_jit_step``, ``_jit_force_reset`` and
+  ``_jit_done_reset``) and called as it is on the CPU, the caller's
+  actions first written into the action placeholders; each returns
+  copies,
 * and ``rewards_of``, the all-agent rewards a trainer records (per-policy
   rewards merged on the agent axis in the separate mode).
 
@@ -40,6 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from warpdrive_tpu_torch.core.program import Program, assign_state
 from warpdrive_tpu_torch.core.reset import make_auto_reset_fn
 from warpdrive_tpu_torch.core.state import StateStore
 from warpdrive_tpu_torch.training.data_loader import (
@@ -213,6 +219,9 @@ class EnvEngine:
         # never rebound
         self._pinned = {}
         self._first_reset_done = False
+        # the facade's programs (_facade_program) and their memory pool
+        self._facade_programs = {}
+        self._facade_pool = None
 
     # ------------------------------------------------- placeholder name maps
     def group_info(self, tag: str = None) -> dict:
@@ -357,19 +366,80 @@ class EnvEngine:
         rows gathered."""
         return x if self.mesh is None else self.mesh.all_gather(x)
 
+    def _view(self, x: torch.Tensor) -> torch.Tensor:
+        """What the facade returns of a state tensor: every env row
+        (:meth:`_global`, under a mesh a gathered copy), else a copy, since
+        the next call writes into the state in place."""
+        return x.clone() if self.mesh is None else self._global(x)
+
     def _obs_view(self):
         """The observation placeholders of the engine's state: one tensor
         in the shared Box mode, else ``{state name: tensor}``."""
         if self._shared_box:
-            return self._global(self.state[_OBS])
-        return {name: self._global(self.state[name])
+            return self._view(self.state[_OBS])
+        return {name: self._view(self.state[name])
                 for name in self._obs_names()}
 
+    def _sync_pinned(self):
+        """Write into each pinned entry whatever ``state`` holds in its
+        place (a trainer or a restore may have set ``state`` anew), so the
+        pinned buffers hold the live state."""
+        for name, buf in self._pinned.items():
+            if self.state[name] is not buf:
+                buf.copy_(self.state[name])
+        self.state = {**self.state, **self._pinned}
+
+    def _facade_program(self, kind: str) -> Program:
+        """The facade's program of ``kind``: ``"step"`` (the step of
+        :meth:`step`, reading the action placeholders), ``"force"``
+        (:meth:`reset_all_envs`) or ``"done"`` (:meth:`reset_only_done_envs`)
+        over the whole state pinned (:meth:`pin_state`), drawing from
+        ``store.generator``: the counterparts of the JAX engine's
+        ``_jit_step``, ``_jit_force_reset`` and ``_jit_done_reset``."""
+        program = self._facade_programs.get(kind)
+        if program is None:
+            # the facade's own storage for every entry not pinned yet: a
+            # tensor a caller set into ``state`` (a trainer's rollout
+            # state) is copied in at each call (_sync_pinned), never
+            # written into
+            for name, value in self.state.items():
+                self._pinned.setdefault(name, value.clone())
+            state = {name: self._pinned[name] for name in self.state}
+            generator = self.store.generator
+            if kind == "step":
+                def body():
+                    assign_state(state, self.step(state))
+            else:
+                def body():
+                    assign_state(state, self.auto_reset(
+                        state, generator, force=kind == "force"))
+            if self._facade_pool is None and self.device.type == "cuda":
+                self._facade_pool = torch.cuda.graph_pool_handle()
+            program = Program(body, {"state": state}, self.device,
+                              generators=[generator], pool=self._facade_pool,
+                              name=f"facade {kind}")
+            self._facade_programs[kind] = program
+        self._sync_pinned()
+        return program
+
+    def _write_action_placeholders(self, actions):
+        """The caller's actions, with :meth:`write_actions`' casts, into
+        the pinned action placeholder(s): the static action buffers of the
+        step program, whatever structure the actions have."""
+        written = self.write_actions(self.state, actions)
+        for name in self._action_names():
+            self.state[name].copy_(written[name])
+
+    def _action_names(self) -> list:
+        if self.separate_placeholders:
+            return [f"{_ACTIONS}_{tag}" for tag in sorted(self._policy_ids)]
+        return [_ACTIONS]
+
     def pin_state(self, names) -> dict:
-        """The engine's state entries ``names`` as static buffers: from now
-        on the facade (``reset_all_envs``, ``reset_only_done_envs``,
-        ``step_all_envs``) writes these entries in place instead of
-        rebinding them, so a captured program that holds them
+        """The engine's state entries ``names`` as static buffers, the
+        tensors ``state`` holds now: the facade's programs (``reset_all_envs``,
+        ``reset_only_done_envs``, ``step_all_envs``) write these entries in
+        place, so a captured program that holds them
         (``presets.captured_loop``) and the facade stay on one state.
         Returns ``{name: tensor}``."""
         for name in names:
@@ -377,42 +447,35 @@ class EnvEngine:
                 self._pinned[name] = self.state[name]
         return {name: self._pinned[name] for name in names}
 
-    def _set_state(self, new: dict):
-        """``self.state = new``, the pinned entries written in place."""
-        for name, buf in self._pinned.items():
-            if new[name] is not buf:
-                buf.copy_(new[name])
-        self.state = {**new, **self._pinned}
-
     def reset_all_envs(self):
         """Force-reset every replica and return the batched observations
-        (a dict of them by state name unless shared Box).  The very first
-        call returns the initial state as built."""
+        (a dict of them by state name unless shared Box; copies).  The
+        very first call returns the initial state as built."""
         if self._first_reset_done:
-            self._set_state(self.auto_reset(
-                self.state, self.store.generator, force=True
-            ))
+            self._facade_program("force")()
         self._first_reset_done = True
         return self._obs_view()
 
     def reset_only_done_envs(self):
         """Reset the finished replicas only."""
         self._first_reset_done = True
-        self._set_state(self.auto_reset(self.state, self.store.generator))
+        self._facade_program("done")()
 
     def step_all_envs(self, actions) -> dict:
         """Step every replica with ``actions`` (see :meth:`write_actions`)
         and return the device tensors of the done flags, every observation
-        array and every reward array, by state name.  Under a mesh the
-        actions may be given for every env (only the rank's rows are
+        array and every reward array, by state name (copies).  Under a mesh
+        the actions may be given for every env (only the rank's rows are
         taken) or for the rank's rows."""
         self._first_reset_done = True
         if self.mesh is not None:
             actions = self._local_actions(actions)
-        self._set_state(self.step(self.state, actions))
-        out = {Constants.DONE: self._global(self.state[Constants.DONE])}
+        program = self._facade_program("step")
+        self._write_action_placeholders(actions)
+        program()
+        out = {Constants.DONE: self._view(self.state[Constants.DONE])}
         for name in self._obs_names() + self.reward_entry_names():
-            out[name] = self._global(self.state[name])
+            out[name] = self._view(self.state[name])
         return out
 
     def _local_actions(self, actions):

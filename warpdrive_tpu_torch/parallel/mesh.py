@@ -214,11 +214,14 @@ class Mesh:
 
     def _run(self, kind: str, fn, x: torch.Tensor):
         self.stats.count(kind)
-        if self.timed and x.is_cuda:
+        # a graph capture (core/program.py) waits for nothing
+        timed = (self.timed and x.is_cuda
+                 and not torch.cuda.is_current_stream_capturing())
+        if timed:
             torch.cuda.synchronize(x.device)
         start = time.perf_counter()
         out = fn()
-        if self.timed and x.is_cuda:
+        if timed:
             torch.cuda.synchronize(x.device)
         self.stats.seconds += time.perf_counter() - start
         return out
@@ -264,6 +267,16 @@ class Mesh:
             return torch.cat(parts, dim=dim).to(x.device)
 
         return self._run("all_gather", run, x)
+
+    def warm_up(self):
+        """Create the communicators a captured program's collectives use,
+        the env group's and (tp > 1) the model group's, with one all-reduce
+        each, outside any capture: NCCL makes a group's communicator at its
+        first collective, which a graph capture cannot hold."""
+        one = torch.zeros((1,), device=self.device)
+        self.all_reduce(one)
+        if self.tp > 1:
+            self.all_reduce(one, MODEL_AXIS)
 
     def reduce_grads(self, grads) -> list:
         """Gradients summed over the env group: one all-reduce of them

@@ -32,18 +32,22 @@ iteration runs on the engine's device:
       ``optax.chain(clip_by_global_norm(max_norm), scale_by_adam(),
       scale(-1))`` times ``lr_t``, read once an update.
 
-On a card (the device backend, no process mesh) ``train()`` runs the
-rollout step and the update pass as captured programs
-(``core/program.py``), the JAX trainer's jitted iteration: the rollout-step
-program T times, then per policy the host's :meth:`UpdatePass.begin`, the
-PPO prologue program and the pass program once a pass, in its hot
-(metrics-free) or full variant (``_iteration_programmed``).  Everything
-they read and write is a static buffer written in place: the env state,
-episodic sums, batch, parameters, Adam moments and count, the schedules'
-0-dim scalars and the step and pass counters.  Elsewhere -- the CPU, the
-eager host-env backend, a process mesh -- the eager iteration calls the
-same bodies op by op (``_iteration_eager``), which is the programs' plain
-version.
+On a card ``train()`` runs the rollout step and the update pass as
+captured programs (``core/program.py``), the JAX trainer's jitted
+iteration: the rollout-step program T times, then per policy the host's
+:meth:`UpdatePass.begin`, the PPO prologue program and the pass program
+once a pass, in its hot (metrics-free) or full variant
+(``_iteration_programmed``).  Everything they read and write is a static
+buffer written in place: the env state, episodic sums, batch, parameters,
+Adam moments and count, the schedules' 0-dim scalars and the step and pass
+counters.  The eager host-env backend steps its rollout on the host into
+the same static batch and runs the update programs, as JAX jits this
+backend's update (``_eager_update_fn``); under an NCCL process mesh the
+programs capture the collectives they run (a multi-pass sweep's passes,
+whose rows each rank picks on the host, run as called); a gloo mesh, whose
+collectives run on the host, keeps the eager iteration.  Elsewhere -- the
+CPU -- the eager iteration calls the same bodies op by op
+(``_iteration_eager``), which is the programs' plain version.
 
 Evaluation and episode fetching act through ``_act_fn`` (the most likely
 action, or one drawn from the evaluation generator), and
@@ -71,7 +75,6 @@ group for the next forward.
 
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass
 
 import numpy as np
@@ -621,14 +624,8 @@ class TrainerA2C(TrainerBase):
         self._batch = None  # the rollout's buffers, made at first use
         # the rollout's step counter: the batch row a step writes
         self._row = torch.zeros((1,), dtype=torch.long, device=self.device)
-        # on a card, train() runs captured programs (built at the first
-        # iteration); the eager host-env backend and a process mesh keep
-        # the eager iteration
-        self._programmed = (self.device.type == "cuda" and not self._is_eager
-                            and self.mesh is None)
-        if self.device.type == "cuda" and not self._programmed:
-            logging.info("program: eager (%s)", "host-env backend"
-                         if self._is_eager else "process mesh")
+        # the programs (built at the first programmed iteration); which
+        # parts run them is TrainerBase's _programmed
         self._programs = None
         self._update_passes = None
 
@@ -774,20 +771,25 @@ class TrainerA2C(TrainerBase):
         if self._batch is None:
             self._batch = self._make_batch()
         batch = self._batch
-        pool = (torch.cuda.graph_pool_handle()
-                if self.device.type == "cuda" else None)
+        cuda = self.device.type == "cuda"
+        pool = torch.cuda.graph_pool_handle() if cuda else None
+        if cuda and self.mesh is not None:
+            self.mesh.warm_up()  # the communicators, before any capture
 
         def program(body, buffers, name):
             return Program(body, buffers, self.device,
                            generators=[self.generator], pool=pool, name=name)
 
         models = {tag: list(m.parameters()) for tag, m in self.models.items()}
-        programs = {"rollout": program(
-            lambda: self._rollout_step(batch),
-            {"env_state": self._env_state, "batch": batch, "row": self._row,
-             "episodes": [self._ep_acc, self._ep_sum, self._ep_count],
-             "models": models},
-            "rollout step")}
+        programs = {}
+        if not self._is_eager:  # the device engine
+            programs["rollout"] = program(
+                lambda: self._rollout_step(batch),
+                {"env_state": self._env_state, "batch": batch,
+                 "row": self._row,
+                 "episodes": [self._ep_acc, self._ep_sum, self._ep_count],
+                 "models": models},
+                "rollout step")
         self._update_passes = {}
         for tag in self.policies_to_train:
             update = self._update_pass(tag, batch)
@@ -808,12 +810,17 @@ class TrainerA2C(TrainerBase):
         pool and the update passes' hold on the batch; the next programmed
         iteration builds and captures them again."""
         self._programs = self._update_passes = None
+        super().release_programs()
 
     def _rollout_programmed(self) -> dict:
         """The rollout as ``training_batch_size_per_env`` calls of the
-        rollout-step program; returns the static batch."""
+        rollout-step program (on the eager backend, which steps the host,
+        the eager rollout into the same static batch); returns the static
+        batch."""
         if self._programs is None:
             self._build_programs()
+        if self._is_eager:
+            return self._rollout()
         self._row.zero_()
         step = self._programs["rollout"]
         for _ in range(self.training_batch_size_per_env):
@@ -837,6 +844,10 @@ class TrainerA2C(TrainerBase):
             if update.needs_prologue:
                 self._programs[tag, "prologue"]()
             one_pass = self._programs[tag, "full" if full else "hot"]
+            if self.mesh is not None and update.opts.passes > 1:
+                # each rank's rows of a slice are chosen on the host
+                # (UpdatePass.begin): these passes run as called
+                one_pass = one_pass.body
             for _ in range(update.opts.passes):
                 out = one_pass()
             if full:

@@ -24,18 +24,23 @@ The port's counterpart of ``warpdrive_tpu/training/trainer_base.py``:
   apart, and ``profile_trace``: a ``torch.profiler`` trace of iterations,
   each with the training state restored afterwards; ``graceful_close``.
 
-An iteration runs one of two ways.  A trainer that runs programs (A2C and
-PPO on a card, on the device backend, without a process mesh:
-``_programmed``) runs captured CUDA graphs, the counterpart of the JAX
-trainer's jitted iteration: the metrics-free (hot) programs on every
-iteration but the first and the log points, which run the full ones, as
-the JAX ``train()`` chooses between ``_iteration_fn_fast`` and
-``_iteration_fn`` (``warpdrive_tpu/training/trainer_base.py:505-519``).
+An iteration runs one of two ways.  On a card every trainer but one under
+a gloo process mesh runs programs (``_programmed``): captured CUDA graphs,
+the counterpart of the JAX trainer's jitted iteration -- the metrics-free
+(hot) programs on every iteration but the first and the log points, which
+run the full ones, as the JAX ``train()`` chooses between
+``_iteration_fn_fast`` and ``_iteration_fn``
+(``warpdrive_tpu/training/trainer_base.py:505-519``); on the eager
+host-env backend the rollout steps the host and the update is programmed.
 Every other trainer runs the eager iteration (the same bodies called op by
 op, metrics always built).  Either way the loop reads the metric tensors
 (which waits for the device) at log points only, and waits for the device
 every ``trainer.dispatch_sync_freq`` iterations (default 50, as in JAX), so
-that the host runs at most that far ahead of it.
+that the host runs at most that far ahead of it.  Evaluation and episode
+fetching step static buffers with a program a step (the JAX package's
+jitted episode scans, cached by mode and by what is recorded), and
+``train()`` builds the evaluator's before the first iteration when
+``trainer.evaluator`` is on.
 
 Every placeholder mode of the engine is read through
 ``_policy_obs_and_mask``: a policy's observations flattened to ``(E, A_p,
@@ -76,6 +81,11 @@ import numpy as np
 import torch
 
 from warpdrive_tpu_torch.core.episode_log import EpisodeLogger
+from warpdrive_tpu_torch.core.program import (
+    Program,
+    assign_state,
+    plain_calls,
+)
 from warpdrive_tpu_torch.models.fully_connected import params_from_flax
 from warpdrive_tpu_torch.parallel.mesh import (
     Deferred,
@@ -265,8 +275,15 @@ class TrainerBase:
         # never between log points), as the JAX trainer does
         self.dispatch_sync_freq = int(trainer_cfg.get("dispatch_sync_freq",
                                                       50))
-        # whether _iteration runs captured programs (a subclass decides)
-        self._programmed = False
+        # on a card, train() runs captured programs (core/program.py): the
+        # update on every engine, the rollout too on the device engine; a
+        # gloo process mesh alone stays eager, since gloo's collectives run
+        # on the host and no graph can hold them
+        cuda = self.device.type == "cuda"
+        gloo = self.mesh is not None and self.mesh.backend != "nccl"
+        self._programmed = cuda and not gloo
+        if cuda and gloo:
+            logging.info("program: eager (gloo process mesh)")
 
         self.episode_length = self.engine.episode_length
         self.training_batch_size_per_env = self.train_batch_size // self.num_envs
@@ -357,6 +374,10 @@ class TrainerBase:
         self.current_timestep = 0
         self.iters_completed = 0
         self.models = {}
+        # the episode programs (evaluation, fetching, logging), their
+        # memory pool and their static episode state, made at first use
+        self._episode_programs = self._episode_pool = None
+        self._episode_bufs = None
 
         logging.info(
             "TrainerBase: %d envs x %d agents, batch/env=%d, iters=%d, seed=%d",
@@ -532,6 +553,13 @@ class TrainerBase:
         programmed trainer runs the full programs on its first iteration
         and at log points and the hot ones elsewhere."""
         steps_per_iter = self.training_batch_size_per_env * self.num_envs
+        if self.use_evaluator and not self._is_eager:
+            # the evaluator's program is built (and on a card captured)
+            # before any training work, as JAX compiles its evaluator here
+            # (warpdrive_tpu/training/trainer_base.py:484-490); it draws
+            # from the evaluation and store generators, never the
+            # training's, and its results are discarded
+            self.evaluate_episodes(use_argmax=True)
         window_start = time.perf_counter()
         window_iters = 0
         first_iteration = self.iters_completed
@@ -802,26 +830,76 @@ class TrainerBase:
 
     @contextlib.contextmanager
     def _episode(self):
-        """A copy of a forced reset of the engine's own state (not the
-        trainer's rollout state) to step an episode from.  The eager
-        backend's engine is the rollout's too: it is snapshot before and
-        restored after."""
-        snap = (self.engine.snapshot_runtime_state() if self._is_eager
-                else None)
-        try:
+        """The static episode state (:meth:`_episode_state`) written from a
+        forced reset of the engine's own state (not the trainer's rollout
+        state), to step an episode in.  The eager backend's engine is the
+        rollout's too: it is snapshot before and restored after, and its
+        episode programs, which step the host, run as called
+        (``plain_calls``)."""
+        if not self._is_eager:
             self.engine.reset_all_envs()
-            yield dict(self.engine.state)
+            state = self._episode_state()
+            assign_state(state, dict(self.engine.state))
+            yield state
+            return
+        snap = self.engine.snapshot_runtime_state()
+        try:
+            with plain_calls():
+                self.engine.reset_all_envs()
+                state = self._episode_state()
+                assign_state(state, dict(self.engine.state))
+                yield state
         finally:
-            if snap is not None:
-                self.engine.restore_runtime_state(snap)
+            self.engine.restore_runtime_state(snap)
 
-    def _episode_step(self, state: dict, actions) -> dict:
-        """One step of an evaluation or fetched episode: the engine's pure
-        ``step``, or on the eager backend a step of the live engine."""
+    def release_programs(self):
+        """Drop the captured programs (here the episode programs, their
+        memory pool and static episode state; a subclass drops its
+        iteration's too); each is built and captured again at need."""
+        self._episode_programs = self._episode_pool = None
+        self._episode_bufs = None
+
+    def _episode_state(self) -> dict:
+        """The static state every episode program steps: copies of the
+        engine's entries, made at the first episode."""
+        if self._episode_bufs is None:
+            self._episode_bufs = {k: v.clone()
+                                  for k, v in self.engine.state.items()}
+        return self._episode_bufs
+
+    def _episode_program(self, key, make) -> Program:
+        """The episode program of ``key`` (the counterpart of JAX's
+        ``_eval_fns``/``_fetch_fns`` caches), built by ``make() -> (body,
+        buffers)`` at its first use: captured on a card, drawing from
+        ``eval_generator``, in one memory pool with the other episode
+        programs."""
+        if self._episode_programs is None:
+            self._episode_programs = {}
+            self._episode_pool = (torch.cuda.graph_pool_handle()
+                                  if self.device.type == "cuda" else None)
+        program = self._episode_programs.get(key)
+        if program is None:
+            body, buffers = make()
+            program = Program(
+                body, {"state": self._episode_state(), **buffers},
+                self.device, generators=[self.eval_generator],
+                pool=self._episode_pool, name=f"episode {key}")
+            self._episode_programs[key] = program
+        return program
+
+    def _episode_step(self, state: dict, actions):
+        """One step of an evaluation or fetched episode, written into the
+        static ``state``: the engine's pure ``step``, or on the eager
+        backend a step of the live engine."""
         if self._is_eager:
             self.engine.step_all_envs(actions)
-            return dict(self.engine.state)
-        return self.engine.step(state, actions)
+            new = dict(self.engine.state)
+        else:
+            new = self.engine.step(state, actions)
+        assign_state(state, new)
+
+    def _scalar_index(self) -> torch.Tensor:
+        return torch.zeros((1,), dtype=torch.long, device=self.device)
 
     @torch.no_grad()
     def evaluate_episodes(self, use_argmax: bool = True):
@@ -829,7 +907,9 @@ class TrainerBase:
         most likely (DDPG: noise-free) actions, or with actions drawn from
         the evaluation generator.  An env's rewards and steps are summed
         while its done flag is 0: the mask is sticky, and finished envs are
-        stepped on without a reset.
+        stepped on without a reset.  Each step is a call of the evaluation
+        step program of the mode (``use_argmax``), over the static episode
+        state and sums.
 
         Returns ``(episodic_reward_sum, episodic_step_sum)``: per policy,
         numpy arrays of shape ``(num_envs, num_agents_of_policy)`` and
@@ -837,21 +917,42 @@ class TrainerBase:
         """
         engine = self.engine
         E, N = self.local_envs, engine.n_agents
-        alive = torch.ones((E,), dtype=torch.bool, device=self.device)
-        rew_sum = torch.zeros((E, N), dtype=torch.float32, device=self.device)
-        step_sum = torch.zeros((E,), dtype=torch.int32, device=self.device)
-        with self._episode() as state:
-            for _ in range(engine.episode_length):
+        use_argmax = bool(use_argmax)
+
+        def make():
+            sums = {"alive": torch.ones((E,), dtype=torch.bool,
+                                        device=self.device),
+                    "rew_sum": torch.zeros((E, N), dtype=torch.float32,
+                                           device=self.device),
+                    "step_sum": torch.zeros((E,), dtype=torch.int32,
+                                            device=self.device)}
+            state = self._episode_state()
+
+            def body():
                 actions = self._act_fn(state, use_argmax=use_argmax,
                                        generator=self.eval_generator)
-                state = self._episode_step(state, actions)
-                alive = alive & (state[Constants.DONE] == 0)
-                rew_sum = rew_sum + engine.rewards_of(state) \
-                    * alive.to(torch.float32)[:, None]
-                step_sum = step_sum + alive.to(torch.int32)
+                self._episode_step(state, actions)
+                alive = sums["alive"]
+                alive.copy_(alive & (state[Constants.DONE] == 0))
+                sums["rew_sum"].copy_(
+                    sums["rew_sum"] + engine.rewards_of(state)
+                    * alive.to(torch.float32)[:, None])
+                sums["step_sum"].copy_(sums["step_sum"]
+                                       + alive.to(torch.int32))
+
+            return body, {"sums": sums}
+
+        program = self._episode_program(("evaluate", use_argmax), make)
+        sums = program.buffers["sums"]
+        with self._episode():
+            sums["alive"].fill_(True)
+            sums["rew_sum"].zero_()
+            sums["step_sum"].zero_()
+            for _ in range(engine.episode_length):
+                program()
         # every rank's envs under a mesh
-        rew_sum = to_host(rew_sum, self.mesh, 0)
-        step_sum = to_host(step_sum, self.mesh, 0)
+        rew_sum = to_host(sums["rew_sum"], self.mesh, 0)
+        step_sum = to_host(sums["step_sum"], self.mesh, 0)
         episodic_reward_sum, episodic_step_sum = {}, {}
         for tag, ids in self.policy_tag_to_agent_id_map.items():
             episodic_reward_sum[tag] = rew_sum[:, ids]
@@ -873,43 +974,90 @@ class TrainerBase:
         first, up to and including the env's first done step, with
         ``"rewards"`` and ``"actions"`` (``(steps, ...)``) and, for
         categorical policies, ``"probabilities"`` ``{tag: [(steps, A_p,
-        n_i) per action component]}`` of the states acted on."""
+        n_i) per action component]}`` (float32) of the states acted on.
+        Each step is a call of the recording step program keyed by the
+        names and the two flags, which writes row ``t`` (a device counter)
+        of static records from the env row of a device index: another
+        ``env_id`` takes the same program."""
         assert isinstance(list_of_states, list) and len(list_of_states) > 0
         engine = self.engine
         for name in list_of_states:
             assert name in engine.state, f"{name!r} is not a state array"
         owner, env_id = self._owner_of(env_id)
-        extra = {"_done": []}
-        with self._episode() as state:
-            recs = {name: [state[name][env_id]] for name in list_of_states}
-            for _ in range(engine.episode_length):
+        L = engine.episode_length
+        key = ("fetch", tuple(list_of_states), bool(include_rewards_actions),
+               bool(include_probabilities))
+
+        def make():
+            state = self._episode_state()
+            t, env = self._scalar_index(), self._scalar_index()
+
+            def record(shape, dtype, rows=L):
+                return torch.zeros((rows,) + tuple(shape), dtype=dtype,
+                                   device=self.device)
+
+            recs = {name: record(state[name].shape[1:], state[name].dtype,
+                                 L + 1) for name in list_of_states}
+            extra = {"_done": record((), torch.int32)}
+            if include_rewards_actions:
+                extra["_rewards"] = record((engine.n_agents,), torch.float32)
+                num_c = max(len(self._action_heads(tag)[0])
+                            for tag in self.policies)
+                extra["_actions"] = record(
+                    (engine.n_agents, num_c),
+                    self._action_heads(self.policies[0])[1])
+            if include_probabilities:
+                for tag, ids in self.policy_tag_to_agent_id_map.items():
+                    for i, n in enumerate(self._action_heads(tag)[0]):
+                        extra[f"_probs_{tag}_{i}"] = record(
+                            (len(ids), n), torch.float32)
+
+            def body():
                 if include_probabilities:
                     actions, logits_of = self._act_fn(
                         state, use_argmax=False,
                         generator=self.eval_generator, return_logits=True)
                     for tag, logits_list in logits_of.items():
                         for i, logits in enumerate(logits_list):
-                            extra.setdefault(f"_probs_{tag}_{i}", []).append(
-                                torch.softmax(logits[env_id], dim=-1))
+                            extra[f"_probs_{tag}_{i}"].index_copy_(
+                                0, t, torch.softmax(
+                                    logits.index_select(0, env), dim=-1)
+                                .to(torch.float32))
                 else:
                     actions = self._act_fn(state, use_argmax=False,
                                            generator=self.eval_generator)
-                state = self._episode_step(state, actions)
+                self._episode_step(state, actions)
                 for name in list_of_states:
-                    recs[name].append(state[name][env_id])
+                    recs[name].index_copy_(
+                        0, t + 1, state[name].index_select(0, env))
                 if include_rewards_actions:
-                    extra.setdefault("_rewards", []).append(
-                        engine.rewards_of(state)[env_id])
+                    extra["_rewards"].index_copy_(
+                        0, t, engine.rewards_of(state).index_select(0, env))
                     if isinstance(actions, dict):  # the separate mode
                         actions = self._scatter_actions(actions)
-                    extra.setdefault("_actions", []).append(actions[env_id])
-                extra["_done"].append(state[Constants.DONE][env_id])
+                    extra["_actions"].index_copy_(
+                        0, t, actions.index_select(0, env).to(
+                            extra["_actions"].dtype))
+                extra["_done"].index_copy_(
+                    0, t, state[Constants.DONE].index_select(0, env))
+                t.add_(1)
 
-        host = {key: self._from_owner(torch.stack(v), owner).cpu().numpy()
-                for key, v in {**recs, **extra}.items()}
+            return body, {"recs": recs, "extra": extra, "t": t, "env": env}
+
+        program = self._episode_program(key, make)
+        bufs = program.buffers
+        with self._episode() as state:
+            bufs["t"].zero_()
+            bufs["env"].fill_(env_id)
+            for name, rec in bufs["recs"].items():
+                rec[0] = state[name][env_id]
+            for _ in range(L):
+                program()
+
+        host = {key: self._from_owner(v.clone(), owner).cpu().numpy()
+                for key, v in {**bufs["recs"], **bufs["extra"]}.items()}
         done_t = host["_done"] > 0
-        end = int(np.argmax(done_t)) + 1 if done_t.any() else \
-            engine.episode_length
+        end = int(np.argmax(done_t)) + 1 if done_t.any() else L
         out = {name: host[name][: end + 1] for name in list_of_states}
         if include_rewards_actions:
             out["rewards"] = host["_rewards"][:end]
@@ -929,7 +1077,9 @@ class TrainerBase:
         the device by :class:`EpisodeLogger` over one episode of the most
         likely (DDPG: noise-free) actions from a forced reset.  Each step is
         logged up to and including the env's first done step, then no
-        more, so the log mask stays contiguous.  Returns ``{name:
+        more, so the log mask stays contiguous.  Each step is a call of the
+        logging step program (``EpisodeLogger.log_step_into`` at a device
+        counter, the env row from a device index).  Returns ``{name:
         (last_step + 1, ...)}`` numpy arrays.  On the eager backend use
         :meth:`fetch_episode_states`."""
         self._assert_device_engine("fetch_logged_episode")
@@ -939,26 +1089,45 @@ class TrainerBase:
             "no state array was pushed with log_data_across_episode=True"
         )
         owner, env_id = self._owner_of(env_id)
-        engine.reset_all_envs()
-        state = dict(engine.state)
-        buffers = logger.init_buffers(state, env_id)
-        done_seen = torch.zeros((), dtype=torch.bool, device=self.device)
-        done_t = []
-        for t in range(1, engine.episode_length + 1):
-            actions = self._act_fn(state, use_argmax=True,
-                                   generator=self.eval_generator)
-            state = engine.step(state, actions)
-            logged = logger.log_step(buffers, state, t, env_id)
-            buffers = {k: torch.where(done_seen, buffers[k], v)
-                       for k, v in logged.items()}
-            done = state[Constants.DONE][env_id]
-            done_seen = done_seen | (done > 0)
-            done_t.append(done)
-        buffers = {k: self._from_owner(v, owner) for k, v in buffers.items()}
-        done_t = self._from_owner(torch.stack(done_t), owner).cpu().numpy() > 0
+
+        def make():
+            state = self._episode_state()
+            t, env = self._scalar_index(), self._scalar_index()
+            logs = logger.init_buffers(state, 0)
+            done_t = torch.zeros((engine.episode_length,), dtype=torch.int32,
+                                 device=self.device)
+            done_seen = torch.zeros((1,), dtype=torch.bool,
+                                    device=self.device)
+
+            def body():
+                actions = self._act_fn(state, use_argmax=True,
+                                       generator=self.eval_generator)
+                self._episode_step(state, actions)
+                logger.log_step_into(logs, state, t, env, frozen=done_seen)
+                done = state[Constants.DONE].index_select(0, env)
+                done_t.index_copy_(0, t - 1, done)
+                done_seen.copy_(done_seen | (done > 0))
+                t.add_(1)
+
+            return body, {"logs": logs, "done_t": done_t,
+                          "done_seen": done_seen, "t": t, "env": env}
+
+        program = self._episode_program("log", make)
+        bufs = program.buffers
+        with self._episode() as state:
+            logger.reset_buffers(bufs["logs"], state, env_id)
+            bufs["t"].fill_(1)
+            bufs["env"].fill_(env_id)
+            bufs["done_seen"].zero_()
+            for _ in range(engine.episode_length):
+                program()
+        logs = {k: self._from_owner(v.clone(), owner)
+                for k, v in bufs["logs"].items()}
+        done_t = self._from_owner(bufs["done_t"].clone(),
+                                  owner).cpu().numpy() > 0
         last_step = int(np.argmax(done_t)) + 1 if done_t.any() else \
             engine.episode_length
-        return logger.fetch(buffers, last_step)
+        return logger.fetch(logs, last_step)
 
     def _owner_of(self, env_id: int):
         """``(env rank holding global env row env_id, its local row)``;

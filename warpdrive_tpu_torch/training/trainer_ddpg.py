@@ -2,18 +2,20 @@
 TrainerDDPG: off-policy trainer for continuous (Box) action spaces.
 
 The port's counterpart of ``warpdrive_tpu/training/trainer_ddpg.py``.  One
-iteration runs, eagerly on the engine's device:
+iteration runs on the engine's device:
 
   the iteration's OU noise, ``stddev * N(0, 1)`` of shape ``(T, E, A_p,
   C)`` for each policy in one draw, then a rollout of
-  ``training_batch_size_per_env`` steps of
+  ``training_batch_size_per_env`` steps (:meth:`TrainerDDPG._rollout_step`,
+  each writing row t of the static rows) of
       observations (split path: ``observe``; full-step path: the ones the
       last step wrote; per policy through ``_policy_obs_and_mask``, in
-      every placeholder mode), the actor's action, Ornstein-Uhlenbeck exploration
-      around it, the env step, rewards and done flags, episodic-reward
-      bookkeeping and the done-driven auto-reset;
+      every placeholder mode), the actor's action, Ornstein-Uhlenbeck
+      exploration around it, the env step, rewards and done flags,
+      episodic-reward bookkeeping and the done-driven auto-reset;
   the replay window: ``T + n_step - 1`` rows, each iteration
-      ``cat(window[T:], new rows)``, so the window's order is time order;
+      ``cat(window[T:], rows)`` written into it, so the window's order is
+      time order;
   then, per trained policy, once the window is full:
       the critic's MSE against n-step returns bootstrapped from the target
       nets, the actor's loss ``-mean Q(s, pi(s))`` through the critic's
@@ -26,6 +28,18 @@ iteration runs, eagerly on the engine's device:
 Until the window is full neither net, neither target and neither optimizer
 moves, and Adam's step count stays: the window fills by T rows an
 iteration, a count the host knows, so the gate is a Python branch.
+
+On a card ``train()`` runs these as captured programs (``core/program.py``),
+the JAX trainer's jitted iteration and its metrics-free twin: the noise
+draw, the rollout step T times, the replay append and per policy the
+update in its full, hot (metrics-free) or warm (metrics alone, while the
+window fills) variant (``_iteration_programmed``).  Everything they read
+and write is a static buffer written in place -- env state, OU state,
+rows, window, episodic sums, nets, targets, Adam moments and counts, the
+step counter and the OU schedules, learning rates and tau as 0-dim device
+scalars.  On the eager host-env backend the rollout steps the host and
+the append and update run as programs.  Elsewhere (the CPU, a gloo mesh)
+the eager iteration calls the same bodies op by op.
 
 ``trainer.batch_dtype`` (e.g. ``bfloat16``) is the replay window's
 observation dtype; the nets promote such observations against their
@@ -53,6 +67,7 @@ import numpy as np
 import torch
 
 from warpdrive_tpu_torch.algos.ddpg import DDPG
+from warpdrive_tpu_torch.core.program import Program, assign_state
 from warpdrive_tpu_torch.models.factory import ModelFactory
 from warpdrive_tpu_torch.sampling.samplers import sample_ou_process
 from warpdrive_tpu_torch.training.param_scheduler import ParamScheduler
@@ -71,31 +86,37 @@ _NETS = ("actor", "critic")
 
 @torch.no_grad()
 def soft_update(target: torch.nn.Module, source: torch.nn.Module, tau):
-    """Polyak averaging in place: ``t <- t * (1 - tau) + s * tau``."""
-    tau = np.float32(tau)
+    """Polyak averaging in place: ``t <- t * (1 - tau) + s * tau``, with
+    ``tau`` a number or a 0-dim float32 device tensor (the same bits)."""
+    if not torch.is_tensor(tau):
+        tau = np.float32(tau)
+    keep = 1 - tau if torch.is_tensor(tau) else np.float32(1) - tau
     for t, s in zip(target.parameters(), source.parameters()):
-        t.copy_(t * (np.float32(1) - tau) + s * tau)
+        t.copy_(t * keep + s * tau)
 
 
 def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g * g) for g in grads))
 
 
-def ddpg_policy_update(nets: dict, targets: dict, optimizers: dict, algo,
-                       batch: dict, timestep, lrs: dict, tau: float,
-                       step: bool = True, remat: bool = False,
-                       mesh=None) -> dict:
-    """One policy's DDPG update on its replay window ``{"obs" (W, E, A, F),
-    "actions" (W, E, A, C), "rewards" (W, E, A), "done" (W, E)}``.
-    ``nets``, ``targets``, ``optimizers`` and ``lrs`` are keyed
-    ``"actor"``/``"critic"``.  Both gradients are taken before either
+def ddpg_update_step(nets: dict, targets: dict, optimizers: dict, algo,
+                     batch: dict, lrs: dict, tau, step: bool = True,
+                     remat: bool = False, mesh=None,
+                     with_metrics: bool = True) -> dict:
+    """The device side of one policy's DDPG update on its replay window
+    ``{"obs" (W, E, A, F), "actions" (W, E, A, C), "rewards" (W, E, A),
+    "done" (W, E)}``: the body of the captured update programs.  ``nets``,
+    ``targets``, ``optimizers`` and ``lrs`` are keyed ``"actor"``/
+    ``"critic"``; the learning rates and ``tau`` are numbers or 0-dim
+    float32 device tensors.  Both gradients are taken before either
     optimizer steps, so the actor's goes through the critic as it was;
     with ``step`` the optimizers step and the targets move toward the
     updated nets, without it nothing moves.  ``remat`` recomputes the
     online nets' activations in the backward pass.  Under a ``mesh`` the
     window holds the rank's env rows, the losses and metrics are global
     and each net's gradients are summed over the env group.  Returns the
-    metric tensors."""
+    metric tensors with both gradient norms, or ``{}`` without
+    ``with_metrics`` (the hot update, JAX's ``with_metrics=False``)."""
     actor = remat_apply(nets["actor"], remat)
     critic = remat_apply(nets["critic"], remat)
     obs_b, act_b = batch["obs"], batch["actions"]
@@ -107,7 +128,8 @@ def ddpg_policy_update(nets: dict, targets: dict, optimizers: dict, algo,
 
     q = critic(obs_b, act_b)
     critic_loss, critic_metrics = algo.critic_loss_and_metrics(
-        act_b, batch["rewards"], batch["done"], q, next_q, group=mesh)
+        act_b, batch["rewards"], batch["done"], q, next_q, group=mesh,
+        with_metrics=with_metrics)
     grads = {"critic": torch.autograd.grad(
         critic_loss, list(nets["critic"].parameters()))}
 
@@ -117,27 +139,51 @@ def ddpg_policy_update(nets: dict, targets: dict, optimizers: dict, algo,
     if mesh is not None:
         grads = {net: mesh.reduce_grads(g) for net, g in grads.items()}
 
-    metrics = algo.with_actor_terms(critic_metrics, critic_loss, actor_loss,
-                                   j, mesh)
+    norms = {}
     if step:
         # the optimizer returns the global norm it clipped by
-        norms = {}
         for net in ("critic", "actor"):
             names = [n for n, _ in nets[net].named_parameters()]
             norms[net] = optimizers[net].step(dict(zip(names, grads[net])),
                                               lrs[net])
         for net in _NETS:
             soft_update(targets[net], nets[net], tau)
-    else:
+    elif with_metrics:
         norms = {net: global_norm(grads[net]) for net in _NETS}
-
-    metrics["Current timestep"] = float(timestep)
-    metrics["Actor learning rate"] = float(lrs["actor"])
-    metrics["Critic learning rate"] = float(lrs["critic"])
+    if not with_metrics:
+        return {}
+    metrics = algo.with_actor_terms(critic_metrics, critic_loss, actor_loss,
+                                   j, mesh)
     metrics["Actor gradient norm"] = norms["actor"]
     metrics["Critic gradient norm"] = norms["critic"]
-    metrics["Buffer full"] = float(step)
     return metrics
+
+
+def finish_metrics(metrics: dict, timestep, lrs: dict, full: bool) -> dict:
+    """A full update's metrics with the host's entries, in the JAX
+    package's order: the timestep, both learning rates (host numbers) and
+    whether the window was full."""
+    metrics = dict(metrics)
+    norms = {name: metrics.pop(name)
+             for name in ("Actor gradient norm", "Critic gradient norm")}
+    return {**metrics,
+            "Current timestep": float(timestep),
+            "Actor learning rate": float(lrs["actor"]),
+            "Critic learning rate": float(lrs["critic"]),
+            **norms,
+            "Buffer full": float(full)}
+
+
+def ddpg_policy_update(nets: dict, targets: dict, optimizers: dict, algo,
+                       batch: dict, timestep, lrs: dict, tau: float,
+                       step: bool = True, remat: bool = False,
+                       mesh=None) -> dict:
+    """One policy's DDPG update (:func:`ddpg_update_step`) with its full
+    metrics (:func:`finish_metrics`; ``lrs`` host numbers)."""
+    return finish_metrics(
+        ddpg_update_step(nets, targets, optimizers, algo, batch, lrs, tau,
+                         step=step, remat=remat, mesh=mesh),
+        timestep, lrs, step)
 
 
 class TrainerDDPG(TrainerBase):
@@ -221,32 +267,48 @@ class TrainerDDPG(TrainerBase):
                     mesh=self.mesh)
 
         self._env_state = self._rollout_env_state()
-        E = self.local_envs
-        self._ou = {}
-        self._window = {}
+        T, E = self.training_batch_size_per_env, self.local_envs
+        W = self.buffer_capacity
+
+        def zeros(shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        def scalar():
+            return zeros(())
+
+        # the static carry, written in place and never rebound (a captured
+        # program holds these storages): the OU state, the replay window,
+        # the rollout's rows (time-major, the window's dtypes) and the
+        # iteration's OU noise
+        self._ou, self._window, self._rows, self._noise = {}, {}, {}, {}
         for tag, ids in self.policy_tag_to_agent_id_map.items():
             A, C = len(ids), self._num_action_dims[tag]
             obs_dim = self._policy_obs_sizes(tag)[0]
-            self._ou[tag] = torch.zeros((E, A, C), dtype=torch.float32,
-                                        device=self.device)
-            self._window[f"obs_{tag}"] = torch.zeros(
-                (self.buffer_capacity, E, A, obs_dim), dtype=self.batch_dtype,
-                device=self.device)
-            self._window[f"actions_{tag}"] = torch.zeros(
-                (self.buffer_capacity, E, A, C), dtype=torch.float32,
-                device=self.device)
-            self._window[f"rewards_{tag}"] = torch.zeros(
-                (self.buffer_capacity, E, A), dtype=torch.float32,
-                device=self.device)
-        self._window["done"] = torch.zeros((self.buffer_capacity, E),
-                                           dtype=torch.int32,
-                                           device=self.device)
+            self._ou[tag] = zeros((E, A, C))
+            self._noise[tag] = zeros((T, E, A, C))
+            for key, shape, dtype in (
+                    ("obs", (E, A, obs_dim), self.batch_dtype),
+                    ("actions", (E, A, C), torch.float32),
+                    ("rewards", (E, A), torch.float32)):
+                self._window[f"{key}_{tag}"] = zeros((W,) + shape, dtype)
+                self._rows[f"{key}_{tag}"] = zeros((T,) + shape, dtype)
+        self._window["done"] = zeros((W, E), torch.int32)
+        self._rows["done"] = zeros((T, E), torch.int32)
         self.filled = 0  # rows of the window written so far, at most full
-        self._ep_acc = torch.zeros((E, self.engine.n_agents),
-                                   dtype=torch.float32, device=self.device)
-        self._ep_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        self._ep_count = torch.zeros((), dtype=torch.float32,
-                                     device=self.device)
+        self._ep_acc = zeros((E, self.engine.n_agents))
+        self._ep_sum = scalar()
+        self._ep_count = scalar()
+        # the rollout's step counter (the row a step writes), the OU
+        # schedules' values, each net's learning rate and each policy's tau
+        # as device scalars, filled on the host before the programs run
+        self._row = torch.zeros((1,), dtype=torch.long, device=self.device)
+        self._sched = {name: scalar() for name in ("damping", "stddev",
+                                                   "scale")}
+        self._lr = {net: {tag: scalar() for tag in self.policies}
+                    for net in _NETS}
+        self._tau_t = {tag: torch.tensor(np.float32(tau), device=self.device)
+                       for tag, tau in self.tau.items()}
+        self._programs = None
 
         for tag in self.policies:
             ckpts = config["policy"][tag]["model"].get("model_ckpt_filepath",
@@ -273,114 +335,309 @@ class TrainerDDPG(TrainerBase):
         return self._merge_actions(per_policy)
 
     # ------------------------------------------------------------ rollout
+    def _write_schedules(self, timestep):
+        """The OU schedules' values at ``timestep`` into their scalars."""
+        for name, schedule in (("damping", self.ou_damping),
+                               ("stddev", self.ou_stddev),
+                               ("scale", self.ou_scale)):
+            schedule.write_to(self._sched[name], timestep)
+
     def _presample_ou_noise(self, stddev) -> dict:
         """One ``stddev * N(0, 1)`` draw of shape ``(T, E, A_p, C)`` per
-        policy, in policy order."""
+        policy, in policy order (``stddev`` a number or a device
+        scalar)."""
         T = self.training_batch_size_per_env
         return {
             tag: torch.randn((T,) + tuple(self._ou[tag].shape),
                              generator=self.generator, device=self.device)
-            * np.float32(stddev)
+            * (stddev if torch.is_tensor(stddev) else np.float32(stddev))
             for tag in self.policies
         }
 
+    def _draw_noise(self):
+        """The iteration's OU noise into its static buffers: the body of
+        the noise-draw program (the JAX iteration's one ``normal`` draw,
+        kept apart so that the stream's order is the eager one's)."""
+        for tag, noise in self._presample_ou_noise(
+                self._sched["stddev"]).items():
+            self._noise[tag].copy_(noise)
+
     @torch.no_grad()
-    def _rollout(self, noise: dict, damping, stddev, scale) -> dict:
-        """``training_batch_size_per_env`` steps from the trainer's env
-        state with the iteration's OU ``noise`` (``{tag: (T, E, A_p, C)}``,
-        which a test may pass in); returns the new rows, time-major."""
+    def _rollout(self, noise: dict = None, damping=None, stddev=None,
+                 scale=None) -> dict:
+        """``training_batch_size_per_env`` calls of :meth:`_rollout_step`
+        from the trainer's env state, eagerly; returns the static rows,
+        time-major.  ``noise`` ``{tag: (T, E, A_p, C)}`` and the OU
+        schedule values, where given (a test may pass them), are written
+        into their buffers first."""
+        for name, value in (("damping", damping), ("stddev", stddev),
+                            ("scale", scale)):
+            if value is not None:
+                self._sched[name].fill_(float(np.float32(value)))
+        for tag, value in (noise or {}).items():
+            self._noise[tag].copy_(value)
+        self._row.zero_()
+        for _ in range(self.training_batch_size_per_env):
+            self._rollout_step()
+        self._rollout_done()
+        return self._rows
+
+    def _rollout_done(self):
+        """Keep the engine facade on the live state (the eager backend's
+        engine holds the state itself)."""
+        if not self._is_eager:
+            self.engine.state = {**self.engine.state, **self._env_state}
+
+    @torch.no_grad()
+    def _rollout_step(self):
+        """One rollout step: the body of the JAX rollout scan and of the
+        captured rollout-step program.  Observations, the actors' actions
+        with OU exploration (row ``self._row`` of the iteration's noise,
+        the schedules read from their device scalars), the env step,
+        rewards and done flags, episodic bookkeeping and the done-driven
+        auto-reset; row ``self._row`` (a device step counter) of every
+        static row buffer is written with ``index_copy_``, and the OU
+        state, env state and episodic accounting in place.  On the eager
+        backend the engine steps its own state on the host."""
         engine = self.engine
+        row = self._row
         split = engine.has_split_step
-        # the eager backend's engine holds the rollout's state itself
         state = dict(engine.state) if self._is_eager else self._env_state
-        T = self.training_batch_size_per_env
-        rows = {"done": []}
+        sched = self._sched
+        obs_all = engine.observe(state) if split else None
+        per_policy = {}
         for tag in self.policies:
-            for key in ("obs", "actions", "rewards"):
-                rows[f"{key}_{tag}"] = []
-        for t in range(T):
-            obs_all = engine.observe(state) if split else None
-            per_policy = {}
-            for tag in self.policies:
-                obs_p = self._policy_obs_and_mask(state, obs_all, tag)[0]
-                mu = self.nets["actor"][tag](obs_p)
-                acts, self._ou[tag] = sample_ou_process(
-                    mu, self._ou[tag], damping=damping, stddev=stddev,
-                    scale=scale, noise=noise[tag][t])
-                per_policy[tag] = acts
-                rows[f"obs_{tag}"].append(obs_p)
-                rows[f"actions_{tag}"].append(acts)
-            actions = self._merge_actions(per_policy)
-            if self._is_eager:  # the actions to the host, one host step
-                state = engine.step_all_envs(actions)
-            else:
-                state = (engine.step_physics(state, actions) if split
-                         else engine.step(state, actions))
+            obs_p = self._policy_obs_and_mask(state, obs_all, tag)[0]
+            mu = self.nets["actor"][tag](obs_p)
+            acts, new_ou = sample_ou_process(
+                mu, self._ou[tag], damping=sched["damping"],
+                stddev=sched["stddev"], scale=sched["scale"],
+                noise=self._noise[tag].index_select(0, row)[0])
+            self._ou[tag].copy_(new_ou)
+            per_policy[tag] = acts
+            for key, value in (("obs", obs_p), ("actions", acts)):
+                record = self._rows[f"{key}_{tag}"]
+                record.index_copy_(0, row, value[None].to(record.dtype))
+        actions = self._merge_actions(per_policy)
+        if self._is_eager:  # the actions to the host, one host step
+            state = engine.step_all_envs(actions)
+        else:
+            state = (engine.step_physics(state, actions) if split
+                     else engine.step(state, actions))
 
-            rewards = engine.rewards_of(state)
-            done = state[_DONE]
-            for tag in self.policies:
-                rows[f"rewards_{tag}"].append(
-                    state[f"{_REWARDS}_{tag}"]
-                    if engine.separate_placeholders
-                    else torch.index_select(rewards, 1, self._agent_ids[tag]))
-            rows["done"].append(done)
+        rewards = engine.rewards_of(state)
+        done = state[_DONE]
+        for tag in self.policies:
+            record = self._rows[f"rewards_{tag}"]
+            record.index_copy_(0, row, (
+                state[f"{_REWARDS}_{tag}"] if engine.separate_placeholders
+                else torch.index_select(rewards, 1, self._agent_ids[tag])
+            )[None].to(record.dtype))
+        self._rows["done"].index_copy_(0, row, done[None].to(torch.int32))
 
-            # episodic reward bookkeeping
-            self._ep_acc = self._ep_acc + rewards
-            done_mask = (done > 0).to(torch.float32)
-            self._ep_sum = self._ep_sum + (self._ep_acc.mean(dim=1)
-                                           * done_mask).sum()
-            self._ep_count = self._ep_count + done_mask.sum()
-            self._ep_acc = self._ep_acc * (1.0 - done_mask)[:, None]
+        # episodic reward bookkeeping, in place
+        acc = self._ep_acc + rewards
+        done_mask = (done > 0).to(torch.float32)
+        self._ep_sum.copy_(self._ep_sum + (acc.mean(dim=1)
+                                           * done_mask).sum())
+        self._ep_count.copy_(self._ep_count + done_mask.sum())
+        self._ep_acc.copy_(acc * (1.0 - done_mask)[:, None])
 
-            if self._is_eager:
-                engine.reset_only_done_envs()
-                state = dict(engine.state)
-            else:
-                state = engine.auto_reset(state, self.generator)
-        self._env_state = state
-        engine.state = {**engine.state, **state}
-        return {k: torch.stack(v) for k, v in rows.items()}
+        if self._is_eager:
+            engine.reset_only_done_envs()
+        else:
+            assign_state(self._env_state,
+                         engine.auto_reset(state, self.generator))
+        row.add_(1)
 
     # ------------------------------------------------------------- update
-    def _replay_update(self, rows: dict, timestep) -> dict:
-        """Append ``rows`` to the replay window and, once it is full,
-        update every trained policy; returns the metric tensors per
-        policy."""
+    def _append(self):
+        """The rollout's rows onto the replay window, in time order: the
+        body of the append program.  Each window tensor is written with
+        ``cat(window[T:], rows)`` formed apart first (an overlapping
+        in-place shift is undefined)."""
         T = self.training_batch_size_per_env
-        for key, new in rows.items():
-            self._window[key] = torch.cat([self._window[key][T:],
-                                           new.to(self._window[key].dtype)])
-        self.filled = min(self.filled + T, self.buffer_capacity)
-        is_full = self.filled >= self.buffer_capacity
+        for key, window in self._window.items():
+            window.copy_(torch.cat([window[T:], self._rows[key]]))
 
+    def _fill_after_append(self) -> bool:
+        """The host's count of the window's rows after an append; whether
+        the window is full (the warm-up gate)."""
+        self.filled = min(self.filled + self.training_batch_size_per_env,
+                          self.buffer_capacity)
+        return self.filled >= self.buffer_capacity
+
+    def _policy_window(self, tag: str) -> dict:
+        return {"obs": self._window[f"obs_{tag}"],
+                "actions": self._window[f"actions_{tag}"],
+                "rewards": self._window[f"rewards_{tag}"],
+                "done": self._window["done"]}
+
+    def _update_body(self, tag: str, variant: str) -> dict:
+        """Policy ``tag``'s update on the window: ``"full"`` (the step and
+        its metrics), ``"hot"`` (the step alone) or ``"warm"`` (the metrics
+        alone: the window is not full, nothing moves)."""
+        return ddpg_update_step(
+            {net: self.nets[net][tag] for net in _NETS},
+            {net: self.targets[net][tag] for net in _NETS},
+            {net: self.optimizers[net][tag] for net in _NETS},
+            self.algorithms[tag], self._policy_window(tag),
+            {net: self._lr[net][tag] for net in _NETS}, self._tau_t[tag],
+            step=variant != "warm", remat=self.remat[tag], mesh=self.mesh,
+            with_metrics=variant != "hot")
+
+    def _lrs_at(self, tag: str, timestep) -> dict:
+        """Both nets' learning rates at ``timestep``, written into their
+        scalars; returns the host values."""
+        lrs = {}
+        for net in _NETS:
+            schedule = self.lr_schedules[net][tag]
+            schedule.write_to(self._lr[net][tag], timestep)
+            lrs[net] = schedule.value_at(timestep)
+        return lrs
+
+    def _replay_update(self, rows: dict, timestep) -> dict:
+        """Append ``rows`` (the static rows, or rows a test passes) to the
+        replay window and update every trained policy, eagerly: the step
+        once the window is full, the metrics always; returns the metric
+        tensors per policy."""
+        if rows is not self._rows:
+            for key, value in rows.items():
+                self._rows[key].copy_(value)
+        self._append()
+        is_full = self._fill_after_append()
         metrics = {}
         for tag in self.policies_to_train:
-            metrics[tag] = ddpg_policy_update(
-                {net: self.nets[net][tag] for net in _NETS},
-                {net: self.targets[net][tag] for net in _NETS},
-                {net: self.optimizers[net][tag] for net in _NETS},
-                self.algorithms[tag],
-                {"obs": self._window[f"obs_{tag}"],
-                 "actions": self._window[f"actions_{tag}"],
-                 "rewards": self._window[f"rewards_{tag}"],
-                 "done": self._window["done"]},
-                timestep,
-                {net: self.lr_schedules[net][tag].value_at(timestep)
-                 for net in _NETS},
-                self.tau[tag], step=is_full, remat=self.remat[tag],
-                mesh=self.mesh,
-            )
+            lrs = self._lrs_at(tag, timestep)
+            metrics[tag] = finish_metrics(
+                self._update_body(tag, "full" if is_full else "warm"),
+                timestep, lrs, is_full)
         return metrics
 
     def _rollout_phase(self, timestep) -> dict:
-        stddev = self.ou_stddev.value_at(timestep)
-        noise = self._presample_ou_noise(stddev)
-        return self._rollout(noise, self.ou_damping.value_at(timestep),
-                             stddev, self.ou_scale.value_at(timestep))
+        self._write_schedules(timestep)
+        self._draw_noise()
+        return self._rollout()
 
     _update_phase = _replay_update
+
+    # ------------------------------------------------------- the programs
+    def _build_programs(self):
+        """The captured programs over the static carry, in one graph
+        memory pool: on the device engine the OU noise draw and the
+        rollout step; the replay append; per trained policy the update in
+        its full, hot (metrics-free) and warm (metrics alone, while the
+        window fills) variants.  A program is captured at its first
+        call."""
+        cuda = self.device.type == "cuda"
+        pool = torch.cuda.graph_pool_handle() if cuda else None
+        if cuda and self.mesh is not None:
+            self.mesh.warm_up()  # the communicators, before any capture
+
+        def program(body, buffers, name):
+            return Program(body, buffers, self.device,
+                           generators=[self.generator], pool=pool, name=name)
+
+        programs = {}
+        if not self._is_eager:  # the device engine
+            programs["noise"] = program(
+                self._draw_noise, {"noise": self._noise,
+                                   "sched": self._sched}, "OU noise draw")
+            programs["rollout"] = program(self._rollout_step, {
+                "env_state": self._env_state, "rows": self._rows,
+                "row": self._row, "ou": self._ou, "noise": self._noise,
+                "sched": self._sched,
+                "episodes": [self._ep_acc, self._ep_sum, self._ep_count],
+                "actors": {tag: list(m.parameters())
+                           for tag, m in self.nets["actor"].items()}},
+                "rollout step")
+        programs["append"] = program(
+            self._append, {"window": self._window, "rows": self._rows},
+            "replay append")
+        for tag in self.policies_to_train:
+            buffers = {
+                "nets": {net: list(self.nets[net][tag].parameters())
+                         for net in _NETS},
+                "targets": {net: list(self.targets[net][tag].parameters())
+                            for net in _NETS},
+                "optimizers": {net: self.optimizers[net][tag].buffers()
+                               for net in _NETS},
+                "window": self._window,
+                "lrs": [self._lr[net][tag] for net in _NETS],
+                "tau": self._tau_t[tag]}
+            for variant in ("full", "hot", "warm"):
+                programs[tag, variant] = program(
+                    lambda tag=tag, variant=variant:
+                        self._update_body(tag, variant),
+                    buffers, f"{tag} update ({variant})")
+        self._programs = programs
+
+    def release_programs(self):
+        """Drop the captured programs and their graphs' memory pool; the
+        next programmed iteration builds and captures them again."""
+        self._programs = None
+        super().release_programs()
+
+    def _rollout_programmed(self, timestep) -> dict:
+        """The schedules into their scalars, then on the device engine the
+        noise-draw program and ``training_batch_size_per_env`` calls of the
+        rollout-step program (on the eager backend the eager rollout);
+        returns the static rows."""
+        if self._programs is None:
+            self._build_programs()
+        self._write_schedules(timestep)
+        if self._is_eager:
+            self._draw_noise()
+            return self._rollout()
+        self._programs["noise"]()
+        self._row.zero_()
+        step = self._programs["rollout"]
+        for _ in range(self.training_batch_size_per_env):
+            step()
+        self._rollout_done()
+        return self._rows
+
+    def _update_programmed(self, timestep, full: bool = True) -> dict:
+        """The append program, then per trained policy its learning rates
+        into their scalars and, once the window is full, the full or the
+        hot update program; while it fills, the warm program where metrics
+        are asked for and nothing otherwise (the host's fill count is the
+        gate: nothing moves and Adam's count stays, as JAX's
+        ``jnp.where``-selected state).  The full variant returns the metric
+        tensors per policy, the hot one ``{}``."""
+        if self._programs is None:
+            self._build_programs()
+        self._programs["append"]()
+        is_full = self._fill_after_append()
+        metrics = {}
+        for tag in self.policies_to_train:
+            lrs = self._lrs_at(tag, timestep)
+            if is_full:
+                out = self._programs[tag, "full" if full else "hot"]()
+            elif full:
+                out = self._programs[tag, "warm"]()
+            if full:
+                metrics[tag] = finish_metrics(out, timestep, lrs, is_full)
+        return metrics
+
+    def _iteration_programmed(self, timestep, full: bool = True) -> dict:
+        """One iteration through the programs: the counterpart of the JAX
+        trainer's jitted ``_iteration_fn`` (``full``) and its metrics-free
+        twin ``_iteration_fn_fast``, with the phase marks between them."""
+        start = self.clock.mark()
+        self._rollout_programmed(timestep)
+        mid = self.clock.mark()
+        metrics = self._update_programmed(timestep, full)
+        self._pending_marks.append((start, mid, self.clock.mark()))
+        return self._with_episodic_reward(metrics)
+
+    def _phase_fns(self, timestep):
+        if not self._programmed:
+            return super()._phase_fns(timestep)
+        return (lambda: (self._rollout_programmed(timestep),
+                         self._update_programmed(timestep, full=False)),
+                lambda: self._rollout_programmed(timestep),
+                lambda batch: self._update_programmed(timestep, full=False))
 
     # ------------------------------------------------------- checkpoints
     def save_model_checkpoint(self, timestep: int = None):
@@ -438,6 +695,7 @@ class TrainerDDPG(TrainerBase):
                 "ou": {tag: 0 for tag in self._ou}}
 
     def _load_training_state(self, state: dict):
+        """Into the live buffers: a built program keeps its storages."""
         for net in _NETS:
             for tag in self.policies:
                 self.nets[net][tag].load_state_dict(state["nets"][net][tag])
@@ -445,11 +703,14 @@ class TrainerDDPG(TrainerBase):
                     state["targets"][net][tag])
                 self.optimizers[net][tag].load_state_dict(
                     state["optimizers"][net][tag])
-        self._window = dict(state["window"])
+        for key, window in self._window.items():
+            window.copy_(state["window"][key])
         self.filled = int(state["filled"])
-        self._ou = dict(state["ou"])
-        self._env_state = dict(state["env_state"])
+        for tag, ou in self._ou.items():
+            ou.copy_(state["ou"][tag])
+        assign_state(self._env_state, {
+            k: v.to(self.device) for k, v in state["env_state"].items()})
         episodes = state["episodes"]
-        self._ep_acc = episodes["acc"]
-        self._ep_sum = episodes["sum"]
-        self._ep_count = episodes["count"]
+        self._ep_acc.copy_(episodes["acc"])
+        self._ep_sum.copy_(episodes["sum"])
+        self._ep_count.copy_(episodes["count"])
