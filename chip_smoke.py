@@ -227,8 +227,8 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       count of kNN kernels equals the credited count over 10 replays of
       each loop step and of each rollout step and 5 update passes under
       recompute.  Prints ms per step or iteration in turns, rollout and update
-      ms, the device's idle share of each side, the capture seconds and
-      each side's peak memory growth;
+      ms, the device's idle share of each side, the kernel nodes of each
+      captured graph and each side's peak memory growth;
    t. the rest of the compiled execution model, each program against its
       eager counterpart from identical carries and generator states, bit
       for bit: (a) DDPG training of ``single_pendulum`` (10,000 x 5) and
@@ -3301,7 +3301,8 @@ def _compiled_loop(label, system, loop, start, kernel, steps):
           f"tensors) after {steps}, {steps * (1 + COMPILED_TURNS)} and "
           f"{steps * (1 + COMPILED_TURNS) + 1 + COMPILED_PROFILE_STEPS} "
           "steps; "
-          f"capture {program.capture_s:.3f} s; ms/step in turns (eager, "
+          f"graph kernels {program.graph_nodes['kernel']}; ms/step in turns "
+          f"(eager, "
           f"captured): " + ", ".join(
               f"({e:.4f}, {c:.4f})"
               for e, c in zip(walls["eager"], walls["captured"]))
@@ -3324,8 +3325,8 @@ def _compiled_training(label, cfg, tmp, iterations, kernel, launches_of,
     one's metrics equal the eager ones'), the last ``turns`` of them (or
     all) timed in turns; the launches of each exactly ``launches_of(T)``
     of ``kernel``.  Prints ms per iteration in turns, rollout and update
-    ms, the programs' capture seconds and the peak device memory of each
-    side.  Returns both trainers and the launches."""
+    ms, the kernel nodes of the programs' graphs and the peak device
+    memory of each side.  Returns both trainers and the launches."""
     import math
 
     import torch
@@ -3394,9 +3395,9 @@ def _compiled_training(label, cfg, tmp, iterations, kernel, launches_of,
     phases = {side: [statistics.mean(x) for x in zip(*t.phase_ms[later])]
               for side, t in (("eager", eager), ("programmed", programmed))}
     captures = {(key if isinstance(key, str) else " ".join(key)):
-                round(p.capture_s, 3)
+                p.graph_nodes["kernel"]
                 for key, p in programmed._programs.items()
-                if p.capture_s is not None}
+                if p.graph_nodes is not None}
     print(f"4s {label}: programmed equals eager bit for bit ({compared} "
           f"tensors) after each of {iterations} iterations (the first full, "
           f"then hot), the full metrics equal; ms per iteration in turns "
@@ -3406,7 +3407,7 @@ def _compiled_training(label, cfg, tmp, iterations, kernel, launches_of,
           + f"; rollout and update ms (eager) {phases['eager'][0]:.3f}, "
           f"{phases['eager'][1]:.3f}, (programmed) "
           f"{phases['programmed'][0]:.3f}, {phases['programmed'][1]:.3f}; "
-          f"capture s {captures}; peak allocated and reserved growth in the "
+          f"graph kernels {captures}; peak allocated and reserved growth in the "
           f"first iteration, GiB: eager {peaks['eager'][0]:.3f}, "
           f"{peaks['eager'][1]:.3f}, programmed {peaks['programmed'][0]:.3f}"
           f", {peaks['programmed'][1]:.3f}; launches {total}; setup "
@@ -3811,9 +3812,9 @@ def _drive_ddpg_programs():
         _assert_bitwise(f"DDPG {name}, after the idle windows",
                         _ddpg_carry(programmed), _ddpg_carry(eager))
         captures = {(k if isinstance(k, str) else " ".join(k)):
-                    round(p.capture_s, 3)
+                    p.graph_nodes["kernel"]
                     for k, p in programmed._programs.items()
-                    if p.capture_s is not None}
+                    if p.graph_nodes is not None}
         print(f"4t (a) DDPG {name} ({eager.num_envs} envs x "
               f"{eager.training_batch_size_per_env} steps, window "
               f"{eager.buffer_capacity}): programmed equals eager bit for bit "
@@ -3824,7 +3825,7 @@ def _drive_ddpg_programs():
                   f"({e:.3f}, {p:.3f})"
                   for e, p in zip(walls["eager"], walls["programmed"]))
               + f"; idle eager {idle['eager'][2]:.1f}%, programmed "
-              f"{idle['programmed'][2]:.1f}%; capture s {captures}; "
+              f"{idle['programmed'][2]:.1f}%; graph kernels {captures}; "
               f"{time.perf_counter() - t_start:.1f} s; no kNN launch")
         out[name] = {side: statistics.median(w[1:])
                      for side, w in walls.items()}
@@ -4013,15 +4014,15 @@ def _drive_facade_programs():
             "flagship facade step", program, COMPILED_PROFILE_STEPS,
             "knn_obs_flat_exact", phase="4t (c)").items():
         total[name] += count
-    captures = {k: round(p.capture_s, 3)
+    captures = {k: p.graph_nodes["kernel"]
                 for k, p in engines["programmed"]._facade_programs.items()
-                if p.capture_s is not None}
+                if p.graph_nodes is not None}
     print(f"4t (c) flagship facade ({E} envs x {N} agents): "
           f"2 x {FACADE_STEPS} step_all_envs + reset_only_done_envs, then "
           f"reset_all_envs: programmed equals eager bit for bit ({compared} "
           f"state tensors, every step's outputs, the store's generator); ms "
           f"a step eager {ms['eager']:.4f}, programmed "
-          f"{ms['programmed']:.4f}; capture s "
+          f"{ms['programmed']:.4f}; graph kernels "
           f"{captures}; "
           f"{time.perf_counter() - t_start:.1f} s; launches {total}")
     return total

@@ -40,6 +40,7 @@ import jax.numpy as jnp
 
 from warpdrive_tpu.training.scripts.train import setup_trainer as jax_setup
 from warpdrive_tpu.utils import config as jax_config
+from warpdrive_tpu_torch.core import trace
 from warpdrive_tpu_torch.core.program import Program, launches_of, storages
 from warpdrive_tpu_torch.models.fully_connected import (
     adam_state_from_optax,
@@ -77,12 +78,20 @@ def test_program_keeps_its_buffers_and_raises_on_a_rebound_one():
         return carry["x"].sum()
 
     program = Program(body, carry, "cpu", name="stub")
-    for _ in range(3):
-        out = program()
+    trace.enable("cpu")
+    try:
+        for _ in range(3):
+            out = program()
+    finally:
+        trace.disable()
     assert storages(carry) == ptrs
     assert float(out) == 12.0 and int(carry["n"][0]) == 3
-    # nothing captured or replayed on the CPU
-    assert (program.capture_s, program.launches, program.replays) == (
+    # nothing captured or replayed on the CPU: no program.capture span
+    names = [s["name"] for s in trace.spans()]
+    trace.reset()
+    assert "program.capture" not in names and "program.replay" not in names
+    assert names.count("program.call") == 3
+    assert (program.graph_nodes, program.launches, program.replays) == (
         None, {}, 0)
     carry["x"] = torch.zeros(4)  # rebound, not written into
     with pytest.raises(RuntimeError, match=r"stub: buffers rebound.*'x'"):

@@ -34,7 +34,14 @@ On ``cuda`` the first call
 every later call replays the graph and credits the kNN kernels' launch
 counts (``ops/knn_obs.py:LAUNCH_COUNTS``) with the launches their wrappers
 counted during the capture, since a replay runs no wrapper.  A failed
-capture or replay raises; nothing falls back to eager calls.
+capture or replay raises; nothing falls back to eager calls.  The graph is
+captured with ``keep_graph=True``, so that its nodes are counted by type
+(``graph_nodes``, and the tracer's ``graph_nodes`` counter) before it is
+instantiated.
+
+With the tracer on (``core/trace.py``) a call is the span ``program.call``
+with the children ``program.check_buffers`` and ``program.replay`` (with a
+device extent), and the first call on a card is ``program.capture``.
 
 On the CPU a call runs the body directly, with the same static buffers
 and in-place writes, so the CPU tests exercise the code a card captures.
@@ -52,10 +59,10 @@ stale tensor.
 from __future__ import annotations
 
 import contextlib
-import time
 
 import torch
 
+from warpdrive_tpu_torch.core import trace
 from warpdrive_tpu_torch.ops import knn_obs
 
 
@@ -147,8 +154,8 @@ class Program:
         self.name = name
         self.graph = None
         self.outputs = None
-        self.capture_s = None  # seconds the capture took
         self.launches = {}  # kNN kernel -> launches a replay (the capture's)
+        self.graph_nodes = None  # the captured graph's nodes by type
         self.replays = 0
         self._storages = storages(buffers)
 
@@ -163,15 +170,31 @@ class Program:
                 f"({', '.join(moved)}); write into them in place")
 
     def __call__(self):
+        on = trace.ON
+        call = (trace.begin("program.call", unit=self.replays,
+                            args={"program": self.name}) if on else 0)
+        span = trace.begin("program.check_buffers") if on else 0
         self.check_buffers()
+        if span:
+            trace.end(span)
         if self.device.type != "cuda" or _PLAIN_CALLS[0]:
-            return self.body()
-        if self.graph is None:
-            return self._warm_up_and_capture()
-        self.graph.replay()
-        knn_obs.credit_launches(self.launches)
-        self.replays += 1
-        return self.outputs
+            result = self.body()
+        elif self.graph is None:
+            span = trace.begin("program.capture") if on else 0
+            result = self._warm_up_and_capture()
+            if span:
+                trace.end(span)
+        else:
+            span = trace.begin("program.replay", device=True) if on else 0
+            self.graph.replay()
+            if span:
+                trace.end(span)
+            knn_obs.credit_launches(self.launches)
+            self.replays += 1
+            result = self.outputs
+        if call:
+            trace.end(call)
+        return result
 
     def _warm_up_and_capture(self):
         main = torch.cuda.current_stream(self.device)
@@ -181,17 +204,18 @@ class Program:
             result = self.body()
         main.wait_stream(side)
 
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         for generator in self.generators:
             graph.register_generator_state(generator)
-        start = time.perf_counter()
 
         def capture():
             with torch.cuda.graph(graph, pool=self.pool):
                 return self.body()
 
         outputs, self.launches = launches_of(capture)
-        self.capture_s = time.perf_counter() - start
+        self.graph_nodes = trace.graph_node_counts(graph.raw_cuda_graph())
+        graph.instantiate()
+        trace.record_capture(self)
         self.check_buffers()
         self.graph, self.outputs = graph, outputs
         return result

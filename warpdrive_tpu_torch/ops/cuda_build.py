@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from warpdrive_tpu_torch.core import trace
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -99,12 +101,16 @@ def build(names) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if missing."""
+    """The loaded library of ``csrc/<name>.cu``, built first if missing
+    (the tracer's span ``cuda_build.load``, which says which)."""
     lib = _LOADED.get(name)
     if lib is None:
-        build([name])
+        span = trace.begin("cuda_build.load") if trace.ON else 0
+        built = bool(build([name]))
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
+        if span:
+            trace.end(span, args={"kernel": name, "built": built})
     return lib
 
 

@@ -26,7 +26,10 @@ steppers where they build), ``"cpp"`` the same with the C++ steppers
 required; anything else (the JAX configs say ``"tpu"``) the device engine.
 ``-a/--auto_scale`` runs the vertical auto-scaler first
 (:mod:`warpdrive_tpu_torch.tools.autoscaler`: subprocess probes of one
-iteration each on ``--device``).
+iteration each on ``--device``).  ``--trace_out <path>`` traces the run
+(:mod:`warpdrive_tpu_torch.core.trace`: spans of the training loop, the
+programs and the kernel builds, and the counters) and writes it to
+``path`` as a Chrome trace when the run ends.
 
 Several devices, one process each (``parallel/``): ``-n N`` spawns N ranks
 on this host (:func:`warpdrive_tpu_torch.parallel.launch.launch`), rank
@@ -47,6 +50,7 @@ import argparse
 import logging
 import os
 
+from warpdrive_tpu_torch.core import trace
 from warpdrive_tpu_torch.envs import register_all_envs
 from warpdrive_tpu_torch.envs.cpu_engine import CpuEnvEngine
 from warpdrive_tpu_torch.envs.engine import EnvEngine
@@ -211,7 +215,14 @@ def main(argv=None):
     parser.add_argument("--process_id", type=int,
                         default=(int(os.environ["WDT_PROCESS_ID"])
                                  if "WDT_PROCESS_ID" in os.environ else None))
+    parser.add_argument("--trace_out", type=str, default=None,
+                        help="trace the run (core/trace.py: spans and "
+                             "counters) and write it to this path as a "
+                             "Chrome trace; one process only")
     args = parser.parse_args(argv)
+    if args.trace_out and (args.coordinator or args.num_devices > 1):
+        parser.error("--trace_out traces one process: not with -n or "
+                     "--coordinator")
     if args.coordinator and (args.num_processes is None
                              or args.process_id is None):
         raise ValueError("--coordinator needs --num_processes and "
@@ -238,9 +249,19 @@ def main(argv=None):
             _train_rank, args.num_devices,
             args=(run_config, args.num_devices, args.results_dir),
             device=args.device, timeout_s=None)
-    return setup_trainer_and_train(
-        run_config, results_dir=args.results_dir, device=args.device
-    )
+    if not args.trace_out:
+        return setup_trainer_and_train(
+            run_config, results_dir=args.results_dir, device=args.device
+        )
+    trace.enable(args.device, capacity=1 << 20)
+    try:
+        return setup_trainer_and_train(
+            run_config, results_dir=args.results_dir, device=args.device
+        )
+    finally:
+        trace.disable()
+        logging.info("trace written to %s",
+                     trace.export_chrome(args.trace_out))
 
 
 def _train_rank(device, run_config: dict, num_devices: int,

@@ -83,6 +83,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from warpdrive_tpu_torch.algos.policygradient import A2C, PPO, _logp_and_entropy
+from warpdrive_tpu_torch.core import trace
 from warpdrive_tpu_torch.core.program import Program, assign_state
 from warpdrive_tpu_torch.models.factory import ModelFactory
 from warpdrive_tpu_torch.parallel.mesh import MODEL_AXIS, tp_axis, tp_shard
@@ -365,7 +366,14 @@ class UpdatePass:
         the schedules' values at ``timestep`` into their scalars, the pass
         counter to 0 and, for a shuffled sweep, the table: one permutation
         of the envs an epoch drawn from the generator, or ``index_table``
-        ``(passes, E // num_minibatches)``."""
+        ``(passes, E // num_minibatches)``.  The tracer's span
+        ``update.begin``."""
+        span = trace.begin("update.begin") if trace.ON else 0
+        self._begin(timestep, lr, index_table)
+        if span:
+            trace.end(span)
+
+    def _begin(self, timestep, lr, index_table):
         opts, mesh = self.opts, self.mesh
         self.lr.fill_(float(lr))
         self.algo.vf_loss_coeff_schedule.write_to(self.vf_coeff, timestep)
@@ -800,6 +808,8 @@ class TrainerA2C(TrainerBase):
                     lambda u=update, full=variant == "full":
                         u.run_pass(full=full),
                     buffers, f"{tag} update pass ({variant})")
+            trace.record_update_passes(programs[tag, "hot"].name,
+                                       update.opts.passes)
             if update.needs_prologue:
                 programs[tag, "prologue"] = program(
                     update.prologue, buffers, f"{tag} update prologue")
@@ -858,12 +868,9 @@ class TrainerA2C(TrainerBase):
         """One iteration through the programs: the counterpart of the JAX
         trainer's jitted ``_iteration_fn`` (``full``) and metrics-free
         ``_iteration_fn_fast``, with the phase marks between replays."""
-        start = self.clock.mark()
-        self._rollout_programmed()
-        mid = self.clock.mark()
-        metrics = self._update_programmed(timestep, full)
-        self._pending_marks.append((start, mid, self.clock.mark()))
-        return self._with_episodic_reward(metrics)
+        return self._marked_phases(
+            self._rollout_programmed,
+            lambda _: self._update_programmed(timestep, full))
 
     def _phase_fns(self, timestep):
         if not self._programmed:

@@ -21,8 +21,14 @@ The port's counterpart of ``warpdrive_tpu/training/trainer_base.py``:
   forced reset of the engine's own state, which the trainer's rollout
   state (``_env_state``) does not share;
 * ``profile_phases``: the iteration, the rollout and the update timed
-  apart, and ``profile_trace``: a ``torch.profiler`` trace of iterations,
-  each with the training state restored afterwards; ``graceful_close``.
+  apart, and ``profile_trace``: a ``torch.profiler`` trace of iterations
+  with the tracer's spans in it, each with the training state restored
+  afterwards; ``graceful_close``.
+
+With the tracer on (``core/trace.py``), ``train()`` records the spans
+``train.iteration``, ``train.sync``, ``train.log_point`` and
+``train.checkpoint``, and every iteration ``rollout`` and ``update``, whose
+device extents are the iteration's three phase marks.
 
 An iteration runs one of two ways.  On a card every trainer but one under
 a gloo process mesh runs programs (``_programmed``): captured CUDA graphs,
@@ -80,12 +86,14 @@ import time
 import numpy as np
 import torch
 
+from warpdrive_tpu_torch.core import trace
 from warpdrive_tpu_torch.core.episode_log import EpisodeLogger
 from warpdrive_tpu_torch.core.program import (
     Program,
     assign_state,
     plain_calls,
 )
+from warpdrive_tpu_torch.core.trace import DeviceClock
 from warpdrive_tpu_torch.models.fully_connected import params_from_flax
 from warpdrive_tpu_torch.parallel.mesh import (
     Deferred,
@@ -182,26 +190,6 @@ class PerfStats:
         for k, v in self.get_perf_stats().items():
             print(f"{k:50}: {v:10.2f}")
         print("=" * 60, flush=True)
-
-
-class DeviceClock:
-    """Time marks on the device's own clock: CUDA events on a card (read
-    after the device has caught up), the host clock on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-
-    def mark(self):
-        if self.cuda:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            return event
-        return time.perf_counter()
-
-    def ms(self, start, stop) -> float:
-        if self.cuda:
-            return start.elapsed_time(stop)
-        return 1e3 * (stop - start)
 
 
 class TrainerBase:
@@ -502,7 +490,9 @@ class TrainerBase:
         return actions
 
     def _sync(self):
-        if self.device.type == "cuda":
+        if trace.ON:
+            trace.count_sync(self.device)
+        elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------- training
@@ -528,11 +518,29 @@ class TrainerBase:
 
     def _iteration_eager(self, timestep) -> dict:
         """The eager iteration: the plain counterpart of the programs."""
+        return self._marked_phases(
+            lambda: self._rollout_phase(timestep),
+            lambda batch: self._update_phase(batch, timestep))
+
+    def _marked_phases(self, rollout, update) -> dict:
+        """``rollout()``, then ``update`` of its result, between the
+        iteration's three clock marks (start, the rollout's end, the
+        update's end), which are also the device extents of the tracer's
+        spans ``rollout`` and ``update``; returns the update's metrics with
+        the episodic reward."""
         start = self.clock.mark()
-        batch = self._rollout_phase(timestep)
+        span = (trace.begin("rollout", unit=self.iters_completed,
+                            event=start) if trace.ON else 0)
+        batch = rollout()
         mid = self.clock.mark()
-        metrics = self._update_phase(batch, timestep)
-        self._pending_marks.append((start, mid, self.clock.mark()))
+        if span:
+            trace.end(span, event=mid)
+            span = trace.begin("update", event=mid)
+        metrics = update(batch)
+        stop = self.clock.mark()
+        if span:
+            trace.end(span, event=stop)
+        self._pending_marks.append((start, mid, stop))
         return self._with_episodic_reward(metrics)
 
     def _with_episodic_reward(self, metrics: dict) -> dict:
@@ -564,6 +572,8 @@ class TrainerBase:
         window_iters = 0
         first_iteration = self.iters_completed
         for iteration in range(self.iters_completed, self.num_iters):
+            span = (trace.begin("train.iteration", unit=iteration)
+                    if trace.ON else 0)
             log_now = (
                 (iteration + 1) % self.metrics_log_freq == 0
                 or iteration == self.num_iters - 1
@@ -576,9 +586,14 @@ class TrainerBase:
             window_iters += 1
             if (not log_now and self.dispatch_sync_freq > 0
                     and (iteration + 1) % self.dispatch_sync_freq == 0):
-                self._sync()  # keep the host at most this far ahead
+                # keep the host at most this far ahead
+                sub = trace.begin("train.sync") if span else 0
+                self._sync()
+                if sub:
+                    trace.end(sub)
 
             if log_now:
+                sub = trace.begin("train.log_point") if span else 0
                 metrics_host = reduce_metrics(metrics, self.mesh)
                 self._sync()
                 self.perf_stats.add_window(
@@ -601,10 +616,15 @@ class TrainerBase:
                           f"timestep {self.current_timestep:,}")
                     self.metrics.pretty_print(metrics_host)
                     self.perf_stats.pretty_print()
+                if sub:
+                    trace.end(sub)
 
             saved = (iteration + 1) % self.model_params_save_freq == 0
             if saved:
+                sub = trace.begin("train.checkpoint") if span else 0
                 self.save_model_checkpoint(self.current_timestep)
+                if sub:
+                    trace.end(sub)
             if log_now or saved:
                 # logging and checkpoints stay out of the next window; a
                 # checkpoint without a log discards its window
@@ -612,6 +632,8 @@ class TrainerBase:
                     self._resolve_phase_marks()
                 window_start = time.perf_counter()
                 window_iters = 0
+            if span:
+                trace.end(span)
 
         self._sync()
         self.save_model_checkpoint(self.current_timestep)
@@ -1255,20 +1277,30 @@ class TrainerBase:
         JAX trainer's ``profile_trace`` (``jax.profiler``).  One iteration
         runs before the trace (building and capturing the programs there,
         as JAX compiles outside its trace), and the training state is
-        restored afterwards.  Returns the trace's path."""
+        restored afterwards.  The tracer (``core/trace.py``) is on for the
+        profiled iterations, so the trace carries its spans (``program.
+        call``, ``update.begin``, ...) beside the kernels.  Returns the
+        trace's path."""
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         iteration = self._phase_fns(self.current_timestep)[0]
+        was_on = trace.ON
         with self._state_restored():
             iteration()
             self._sync()
-            with profile(activities=activities) as prof:
-                for _ in range(iterations):
-                    iteration()
-                self._sync()
+            if not was_on:
+                trace.enable(self.device)
+            try:
+                with profile(activities=activities) as prof:
+                    for _ in range(iterations):
+                        iteration()
+                    self._sync()
+            finally:
+                if not was_on:
+                    trace.disable()
         os.makedirs(logdir, exist_ok=True)
         path = os.path.join(logdir, f"trace_{self.current_timestep}.json")
         prof.export_chrome_trace(path)

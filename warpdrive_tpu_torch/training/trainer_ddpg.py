@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from warpdrive_tpu_torch.algos.ddpg import DDPG
+from warpdrive_tpu_torch.core import trace
 from warpdrive_tpu_torch.core.program import Program, assign_state
 from warpdrive_tpu_torch.models.factory import ModelFactory
 from warpdrive_tpu_torch.sampling.samplers import sample_ou_process
@@ -570,6 +571,8 @@ class TrainerDDPG(TrainerBase):
                     lambda tag=tag, variant=variant:
                         self._update_body(tag, variant),
                     buffers, f"{tag} update ({variant})")
+            # once an iteration when the window is full
+            trace.record_update_passes(programs[tag, "hot"].name, 1)
         self._programs = programs
 
     def release_programs(self):
@@ -624,12 +627,9 @@ class TrainerDDPG(TrainerBase):
         """One iteration through the programs: the counterpart of the JAX
         trainer's jitted ``_iteration_fn`` (``full``) and its metrics-free
         twin ``_iteration_fn_fast``, with the phase marks between them."""
-        start = self.clock.mark()
-        self._rollout_programmed(timestep)
-        mid = self.clock.mark()
-        metrics = self._update_programmed(timestep, full)
-        self._pending_marks.append((start, mid, self.clock.mark()))
-        return self._with_episodic_reward(metrics)
+        return self._marked_phases(
+            lambda: self._rollout_programmed(timestep),
+            lambda _: self._update_programmed(timestep, full))
 
     def _phase_fns(self, timestep):
         if not self._programmed:
