@@ -59,7 +59,7 @@ Phases, each of which raises (and so exits non-zero) on a failure:
    before and read just after:
    a. the flagship rollout at 1024 envs x 105 agents with ``fc_dims=(256,
       256)``: ``env_only_step`` then ``full_loop_step``; each step must
-      launch K1 exactly once;
+      launch K1 and the physics kernel exactly once;
    b. A2C training of the shipped ``tag_continuous`` run config at full
       width (100 envs x 110 agents, 250 steps per iteration, ``fc_dims=(256,
       256)``) for its 10 iterations, through ``setup_trainer`` and
@@ -264,7 +264,12 @@ Phases, each of which raises (and so exits non-zero) on a failure:
    kernel against its plain version once more (0 mismatches and max abs
    diff 0, or K4's swap class), and time both beside the kernel's bound:
    the kernel back to back (21 x 50 calls) and by its own device time (the
-   profiler over 50 calls), and the launch floor (a one-element add).
+   profiler over 50 calls), and the launch floor (a one-element add);
+   and the TagContinuous physics kernel (``csrc/tag_physics.cu``) at the
+   flagship's (1024, 105, T = 5) and the training config's (100, 110,
+   T = 10) rolled states: against ``physics_plain`` bit for bit (every
+   field, the sign of a zero included), and timed the same way beside
+   its byte bound and the plain version.
 
 The last three lines are the card (``nvidia-smi``'s name and power limit),
 one JSON object with a record per kernel, and the result line
@@ -298,6 +303,12 @@ _PEAK_BF16_FLOPS = 989e12
 # profiler's events are told from PyTorch's own
 _KERNEL_SYMBOLS = ("scan_kernel", "tile_kernel", "ladder_kernel",
                    "envlanes_kernel")
+# the device function of the TagContinuous physics kernel
+_PHYSICS_SYMBOL = "tag_physics_kernel"
+# the physics kernel's launches on each main path of phases 4a-4l, each
+# path's own count checked against its steps (``_physics_path``); the
+# kernel's record in the kernels line sums them
+_PHYSICS_PATHS: dict = {}
 
 DEVICE = "cuda"
 NUM_ENVS = 1024
@@ -963,6 +974,8 @@ def _drive_knn_loops(rolled):
             expected = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
             expected[kernel] = MAIN_PATH_STEPS
             assert counts == expected, f"launches {counts}, expected {expected}"
+            _physics_path(f"4e {algo} {loop}", r["physics_launches"],
+                          MAIN_PATH_STEPS)
             results[algo, loop], launches[algo, loop] = r, counts
     return results, launches
 
@@ -971,7 +984,7 @@ def _drive_main_path(system, generator):
     """Both loops at full width; returns per-loop timings and launches."""
     import torch
 
-    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.ops import knn_obs, tag_physics
 
     env_only = system["env_only_step"]
     full_loop = system["full_loop_step"]
@@ -985,6 +998,7 @@ def _drive_main_path(system, generator):
     torch.cuda.synchronize()
 
     knn_obs.reset_launch_counts()
+    tag_physics.reset_launch_counts()
     result = {}
     for name in ("env_only_step", "full_loop_step"):
         start = torch.cuda.Event(enable_timing=True)
@@ -1026,14 +1040,23 @@ def _check_loop_state(state, checksum, shape):
     assert bool(((state["_done_"] == 0) | (state["_done_"] == 1)).all())
 
 
+def _physics_path(label, launches, want):
+    """The physics kernel's ``launches`` on the main path ``label``, counted
+    from 0 on that path, must be ``want``; kept for the kernel's record."""
+    assert launches == want, (
+        f"{label}: {launches} physics launches, expected {want}")
+    _PHYSICS_PATHS[label] = _PHYSICS_PATHS.get(label, 0) + launches
+
+
 def _time_loop(system, generator, steps, loop="env_only_step", warmup=5):
     """``warmup`` then ``steps`` steps of ``loop`` (``env_only_step`` or
-    ``full_loop_step``); the launch counts are set to 0 after the warm-up
-    and read after the timed steps.  Returns the timings, the counts and
-    the final state."""
+    ``full_loop_step``); the launch counts, the kNN kernels' and the
+    physics kernel's, are set to 0 after the warm-up and read after the
+    timed steps.  Returns the timings (with ``physics_launches``), the kNN
+    counts and the final state."""
     import torch
 
-    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.ops import knn_obs, tag_physics
 
     step = system[loop]
     state = system["state"]
@@ -1048,6 +1071,7 @@ def _time_loop(system, generator, steps, loop="env_only_step", warmup=5):
         state, checksum = advance(state, checksum)
     torch.cuda.synchronize()
     knn_obs.reset_launch_counts()
+    tag_physics.reset_launch_counts()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -1058,6 +1082,7 @@ def _time_loop(system, generator, steps, loop="env_only_step", warmup=5):
     stop.synchronize()
     host_s = time.perf_counter() - t0
     launches = dict(knn_obs.LAUNCH_COUNTS)
+    physics = tag_physics.LAUNCH_COUNTS["tag_physics"]
     _check_loop_state(state, checksum,
                       (system["num_envs"], system["num_agents"]))
     ms = start.elapsed_time(stop) / steps
@@ -1065,7 +1090,7 @@ def _time_loop(system, generator, steps, loop="env_only_step", warmup=5):
             "env_steps_per_s": system["num_envs"] / (ms / 1e3),
             "agent_steps_per_s": system["num_envs"] * system["num_agents"]
             / (ms / 1e3),
-            "host_s": host_s}, launches, state
+            "host_s": host_s, "physics_launches": physics}, launches, state
 
 
 def _drive_many_agents():
@@ -1093,6 +1118,7 @@ def _drive_many_agents():
         expected = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
         expected[kernel] = MANY_AGENT_STEPS
         assert counts == expected, f"launches {counts}, expected {expected}"
+        _physics_path(f"4c {algo}", r["physics_launches"], MANY_AGENT_STEPS)
         systems[algo], results[algo], launches[algo] = system, r, counts
     # the same loops in the reverse order, so that each loop's wall is read
     # both early and late in the run; each system keeps the state of its
@@ -1107,26 +1133,29 @@ def _drive_many_agents():
         expected = {name: 0 for name in knn_obs.LAUNCH_COUNTS}
         expected[kernel] = MANY_AGENT_STEPS
         assert counts == expected, f"launches {counts}, expected {expected}"
+        _physics_path(f"4c {algo}", r["physics_launches"], MANY_AGENT_STEPS)
         launches[f"{algo}, reverse order"] = counts
     return systems, results, launches
 
 
 def _drive_training(run_config, before_train=None):
     """The training path at the run config's width, through the CLI's
-    ``setup_trainer`` and ``train()``, with the kernels' launch counts set
-    to 0 just before and read just after; ``before_train(trainer)``, when
-    given, runs between the two.  Returns the trainer, the counts and the
-    per-iteration times."""
+    ``setup_trainer`` and ``train()``, with the kernels' launch counts, the
+    kNN kernels' and the physics kernel's, set to 0 just before and read
+    just after; ``before_train(trainer)``, when given, runs between the
+    two.  Returns the trainer, the kNN counts and the set-up and training
+    seconds with the physics launches (``physics_launches``)."""
     import math
 
     import torch
 
-    from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.ops import knn_obs, tag_physics
     from warpdrive_tpu_torch.training.scripts.train import setup_trainer
 
     results_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         knn_obs.reset_launch_counts()
+        tag_physics.reset_launch_counts()
         t0 = time.perf_counter()
         trainer = setup_trainer(run_config, results_dir=results_dir,
                                 verbose=False, device=DEVICE)
@@ -1141,6 +1170,7 @@ def _drive_training(run_config, before_train=None):
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         launches = dict(knn_obs.LAUNCH_COUNTS)
+        physics = tag_physics.LAUNCH_COUNTS["tag_physics"]
 
         with open(Path(results_dir) / "results.json", encoding="utf-8") as f:
             last = json.loads(f.read().splitlines()[-1])
@@ -1165,7 +1195,8 @@ def _drive_training(run_config, before_train=None):
         print(f"training iteration {it + 1}: rollout {roll_ms:.3f} ms, "
               f"update {upd_ms:.3f} ms, "
               f"{steps / ((roll_ms + upd_ms) / 1e3):.0f} env-steps/s")
-    return trainer, launches, {"setup_s": setup_s, "train_s": train_s}
+    return trainer, launches, {"setup_s": setup_s, "train_s": train_s,
+                               "physics_launches": physics}
 
 
 def _update_card_vs_cpu(trainer, envs=UPDATE_ENVS, float64=False):
@@ -1358,6 +1389,7 @@ def _drive_env_loops():
               f"{system['num_agents']} agents ({ENV_LOOP_STEPS} steps, host "
               f"{r['host_s']:.3f} s; {settings}); launches {counts}")
         assert counts == no_launches, f"{label}: launches {counts}"
+        assert r["physics_launches"] == 0, r
         systems[label], results[label] = system, r
     return systems, results
 
@@ -1384,6 +1416,7 @@ def _drive_full_step_training():
         trainer, launches, times = _drive_training(cfg)
         assert trainer.num_iters == FULL_STEP_TRAIN_ITERS
         assert launches == no_launches, f"{name}: launches {launches}"
+        assert times["physics_launches"] == 0, times
         pools = {t: tuple(p.shape)
                  for t, p in trainer.engine.store.pools.items()}
         if "reset_pool_size" in cfg["env"] or "with_reset_pool" in name:
@@ -1420,11 +1453,11 @@ def _knn_bound_ms(E, N, k, d2_pairs, mxu_distance=False):
     return 1e3 * max(t_bytes, t_ops), bound_by, bytes_in + bytes_out
 
 
-def _kernel_device_ms(fn, calls=50):
-    """The device time a call of ``fn`` spends in the port's kNN kernel
-    (``_KERNEL_SYMBOLS``; one launch a call), by ``torch.profiler`` over
-    ``calls`` back-to-back calls: the kernel's own time, without the host's
-    call rate."""
+def _kernel_device_ms(fn, calls=50, symbols=_KERNEL_SYMBOLS):
+    """The device time a call of ``fn`` spends in the port's kernel whose
+    device function holds one of ``symbols`` (the kNN kernels' by default;
+    one launch a call), by ``torch.profiler`` over ``calls`` back-to-back
+    calls: the kernel's own time, without the host's call rate."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1441,7 +1474,7 @@ def _kernel_device_ms(fn, calls=50):
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
-                  and any(name in e.key for name in _KERNEL_SYMBOLS)]
+                  and any(name in e.key for name in symbols)]
         launches = sum(e.count for e in events)
         if launches:
             break
@@ -1571,6 +1604,72 @@ def _time_knn(name, args, n_agents, k, variant, label, plain_repeats=11,
           f"{100 * bound_ms / device_ms:.1f}% of bound")
     return {"max_abs_err": max_abs, "ms": kernel_ms, "device_ms": device_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _physics_bound_ms(E, N, tables):
+    """Least time for the physics step on the card: each input read once
+    and each output written once at the HBM rate -- the five float32
+    fields, the int32 still-in-the-game flags and two action indices an
+    agent, the timestep an env and ``tables`` (the constants' floats and
+    ints) in; the five fields, the flags and the reward an agent, the
+    timestep and the done flag an env out.  Its few dozen flops an agent
+    and T distances lie far below the float32 peak: bytes."""
+    bytes_in = 4 * (8 * E * N + E + tables)
+    bytes_out = 4 * (7 * E * N + 2 * E)
+    return (1e3 * (bytes_in + bytes_out) / _PEAK_BYTES_PER_S,
+            bytes_in + bytes_out)
+
+
+def _time_physics(env, state, label):
+    """The physics kernel against ``physics_plain`` on ``state`` with
+    random int32 actions, bit for bit in every field it writes; then the
+    kernel's time back to back (21 x 50 calls), its own device time
+    (profiler, 50 calls) and the plain version's (11 x 5), beside the
+    bound."""
+    import torch
+
+    from warpdrive_tpu_torch.ops import tag_physics
+
+    E, N = state["loc_x"].shape
+    gen = torch.Generator(device=DEVICE).manual_seed(N)
+    actions = torch.stack(
+        [torch.randint(0, int(n), (E, N), generator=gen, device=DEVICE,
+                       dtype=torch.int32)
+         for n in env.action_space[0].nvec], dim=-1)
+    before = tag_physics.LAUNCH_COUNTS["tag_physics"]
+    out = env.physics_fn(state, actions)
+    plain = env.physics_plain(state, actions)
+    torch.cuda.synchronize()
+    assert tag_physics.LAUNCH_COUNTS["tag_physics"] == before + 1
+    max_abs = 0.0
+    for name in ("loc_x", "loc_y", "speed", "direction", "acceleration",
+                 "still_in_the_game", "rewards", "_timestep_", "_done_"):
+        a, b = out[name], plain[name]
+        if a.dtype == torch.float32:
+            max_abs = max(max_abs, float((a - b).abs().max()))
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        bad = int((a != b).sum())
+        assert bad == 0, f"physics [{label}]: {bad} entries of {name} differ"
+
+    def call():
+        env.physics_fn(state, actions)
+
+    kernel_ms = _cuda_ms(call, repeats=21, inner=50)
+    device_ms = _kernel_device_ms(call, symbols=(_PHYSICS_SYMBOL,))
+    plain_ms = _cuda_ms(lambda: env.physics_plain(state, actions),
+                        repeats=11, inner=5)
+    consts = env._consts(torch.device(DEVICE))
+    tables = sum(consts[name].numel() for name in (
+        "max_speed", "step_rewards", "tagger_slot", "acc_table",
+        "turn_table"))
+    bound_ms, nbytes = _physics_bound_ms(E, N, tables)
+    print(f"tag_physics [{label}] at E={E} N={N} T={env.num_taggers}: bit "
+          f"for bit with physics_plain; kernel {kernel_ms:.5f} ms back to "
+          f"back, {device_ms:.5f} ms device, plain {plain_ms:.5f} ms, bound "
+          f"{bound_ms:.5f} ms (bytes: {nbytes}); "
+          f"{100 * bound_ms / device_ms:.1f}% of bound")
+    return {"max_abs_err": max_abs, "ms": kernel_ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
 
 
 def _ddpg_config(name):
@@ -1861,6 +1960,8 @@ def _drive_tuned_training():
     assert trainer.num_iters == TUNED_ITERS
     expected = dict(no_launches, knn_obs_flat_exact=TUNED_ITERS * TUNED_STEPS)
     assert launches == expected, f"launches {launches}, expected {expected}"
+    _physics_path("4j tuned flagship training", times["physics_launches"],
+                  TUNED_ITERS * TUNED_STEPS)
     for tag, model in trainer.models.items():
         opts = trainer.update_options[tag]
         assert model.dtype == torch.bfloat16, tag
@@ -1907,6 +2008,8 @@ def _drive_tuned_training():
         rec.policies_to_train) * TUNED_MINIBATCHES)
     assert rec_launches == expected, \
         f"launches {rec_launches}, expected {expected}"
+    _physics_path("4j tuned flagship, update_recompute_obs",
+                  rec_times["physics_launches"], TUNED_STEPS)
     batch = rec._batch
     assert not any(key.startswith("obs_") for key in batch)
     phys_gb = sum(v.numel() * v.element_size()
@@ -2153,6 +2256,7 @@ def _drive_asymmetric_pursuit():
 
     trainer, launches, times = _drive_training(cfg, count_masked)
     assert launches == {name: 0 for name in knn_obs.LAUNCH_COUNTS}, launches
+    assert times["physics_launches"] == 0, times
     assert trainer.num_iters == NEW_TRAIN_ITERS
     n_masked = int(sum(int(m) for m, _ in masked))
     draws = sum(n for _, n in masked)
@@ -2218,6 +2322,8 @@ def _drive_full_obs_training():
     peak = torch.cuda.max_memory_allocated()
     assert launches == {name: 0 for name in knn_obs.LAUNCH_COUNTS}, launches
     T = trainer.training_batch_size_per_env
+    _physics_path("4l tag_continuous, full observation",
+                  times["physics_launches"], trainer.num_iters * T)
     obs_bytes = sum(v.numel() * v.element_size()
                     for k, v in trainer._batch.items()
                     if k.startswith("obs_"))
@@ -2701,6 +2807,7 @@ def _drive_eager_backend():
     assert isinstance(trainer.engine, CpuEnvEngine)
     assert trainer.engine._native is not None
     assert launches == {name: 0 for name in knn_obs.LAUNCH_COUNTS}, launches
+    assert times["physics_launches"] == 0, times
     E = trainer.num_envs
     T = trainer.training_batch_size_per_env
 
@@ -3125,6 +3232,10 @@ COMPILED_PROFILE_STEPS = 10
 # the tuned stage's update passes in a profiled window (its whole update
 # is ~1 M device events, too many for the profiler)
 COMPILED_PROFILE_PASSES = 20
+# windows of a profiled loop or program at most, each profiled again while
+# the profiler recorded fewer kNN kernels than were launched
+# (``_profiled_credited``)
+PROFILE_WINDOWS = 3
 # the tuned stage's iterations of each side, each timed (an eager one takes
 # ~15 s: 800 passes of ~1,240 eager ops)
 TUNED_COMPILED_ITERS = 2
@@ -3282,14 +3393,20 @@ def _compiled_loop(label, system, loop, start, kernel, steps):
                 total[name] += count
     _assert_bitwise(label, carry(), state)
     idle = {}
+    profiled_steps = 1 + COMPILED_PROFILE_STEPS
     for mode, fn in (("eager", eager), ("captured", program)):
         knn_obs.reset_launch_counts()
-        device_ms, profiled, counted = _profiled(
-            fn, COMPILED_PROFILE_STEPS, host=mode == "captured")
-        if mode == "captured":
-            assert profiled == counted == COMPILED_PROFILE_STEPS, (
-                f"{label}: the profiler saw {profiled} kNN launches, "
-                f"{counted} credited")
+        if mode == "eager":
+            device_ms, profiled, _ = _profiled(
+                fn, COMPILED_PROFILE_STEPS, host=False)
+        else:
+            device_ms, profiled, _, windows = _profiled_credited(
+                label, fn, COMPILED_PROFILE_STEPS)
+            # a window profiled again stepped the captured side on: the
+            # eager side takes as many steps, for the comparison below
+            for _ in range((windows - 1) * profiled_steps):
+                eager()
+            profiled_steps *= windows
         for name, count in knn_obs.LAUNCH_COUNTS.items():
             total[name] += count
         device_ms /= COMPILED_PROFILE_STEPS
@@ -3299,8 +3416,7 @@ def _compiled_loop(label, system, loop, start, kernel, steps):
     _assert_bitwise(label, carry(), state)
     print(f"4s {label}: captured equals eager bit for bit ({compared} "
           f"tensors) after {steps}, {steps * (1 + COMPILED_TURNS)} and "
-          f"{steps * (1 + COMPILED_TURNS) + 1 + COMPILED_PROFILE_STEPS} "
-          "steps; "
+          f"{steps * (1 + COMPILED_TURNS) + profiled_steps} steps; "
           f"graph kernels {program.graph_nodes['kernel']}; ms/step in turns "
           f"(eager, "
           f"captured): " + ", ".join(
@@ -3531,21 +3647,49 @@ def _program_check_configs() -> list:
     ]
 
 
-def _check_credited(label, program, calls, kernel, phase="4s"):
+def _profiled_credited(label, fn, calls, host=True, reset=None):
+    """``_profiled(fn, calls, host)`` where the kNN launches counted or
+    credited must equal ``calls`` in every window, and the profiler's
+    count of kNN kernels must equal them in one of ``PROFILE_WINDOWS``: a
+    window in which the profiler recorded fewer (it drops all or part of a
+    short window's records now and then) is profiled again, after
+    ``reset()`` when given; one in which it recorded more fails.  Returns
+    the last window's device ms, profiled and credited counts, and the
+    number of windows profiled."""
+    for window in range(1, PROFILE_WINDOWS + 1):
+        if reset is not None:
+            reset()
+        device_ms, profiled, credited = _profiled(fn, calls, host)
+        assert credited == calls and profiled <= credited, (
+            f"{label}: {credited} kNN launches credited over {calls} "
+            f"calls, {profiled} profiled")
+        if profiled == credited:
+            return device_ms, profiled, credited, window
+        print(f"{label}: the profiler recorded {profiled} of {credited} kNN "
+              f"launches in window {window}; profiling it again")
+    raise AssertionError(
+        f"{label}: the profiler recorded fewer kNN launches than were "
+        f"credited in each of {PROFILE_WINDOWS} windows")
+
+
+def _check_credited(label, program, calls, kernel, phase="4s", reset=None):
     """``calls`` replays of ``program`` (after a warm-up replay), each
     launching ``kernel`` once inside its graph: the launches credited to
     ``kernel`` must equal ``calls`` and the profiler's count of kNN
-    kernels.  Returns every replay's launches."""
+    kernels (``_profiled_credited``, ``reset`` before each window).
+    Returns every replay's launches."""
     from warpdrive_tpu_torch.ops import knn_obs
 
     knn_obs.reset_launch_counts()
-    _, profiled, credited = _profiled(program, calls)
+    _, profiled, credited, windows = _profiled_credited(
+        label, program, calls, reset=reset)
     launches = dict(knn_obs.LAUNCH_COUNTS)
-    assert launches[kernel] == calls + 1 and profiled == credited == calls, (
-        f"{label}: {credited} {kernel} launches credited over {calls} "
-        f"replays, {profiled} profiled")
+    assert launches[kernel] == windows * (calls + 1), (
+        f"{label}: {launches[kernel]} {kernel} launches credited over "
+        f"{windows} windows of {calls + 1} replays")
     print(f"{phase} {label}: {kernel} launches credited = profiled = "
-          f"{calls} over {calls} replays")
+          f"{calls} over {calls} replays"
+          + (f" ({windows} windows profiled)" if windows > 1 else ""))
     return launches
 
 
@@ -3633,10 +3777,11 @@ def _drive_compiled_iteration(rolled, many_state, run_config):
             "tag_continuous iteration", lambda: eager._iteration_eager(t),
             lambda: programmed._iteration_programmed(t, full=False), 1,
             "knn_obs_mxu")[1])
-        programmed._row.zero_()  # the rollout step writes rows 0-10
+        # the rollout step writes rows 0-10 of each window
         add(_check_credited("tag_continuous rollout step",
                             programmed._programs["rollout"],
-                            COMPILED_PROFILE_STEPS, "knn_obs_mxu"))
+                            COMPILED_PROFILE_STEPS, "knn_obs_mxu",
+                            reset=programmed._row.zero_))
         knn_obs.reset_launch_counts()
         t0 = time.perf_counter()
         trace = Path(programmed.profile_trace(str(tmp / "trace"),
@@ -3664,10 +3809,10 @@ def _drive_compiled_iteration(rolled, many_state, run_config):
         add(_compiled_idle(
             "tuned flagship rollout", eager._rollout,
             programmed._rollout_programmed, 1, "knn_obs_flat_exact")[1])
-        programmed._row.zero_()
         add(_check_credited("tuned flagship rollout step",
                             programmed._programs["rollout"],
-                            COMPILED_PROFILE_STEPS, "knn_obs_flat_exact"))
+                            COMPILED_PROFILE_STEPS, "knn_obs_flat_exact",
+                            reset=programmed._row.zero_))
         add(_compiled_idle(
             "tuned flagship update passes",
             *_runner_passes(eager, programmed), COMPILED_PROFILE_PASSES)[1])
@@ -4293,7 +4438,7 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from warpdrive_tpu_torch.ops import cuda_build, knn_obs
+    from warpdrive_tpu_torch.ops import cuda_build, knn_obs, tag_physics
     from warpdrive_tpu_torch.presets import build_flagship, build_many_agents
     from warpdrive_tpu_torch.utils.config import load_run_config
 
@@ -4385,6 +4530,9 @@ def main(argv=None) -> int:
     assert launches == expected, f"launches {launches}, expected {expected}"
     assert loops["env_only_step"]["launches_after"] == dict(
         no_launches, knn_obs_flat_exact=MAIN_PATH_STEPS)
+    _physics_path("4a flagship loops",
+                  tag_physics.LAUNCH_COUNTS["tag_physics"],
+                  2 * MAIN_PATH_STEPS)
 
     # 4b. the training path, counts from 0
     trainer, train_launches, train_times = _drive_training(run_config)
@@ -4397,6 +4545,9 @@ def main(argv=None) -> int:
           f"{train_times['setup_s']:.3f} s); launches {train_launches}")
     assert train_launches == expected, \
         f"launches {train_launches}, expected {expected}"
+    _physics_path("4b tag_continuous training",
+                  train_times["physics_launches"],
+                  trainer.num_iters * trainer.training_batch_size_per_env)
     later = trainer.phase_ms[1:]
     roll_ms = statistics.mean(r for r, _ in later)
     upd_ms = statistics.mean(u for _, u in later)
@@ -4419,6 +4570,8 @@ def main(argv=None) -> int:
     expected = dict(no_launches, knn_obs_flat=MAIN_PATH_STEPS)
     assert fast_launches == expected, \
         f"launches {fast_launches}, expected {expected}"
+    _physics_path("4d pallas_flat env_only_step",
+                  fast_loop["physics_launches"], MAIN_PATH_STEPS)
 
     # 4e. the flagship loops of K6-K9, counts from 0 before each
     knn_loops, knn_launches = _drive_knn_loops(knn_rolled)
@@ -4509,6 +4662,10 @@ def main(argv=None) -> int:
     print(f"phase 4t {time.perf_counter() - t_4t:.1f} s; launches "
           f"{programs_launches}")
 
+    physics_launches = sum(_PHYSICS_PATHS.values())
+    print(f"physics launches on the main paths: {physics_launches} "
+          f"({_PHYSICS_PATHS})")
+
     # 5. kernel vs plain and their times at the main paths' shapes
     many_args = _knn_args(many["pallas_flat_exact"]["env"],
                           many["pallas_flat_exact"]["state"])
@@ -4590,6 +4747,13 @@ def main(argv=None) -> int:
         max_abs["knn_obs_flat_exact"] = max(max_abs["knn_obs_flat_exact"],
                                             r["max_abs_err"])
     _launch_floor()  # what K2's training-shape times compare with
+    # the physics kernel at the flagship's and the training config's shapes
+    physics = {
+        "flagship": _time_physics(env, rolled, "flagship state"),
+        "training": _time_physics(
+            *_training_env_state(run_config, ROLLED_STEPS, seed=1),
+            "training state"),
+    }
     for variant in ("tiled", "tiled_mxudist_exact"):  # K5's other modes
         max_abs["knn_obs_tiled"] = max(max_abs["knn_obs_tiled"], _compare_knn(
             many_label, *many_args, variant, tol=EXACT_TOL))
@@ -4702,6 +4866,22 @@ def main(argv=None) -> int:
         if name == "knn_obs_flat_mxudist":
             kernels[-1]["swap_share"] = _K4_SWAP["share"]
             kernels[-1]["swap_worst_gap_of_W"] = _K4_SWAP["worst_gap_of_W"]
+    # the physics kernel: its launches on the main paths of 4a-4l, each
+    # counted on its own path and checked (``_PHYSICS_PATHS``), and its
+    # times at the flagship's shape (the training shape's in its own record)
+    kernels.append({
+        "name": "tag_physics",
+        **tag_physics.KERNEL,
+        "launches": physics_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in physics.values()),
+        **{key: physics["flagship"][key]
+           for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                       "bound_by")},
+        "training_shape": {key: physics["training"][key]
+                           for key in ("ms", "device_ms", "plain_ms",
+                                       "bound_ms")},
+        "library_ms": None,
+    })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

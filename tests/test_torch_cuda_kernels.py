@@ -8,7 +8,9 @@ kernel), TagGridWorld's and CartPole's steps on the card against the CPU's
 and the observation refresh after a pool reset, and DDPG's warm-up gate,
 its update against the CPU's and a full-state resume, and the ring
 buffer's storage on the card; a served bundle, the repo's JAX checkpoints
-(K2) and the eager host-env backend with the policy on the card.
+(K2) and the eager host-env backend with the policy on the card; the
+TagContinuous physics kernel against ``physics_plain`` on rolled states,
+and the flagship step and the training rollout launching it once a step.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The file imports no JAX,
 so on a machine with a card and no JAX it runs without the repo's
@@ -19,6 +21,11 @@ so on a machine with a card and no JAX it runs without the repo's
 
 import contextlib
 import copy
+import gc
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,17 +35,18 @@ from test_torch_knn_warp_order import near_tie_coords
 from warpdrive_tpu_torch.envs.classic_control.cartpole import (
     TorchClassicControlCartPoleEnv,
 )
-from warpdrive_tpu_torch.core.program import plain_calls
+from warpdrive_tpu_torch.core.program import Program, plain_calls
 from warpdrive_tpu_torch.envs.engine import EnvEngine
 from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
 from warpdrive_tpu_torch.envs.tag_gridworld import (
     TorchTagGridWorld,
     TorchTagGridWorldWithResetPool,
 )
-from warpdrive_tpu_torch.ops import knn_obs
+from warpdrive_tpu_torch.ops import knn_obs, tag_physics
 from warpdrive_tpu_torch.presets import (
     build_flagship,
     build_many_agents,
+    captured_loop,
     random_actions_fn,
 )
 from warpdrive_tpu_torch.tools.consistency import (
@@ -826,3 +834,251 @@ def test_facade_programs_equal_the_eager_facade_on_card(card):
     for name, value in engines[0].state.items():
         assert torch.equal(value, engines[1].state[name]), name
     assert engines[1]._facade_programs["step"].graph is not None
+
+
+# ------------------------------------------------ the TagContinuous physics
+_PHYSICS_FIELDS = ("loc_x", "loc_y", "speed", "direction", "acceleration",
+                   "still_in_the_game", "rewards", "_timestep_", "_done_")
+
+
+def _physics_case(E, N, T, exits, seed, device):
+    """An env of N agents (T taggers) on a square that holds ~0.1 agents a
+    unit of area, so runners get tagged and agents cross the edges; a
+    state with a fifth of the agents out of the game, timesteps 1-4 steps
+    short of the episode's end, and taggers 0 and 1 twins (the same state,
+    and the same actions in :func:`_physics_actions`) in even envs, so
+    their distances to every runner tie."""
+    grid = float(np.sqrt(N / 0.1) / 3)
+    env = TorchTagContinuous(
+        num_taggers=T, num_runners=N - T, grid_length=grid,
+        episode_length=20, use_full_observation=False,
+        num_other_agents_observed=2, seed=seed, tagging_distance=0.1,
+        edge_hit_penalty=-0.5, step_penalty_for_tagger=-0.01,
+        step_reward_for_runner=0.02, runner_exits_game_after_tagged=exits,
+    )
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    state = {
+        "loc_x": rng.uniform(0, grid, (E, N)).astype(f32),
+        "loc_y": rng.uniform(0, grid, (E, N)).astype(f32),
+        "speed": rng.uniform(0, 1, (E, N)).astype(f32),
+        "acceleration": rng.uniform(-0.5, 0.5, (E, N)).astype(f32),
+        "direction": rng.uniform(0, 2 * np.pi, (E, N)).astype(f32),
+        "still_in_the_game": (rng.uniform(size=(E, N)) > 0.2).astype(
+            np.int32),
+        "rewards": np.zeros((E, N), f32),
+        "_timestep_": rng.randint(16, 20, (E,)).astype(np.int32),
+        "_done_": np.zeros((E,), np.int32),
+    }
+    twin, first = np.where(env.is_tagger)[0][:2]
+    for name in ("loc_x", "loc_y", "speed", "acceleration", "direction",
+                 "still_in_the_game"):
+        state[name][::2, twin] = state[name][::2, first]
+    return env, {name: torch.from_numpy(v).to(device)
+                 for name, v in state.items()}
+
+
+def _physics_actions(env, E, seed, device):
+    """int32 ``(E, N, 2)`` random actions, taggers 0 and 1 alike in even
+    envs."""
+    rng = np.random.RandomState(seed)
+    nvec = env.action_space[0].nvec
+    actions = np.stack([rng.randint(0, n, (E, env.num_agents))
+                        for n in nvec], -1).astype(np.int32)
+    twin, first = np.where(env.is_tagger)[0][:2]
+    actions[::2, twin] = actions[::2, first]
+    return torch.from_numpy(actions).to(device)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exits", [True, False])
+@pytest.mark.parametrize("E,N,T", [(1024, 105, 5), (100, 110, 10),
+                                   (256, 1024, 20), (4, 10, 2),
+                                   (3, 2100, 25)])
+def test_physics_kernel_matches_plain_on_card(card, E, N, T, exits):
+    """Bit for bit (the sign of a zero included) with ``physics_plain`` on
+    the card, over 6 rolled steps: tags, ties between twin taggers, edge
+    crossings, agents already out, ``t == episode_length`` and after it;
+    one launch a call, the input left as it was.  N = 2100 takes more
+    agents than a block has threads."""
+    env, state = _physics_case(E, N, T, exits, seed=N + T, device=card)
+    tagged = ties = crossed = last_steps = 0
+    tagger_ids = env._consts(card)["tagger_ids"]
+    grid = float(env.grid_length)
+    for step in range(6):
+        actions = _physics_actions(env, E, seed=step, device=card)
+        before = {name: t.clone() for name, t in state.items()}
+        launches = tag_physics.LAUNCH_COUNTS["tag_physics"]
+        out = env.physics_fn(state, actions)
+        assert tag_physics.LAUNCH_COUNTS["tag_physics"] == launches + 1
+        plain = env.physics_plain(state, actions)
+        torch.cuda.synchronize()
+        for name, value in before.items():
+            assert torch.equal(_bits(state[name]), _bits(value)), name
+        assert out.keys() == plain.keys()
+        for name in _PHYSICS_FIELDS:
+            assert out[name].dtype == plain[name].dtype, name
+            assert torch.equal(_bits(out[name]), _bits(plain[name])), name
+        # what the step covered
+        alive = state["still_in_the_game"] > 0
+        runner = torch.from_numpy(env.is_runner).to(card)
+        dist = torch.sqrt((plain["loc_x"][:, :, None]
+                           - plain["loc_x"][:, None, tagger_ids]) ** 2
+                          + (plain["loc_y"][:, :, None]
+                             - plain["loc_y"][:, None, tagger_ids]) ** 2)
+        hit = alive & runner & (dist.amin(dim=2) < env.
+                                distance_margin_for_reward)
+        tie = (dist == dist.amin(dim=2, keepdim=True)).sum(dim=2) > 1
+        tagged += int(hit.sum())
+        ties += int((hit & tie).sum())
+        crossed += int(sum(((plain[name] == 0) | (plain[name] == grid))
+                           .sum() for name in ("loc_x", "loc_y")))
+        last_steps += int((plain["_timestep_"] == 20).sum())
+        state = plain
+    assert tagged and ties and crossed and last_steps, (tagged, ties,
+                                                         crossed, last_steps)
+
+
+@pytest.mark.cuda
+def test_physics_kernel_refuses_what_it_does_not_take_on_card(card):
+    """int64 actions, a non-contiguous field and a wrong shape raise
+    before any launch."""
+    env, state = _physics_case(4, 10, 2, True, seed=1, device=card)
+    actions = _physics_actions(env, 4, seed=1, device=card)
+    launches = tag_physics.LAUNCH_COUNTS["tag_physics"]
+    with pytest.raises(ValueError, match="actions: dtype"):
+        env.physics_fn(state, actions.long())
+    with pytest.raises(ValueError, match="speed is not contiguous"):
+        env.physics_fn(dict(state, speed=state["speed"].t().contiguous()
+                            .t()), actions)
+    with pytest.raises(ValueError, match="actions: shape"):
+        env.physics_fn(state, actions[..., :1])
+    assert tag_physics.LAUNCH_COUNTS["tag_physics"] == launches
+
+
+@pytest.mark.cuda
+def test_physics_kernel_takes_negative_actions_as_plain_does_on_card(card):
+    """A negative action counts from the end of its table, as the plain
+    version's indexing counts it: -1 and -size, bit for bit."""
+    env, state = _physics_case(4, 10, 2, True, seed=3, device=card)
+    actions = _physics_actions(env, 4, seed=3, device=card)
+    consts = env._consts(card)
+    sizes = [consts["acc_table"].numel(), consts["turn_table"].numel()]
+    for col, size in enumerate(sizes):
+        actions[0::2, :, col] -= size  # [0, size) -> [-size, 0)
+    actions[1, 0] = -1
+    out = env.physics_fn(state, actions)
+    plain = env.physics_plain(state, actions)
+    torch.cuda.synchronize()
+    for name in _PHYSICS_FIELDS:
+        assert torch.equal(_bits(out[name]), _bits(plain[name])), name
+
+
+_OUT_OF_RANGE = """
+import sys
+import torch
+sys.path.insert(0, {tests!r})
+from test_torch_cuda_kernels import _physics_actions, _physics_case
+env, state = _physics_case(4, 10, 2, True, seed=1, device="cuda")
+actions = _physics_actions(env, 4, seed=1, device="cuda")
+size = env._consts("cuda")[{table!r}].numel()
+actions[1, 3, {col}] = {value}
+try:
+    env.{fn}(state, actions)
+    torch.cuda.synchronize()
+except RuntimeError as error:
+    print("refused:", error)
+    sys.exit(0)
+print("accepted")
+sys.exit(1)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,col,value", [
+    ("physics_fn", 0, "size"), ("physics_fn", 1, "-size - 1"),
+    ("physics_plain", 0, "size")])
+def test_physics_kernel_refuses_an_out_of_range_action_on_card(
+        card, fn, col, value):
+    """An action outside ``[-size, size)`` of its table is a device-side
+    assert in the kernel, as in the plain version's indexing on the card.
+    Each case runs in a process of its own: the assert leaves its CUDA
+    context unusable."""
+    tests = Path(__file__).resolve().parent
+    script = _OUT_OF_RANGE.format(
+        tests=str(tests), table=("acc_table", "turn_table")[col], col=col,
+        value=value, fn=fn)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tests.parent), os.environ.get("PYTHONPATH", "")]))
+    run = subprocess.run([sys.executable, "-c", script], cwd=tests.parent,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "device-side assert triggered" in run.stdout, run.stdout
+
+
+@pytest.mark.cuda
+def test_flagship_step_launches_the_physics_kernel_once_per_step(card):
+    """The flagship's env-only step, called op by op and as its captured
+    program: one physics launch and one K1 launch a step, the replays
+    credited."""
+    system = build_flagship(num_envs=16, fc_dims=(32, 32), seed=2,
+                            device=card)
+    gen = torch.Generator(device=card).manual_seed(0)
+    knn_obs.reset_launch_counts()
+    tag_physics.reset_launch_counts()
+    state, checksum = system["state"], torch.zeros((), device=card)
+    for _ in range(3):
+        state, checksum = system["env_only_step"]((state, checksum), gen)
+    loop = captured_loop(system, "env_only_step", gen, state=state)
+    for _ in range(4):
+        loop()
+    torch.cuda.synchronize()
+    assert loop.graph is not None and loop.replays == 3
+    assert tag_physics.LAUNCH_COUNTS == {"tag_physics": 7}
+    assert knn_obs.LAUNCH_COUNTS == dict(_NO_LAUNCHES, knn_obs_flat_exact=7)
+
+
+@pytest.mark.cuda
+def test_training_rollout_launches_the_physics_kernel_once_per_step(
+        card, tmp_path):
+    """One iteration of the ``tag_continuous`` run config at 8 envs: 50
+    rollout steps, one replay of the rollout-step program each after the
+    first, one physics launch a step."""
+    cfg = load_run_config("tag_continuous")
+    cfg["trainer"].update({"num_envs": 8, "train_batch_size": 400,
+                           "num_episodes": 1, "seed": 1})
+    for policy in ("runner", "tagger"):
+        cfg["policy"][policy]["model"]["fc_dims"] = [32, 32]
+    tag_physics.reset_launch_counts()
+    trainer = setup_trainer_and_train(cfg, verbose=False,
+                                      results_dir=str(tmp_path))
+    torch.cuda.synchronize()
+    assert trainer.iters_completed == 1
+    assert tag_physics.LAUNCH_COUNTS == {"tag_physics": 50}
+
+
+@pytest.mark.cuda
+def test_program_captures_with_automatic_collection_off_on_card(card):
+    """A capture runs with Python's automatic garbage collection off, and
+    it is on again after: a dead program's graph, freed when its reference
+    cycle is collected mid-capture, would invalidate the capture.  The
+    warm-up runs with collection as it was."""
+    x = torch.zeros(4, device=card)
+    seen = []
+
+    def body():
+        seen.append(gc.isenabled())
+        x.add_(1.0)
+
+    program = Program(body, {"x": x}, card, name="collection probe")
+    assert gc.isenabled()
+    program()  # warm-up and capture
+    program()  # a replay
+    torch.cuda.synchronize()
+    assert seen == [True, False] and gc.isenabled()
+    assert float(x[0]) == 2.0

@@ -41,12 +41,17 @@ import jax.numpy as jnp
 from warpdrive_tpu.training.scripts.train import setup_trainer as jax_setup
 from warpdrive_tpu.utils import config as jax_config
 from warpdrive_tpu_torch.core import trace
-from warpdrive_tpu_torch.core.program import Program, launches_of, storages
+from warpdrive_tpu_torch.core.program import (
+    Program,
+    credit_launches,
+    launches_of,
+    storages,
+)
 from warpdrive_tpu_torch.models.fully_connected import (
     adam_state_from_optax,
     params_from_flax,
 )
-from warpdrive_tpu_torch.ops import knn_obs
+from warpdrive_tpu_torch.ops import knn_obs, tag_physics
 from warpdrive_tpu_torch.parallel.mesh import reduce_metrics
 from warpdrive_tpu_torch.presets import (
     build_env_only_loop,
@@ -114,8 +119,9 @@ def test_launch_credit_arithmetic_on_a_stub():
     assert launches == {"knn_obs_mxu": 2, "knn_obs_flat_exact": 1}
     assert knn_obs.LAUNCH_COUNTS["knn_obs_mxu"] == 2
     for _ in range(4):  # four replays
-        knn_obs.credit_launches(launches)
-    knn_obs.credit_launches({"knn_obs_mxu": 1}, times=3)
+        credit_launches(launches)
+    for _ in range(3):
+        credit_launches({"knn_obs_mxu": 1})
     want = dict.fromkeys(knn_obs.LAUNCH_COUNTS, 0)
     want.update(knn_obs_mxu=2 + 4 * 2 + 3, knn_obs_flat_exact=1 + 4)
     assert knn_obs.LAUNCH_COUNTS == want
@@ -123,6 +129,42 @@ def test_launch_credit_arithmetic_on_a_stub():
         launches_of(lambda: (stub_kernel_body(), int("x")))
     assert knn_obs.LAUNCH_COUNTS == want  # set back after a failure too
     knn_obs.reset_launch_counts()
+
+
+def test_launch_counts_are_registered_by_family():
+    """Each ops module registers its own launch counts, the very dicts its
+    wrappers update, under one family; no kernel is counted by two."""
+    from warpdrive_tpu_torch.ops import cuda_build
+
+    assert cuda_build.LAUNCH_COUNTS["knn"] is knn_obs.LAUNCH_COUNTS
+    assert cuda_build.LAUNCH_COUNTS["physics"] is tag_physics.LAUNCH_COUNTS
+    with pytest.raises(ValueError, match="counted by 'knn'"):
+        cuda_build.register_launch_counts("stub", {"knn_obs_mxu": 0})
+    assert "stub" not in cuda_build.LAUNCH_COUNTS
+    cuda_build.register_launch_counts("physics", tag_physics.LAUNCH_COUNTS)
+    assert cuda_build.LAUNCH_COUNTS["physics"] is tag_physics.LAUNCH_COUNTS
+
+
+def test_launch_credit_covers_the_physics_kernel_on_a_stub():
+    """A capture that counts physics and kNN launches credits each to its
+    own count: the physics kernel's never enters ``knn_obs.LAUNCH_COUNTS``."""
+    knn_obs.reset_launch_counts()
+    tag_physics.reset_launch_counts()
+
+    def stub_step():  # one physics launch and one K1 launch
+        tag_physics.LAUNCH_COUNTS["tag_physics"] += 1
+        knn_obs.LAUNCH_COUNTS["knn_obs_flat_exact"] += 1
+
+    _, launches = launches_of(stub_step)
+    assert launches == {"tag_physics": 1, "knn_obs_flat_exact": 1}
+    assert tag_physics.LAUNCH_COUNTS == {"tag_physics": 0}
+    for _ in range(5):
+        credit_launches(launches)
+    assert tag_physics.LAUNCH_COUNTS == {"tag_physics": 5}
+    assert knn_obs.LAUNCH_COUNTS == dict(
+        dict.fromkeys(knn_obs.LAUNCH_COUNTS, 0), knn_obs_flat_exact=5)
+    knn_obs.reset_launch_counts()
+    tag_physics.reset_launch_counts()
 
 
 # -------------------------------------------------- the five configurations

@@ -1,7 +1,9 @@
 """The port's TagContinuous physics and auto-reset against the JAX package:
 ``TorchTagContinuous.physics_fn`` vs ``jax.vmap(TpuTagContinuous.physics_fn)``
 and ``warpdrive_tpu_torch.core.reset`` vs ``warpdrive_tpu.core.reset`` on the
-same numpy-drawn states, actions and pool rows."""
+same numpy-drawn states, actions and pool rows; ``physics_fn``'s dispatch on
+the CPU (the plain version, no kernel library) and the physics kernel's
+input checks, which raise before any launch on any device."""
 
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ from warpdrive_tpu.envs.tag_continuous import TpuTagContinuous
 from warpdrive_tpu_torch.core.reset import make_auto_reset_fn
 from warpdrive_tpu_torch.envs.engine import EnvEngine
 from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
+from warpdrive_tpu_torch.ops import cuda_build, tag_physics
 from warpdrive_tpu_torch.presets import FLAGSHIP_ENV_KWARGS
 from warpdrive_tpu_torch.utils.constants import Constants
 
@@ -78,6 +81,118 @@ def test_physics_matches_jax(box, t_max, seed):
                                    rtol=0, atol=1e-6, err_msg=name)
     if box < 1.0:  # the crowded case really tags runners
         assert (out["still_in_the_game"].numpy() < state["still_in_the_game"]).any()
+
+
+def _physics_inputs(seed=0, E=3):
+    kwargs = dict(FLAGSHIP_ENV_KWARGS, num_runners=12, episode_length=60,
+                  seed=seed)
+    env = TorchTagContinuous(**kwargs, knn_algorithm="ladder")
+    state = {k: torch.from_numpy(v) for k, v in _random_state(
+        env, E, seed, box=1.5, t_max=61).items()}
+    rng = np.random.RandomState(seed)
+    actions = torch.from_numpy(np.stack(
+        [rng.randint(0, n, (E, env.num_agents))
+         for n in env.action_space[0].nvec], -1).astype(np.int32))
+    return env, state, actions
+
+
+def test_physics_on_cpu_runs_the_plain_version_without_the_library(
+        monkeypatch):
+    """CPU tensors take ``physics_plain``: no kernel library is loaded and
+    no launch is counted; the input is left as it was and every entry the
+    step writes is a new tensor."""
+    def no_library(name):
+        raise AssertionError(f"loaded {name} for CPU tensors")
+
+    monkeypatch.setattr(cuda_build, "load", no_library)
+    env, state, actions = _physics_inputs()
+    before = {k: v.clone() for k, v in state.items()}
+    launches = dict(tag_physics.LAUNCH_COUNTS)
+    out = env.physics_fn(state, actions)
+    plain = env.physics_plain(state, actions)
+    assert tag_physics.LAUNCH_COUNTS == launches
+    assert "tag_physics" not in cuda_build._LOADED
+    assert out.keys() == plain.keys() == state.keys()
+    for name, value in out.items():
+        assert torch.equal(value, plain[name]), name
+        assert torch.equal(state[name], before[name]), name
+    for name in ("loc_x", "speed", Constants.REWARDS, Constants.DONE,
+                 Constants.TIMESTEP, "still_in_the_game"):
+        assert out[name] is not state[name], name
+
+
+@pytest.mark.parametrize("col", [0, 1])
+def test_physics_on_cpu_takes_actions_as_a_torch_index(col):
+    """An action indexes its table as a PyTorch index: -size is the first
+    entry, size is refused (the kernel on a card does the same, its card
+    tests check)."""
+    env, state, actions = _physics_inputs()
+    size = len((env.acceleration_actions, env.turn_actions)[col])
+    wrapped = actions.clone()
+    wrapped[..., col] = actions[..., col] - size
+    out = env.physics_fn(state, wrapped)
+    plain = env.physics_fn(state, actions)
+    for name, value in out.items():
+        assert torch.equal(value, plain[name]), name
+    actions[0, 1, col] = size
+    with pytest.raises(IndexError):
+        env.physics_fn(state, actions)
+
+
+def test_physics_refuses_a_device_without_a_kernel():
+    env, state, actions = _physics_inputs()
+    meta = {k: v.to("meta") for k, v in state.items()}
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        env.physics_fn(meta, actions.to("meta"))
+
+
+def test_tagger_slots_follow_the_tagger_ids():
+    env, _, _ = _physics_inputs(seed=3)
+    consts = env._consts(torch.device("cpu"))
+    slot = consts["tagger_slot"]
+    assert slot.dtype == torch.int32
+    assert slot[consts["tagger_ids"]].tolist() == list(
+        range(env.num_taggers))
+    assert (slot[torch.from_numpy(env.is_runner)] == -1).all()
+
+
+_BAD_PHYSICS_INPUTS = {
+    "int64 actions": (lambda s, a: (s, a.long()), "actions: dtype"),
+    "one action component": (lambda s, a: (s, a[..., :1].contiguous()),
+                             "actions: shape"),
+    "strided actions": (lambda s, a: (s, a.transpose(0, 1).contiguous()
+                                      .transpose(0, 1)),
+                        "actions is not contiguous"),
+    "float64 loc_x": (lambda s, a: (dict(s, loc_x=s["loc_x"].double()), a),
+                      "loc_x: dtype"),
+    "strided speed": (lambda s, a: (dict(s, speed=s["speed"].t()
+                                         .contiguous().t()), a),
+                      "speed is not contiguous"),
+    "float still": (lambda s, a: (dict(s, still_in_the_game=s[
+        "still_in_the_game"].float()), a), "still_in_the_game: dtype"),
+    "int64 timestep": (lambda s, a: (dict(s, **{
+        Constants.TIMESTEP: s[Constants.TIMESTEP].long()}), a),
+        f"{Constants.TIMESTEP}: dtype"),
+    "a missing env": (lambda s, a: (dict(s, direction=s["direction"][1:]),
+                                    a), "direction: shape"),
+    "another agent count": (lambda s, a: ({k: v[:, :-1] if v.dim() == 2
+                                           else v for k, v in s.items()},
+                                          a), "loc_x: shape"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BAD_PHYSICS_INPUTS))
+def test_physics_kernel_checks_refuse_what_it_does_not_take(case):
+    """The checks the card's ``physics_fn`` makes before a launch, run on
+    CPU tensors: a wrong dtype, shape or a non-contiguous input raises."""
+    env, state, actions = _physics_inputs()
+    consts = env._consts(torch.device("cpu"))
+    tag_physics.check_inputs(state, actions, consts, env.num_agents)
+    make, match = _BAD_PHYSICS_INPUTS[case]
+    bad_state, bad_actions = make(state, actions)
+    with pytest.raises(ValueError, match=match):
+        tag_physics.check_inputs(bad_state, bad_actions, consts,
+                                 env.num_agents)
 
 
 def _store_pair(num_envs=4):

@@ -427,6 +427,59 @@ def test_replays_are_read_from_the_live_programs():
     assert trace.counters()["graph_nodes"]["b"]["kernel"] == 4
 
 
+def test_counters_keep_the_physics_launches_apart_from_the_knn_ones():
+    from warpdrive_tpu_torch.ops import knn_obs, tag_physics
+
+    tag_physics.reset_launch_counts()
+    knn_obs.reset_launch_counts()
+    tag_physics.LAUNCH_COUNTS["tag_physics"] += 3
+    try:
+        counters = trace.counters()
+        assert counters["physics_launches"] == {"tag_physics": 3}
+        assert counters["knn_launches"] == dict.fromkeys(
+            knn_obs.LAUNCH_COUNTS, 0)
+    finally:
+        tag_physics.reset_launch_counts()
+
+
+# ------------------------------------- chip_smoke.py's profiled windows
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_module", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("windows,want", [
+    ([(10, 10)], 1),
+    ([(0, 10), (8, 10), (10, 10)], 3),
+    ([(9, 10)] * 3, "recorded fewer"),
+    ([(11, 10)], "11 profiled"),
+    ([(9, 9)], "9 kNN launches credited"),
+])
+def test_a_window_with_dropped_records_is_profiled_again(
+        monkeypatch, windows, want):
+    """chip_smoke.py's ``_profiled_credited`` on stub windows of (profiled,
+    credited): a window whose profiler recorded fewer kNN kernels is
+    profiled again, after the reset, up to ``PROFILE_WINDOWS`` times; more
+    recorded than credited, or credited launches other than the calls,
+    fail at once."""
+    smoke = _chip_smoke()
+    assert smoke.PROFILE_WINDOWS == 3
+    left, resets = list(windows), []
+    monkeypatch.setattr(smoke, "_profiled",
+                        lambda fn, calls, host: (1.0, *left.pop(0)))
+    run = lambda: smoke._profiled_credited(  # noqa: E731
+        "stub", None, 10, reset=lambda: resets.append(1))
+    if isinstance(want, str):
+        with pytest.raises(AssertionError, match=want):
+            run()
+    else:
+        assert run() == (1.0, 10, 10, want)
+        assert len(resets) == want and not left
+
+
 # ----------------------------------------------- the benchmark's readers
 def _reader(name):
     path = ROOT / "portbench" / "metrics" / f"{name}.py"

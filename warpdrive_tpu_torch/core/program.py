@@ -26,14 +26,16 @@ On ``cuda`` the first call
   the call's own effect, and where a kernel's library is built and loaded
   by ``ops/cuda_build.load`` and its shared-memory attribute set), then
 * captures it with ``torch.cuda.graph(graph, pool=pool)`` (the capture runs
-  nothing), with every explicit ``torch.Generator`` the body draws from
+  nothing; Python's automatic garbage collection is off meanwhile), with
+  every explicit ``torch.Generator`` the body draws from
   registered with the graph (``CUDAGraph.register_generator_state``), so
   that each replay draws the numbers that eager calls would have drawn and
   advances the generator as they would;
 
-every later call replays the graph and credits the kNN kernels' launch
-counts (``ops/knn_obs.py:LAUNCH_COUNTS``) with the launches their wrappers
-counted during the capture, since a replay runs no wrapper.  A failed
+every later call replays the graph and credits the kernels' launch
+counts (``ops/cuda_build.py:LAUNCH_COUNTS``, where each ops module
+registers its own) with the launches their wrappers counted during the
+capture, since a replay runs no wrapper.  A failed
 capture or replay raises; nothing falls back to eager calls.  The graph is
 captured with ``keep_graph=True``, so that its nodes are counted by type
 (``graph_nodes``, and the tracer's ``graph_nodes`` counter) before it is
@@ -59,11 +61,12 @@ stale tensor.
 from __future__ import annotations
 
 import contextlib
+import gc
 
 import torch
 
 from warpdrive_tpu_torch.core import trace
-from warpdrive_tpu_torch.ops import knn_obs
+from warpdrive_tpu_torch.ops import cuda_build
 
 
 def _leaves(tree, path=()):
@@ -103,15 +106,32 @@ def assign_state(static: dict, new: dict):
 
 def launches_of(fn):
     """Run ``fn``; return its result and ``{kernel: launches}`` that the
-    kNN wrappers counted meanwhile, with ``LAUNCH_COUNTS`` set back.  A
-    capture launches nothing, so what its wrappers counted is what each
-    replay launches (:func:`~warpdrive_tpu_torch.ops.knn_obs.
-    credit_launches`)."""
-    before = dict(knn_obs.LAUNCH_COUNTS)
+    kernels' wrappers counted meanwhile, with the launch counts set back.
+    A capture launches nothing, so what its wrappers counted is what each
+    replay launches (:func:`credit_launches`)."""
+    families = cuda_build.LAUNCH_COUNTS
+    before = {name: n for counts in families.values()
+              for name, n in counts.items()}
     try:
-        return fn(), knn_obs.launches_since(before)
+        return fn(), {name: n - before.get(name, 0)
+                      for counts in families.values()
+                      for name, n in counts.items()
+                      if n != before.get(name, 0)}
     finally:
-        knn_obs.LAUNCH_COUNTS.update(before)
+        for counts in families.values():
+            for name in counts:
+                counts[name] = before.get(name, 0)
+
+
+def credit_launches(launches: dict):
+    """Add ``launches`` (``{kernel: launches}``) to each kernel's launch
+    count: a replayed graph launches the kernels it captured without
+    running their wrappers."""
+    for name, n in launches.items():
+        for counts in cuda_build.LAUNCH_COUNTS.values():
+            if name in counts:
+                counts[name] += n
+                break
 
 
 _PLAIN_CALLS = [0]
@@ -154,7 +174,7 @@ class Program:
         self.name = name
         self.graph = None
         self.outputs = None
-        self.launches = {}  # kNN kernel -> launches a replay (the capture's)
+        self.launches = {}  # kernel -> launches a replay (the capture's)
         self.graph_nodes = None  # the captured graph's nodes by type
         self.replays = 0
         self._storages = storages(buffers)
@@ -189,7 +209,7 @@ class Program:
             self.graph.replay()
             if span:
                 trace.end(span)
-            knn_obs.credit_launches(self.launches)
+            credit_launches(self.launches)
             self.replays += 1
             result = self.outputs
         if call:
@@ -212,7 +232,16 @@ class Program:
             with torch.cuda.graph(graph, pool=self.pool):
                 return self.body()
 
-        outputs, self.launches = launches_of(capture)
+        # no automatic collection while capturing: a dead program's graph,
+        # freed when its reference cycle is collected, cannot be destroyed
+        # while a stream captures, and the attempt invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            outputs, self.launches = launches_of(capture)
+        finally:
+            if collecting:
+                gc.enable()
         self.graph_nodes = trace.graph_node_counts(graph.raw_cuda_graph())
         graph.instantiate()
         trace.record_capture(self)

@@ -40,8 +40,9 @@ every capture, on or off (capture is set-up), the node counts of the
 captured graph by type, read through libcuda (:func:`graph_node_counts`);
 and the passes an iteration of each hot update program, set when a trainer
 builds them.  Replays are not counted twice: :func:`counters` reads
-``Program.replays`` of each captured program still alive, and the kNN
-launches from ``LAUNCH_COUNTS``.
+``Program.replays`` of each captured program still alive, and the
+kernels' launches from the registry of launch counts
+(``ops/cuda_build.py:LAUNCH_COUNTS``).
 """
 
 from __future__ import annotations
@@ -250,9 +251,10 @@ def counters() -> dict:
     """Every counter: ``syncs``, ``sync_ms`` and ``dropped`` (while on),
     ``graph_nodes`` and ``update_passes`` (at every capture and build),
     ``replays`` (``Program.replays`` of each captured program still alive,
-    by name: the latest of a name) and ``knn_launches``
-    (``LAUNCH_COUNTS``)."""
-    from warpdrive_tpu_torch.ops import knn_obs  # which imports this module
+    by name: the latest of a name) and ``<family>_launches`` for each
+    family of registered launch counts (``knn_launches``,
+    ``physics_launches``: ``ops/cuda_build.py:LAUNCH_COUNTS``)."""
+    from warpdrive_tpu_torch.ops import cuda_build  # which imports this one
 
     t = _T
     return {"syncs": t.syncs, "sync_ms": 1e-6 * t.sync_ns,
@@ -261,7 +263,8 @@ def counters() -> dict:
                         for name, program in t.programs.items()},
             "graph_nodes": {k: dict(v) for k, v in t.graph_nodes.items()},
             "update_passes": dict(t.update_passes),
-            "knn_launches": dict(knn_obs.LAUNCH_COUNTS)}
+            **{f"{family}_launches": dict(counts)
+               for family, counts in cuda_build.LAUNCH_COUNTS.items()}}
 
 
 # ---------------------------------------------- a captured graph's nodes

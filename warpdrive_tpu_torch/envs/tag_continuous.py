@@ -7,7 +7,9 @@ The port's counterpart of ``warpdrive_tpu/envs/tag_continuous.py``:
   implementation (the engine's host-side ``reset()`` and the data feed need
   it, and the port imports nothing of the JAX package);
 * ``TorchTagContinuous`` adds the batched device step: ``physics_fn`` over
-  ``(envs, agents)`` tensors, ``observe_fn`` (the full observation, or the
+  ``(envs, agents)`` tensors (on a card one launch of the physics kernel,
+  ``ops/tag_physics.py``; its plain version is ``physics_plain``),
+  ``observe_fn`` (the full observation, or the
   ``passes``, ``ladder``, ``topk``, ``approx`` and ``packed`` kNN
   algorithms in plain PyTorch) and ``observe_batch_fn``, which sends every
   ``pallas*`` name of the kNN mode to the port's kNN kernels
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from warpdrive_tpu_torch.envs.base import TorchEnvironmentContext
+from warpdrive_tpu_torch.ops import tag_physics
 from warpdrive_tpu_torch.ops.knn_obs import (
     _VALID_MAX_PACKED,
     knn_observation,
@@ -483,6 +486,9 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
                 "is_tagger": t(self.is_tagger),
                 "is_runner": t(self.is_runner),
                 "tagger_ids": t(np.where(self.is_tagger)[0], torch.long),
+                # agent i's index among the taggers, -1 for a runner
+                "tagger_slot": t(np.cumsum(self.is_tagger) * self.is_tagger
+                                 - 1, torch.int32),
                 "max_speed": t(self.max_speed * self.skill_levels),
                 "acc_table": t(self.acceleration_actions),
                 "turn_table": t(self.turn_actions),
@@ -524,7 +530,43 @@ class TorchTagContinuous(TagContinuous, TorchEnvironmentContext):
 
     def physics_fn(self, state: dict, actions: torch.Tensor) -> dict:
         """Dynamics + tagging + rewards + done for all replicas, WITHOUT the
-        observation build.  ``actions``: ``(envs, agents, 2)`` integers."""
+        observation build.  ``actions``: ``(envs, agents, 2)`` integers.
+
+        A new dict of new tensors; ``state`` is left as it was.  On CPU
+        tensors this is :meth:`physics_plain`; on CUDA tensors one launch
+        of the physics kernel (``csrc/tag_physics.cu``, launched by
+        ``ops/tag_physics.py``), which equals the plain version bit for
+        bit there and takes int32 actions, or a ``ValueError`` for inputs
+        it does not take."""
+        device = state["loc_x"].device
+        if device.type == "cpu":
+            return self.physics_plain(state, actions)
+        if device.type != "cuda":
+            raise ValueError(f"unsupported device {device}")
+        consts = self._consts(device)
+        tag_physics.check_inputs(state, actions, consts, self.num_agents)
+        out = dict(state)
+        out.update(tag_physics.tag_physics(state, actions, consts,
+                                           self._physics_params()))
+        return out
+
+    def _physics_params(self) -> dict:
+        """The env's scalars as the physics kernel takes them."""
+        return {
+            "grid": float(self.grid_length),
+            "two_pi": float(np.float32(2 * np.pi)),
+            "edge_hit_penalty": float(self.edge_hit_penalty),
+            "margin": float(self.distance_margin_for_reward),
+            "tag_penalty": float(self.tag_penalty_for_runner),
+            "tag_reward": float(self.tag_reward_for_tagger),
+            "end_reward": float(self.end_of_game_reward_for_runner),
+            "episode_length": self.episode_length,
+            "runner_exits": self.runner_exits_game_after_tagged,
+        }
+
+    def physics_plain(self, state: dict, actions: torch.Tensor) -> dict:
+        """The plain PyTorch version of :meth:`physics_fn`, on any device:
+        what the CPU runs, and what the kernel is held to on the card."""
         c = self._consts(state["loc_x"].device)
         t = state[Constants.TIMESTEP] + 1  # (E,)
         still_i = state["still_in_the_game"]  # (E, N) int32

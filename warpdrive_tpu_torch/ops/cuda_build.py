@@ -7,6 +7,12 @@ exports a plain C interface.  At first use, ``nvcc`` compiles it for Hopper
 the digest covers the source, every shared header ``csrc/*.cuh`` and the
 flags, so an edited source or header is rebuilt; ``ctypes`` loads the
 library.  Nothing is compiled when a module is imported.
+
+``LAUNCH_COUNTS`` holds every kernel's launch count, by family: each ops
+module that launches a kernel registers its own ``{kernel: launches}`` dict
+here on import (:func:`register_launch_counts`).  A captured program
+credits them (``core/program.py``) and the tracer reads them as
+``<family>_launches`` (``core/trace.py``), without naming the modules.
 """
 
 from __future__ import annotations
@@ -34,6 +40,21 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict = {}
+
+# family -> the registering module's {kernel: launches}, updated in place
+LAUNCH_COUNTS: dict = {}
+
+
+def register_launch_counts(family: str, counts: dict):
+    """Make ``counts`` the launch counts of ``family``.  A kernel's name
+    belongs to one family: the kNN kernels' stay apart from every other
+    kernel's, since the benchmark reads theirs alone."""
+    for other, known in LAUNCH_COUNTS.items():
+        shared = set(known) & set(counts)
+        if other != family and shared:
+            raise ValueError(f"kernels {sorted(shared)} of {family!r} are "
+                             f"counted by {other!r} already")
+    LAUNCH_COUNTS[family] = counts
 
 
 def _nvcc() -> str:

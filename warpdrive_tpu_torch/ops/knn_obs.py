@@ -59,9 +59,11 @@ sum the 12 terms in their own order, so it is held to the swap class
 instead, as the JAX MXU kernel is held to its oracle
 (:func:`check_swap_class`).
 
-``LAUNCH_COUNTS`` counts kernel launches, one per call that launched it;
-a captured program (``core/program.py``) credits the launches its graph
-replays (:func:`credit_launches`).
+``LAUNCH_COUNTS`` counts kernel launches, one per call that launched it,
+registered as the family ``knn`` (``ops/cuda_build.py``); a replayed CUDA
+graph launches the kernels it captured without running their wrappers, so
+a captured program credits the launches its graph replays
+(``core/program.py:credit_launches``).
 """
 
 from __future__ import annotations
@@ -94,6 +96,7 @@ LAUNCH_COUNTS = {
     "knn_obs_twolevel": 0,
     "knn_obs_envlanes": 0,
 }
+cuda_build.register_launch_counts("knn", LAUNCH_COUNTS)
 
 # what chip_smoke.py reports for each kernel of this module
 KERNELS = {
@@ -205,16 +208,6 @@ def launches_since(before: dict) -> dict:
     of ``LAUNCH_COUNTS``), kernels with none left out."""
     return {name: LAUNCH_COUNTS[name] - before[name]
             for name in LAUNCH_COUNTS if LAUNCH_COUNTS[name] != before[name]}
-
-
-def credit_launches(launches: dict, times: int = 1):
-    """Add ``times`` x ``launches`` (``{kernel: launches}``) to
-    ``LAUNCH_COUNTS``.  A replayed CUDA graph launches the kernels it
-    captured without running their wrappers, so whoever replays it credits
-    the launches that the wrappers counted during the capture
-    (``core/program.py``)."""
-    for name, n in launches.items():
-        LAUNCH_COUNTS[name] += times * n
 
 
 def _check_inputs(loc_x, loc_y, feats, types_f, still_f, t_norm, n_agents, k):
