@@ -35,7 +35,10 @@ beside the kernels.
 A span left open by an exception is taken off the stack, and its
 ``record_function`` range exited, when a span around it ends.
 
-Counters: host syncs (count and host ms blocked) while tracing is on; at
+Counters: host syncs (count and host ms blocked) and host fills of 0-dim
+device scalars outside any graph (``scalar_writes``: the schedules' values,
+learning rates among them, that a trainer writes before its programs run)
+while tracing is on; at
 every capture, on or off (capture is set-up), the node counts of the
 captured graph by type, read through libcuda (:func:`graph_node_counts`);
 and the passes an iteration of each hot update program, set when a trainer
@@ -96,6 +99,7 @@ class _Tracer:
         self.syncs = 0
         self.sync_ns = 0
         self.dropped = 0
+        self.scalar_writes = 0
         # recorded at every capture and build, on or off
         self.programs = weakref.WeakValueDictionary()
         self.graph_nodes = {}
@@ -131,7 +135,7 @@ def enable(device=None, capacity: int = 1 << 16):
     t.first_id += max(t.n, 1)
     t.allocate(int(capacity))
     t.device, t.clock = device, DeviceClock(device)
-    t.syncs, t.sync_ns, t.dropped = 0, 0, 0
+    t.syncs, t.sync_ns, t.dropped, t.scalar_writes = 0, 0, 0, 0
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         t.anchor = torch.cuda.Event(enable_timing=True)
@@ -155,7 +159,7 @@ def reset():
     t = _T
     t.first_id += max(t.n, 1)
     t.allocate(0)
-    t.syncs, t.sync_ns, t.dropped = 0, 0, 0
+    t.syncs, t.sync_ns, t.dropped, t.scalar_writes = 0, 0, 0, 0
     t.programs = weakref.WeakValueDictionary()
     t.graph_nodes, t.update_passes = {}, {}
 
@@ -230,6 +234,12 @@ def count_sync(device):
     _T.sync_ns += _now() - t0
 
 
+def count_scalar_write():
+    """A host fill of a 0-dim device scalar outside any graph (a call
+    site checks :data:`ON` first)."""
+    _T.scalar_writes += 1
+
+
 def record_capture(program):
     """The ``Program`` ``program`` has captured its graph: keep its
     ``graph_nodes`` (the node counts by type, :func:`graph_node_counts`;
@@ -248,7 +258,8 @@ def record_update_passes(program: str, passes: int):
 
 
 def counters() -> dict:
-    """Every counter: ``syncs``, ``sync_ms`` and ``dropped`` (while on),
+    """Every counter: ``syncs``, ``sync_ms``, ``dropped`` and
+    ``scalar_writes`` (while on),
     ``graph_nodes`` and ``update_passes`` (at every capture and build),
     ``replays`` (``Program.replays`` of each captured program still alive,
     by name: the latest of a name) and ``<family>_launches`` for each
@@ -258,7 +269,7 @@ def counters() -> dict:
 
     t = _T
     return {"syncs": t.syncs, "sync_ms": 1e-6 * t.sync_ns,
-            "dropped": t.dropped,
+            "dropped": t.dropped, "scalar_writes": t.scalar_writes,
             "replays": {name: program.replays
                         for name, program in t.programs.items()},
             "graph_nodes": {k: dict(v) for k, v in t.graph_nodes.items()},

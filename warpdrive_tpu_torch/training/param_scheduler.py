@@ -6,12 +6,15 @@ constant or a piecewise-linear-in-timestep schedule, evaluated on the host:
 :meth:`get_param_value` in float64, :meth:`value_at` as the float32 value
 the JAX update multiplies by.  A captured update reads its schedules from
 0-dim device scalars, which :meth:`write_to` fills with that float32 value
-before each iteration (a host value would be baked into the graph).
+before each iteration (a host value would be baked into the graph), and
+counts as the tracer's ``scalar_writes`` while tracing is on.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from warpdrive_tpu_torch.core import trace
 
 
 class ParamScheduler:
@@ -54,4 +57,6 @@ class ParamScheduler:
     def write_to(self, scalar, timestep):
         """Fill the 0-dim float32 tensor ``scalar`` with
         :meth:`value_at` ``(timestep)``, bit for bit."""
+        if trace.ON:
+            trace.count_scalar_write()
         scalar.fill_(float(self.value_at(timestep)))

@@ -375,6 +375,8 @@ class UpdatePass:
 
     def _begin(self, timestep, lr, index_table):
         opts, mesh = self.opts, self.mesh
+        if trace.ON:
+            trace.count_scalar_write()
         self.lr.fill_(float(lr))
         self.algo.vf_loss_coeff_schedule.write_to(self.vf_coeff, timestep)
         self.algo.entropy_coeff_schedule.write_to(self.ent_coeff, timestep)

@@ -37,9 +37,11 @@ window fills) variant (``_iteration_programmed``).  Everything they read
 and write is a static buffer written in place -- env state, OU state,
 rows, window, episodic sums, nets, targets, Adam moments and counts, the
 step counter and the OU schedules, learning rates and tau as 0-dim device
-scalars.  On the eager host-env backend the rollout steps the host and
-the append and update run as programs.  Elsewhere (the CPU, a gloo mesh)
-the eager iteration calls the same bodies op by op.
+scalars, which the host fills before the rollout (the tracer's span
+``ddpg.schedules``, one an iteration; each fill counts as a
+``scalar_writes``).  On the eager host-env backend the rollout steps the
+host and the append and update run as programs.  Elsewhere (the CPU, a
+gloo mesh) the eager iteration calls the same bodies op by op.
 
 ``trainer.batch_dtype`` (e.g. ``bfloat16``) is the replay window's
 observation dtype; the nets promote such observations against their
@@ -337,11 +339,19 @@ class TrainerDDPG(TrainerBase):
 
     # ------------------------------------------------------------ rollout
     def _write_schedules(self, timestep):
-        """The OU schedules' values at ``timestep`` into their scalars."""
+        """The iteration's host writes, before its rollout on every path:
+        the OU schedules' values at ``timestep`` and both learning rates of
+        every trained policy into their scalars; the tracer's span
+        ``ddpg.schedules``."""
+        span = trace.begin("ddpg.schedules") if trace.ON else 0
         for name, schedule in (("damping", self.ou_damping),
                                ("stddev", self.ou_stddev),
                                ("scale", self.ou_scale)):
             schedule.write_to(self._sched[name], timestep)
+        for tag in self.policies_to_train:
+            self._write_lrs(tag, timestep)
+        if span:
+            trace.end(span)
 
     def _presample_ou_noise(self, stddev) -> dict:
         """One ``stddev * N(0, 1)`` draw of shape ``(T, E, A_p, C)`` per
@@ -487,24 +497,29 @@ class TrainerDDPG(TrainerBase):
             step=variant != "warm", remat=self.remat[tag], mesh=self.mesh,
             with_metrics=variant != "hot")
 
-    def _lrs_at(self, tag: str, timestep) -> dict:
-        """Both nets' learning rates at ``timestep``, written into their
-        scalars; returns the host values."""
-        lrs = {}
+    def _write_lrs(self, tag: str, timestep):
+        """Both nets' learning rates at ``timestep`` into their scalars."""
         for net in _NETS:
-            schedule = self.lr_schedules[net][tag]
-            schedule.write_to(self._lr[net][tag], timestep)
-            lrs[net] = schedule.value_at(timestep)
-        return lrs
+            self.lr_schedules[net][tag].write_to(self._lr[net][tag],
+                                                 timestep)
+
+    def _lrs_at(self, tag: str, timestep) -> dict:
+        """Both nets' learning rates at ``timestep``, host values."""
+        return {net: self.lr_schedules[net][tag].value_at(timestep)
+                for net in _NETS}
 
     def _replay_update(self, rows: dict, timestep) -> dict:
         """Append ``rows`` (the static rows, or rows a test passes) to the
         replay window and update every trained policy, eagerly: the step
         once the window is full, the metrics always; returns the metric
-        tensors per policy."""
+        tensors per policy.  Rows a caller passes come without the
+        rollout, whose :meth:`_write_schedules` writes the learning rates:
+        they are written here for them."""
         if rows is not self._rows:
             for key, value in rows.items():
                 self._rows[key].copy_(value)
+            for tag in self.policies_to_train:
+                self._write_lrs(tag, timestep)
         self._append()
         is_full = self._fill_after_append()
         metrics = {}
@@ -601,11 +616,12 @@ class TrainerDDPG(TrainerBase):
         return self._rows
 
     def _update_programmed(self, timestep, full: bool = True) -> dict:
-        """The append program, then per trained policy its learning rates
-        into their scalars and, once the window is full, the full or the
-        hot update program; while it fills, the warm program where metrics
-        are asked for and nothing otherwise (the host's fill count is the
-        gate: nothing moves and Adam's count stays, as JAX's
+        """The append program, then per trained policy (its learning
+        rates written with the OU schedules, :meth:`_write_schedules`),
+        once the window is full, the full or the hot update program;
+        while it fills, the warm program where metrics are asked for and
+        nothing otherwise (the host's fill count is the gate: nothing
+        moves and Adam's count stays, as JAX's
         ``jnp.where``-selected state).  The full variant returns the metric
         tensors per policy, the hot one ``{}``."""
         if self._programs is None:
@@ -614,13 +630,13 @@ class TrainerDDPG(TrainerBase):
         is_full = self._fill_after_append()
         metrics = {}
         for tag in self.policies_to_train:
-            lrs = self._lrs_at(tag, timestep)
             if is_full:
                 out = self._programs[tag, "full" if full else "hot"]()
             elif full:
                 out = self._programs[tag, "warm"]()
             if full:
-                metrics[tag] = finish_metrics(out, timestep, lrs, is_full)
+                metrics[tag] = finish_metrics(
+                    out, timestep, self._lrs_at(tag, timestep), is_full)
         return metrics
 
     def _iteration_programmed(self, timestep, full: bool = True) -> dict:
