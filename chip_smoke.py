@@ -269,7 +269,13 @@ Phases, each of which raises (and so exits non-zero) on a failure:
    flagship's (1024, 105, T = 5) and the training config's (100, 110,
    T = 10) rolled states: against ``physics_plain`` bit for bit (every
    field, the sign of a zero included), and timed the same way beside
-   its byte bound and the plain version.
+   its byte bound and the plain version; and the categorical-draw kernel
+   (``csrc/gumbel_sample.cu``) at the training rollout's two policies'
+   shapes (10,000 and 1,000 rows of 21 + 21 logits) and the flagship's
+   (102,400 and 5,120 rows), each team size at two of them: against
+   ``draw_heads_plain`` bit for bit, timed the same way, and captured
+   with its uniform draws beside the stacked ``sample_from_logits``
+   (kernel nodes and device time a draw of each).
 
 The last three lines are the card (``nvidia-smi``'s name and power limit),
 one JSON object with a record per kernel, and the result line
@@ -305,10 +311,23 @@ _KERNEL_SYMBOLS = ("scan_kernel", "tile_kernel", "ladder_kernel",
                    "envlanes_kernel")
 # the device function of the TagContinuous physics kernel
 _PHYSICS_SYMBOL = "tag_physics_kernel"
+# the device function of the categorical-draw kernel (one instance a team
+# size) and the draws of the training rollout and of the flagship's
+# full_loop_step: two heads of 21 logits, slices of one fused (..., 43)
+# output, for the runners (100 envs x 100; 1024 x 100) and the taggers (100
+# envs x 10; 1024 x 5)
+_SAMPLER_SYMBOL = "gumbel_sample_kernel"
+SAMPLER_SHAPES = {"runner": (100, 100), "tagger": (100, 10),
+                  "flagship runner": (1024, 100),
+                  "flagship tagger": (1024, 5)}
+SAMPLER_WIDTHS = (21, 21)
+SAMPLER_GRAPH_DRAWS = 20
 # the physics kernel's launches on each main path of phases 4a-4l, each
 # path's own count checked against its steps (``_physics_path``); the
 # kernel's record in the kernels line sums them
 _PHYSICS_PATHS: dict = {}
+# the same for the categorical-draw kernel (``_sampler_path``)
+_SAMPLER_PATHS: dict = {}
 
 DEVICE = "cuda"
 NUM_ENVS = 1024
@@ -976,15 +995,19 @@ def _drive_knn_loops(rolled):
             assert counts == expected, f"launches {counts}, expected {expected}"
             _physics_path(f"4e {algo} {loop}", r["physics_launches"],
                           MAIN_PATH_STEPS)
+            _sampler_path(f"4e {algo} {loop}", r["sampler_launches"],
+                          _draws_a_step(loop) * MAIN_PATH_STEPS)
             results[algo, loop], launches[algo, loop] = r, counts
     return results, launches
 
 
 def _drive_main_path(system, generator):
-    """Both loops at full width; returns per-loop timings and launches."""
+    """Both loops at full width; returns per-loop timings (with each
+    loop's draw launches, ``sampler_launches``, counted from 0) and the kNN
+    launches."""
     import torch
 
-    from warpdrive_tpu_torch.ops import knn_obs, tag_physics
+    from warpdrive_tpu_torch.ops import gumbel_sample, knn_obs, tag_physics
 
     env_only = system["env_only_step"]
     full_loop = system["full_loop_step"]
@@ -1001,6 +1024,7 @@ def _drive_main_path(system, generator):
     tag_physics.reset_launch_counts()
     result = {}
     for name in ("env_only_step", "full_loop_step"):
+        gumbel_sample.reset_launch_counts()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -1019,6 +1043,7 @@ def _drive_main_path(system, generator):
             "env_steps_per_s": system["num_envs"] / (ms / 1e3),
             "host_s": host_s,
             "launches_after": dict(knn_obs.LAUNCH_COUNTS),
+            "sampler_launches": gumbel_sample.LAUNCH_COUNTS["gumbel_sample"],
         }
     launches = dict(knn_obs.LAUNCH_COUNTS)
     _check_loop_state(state, checksum,
@@ -1048,15 +1073,31 @@ def _physics_path(label, launches, want):
     _PHYSICS_PATHS[label] = _PHYSICS_PATHS.get(label, 0) + launches
 
 
+def _draws_a_step(loop):
+    """The draw kernel's launches a flagship step of ``loop``: one a policy
+    (runners, taggers) in ``full_loop_step``, none in ``env_only_step``,
+    whose actions are drawn with ``randint``."""
+    return 2 if loop == "full_loop_step" else 0
+
+
+def _sampler_path(label, launches, want):
+    """The draw kernel's ``launches`` on the main path ``label``, counted
+    from 0 on that path, must be ``want``; kept for the kernel's record."""
+    assert launches == want, (
+        f"{label}: {launches} draw launches, expected {want}")
+    _SAMPLER_PATHS[label] = _SAMPLER_PATHS.get(label, 0) + launches
+
+
 def _time_loop(system, generator, steps, loop="env_only_step", warmup=5):
     """``warmup`` then ``steps`` steps of ``loop`` (``env_only_step`` or
     ``full_loop_step``); the launch counts, the kNN kernels' and the
-    physics kernel's, are set to 0 after the warm-up and read after the
-    timed steps.  Returns the timings (with ``physics_launches``), the kNN
-    counts and the final state."""
+    physics kernel's and the draw kernel's, are set to 0 after the warm-up
+    and read after the timed steps.  Returns the timings (with
+    ``physics_launches`` and ``sampler_launches``), the kNN counts and the
+    final state."""
     import torch
 
-    from warpdrive_tpu_torch.ops import knn_obs, tag_physics
+    from warpdrive_tpu_torch.ops import gumbel_sample, knn_obs, tag_physics
 
     step = system[loop]
     state = system["state"]
@@ -1072,6 +1113,7 @@ def _time_loop(system, generator, steps, loop="env_only_step", warmup=5):
     torch.cuda.synchronize()
     knn_obs.reset_launch_counts()
     tag_physics.reset_launch_counts()
+    gumbel_sample.reset_launch_counts()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -1083,6 +1125,7 @@ def _time_loop(system, generator, steps, loop="env_only_step", warmup=5):
     host_s = time.perf_counter() - t0
     launches = dict(knn_obs.LAUNCH_COUNTS)
     physics = tag_physics.LAUNCH_COUNTS["tag_physics"]
+    sampler = gumbel_sample.LAUNCH_COUNTS["gumbel_sample"]
     _check_loop_state(state, checksum,
                       (system["num_envs"], system["num_agents"]))
     ms = start.elapsed_time(stop) / steps
@@ -1090,7 +1133,8 @@ def _time_loop(system, generator, steps, loop="env_only_step", warmup=5):
             "env_steps_per_s": system["num_envs"] / (ms / 1e3),
             "agent_steps_per_s": system["num_envs"] * system["num_agents"]
             / (ms / 1e3),
-            "host_s": host_s, "physics_launches": physics}, launches, state
+            "host_s": host_s, "physics_launches": physics,
+            "sampler_launches": sampler}, launches, state
 
 
 def _drive_many_agents():
@@ -1119,6 +1163,7 @@ def _drive_many_agents():
         expected[kernel] = MANY_AGENT_STEPS
         assert counts == expected, f"launches {counts}, expected {expected}"
         _physics_path(f"4c {algo}", r["physics_launches"], MANY_AGENT_STEPS)
+        _sampler_path(f"4c {algo}", r["sampler_launches"], 0)
         systems[algo], results[algo], launches[algo] = system, r, counts
     # the same loops in the reverse order, so that each loop's wall is read
     # both early and late in the run; each system keeps the state of its
@@ -1134,6 +1179,7 @@ def _drive_many_agents():
         expected[kernel] = MANY_AGENT_STEPS
         assert counts == expected, f"launches {counts}, expected {expected}"
         _physics_path(f"4c {algo}", r["physics_launches"], MANY_AGENT_STEPS)
+        _sampler_path(f"4c {algo}", r["sampler_launches"], 0)
         launches[f"{algo}, reverse order"] = counts
     return systems, results, launches
 
@@ -1144,18 +1190,20 @@ def _drive_training(run_config, before_train=None):
     kNN kernels' and the physics kernel's, set to 0 just before and read
     just after; ``before_train(trainer)``, when given, runs between the
     two.  Returns the trainer, the kNN counts and the set-up and training
-    seconds with the physics launches (``physics_launches``)."""
+    seconds with the physics and the draw kernel's launches
+    (``physics_launches``, ``sampler_launches``)."""
     import math
 
     import torch
 
-    from warpdrive_tpu_torch.ops import knn_obs, tag_physics
+    from warpdrive_tpu_torch.ops import gumbel_sample, knn_obs, tag_physics
     from warpdrive_tpu_torch.training.scripts.train import setup_trainer
 
     results_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         knn_obs.reset_launch_counts()
         tag_physics.reset_launch_counts()
+        gumbel_sample.reset_launch_counts()
         t0 = time.perf_counter()
         trainer = setup_trainer(run_config, results_dir=results_dir,
                                 verbose=False, device=DEVICE)
@@ -1171,6 +1219,7 @@ def _drive_training(run_config, before_train=None):
         train_s = time.perf_counter() - t0
         launches = dict(knn_obs.LAUNCH_COUNTS)
         physics = tag_physics.LAUNCH_COUNTS["tag_physics"]
+        sampler = gumbel_sample.LAUNCH_COUNTS["gumbel_sample"]
 
         with open(Path(results_dir) / "results.json", encoding="utf-8") as f:
             last = json.loads(f.read().splitlines()[-1])
@@ -1196,7 +1245,8 @@ def _drive_training(run_config, before_train=None):
               f"update {upd_ms:.3f} ms, "
               f"{steps / ((roll_ms + upd_ms) / 1e3):.0f} env-steps/s")
     return trainer, launches, {"setup_s": setup_s, "train_s": train_s,
-                               "physics_launches": physics}
+                               "physics_launches": physics,
+                               "sampler_launches": sampler}
 
 
 def _update_card_vs_cpu(trainer, envs=UPDATE_ENVS, float64=False):
@@ -1672,6 +1722,89 @@ def _time_physics(env, state, label):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
 
 
+def _sampler_bound_ms(rows, widths):
+    """Least time for the draw on the card: each logit and uniform read
+    once and an int32 written a row and head, at the HBM rate; two logf
+    and an add an element lie far below the float32 peak: bytes."""
+    nbytes = 4 * rows * 2 * sum(widths) + 4 * rows * len(widths)
+    return 1e3 * nbytes / _PEAK_BYTES_PER_S, nbytes
+
+
+def _time_sampler(lead, label):
+    """The categorical-draw kernel on head slices of one fused output of
+    ``lead`` rows: against ``draw_heads_plain`` bit for bit; then the
+    kernel's time back to back (21 x 50 calls) and its own device time
+    (profiler, 50 calls), and the plain version's (11 x 5) on the same
+    uniforms, beside the bound;
+    and ``sample_heads`` against the stacked ``sample_from_logits``, each
+    captured as a program of ``SAMPLER_GRAPH_DRAWS`` draws with their
+    uniform draws, so that the card and not the host's call paces a
+    replay: the kernel nodes and the device time of one draw (a replay's,
+    median of 21 x 10, over the draws)."""
+    import torch
+
+    from warpdrive_tpu_torch.core.program import Program
+    from warpdrive_tpu_torch.ops import gumbel_sample
+    from warpdrive_tpu_torch.sampling.samplers import (
+        draw_heads_plain,
+        sample_from_logits,
+        sample_heads,
+    )
+
+    widths = SAMPLER_WIDTHS
+    gen = torch.Generator(device=DEVICE).manual_seed(sum(lead))
+    fused = 3.0 * torch.randn(lead + (sum(widths) + 1,), generator=gen,
+                              device=DEVICE)
+    heads = [fused[..., :widths[0]], fused[..., widths[0]:sum(widths)]]
+    uniforms = [torch.rand(h.shape, generator=gen, device=DEVICE)
+                for h in heads]
+    plain = draw_heads_plain(heads, uniforms)
+    got = gumbel_sample.gumbel_sample(heads, uniforms)
+    torch.cuda.synchronize()
+    bad = int((got != plain).sum())
+    assert bad == 0, f"sampler [{label}]: {bad} draws differ"
+
+    def call():
+        gumbel_sample.gumbel_sample(heads, uniforms)
+
+    kernel_b2b = _cuda_ms(call, repeats=21, inner=50)
+    kernel_dev = _kernel_device_ms(call, symbols=(_SAMPLER_SYMBOL,))
+    plain_ms = _cuda_ms(lambda: draw_heads_plain(heads, uniforms),
+                        repeats=11, inner=5)
+    rows = plain.numel() // len(widths)
+    bound_ms, nbytes = _sampler_bound_ms(rows, widths)
+
+    graphs = {}
+    for name, draw in (
+            ("kernel", lambda g: sample_heads(heads, g)),
+            ("stacked", lambda g: torch.stack(
+                [sample_from_logits(h, g) for h in heads], dim=-1))):
+        g = torch.Generator(device=DEVICE).manual_seed(1)
+        out = torch.empty_like(plain)
+
+        def body(draw=draw, g=g, out=out):
+            for _ in range(SAMPLER_GRAPH_DRAWS):
+                out.copy_(draw(g))
+
+        program = Program(body, {"fused": fused, "out": out}, DEVICE,
+                          generators=(g,), name=f"draw {name}")
+        program()
+        graphs[name] = (
+            program.graph_nodes["kernel"] / SAMPLER_GRAPH_DRAWS,
+            _cuda_ms(program, repeats=21, inner=10) / SAMPLER_GRAPH_DRAWS)
+    print(f"gumbel_sample [{label}] at {rows} rows x {widths}: bit for bit "
+          f"with draw_heads_plain; kernel "
+          f"{kernel_b2b:.5f} ms back to back, {kernel_dev:.5f} ms device, "
+          f"plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms (bytes: "
+          f"{nbytes}); {100 * bound_ms / kernel_dev:.1f}% of bound; "
+          "captured, a draw: "
+          + ", ".join(f"{n} {k:g} kernel nodes (its copy out included) "
+                      f"{ms:.5f} ms" for n, (k, ms) in graphs.items()))
+    return {"max_abs_err": 0.0, "ms": kernel_b2b, "device_ms": kernel_dev,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "graphs": {n: list(v) for n, v in graphs.items()}}
+
+
 def _ddpg_config(name):
     """A DDPG run config at full width, cut to ``DDPG_TRAIN_ITERS``
     iterations, trainer and env seeds 0 (the env draws its initial state
@@ -1962,6 +2095,8 @@ def _drive_tuned_training():
     assert launches == expected, f"launches {launches}, expected {expected}"
     _physics_path("4j tuned flagship training", times["physics_launches"],
                   TUNED_ITERS * TUNED_STEPS)
+    _sampler_path("4j tuned flagship training", times["sampler_launches"],
+                  len(trainer.policies) * TUNED_ITERS * TUNED_STEPS)
     for tag, model in trainer.models.items():
         opts = trainer.update_options[tag]
         assert model.dtype == torch.bfloat16, tag
@@ -2010,6 +2145,9 @@ def _drive_tuned_training():
         f"launches {rec_launches}, expected {expected}"
     _physics_path("4j tuned flagship, update_recompute_obs",
                   rec_times["physics_launches"], TUNED_STEPS)
+    _sampler_path("4j tuned flagship, update_recompute_obs",
+                  rec_times["sampler_launches"],
+                  len(rec.policies) * TUNED_STEPS)
     batch = rec._batch
     assert not any(key.startswith("obs_") for key in batch)
     phys_gb = sum(v.numel() * v.element_size()
@@ -2324,6 +2462,9 @@ def _drive_full_obs_training():
     T = trainer.training_batch_size_per_env
     _physics_path("4l tag_continuous, full observation",
                   times["physics_launches"], trainer.num_iters * T)
+    _sampler_path("4l tag_continuous, full observation",
+                  times["sampler_launches"],
+                  len(trainer.policies) * trainer.num_iters * T)
     obs_bytes = sum(v.numel() * v.element_size()
                     for k, v in trainer._batch.items()
                     if k.startswith("obs_"))
@@ -4438,7 +4579,12 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from warpdrive_tpu_torch.ops import cuda_build, knn_obs, tag_physics
+    from warpdrive_tpu_torch.ops import (
+        cuda_build,
+        gumbel_sample,
+        knn_obs,
+        tag_physics,
+    )
     from warpdrive_tpu_torch.presets import build_flagship, build_many_agents
     from warpdrive_tpu_torch.utils.config import load_run_config
 
@@ -4533,6 +4679,9 @@ def main(argv=None) -> int:
     _physics_path("4a flagship loops",
                   tag_physics.LAUNCH_COUNTS["tag_physics"],
                   2 * MAIN_PATH_STEPS)
+    for name, r in loops.items():
+        _sampler_path(f"4a flagship {name}", r["sampler_launches"],
+                      _draws_a_step(name) * MAIN_PATH_STEPS)
 
     # 4b. the training path, counts from 0
     trainer, train_launches, train_times = _drive_training(run_config)
@@ -4548,6 +4697,11 @@ def main(argv=None) -> int:
     _physics_path("4b tag_continuous training",
                   train_times["physics_launches"],
                   trainer.num_iters * trainer.training_batch_size_per_env)
+    # one draw launch a policy and rollout step
+    _sampler_path("4b tag_continuous training",
+                  train_times["sampler_launches"],
+                  len(trainer.policies) * trainer.num_iters
+                  * trainer.training_batch_size_per_env)
     later = trainer.phase_ms[1:]
     roll_ms = statistics.mean(r for r, _ in later)
     upd_ms = statistics.mean(u for _, u in later)
@@ -4572,6 +4726,8 @@ def main(argv=None) -> int:
         f"launches {fast_launches}, expected {expected}"
     _physics_path("4d pallas_flat env_only_step",
                   fast_loop["physics_launches"], MAIN_PATH_STEPS)
+    _sampler_path("4d pallas_flat env_only_step",
+                  fast_loop["sampler_launches"], 0)
 
     # 4e. the flagship loops of K6-K9, counts from 0 before each
     knn_loops, knn_launches = _drive_knn_loops(knn_rolled)
@@ -4665,6 +4821,9 @@ def main(argv=None) -> int:
     physics_launches = sum(_PHYSICS_PATHS.values())
     print(f"physics launches on the main paths: {physics_launches} "
           f"({_PHYSICS_PATHS})")
+    sampler_launches = sum(_SAMPLER_PATHS.values())
+    print(f"draw launches on the main paths: {sampler_launches} "
+          f"({_SAMPLER_PATHS})")
 
     # 5. kernel vs plain and their times at the main paths' shapes
     many_args = _knn_args(many["pallas_flat_exact"]["env"],
@@ -4754,6 +4913,9 @@ def main(argv=None) -> int:
             *_training_env_state(run_config, ROLLED_STEPS, seed=1),
             "training state"),
     }
+    # the categorical-draw kernel at the training rollout's shapes
+    sampler = {policy: _time_sampler(lead, policy)
+               for policy, lead in SAMPLER_SHAPES.items()}
     for variant in ("tiled", "tiled_mxudist_exact"):  # K5's other modes
         max_abs["knn_obs_tiled"] = max(max_abs["knn_obs_tiled"], _compare_knn(
             many_label, *many_args, variant, tol=EXACT_TOL))
@@ -4880,6 +5042,23 @@ def main(argv=None) -> int:
         "training_shape": {key: physics["training"][key]
                            for key in ("ms", "device_ms", "plain_ms",
                                        "bound_ms")},
+        "library_ms": None,
+    })
+    # the draw kernel: its launches on the main paths and its times at the
+    # training runners' shape (the other shapes' in their own records)
+    kernels.append({
+        "name": "gumbel_sample",
+        **gumbel_sample.KERNEL,
+        "launches": sampler_launches,
+        "max_abs_err": 0.0,
+        **{key: sampler["runner"][key]
+           for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                       "graphs")},
+        "other_shapes": {
+            policy: {key: sampler[policy][key]
+                     for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "graphs")}
+            for policy in SAMPLER_SHAPES if policy != "runner"},
         "library_ms": None,
     })
     print(card)

@@ -10,7 +10,11 @@ its update against the CPU's and a full-state resume, and the ring
 buffer's storage on the card; a served bundle, the repo's JAX checkpoints
 (K2) and the eager host-env backend with the policy on the card; the
 TagContinuous physics kernel against ``physics_plain`` on rolled states,
-and the flagship step and the training rollout launching it once a step.
+and the flagship step and the training rollout launching it once a step;
+the categorical-draw kernel (``sample_heads``) against the stacked
+``sample_from_logits`` at the rollout's shapes, on masked heads, planted
+ties and NaN logits, and the captured rollout step against its eager body
+with two draw launches a replay.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The file imports no JAX,
 so on a machine with a card and no JAX it runs without the repo's
@@ -35,19 +39,25 @@ from test_torch_knn_warp_order import near_tie_coords
 from warpdrive_tpu_torch.envs.classic_control.cartpole import (
     TorchClassicControlCartPoleEnv,
 )
-from warpdrive_tpu_torch.core.program import Program, plain_calls
+from warpdrive_tpu_torch.core.program import Program, _leaves, plain_calls
 from warpdrive_tpu_torch.envs.engine import EnvEngine
 from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
 from warpdrive_tpu_torch.envs.tag_gridworld import (
     TorchTagGridWorld,
     TorchTagGridWorldWithResetPool,
 )
-from warpdrive_tpu_torch.ops import knn_obs, tag_physics
+from warpdrive_tpu_torch.models.fully_connected import apply_logit_mask
+from warpdrive_tpu_torch.ops import gumbel_sample, knn_obs, tag_physics
 from warpdrive_tpu_torch.presets import (
     build_flagship,
     build_many_agents,
     captured_loop,
     random_actions_fn,
+)
+from warpdrive_tpu_torch.sampling.samplers import (
+    draw_heads_plain,
+    sample_from_logits,
+    sample_heads,
 )
 from warpdrive_tpu_torch.tools.consistency import (
     check_pool_reset,
@@ -1082,3 +1092,231 @@ def test_program_captures_with_automatic_collection_off_on_card(card):
     torch.cuda.synchronize()
     assert seen == [True, False] and gc.isenabled()
     assert float(x[0]) == 2.0
+
+
+# ------------------------------------------------ the categorical draw
+# the rollout's policies in the tag_continuous run config: runners (100
+# envs x 100) and taggers (100 envs x 10), and the flagship's (1024 envs x
+# 100 and x 5), two heads of 21 logits each, slices of one fused (..., 43)
+# head output with the value
+_POLICY_SHAPES = {"runner": (100, 100), "tagger": (100, 10),
+                  "flagship runner": (1024, 100),
+                  "flagship tagger": (1024, 5)}
+_HEAD_WIDTHS = (21, 21)
+
+
+def _fused_heads(lead, widths, seed, device, scale=3.0):
+    """Head slices of one fused ``lead + (sum(widths) + 1,)`` output, as
+    ``FullyConnected`` returns them: a row stride wider than a head."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    fused = scale * torch.randn(lead + (sum(widths) + 1,), generator=gen,
+                                device=device)
+    starts = np.cumsum((0,) + tuple(widths))
+    return [fused[..., a:b] for a, b in zip(starts[:-1], starts[1:])]
+
+
+def _stacked_draws(heads, generator):
+    """The draw as the rollout made it before the kernel: one
+    ``sample_from_logits`` a head, stacked."""
+    return torch.stack([sample_from_logits(h, generator) for h in heads],
+                       dim=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", sorted(_POLICY_SHAPES))
+def test_sample_heads_matches_the_stacked_draws_on_card(card, policy):
+    """At the training rollout's and the flagship's shapes (both team
+    sizes), over 20 seeds: ``sample_heads`` on the card equals the stacked
+    ``sample_from_logits`` from a generator seeded alike, bit for bit, in
+    one launch a call, and leaves the generator where they leave theirs;
+    the kernel equals ``draw_heads_plain`` on further uniforms."""
+    lead = _POLICY_SHAPES[policy]
+    for seed in range(20):
+        heads = _fused_heads(lead, _HEAD_WIDTHS, seed, card)
+        ours = torch.Generator(device=card).manual_seed(1000 + seed)
+        theirs = torch.Generator(device=card).manual_seed(1000 + seed)
+        launches = gumbel_sample.LAUNCH_COUNTS["gumbel_sample"]
+        got = sample_heads(heads, ours)
+        assert gumbel_sample.LAUNCH_COUNTS["gumbel_sample"] == launches + 1
+        want = _stacked_draws(heads, theirs)
+        assert got.dtype == torch.int32 and got.shape == lead + (2,)
+        assert torch.equal(got, want), seed
+        assert torch.equal(torch.rand(8, generator=ours, device=card),
+                           torch.rand(8, generator=theirs, device=card))
+        uniforms = [torch.rand(h.shape, generator=ours, device=card)
+                    for h in heads]
+        assert torch.equal(gumbel_sample.gumbel_sample(heads, uniforms),
+                           draw_heads_plain(heads, uniforms)), seed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [(5,), (5, 3, 21, 1), (40, 70)])
+def test_sample_heads_takes_any_head_widths_on_card(card, widths):
+    """A Discrete head of width 5, mixed widths (one of 1) and heads wider
+    than a warp: bit for bit with the stacked draws."""
+    for seed in range(5):
+        heads = _fused_heads((1000,), widths, seed, card)
+        got = sample_heads(
+            heads, torch.Generator(device=card).manual_seed(seed))
+        want = _stacked_draws(
+            heads, torch.Generator(device=card).manual_seed(seed))
+        assert torch.equal(got, want), seed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead", [(1000,), (100, 100)])
+@pytest.mark.parametrize("count", [9, 16])
+def test_sample_heads_takes_more_heads_than_a_launch_on_card(card, count,
+                                                             lead):
+    """9 and 16 heads of mixed widths, at both team sizes: one launch a
+    group of ``HEADS_A_LAUNCH`` heads, each writing its columns of one
+    output, bit for bit with ``draw_heads_plain`` and with the stacked
+    draws."""
+    widths = tuple(1 + (7 * c) % 30 for c in range(count))
+    for seed in range(3):
+        heads = _fused_heads(lead, widths, 100 + seed, card)
+        launches = gumbel_sample.LAUNCH_COUNTS["gumbel_sample"]
+        got = sample_heads(
+            heads, torch.Generator(device=card).manual_seed(seed))
+        assert gumbel_sample.LAUNCH_COUNTS["gumbel_sample"] == launches + 2
+        want = _stacked_draws(
+            heads, torch.Generator(device=card).manual_seed(seed))
+        assert got.shape == lead + (count,)
+        assert torch.equal(got, want), seed
+        gen = torch.Generator(device=card).manual_seed(50 + seed)
+        uniforms = [torch.rand(h.shape, generator=gen, device=card)
+                    for h in heads]
+        assert torch.equal(gumbel_sample.gumbel_sample(heads, uniforms),
+                           draw_heads_plain(heads, uniforms)), seed
+
+
+@pytest.mark.cuda
+def test_sample_heads_never_draws_a_masked_action_on_card(card):
+    """Heads masked by ``apply_logit_mask`` (contiguous: the mask makes a
+    new tensor): bit for bit with the stacked draws, and no masked action
+    drawn."""
+    heads = _fused_heads((100, 100), _HEAD_WIDTHS, 7, card)
+    gen = torch.Generator(device=card).manual_seed(8)
+    masks = [(torch.rand(h.shape, generator=gen, device=card) > 0.5)
+             .float() for h in heads]
+    for m in masks:
+        m[..., 3] = 1.0  # every row keeps an action
+    masked = [apply_logit_mask(h, m) for h, m in zip(heads, masks)]
+    got = sample_heads(masked, torch.Generator(device=card).manual_seed(9))
+    want = _stacked_draws(masked,
+                          torch.Generator(device=card).manual_seed(9))
+    assert torch.equal(got, want)
+    for c, m in enumerate(masks):
+        kept = torch.gather(m, -1, got[..., c:c + 1].long())
+        assert (kept == 1.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4096, 16384])
+def test_sample_heads_breaks_ties_to_the_lowest_index_on_card(card, rows):
+    """Planted ties: equal logits and equal uniforms at two to four
+    indices of a row, the rest below; the lowest index of the tie wins,
+    as ``torch.argmax`` picks it, at both team sizes (a warp a row at 4,096
+    rows, 8 lanes at 16,384)."""
+    width = 21
+    rng = np.random.RandomState(12)
+    logits = rng.uniform(-5.0, -4.0, (rows, width)).astype(np.float32)
+    u = np.full((rows, width), 0.25, np.float32)
+    lowest = np.empty(rows, np.int32)
+    for r in range(rows):
+        at = np.sort(rng.choice(width, rng.randint(2, 5), replace=False))
+        logits[r, at] = 1.0
+        u[r, at] = 0.75
+        lowest[r] = at[0]
+    logits, u = (torch.from_numpy(x).to(card) for x in (logits, u))
+    plain = draw_heads_plain([logits], [u])
+    assert plain[:, 0].tolist() == lowest.tolist()
+    gumbel_sample.check_inputs([logits], [u])
+    assert torch.equal(gumbel_sample.gumbel_sample([logits], [u]), plain)
+    # a whole row alike: index 0
+    flat = gumbel_sample.gumbel_sample(
+        [torch.zeros((rows, width), device=card)],
+        [torch.full((rows, width), 0.5, device=card)])
+    assert (flat == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead", [(64, 32), (64, 256)])
+def test_sample_heads_takes_a_nan_logit_as_the_largest_on_card(card, lead):
+    """A NaN logit is the largest, as ``torch.argmax`` counts it on the
+    card, and of two NaNs the lower index wins: bit for bit with the plain
+    chain, at both team sizes (2,048 and 16,384 rows)."""
+    heads = _fused_heads(lead, _HEAD_WIDTHS, 13, card)
+    heads = [h.clone() for h in heads]
+    heads[0][0, :, 17] = float("nan")
+    heads[0][1, :, 4] = float("nan")
+    heads[0][1, :, 9] = float("nan")
+    heads[1][2, 5, 20] = float("nan")
+    gen = torch.Generator(device=card).manual_seed(14)
+    uniforms = [torch.rand(h.shape, generator=gen, device=card)
+                for h in heads]
+    plain = draw_heads_plain(heads, uniforms)
+    assert (plain[0, :, 0] == 17).all() and (plain[1, :, 0] == 4).all()
+    assert int(plain[2, 5, 1]) == 20
+    assert torch.equal(gumbel_sample.gumbel_sample(heads, uniforms), plain)
+
+
+@pytest.mark.cuda
+def test_sample_heads_refuses_what_the_kernel_does_not_take_on_card(card):
+    """float64 logits, a head on the CPU, a head with a column stride and
+    heads of two row counts raise before any launch."""
+    heads = _fused_heads((10, 4), _HEAD_WIDTHS, 15, card)
+    launches = gumbel_sample.LAUNCH_COUNTS["gumbel_sample"]
+    with pytest.raises(ValueError, match="dtype torch.float64"):
+        sample_heads([h.double() for h in heads])
+    with pytest.raises(ValueError, match="logits 1 lies on cpu"):
+        sample_heads([heads[0], heads[1].cpu()])
+    with pytest.raises(ValueError, match="column stride"):
+        sample_heads([torch.zeros((40, 21, 2), device=card)[..., 0]])
+    with pytest.raises(ValueError, match="logits 1: shape"):
+        sample_heads([heads[0], heads[1][:5]])
+    assert gumbel_sample.LAUNCH_COUNTS["gumbel_sample"] == launches
+
+
+def _leaf_dict(tree) -> dict:
+    return dict(_leaves(tree))
+
+
+@pytest.mark.cuda
+def test_captured_rollout_step_equals_its_eager_body_on_card(card, tmp_path):
+    """The ``tag_continuous`` rollout at 8 envs (50 steps), replayed as
+    the captured rollout-step program against its body called op by op
+    (``plain_calls``) from the same seed: actions, records, env state and
+    episode sums bit for bit, and the generator left alike; the capture
+    counts 2 sampler launches (one a policy), credited on each replay."""
+    cfg = load_run_config("tag_continuous")
+    cfg["trainer"].update({"num_envs": 8, "train_batch_size": 400,
+                           "num_episodes": 1, "seed": 1})
+    for policy in ("runner", "tagger"):
+        cfg["policy"][policy]["model"]["fc_dims"] = [32, 32]
+    trainers = [setup_trainer(copy.deepcopy(cfg), verbose=False,
+                              device=card, results_dir=str(tmp_path / n))
+                for n in ("eager", "captured")]
+    steps = trainers[0].training_batch_size_per_env
+    for trainer, plain in zip(trainers, (True, False)):
+        gumbel_sample.reset_launch_counts()
+        with plain_calls() if plain else contextlib.nullcontext():
+            trainer._rollout_programmed()
+            trainer._rollout_programmed()
+        torch.cuda.synchronize()
+        assert gumbel_sample.LAUNCH_COUNTS == {"gumbel_sample": 4 * steps}
+    eager, captured = trainers
+    program = captured._programs["rollout"]
+    assert program.graph is not None and program.replays == 2 * steps - 1
+    assert program.launches["gumbel_sample"] == 2
+    for name, tree in (("batch", lambda t: t._batch),
+                       ("env", lambda t: t._env_state),
+                       ("episodes", lambda t: (t._ep_acc, t._ep_sum,
+                                               t._ep_count))):
+        a, b = _leaf_dict(tree(eager)), _leaf_dict(tree(captured))
+        assert a.keys() == b.keys(), name
+        for path, value in a.items():
+            assert torch.equal(value, b[path]), (name, path)
+    assert torch.equal(
+        torch.rand(8, generator=eager.generator, device=card),
+        torch.rand(8, generator=captured.generator, device=card))

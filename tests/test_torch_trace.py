@@ -14,7 +14,7 @@ on a card the kernel nodes it counts in a captured graph:
   equal to ``phase_ms`` from the same three marks an iteration;
 - under ``torch.profiler`` each span is a host op of its name within its
   recorded extent; the Chrome export; the benchmark's readers of the
-  tracer's counters;
+  tracer's counters; the kernels' launch families kept apart;
 - on a card (skipped elsewhere): the kernel nodes of the flagship loop's
   graph and of a hot update pass are the kernels the profiler sees a
   replay, but for the replay's two int64 fills (seed and offset) of each
@@ -616,3 +616,22 @@ def test_hot_update_pass_nodes_match_the_profiler_on_card(card, tmp_path):
         assert trainer.update_options[tag].passes == 1
         _assert_nodes_match_the_profiler(hot.name, hot,
                                          _profiled_device_ops(hot, 3))
+
+
+def test_counters_keep_the_sampler_launches_apart_from_the_knn_ones():
+    """The draw kernel's family ``sampler`` is registered on its own, apart
+    from ``knn``, and the tracer's summary lists ``sampler_launches``."""
+    from warpdrive_tpu_torch.ops import cuda_build, gumbel_sample, knn_obs
+
+    assert cuda_build.LAUNCH_COUNTS["sampler"] is gumbel_sample.LAUNCH_COUNTS
+    assert not set(gumbel_sample.LAUNCH_COUNTS) & set(knn_obs.LAUNCH_COUNTS)
+    gumbel_sample.reset_launch_counts()
+    knn_obs.reset_launch_counts()
+    gumbel_sample.LAUNCH_COUNTS["gumbel_sample"] += 2
+    try:
+        counters = trace.summary()["counters"]
+        assert counters["sampler_launches"] == {"gumbel_sample": 2}
+        assert counters["knn_launches"] == dict.fromkeys(
+            knn_obs.LAUNCH_COUNTS, 0)
+    finally:
+        gumbel_sample.reset_launch_counts()

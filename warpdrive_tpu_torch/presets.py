@@ -40,7 +40,7 @@ import torch
 
 from warpdrive_tpu_torch.core.program import Program, assign_state
 from warpdrive_tpu_torch.models.fully_connected import FullyConnected
-from warpdrive_tpu_torch.sampling.samplers import sample_from_logits
+from warpdrive_tpu_torch.sampling.samplers import sample_heads
 from warpdrive_tpu_torch.utils.constants import Constants
 from warpdrive_tpu_torch.utils.device import resolve_device
 from warpdrive_tpu_torch.utils.spaces import Box, Discrete, MultiDiscrete
@@ -190,9 +190,7 @@ def build_flagship(num_envs: int = 64, fc_dims=(256, 256), seed: int = 0,
         for tag in sorted(ids_t):
             ids = ids_t[tag]
             logits_list, _ = models[tag](obs_all[:, ids])
-            cols = [sample_from_logits(logits, generator)
-                    for logits in logits_list]
-            actions[:, ids, :] = torch.stack(cols, dim=-1)
+            actions[:, ids, :] = sample_heads(logits_list, generator)
         return actions
 
     @torch.no_grad()

@@ -9,6 +9,12 @@ categorical draw is Gumbel-max, as ``jax.random.categorical`` draws:
 Ornstein-Uhlenbeck step explores around DDPG's deterministic actions.
 torch and JAX give different random numbers from the same seed, so a test
 hands both sides the same noise (``gumbel``, ``noise``).
+
+:func:`sample_heads` draws every head of a policy at once, as the trainer's
+rollout, acting and serving do: on a card one launch of the categorical-draw
+kernel (``csrc/gumbel_sample.cu``, ``ops/gumbel_sample.py``) after one
+uniform draw a head, and on the CPU :func:`draw_heads_plain`, the same
+uniforms through the op-by-op chain of :func:`sample_from_logits`.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import math
 
 import numpy as np
 import torch
+
+from warpdrive_tpu_torch.ops import gumbel_sample
 
 _TINY = 1e-30
 
@@ -54,11 +62,63 @@ def sample_from_logits(
     if use_argmax:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     if gumbel is None:
-        tiny = torch.finfo(logits.dtype).tiny
-        u = torch.rand(logits.shape, generator=generator,
-                       device=logits.device, dtype=logits.dtype)
-        gumbel = -torch.log(-torch.log(u.clamp_(min=tiny)))
+        gumbel = _gumbel(_uniform(logits, generator))
     return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+
+
+def _uniform(logits: torch.Tensor, generator: torch.Generator = None):
+    return torch.rand(logits.shape, generator=generator,
+                      device=logits.device, dtype=logits.dtype)
+
+
+def _gumbel(u: torch.Tensor) -> torch.Tensor:
+    """``-log(-log(u))`` of ``u`` clamped to the dtype's least normal
+    number, out of place."""
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
+
+
+def sample_heads(
+    logits_list,
+    generator: torch.Generator = None,
+    use_argmax: bool = False,
+) -> torch.Tensor:
+    """One categorical draw per head and leading element: the draws of
+    ``logits_list`` (C tensors ``(..., num_actions_c)`` of one leading
+    shape), stacked as int32 ``(..., C)``.
+
+    Stochastic, it draws one uniform tensor a head, in order and shaped
+    like the head, from ``generator``, as C calls of
+    :func:`sample_from_logits` draw them, so the generator advances as
+    theirs does and the draws are theirs.  On CUDA tensors they then go to
+    the categorical-draw kernel, one launch a group of
+    ``gumbel_sample.HEADS_A_LAUNCH`` heads (float32 logits of one leading
+    shape; anything else raises before the launch), on the CPU through
+    :func:`draw_heads_plain`.
+
+    :param use_argmax: deterministic mode (each head's most likely action).
+    """
+    if use_argmax:
+        return torch.stack([torch.argmax(logits, dim=-1).to(torch.int32)
+                            for logits in logits_list], dim=-1)
+    uniforms = [_uniform(logits, generator) for logits in logits_list]
+    device = logits_list[0].device
+    if device.type == "cpu":
+        return draw_heads_plain(logits_list, uniforms)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    gumbel_sample.check_inputs(logits_list, uniforms)
+    return gumbel_sample.gumbel_sample(logits_list, uniforms)
+
+
+def draw_heads_plain(logits_list, uniforms) -> torch.Tensor:
+    """The plain version of :func:`sample_heads`'s draw from given
+    uniforms, on any device: each head's Gumbel-max draw op by op, as
+    :func:`sample_from_logits` makes it, stacked; what the CPU runs, and
+    what the kernel is held to on the card.  The uniforms are left as they
+    are."""
+    return torch.stack(
+        [sample_from_logits(logits, gumbel=_gumbel(u))
+         for logits, u in zip(logits_list, uniforms)], dim=-1)
 
 
 def sample_ou_process(

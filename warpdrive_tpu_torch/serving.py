@@ -28,7 +28,7 @@ from warpdrive_tpu_torch.models.fully_connected import (
     params_from_flax,
     params_to_flax,
 )
-from warpdrive_tpu_torch.sampling.samplers import sample_from_logits
+from warpdrive_tpu_torch.sampling.samplers import sample_heads
 from warpdrive_tpu_torch.utils import flax_msgpack
 from warpdrive_tpu_torch.utils.device import resolve_device
 from warpdrive_tpu_torch.utils.spaces import get_flattened_obs_size
@@ -100,7 +100,7 @@ def load_policy(bundle_dir: str, device="cuda"):
     or a tensor, moved to the device) and returns int32 actions ``(...,
     num_components)`` as a tensor on the device: the most likely ones, or
     with ``argmax=False`` one draw per component from ``generator``
-    (:func:`sample_from_logits`).  A DDPG actor bundle returns its
+    (:func:`sample_heads`).  A DDPG actor bundle returns its
     deterministic ``tanh * scale + bias`` actions ``(...,
     num_action_types)`` and ignores ``generator``, ``argmax`` and
     ``action_mask``."""
@@ -147,8 +147,6 @@ def load_policy(bundle_dir: str, device="cuda"):
         if not argmax:
             assert generator is not None, \
                 "stochastic acting needs a torch.Generator"
-        return torch.stack(
-            [sample_from_logits(logits, generator, use_argmax=argmax)
-             for logits in logits_list], dim=-1)
+        return sample_heads(logits_list, generator, use_argmax=argmax)
 
     return act, manifest

@@ -87,7 +87,7 @@ from warpdrive_tpu_torch.core import trace
 from warpdrive_tpu_torch.core.program import Program, assign_state
 from warpdrive_tpu_torch.models.factory import ModelFactory
 from warpdrive_tpu_torch.parallel.mesh import MODEL_AXIS, tp_axis, tp_shard
-from warpdrive_tpu_torch.sampling.samplers import sample_from_logits
+from warpdrive_tpu_torch.sampling.samplers import sample_heads
 from warpdrive_tpu_torch.training.param_scheduler import ParamScheduler
 from warpdrive_tpu_torch.training.trainer_base import TrainerBase, torch_dtype
 from warpdrive_tpu_torch.utils.constants import Constants
@@ -729,9 +729,7 @@ class TrainerA2C(TrainerBase):
                     record.index_copy_(0, row, mask_p[None].to(record.dtype))
             if actions is None:
                 logits_list, _ = _forward(self.models[tag], obs_p, mask_p)
-                acts = torch.stack(
-                    [sample_from_logits(logits, self.generator)
-                     for logits in logits_list], dim=-1)
+                acts = sample_heads(logits_list, self.generator)
             else:
                 acts = actions[:, self._agent_ids[tag]]
             record = batch[f"actions_{tag}"]
@@ -891,9 +889,8 @@ class TrainerA2C(TrainerBase):
             obs_p, mask_p = self._policy_obs_and_mask(state, None, tag)
             logits_list, _ = _forward(self.models[tag], obs_p, mask_p)
             logits_of[tag] = logits_list
-            per_policy[tag] = torch.stack(
-                [sample_from_logits(logits, generator, use_argmax=use_argmax)
-                 for logits in logits_list], dim=-1)
+            per_policy[tag] = sample_heads(logits_list, generator,
+                                           use_argmax=use_argmax)
         actions = self._merge_actions(per_policy)
         return (actions, logits_of) if return_logits else actions
 
