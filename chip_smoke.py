@@ -230,8 +230,10 @@ Phases, each of which raises (and so exits non-zero) on a failure:
       ms, the device's idle share of each side, the kernel nodes of each
       captured graph and each side's peak memory growth;
    t. the rest of the compiled execution model, each program against its
-      eager counterpart from identical carries and generator states, bit
-      for bit: (a) DDPG training of ``single_pendulum`` (10,000 x 5) and
+      eager counterpart (here as in 4s, the same trainer's call with every
+      program's body called op by op, ``plain_calls``) from identical
+      carries and generator states, bit for bit: (a) DDPG training of
+      ``single_pendulum`` (10,000 x 5) and
       ``single_continuous_mountain_car`` (1000 x 10) at full width, 4
       iterations across the warm-up gate (the noise-draw, rollout-step,
       replay-append and update programs; nets, targets, Adam moments and
@@ -300,11 +302,8 @@ import tempfile
 import time
 from pathlib import Path
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s, float32 FLOP/s outside
-# the tensor cores and bf16 FLOP/s on the tensor cores
-_PEAK_BYTES_PER_S = 3.35e12
-_PEAK_F32_FLOPS = 67e12
-_PEAK_BF16_FLOPS = 989e12
+from portbench.measure import PEAK_BYTES_PER_S, knn_bound_ms
+
 # the device functions of the port's kNN kernels (csrc/*.cu), by which the
 # profiler's events are told from PyTorch's own
 _KERNEL_SYMBOLS = ("scan_kernel", "tile_kernel", "ladder_kernel",
@@ -1249,6 +1248,25 @@ def _drive_training(run_config, before_train=None):
                                "sampler_launches": sampler}
 
 
+def _one_update(model, optimizer, algo, batch, timestep, lr,
+                index_table=None, **kwargs):
+    """One policy's update of ``model`` on ``batch``, a copy of a trainer's
+    (another device, dtype or env rows than its static batch holds),
+    through :class:`UpdatePass`, the body of the update programs, called
+    as ``_update_programmed`` calls them: ``begin``, the PPO prologue where
+    one is needed, then every pass with metrics.  Returns the last pass's
+    metric tensors."""
+    from warpdrive_tpu_torch.training.trainer_a2c import UpdatePass
+
+    update = UpdatePass(model, optimizer, algo, batch, **kwargs)
+    update.begin(timestep, lr, index_table)
+    if update.needs_prologue:
+        update.prologue()
+    for _ in range(update.opts.passes):
+        metrics = update.run_pass()
+    return metrics
+
+
 def _update_card_vs_cpu(trainer, envs=UPDATE_ENVS, float64=False):
     """One update of each trained policy on the card and on the CPU, from
     copies of the trained parameters and optimizer state, on the first
@@ -1262,10 +1280,7 @@ def _update_card_vs_cpu(trainer, envs=UPDATE_ENVS, float64=False):
     the card.  Returns the largest parameter difference card vs CPU."""
     import torch
 
-    from warpdrive_tpu_torch.training.trainer_a2c import (
-        ClippedAdam,
-        policy_update,
-    )
+    from warpdrive_tpu_torch.training.trainer_a2c import ClippedAdam
 
     runs = [(DEVICE, torch.float32), ("cpu", torch.float32)]
     if float64:
@@ -1283,7 +1298,7 @@ def _update_card_vs_cpu(trainer, envs=UPDATE_ENVS, float64=False):
             opt = ClippedAdam(dict(model.named_parameters()),
                               max_norm=trainer.optimizers[tag].max_norm)
             opt.load_state_dict(trainer.optimizers[tag].state_dict())
-            metrics = policy_update(
+            metrics = _one_update(
                 model, opt, trainer.algorithms[tag],
                 {k: v.to(device, dtype) if v.is_floating_point()
                  else v.to(device) for k, v in batch.items()},
@@ -1486,23 +1501,6 @@ def _drive_full_step_training():
     return trainers, means
 
 
-def _knn_bound_ms(E, N, k, d2_pairs, mxu_distance=False):
-    """Least time for the kNN function on the card: each input read once and
-    the output written once at the HBM rate, or the distance arithmetic at
-    its peak rate, whichever is larger.  A pair costs 5 float32 flops in
-    the difference form (2 sub, 2 mul, 1 add) at 67 TFLOP/s, and in the MXU
-    expansion 12 bf16 multiply-adds, 24 flops, at the tensor cores' 989
-    TFLOP/s: the same work whatever implements it, K5's scalar form
-    included."""
-    bytes_in = 4 * (3 * E * N + 5 * E * N + N + E)
-    bytes_out = 4 * E * N * (8 * k + 1)
-    t_bytes = (bytes_in + bytes_out) / _PEAK_BYTES_PER_S
-    t_ops = (24 * d2_pairs / _PEAK_BF16_FLOPS if mxu_distance
-             else 5 * d2_pairs / _PEAK_F32_FLOPS)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    return 1e3 * max(t_bytes, t_ops), bound_by, bytes_in + bytes_out
-
-
 def _kernel_device_ms(fn, calls=50, symbols=_KERNEL_SYMBOLS):
     """The device time a call of ``fn`` spends in the port's kernel whose
     device function holds one of ``symbols`` (the kNN kernels' by default;
@@ -1645,7 +1643,7 @@ def _time_knn(name, args, n_agents, k, variant, label, plain_repeats=11,
     )
     alive = (args[4] >= 0.5).sum(dim=1).to(torch.float64)
     d2_pairs = float((alive * (alive - 1)).sum())  # pairs of live agents
-    bound_ms, bound_by, nbytes = _knn_bound_ms(
+    bound_ms, bound_by, nbytes = knn_bound_ms(
         E, N, k, d2_pairs, mxu_distance="mxudist" in variant)
     print(f"{name} [{variant}, {label}] at E={E} N={N} k={k}: kernel "
           f"{kernel_ms:.5f} ms back to back, {device_ms:.5f} ms device, "
@@ -1666,7 +1664,7 @@ def _physics_bound_ms(E, N, tables):
     and T distances lie far below the float32 peak: bytes."""
     bytes_in = 4 * (8 * E * N + E + tables)
     bytes_out = 4 * (7 * E * N + 2 * E)
-    return (1e3 * (bytes_in + bytes_out) / _PEAK_BYTES_PER_S,
+    return (1e3 * (bytes_in + bytes_out) / PEAK_BYTES_PER_S,
             bytes_in + bytes_out)
 
 
@@ -1727,7 +1725,7 @@ def _sampler_bound_ms(rows, widths):
     once and an int32 written a row and head, at the HBM rate; two logf
     and an add an element lie far below the float32 peak: bytes."""
     nbytes = 4 * rows * 2 * sum(widths) + 4 * rows * len(widths)
-    return 1e3 * nbytes / _PEAK_BYTES_PER_S, nbytes
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, nbytes
 
 
 def _time_sampler(lead, label):
@@ -1955,7 +1953,7 @@ def _ddpg_update_card_vs_cpu(trainer):
     trainer's whole replay window.  Returns the largest parameter
     difference."""
     from warpdrive_tpu_torch.training.trainer_a2c import ClippedAdam
-    from warpdrive_tpu_torch.training.trainer_ddpg import ddpg_policy_update
+    from warpdrive_tpu_torch.training.trainer_ddpg import ddpg_update_step
 
     worst = 0.0
     timestep = trainer.current_timestep
@@ -1977,9 +1975,9 @@ def _ddpg_update_card_vs_cpu(trainer):
                 opts[net] = ClippedAdam(dict(nets[net].named_parameters()),
                                         max_norm=source.max_norm)
                 opts[net].load_state_dict(source.state_dict())
-            metrics = ddpg_policy_update(
+            metrics = ddpg_update_step(
                 nets, targets, opts, trainer.algorithms[tag],
-                {k: v.to(device) for k, v in batch.items()}, timestep, lrs,
+                {k: v.to(device) for k, v in batch.items()}, lrs,
                 trainer.tau[tag])
             losses[device] = (float(metrics["Critic loss"]),
                               float(metrics["Actor loss"]))
@@ -2201,7 +2199,6 @@ def _check_update_options(tuned):
     from warpdrive_tpu_torch.training.trainer_a2c import (
         ClippedAdam,
         UpdateOptions,
-        policy_update,
     )
 
     results_dir = tempfile.mkdtemp(prefix="chip_smoke_options_")
@@ -2230,7 +2227,7 @@ def _check_update_options(tuned):
                           max_norm=store.optimizers[tag].max_norm)
         opt.load_state_dict(store.optimizers[tag].state_dict())
         policy_batch = policy_batch or store._policy_batch(batch, tag)
-        policy_update(
+        _one_update(
             model, opt, algo or store.algorithms[tag],
             {k: v.to(device) if torch.is_tensor(v) else v
              for k, v in policy_batch.items()},
@@ -2383,12 +2380,12 @@ def _drive_asymmetric_pursuit():
         assert trainer._programmed
         rollout = trainer._rollout_programmed
 
-        def checked():
-            batch = rollout()
+        def checked(timestep):
+            rollout(timestep)
+            batch = trainer._batch
             chosen = batch["mask_evader"].gather(
                 3, batch["actions_evader"].long())
             masked.append(((chosen == 0).sum(), chosen.numel()))
-            return batch
 
         trainer._rollout_programmed = checked
 
@@ -3140,7 +3137,7 @@ def _multi_rank_gloo(device, cfg, results_dir, actions, digests, update):
     import logging
 
     knn_obs.reset_launch_counts()
-    # a gloo rank keeps the eager iteration and says so (4t (e))
+    # a gloo rank calls its programs' bodies and says so (4t (e))
     logged = []
     handler = logging.Handler()
     handler.emit = lambda record: logged.append(record.getMessage())
@@ -3573,9 +3570,22 @@ def _compiled_loop(label, system, loop, start, kernel, steps):
     return total
 
 
+def _plain(fn):
+    """``fn`` with every program calling its body op by op
+    (``plain_calls``): the eager side of the compiled comparisons."""
+    from warpdrive_tpu_torch.core.program import plain_calls
+
+    def call():
+        with plain_calls():
+            return fn()
+
+    return call
+
+
 def _compiled_training(label, cfg, tmp, iterations, kernel, launches_of,
                        turns=COMPILED_TURNS):
-    """A2C training, the eager iteration against the programmed one, from
+    """A2C training, the eager iteration (``_plain``) against the
+    programmed one, from
     two trainers of one config (identical carries and generators):
     ``iterations`` iterations compared bit for bit after each (the first
     programmed one full, the others hot, as ``train()`` runs them; the full
@@ -3609,9 +3619,9 @@ def _compiled_training(label, cfg, tmp, iterations, kernel, launches_of,
     for i in range(iterations):
         t = i * steps
         for side, run in (
-                ("eager", lambda: eager._iteration_eager(t)),
+                ("eager", _plain(lambda: eager._iteration(t))),
                 ("programmed",
-                 lambda: programmed._iteration_programmed(t, full=i == 0))):
+                 lambda: programmed._iteration(t, full=i == 0))):
             knn_obs.reset_launch_counts()
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
@@ -3915,8 +3925,8 @@ def _drive_compiled_iteration(rolled, many_state, run_config):
         add(counts)
         t = 10**6
         add(_compiled_idle(
-            "tag_continuous iteration", lambda: eager._iteration_eager(t),
-            lambda: programmed._iteration_programmed(t, full=False), 1,
+            "tag_continuous iteration", _plain(lambda: eager._iteration(t)),
+            lambda: programmed._iteration(t, full=False), 1,
             "knn_obs_mxu")[1])
         # the rollout step writes rows 0-10 of each window
         add(_check_credited("tag_continuous rollout step",
@@ -3949,7 +3959,8 @@ def _drive_compiled_iteration(rolled, many_state, run_config):
         add(counts)
         add(_compiled_idle(
             "tuned flagship rollout", eager._rollout,
-            programmed._rollout_programmed, 1, "knn_obs_flat_exact")[1])
+            lambda: programmed._rollout_programmed(0), 1,
+            "knn_obs_flat_exact")[1])
         add(_check_credited("tuned flagship rollout step",
                             programmed._programs["rollout"],
                             COMPILED_PROFILE_STEPS, "knn_obs_flat_exact",
@@ -4075,8 +4086,8 @@ def _drive_ddpg_programs():
             t = i * steps
             got = {}
             for side, run in (
-                    ("eager", lambda: eager._iteration_eager(t)),
-                    ("programmed", lambda: programmed._iteration_programmed(
+                    ("eager", _plain(lambda: eager._iteration(t))),
+                    ("programmed", lambda: programmed._iteration(
                         t, full=i == 0))):
                 knn_obs.reset_launch_counts()
                 got[side], secs = _timed(run)
@@ -4092,8 +4103,8 @@ def _drive_ddpg_programs():
         assert gate == [False] + [True] * (DDPG_TRAIN_ITERS - 1), gate
         t = DDPG_TRAIN_ITERS * steps
         idle, _ = _compiled_idle(
-            f"DDPG {name} iteration", lambda: eager._iteration_eager(t),
-            lambda: programmed._iteration_programmed(t, full=False), 1,
+            f"DDPG {name} iteration", _plain(lambda: eager._iteration(t)),
+            lambda: programmed._iteration(t, full=False), 1,
             phase="4t (a)")
         _assert_bitwise(f"DDPG {name}, after the idle windows",
                         _ddpg_carry(programmed), _ddpg_carry(eager))
@@ -4356,8 +4367,8 @@ def _drive_eager_backend_programs():
         t = i * steps
         got = {}
         for side, run in (
-                ("eager", lambda: eager._iteration_eager(t)),
-                ("programmed", lambda: programmed._iteration_programmed(
+                ("eager", _plain(lambda: eager._iteration(t))),
+                ("programmed", lambda: programmed._iteration(
                     t, full=i == 0))):
             knn_obs.reset_launch_counts()
             got[side], secs = _timed(run)
@@ -4371,7 +4382,7 @@ def _drive_eager_backend_programs():
     t = EAGER_BACKEND_ITERS * steps
     idle, _ = _compiled_idle(
         "eager backend update",
-        lambda: eager._update(eager._batch, t),
+        _plain(lambda: eager._update(eager._batch, t)),
         lambda: programmed._update_programmed(t, full=False), 1,
         phase="4t (d)")
     _assert_bitwise("eager backend, after the idle windows",
@@ -4440,11 +4451,11 @@ def _drive_nccl_programs():
             for side, trainer in trainers.items():
                 knn_obs.reset_launch_counts()
                 if side == "nccl eager":
-                    run = (lambda trainer=trainer:
-                           trainer._iteration_eager(t))
+                    run = _plain(lambda trainer=trainer:
+                                 trainer._iteration(t))
                 else:
                     run = (lambda trainer=trainer:
-                           trainer._iteration_programmed(t, full=i == 0))
+                           trainer._iteration(t, full=i == 0))
                 got[side], secs = _timed(run)
                 walls[side].append(1e3 * secs)
                 launches = dict(knn_obs.LAUNCH_COUNTS)
@@ -4500,7 +4511,6 @@ def _full_obs_float64_update(trainer):
     from warpdrive_tpu_torch.training.trainer_a2c import (
         ClippedAdam,
         _forward,
-        policy_update,
     )
 
     class Recording(ClippedAdam):
@@ -4537,8 +4547,8 @@ def _full_obs_float64_update(trainer):
                 heads, value = _forward(model, b["obs"], b.get("mask"))
             outputs = {f"head_{i}": h for i, h in enumerate(heads)}
             outputs["value"] = value
-            metrics = policy_update(model, opt, trainer.algorithms[tag], b,
-                                    timestep, lr)
+            metrics = _one_update(model, opt, trainer.algorithms[tag], b,
+                                  timestep, lr)
             runs[device] = {"outputs": host(outputs),
                             "loss": float(metrics["Total loss"]),
                             "grads": host(opt.grads),
@@ -4984,13 +4994,12 @@ def main(argv=None) -> int:
                  {"tag_continuous, full observation": full_obs_means}))
             for name, t in trainers.items()
         ]
-        tuned_t = tuned.current_timestep
+        _, tuned_rollout, tuned_update = tuned._phase_fns(
+            tuned.current_timestep)
         windows += [
-            ("tuned flagship rollout",
-             lambda: tuned._rollout_phase(tuned_t), "iteration",
+            ("tuned flagship rollout", tuned_rollout, "iteration",
              tuned_means["rollout_ms"]),
-            ("tuned flagship update",
-             lambda: tuned._update_phase(tuned._batch, tuned_t), "iteration",
+            ("tuned flagship update", tuned_update, "iteration",
              tuned_means["update_ms"]),
         ]
         _profile(windows)

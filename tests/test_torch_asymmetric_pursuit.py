@@ -238,7 +238,7 @@ def test_cli_trains_asymmetric_pursuit(tmp_path):
         "--results_dir", str(tmp_path / "cli")])
     assert trainer.engine.separate_placeholders
     assert trainer.iters_completed == trainer.num_iters == 2
-    assert port_train._NOT_PORTED == {}
+    assert trainer.config["name"] == "asymmetric_pursuit"  # the shipped one
 
 
 def test_both_clis_build_the_same_trainer(tmp_path, monkeypatch):

@@ -67,12 +67,10 @@ from warpdrive_tpu_torch.training.scripts.train import (
     setup_trainer,
     setup_trainer_and_train,
 )
-from warpdrive_tpu_torch.training.trainer_a2c import ClippedAdam
 from warpdrive_tpu_torch.training.ring_buffer import (
     RingBuffer,
     RingBufferManager,
 )
-from warpdrive_tpu_torch.training.trainer_ddpg import ddpg_policy_update
 from warpdrive_tpu_torch.utils.config import load_run_config
 
 
@@ -255,33 +253,16 @@ def test_ddpg_iterations_on_card_gate_warm_up_and_launch_no_knn(card, name,
     assert trainer.optimizers["critic"]["shared"].count == 1
     assert knn_obs.LAUNCH_COUNTS == _NO_LAUNCHES
 
-    window = {"obs": trainer._window["obs_shared"],
-              "actions": trainer._window["actions_shared"],
-              "rewards": trainer._window["rewards_shared"],
-              "done": trainer._window["done"]}
-    lrs = {net: trainer.lr_schedules[net]["shared"].value_at(1280)
-           for net in ("actor", "critic")}
+    # one more update on the same rows: the card's trainer against a CPU
+    # trainer holding its training state
+    cpu = _ddpg_trainer(name, tmp_path / "cpu", device="cpu")
+    cpu._load_training_state(trainer._training_state())
+    rows = {k: v.cpu() for k, v in trainer._rows.items()}
     updated = []
-    for device in (card, "cpu"):
-        nets = {n: copy.deepcopy(trainer.nets[n]["shared"]).to(device)
-                for n in ("actor", "critic")}
-        targets = {n: copy.deepcopy(trainer.targets[n]["shared"]).to(device)
-                   for n in ("actor", "critic")}
-        opts = {}
-        for n in ("actor", "critic"):
-            source = trainer.optimizers[n]["shared"]
-            opts[n] = ClippedAdam(dict(nets[n].named_parameters()),
-                                  max_norm=source.max_norm)
-            opts[n].load_state_dict(source.state_dict())
-        ddpg_policy_update(nets, targets, opts,
-                           trainer.algorithms["shared"],
-                           {k: v.to(device) for k, v in window.items()},
-                           1280, lrs, trainer.tau["shared"])
-        updated.append({f"{kind}.{n}.{k}": v.detach().cpu()
-                        for kind, group in (("nets", nets),
-                                            ("targets", targets))
-                        for n, m in group.items()
-                        for k, v in m.state_dict().items()})
+    for each in (trainer, cpu):
+        each._replay_update({k: v.to(each.device) for k, v in rows.items()},
+                            1280)
+        updated.append(_ddpg_params(each))
     assert _max_diff(*updated) <= 1e-5
 
 
@@ -795,15 +776,17 @@ def test_eager_backend_trains_with_the_policy_on_card(card, tmp_path):
 
 @pytest.mark.cuda
 def test_ddpg_programs_equal_the_eager_iteration_on_card(card, tmp_path):
-    """Captured DDPG programs against the eager iteration on the card, 3
-    iterations across the warm-up gate (the first full, then hot, then
-    full): nets, targets, Adam states, window and OU state bit for bit."""
+    """Captured DDPG programs against their bodies called op by op
+    (``plain_calls``) on the card, 3 iterations across the warm-up gate
+    (the captured side full, then hot, then full; the plain side full):
+    nets, targets, Adam states, window and OU state bit for bit."""
     eager = _ddpg_trainer("single_pendulum", tmp_path / "eager")
     programmed = _ddpg_trainer("single_pendulum", tmp_path / "programmed")
     assert programmed._programmed
     for i, full in enumerate((True, False, True)):
-        programmed._iteration_programmed(i * 640, full=full)
-        eager._iteration_eager(i * 640)
+        programmed._iteration(i * 640, full=full)
+        with plain_calls():
+            eager._iteration(i * 640)
     assert _max_diff(_ddpg_params(programmed), _ddpg_params(eager)) == 0.0
     for net in ("actor", "critic"):
         a = programmed.optimizers[net]["shared"].state_dict()
@@ -1301,8 +1284,8 @@ def test_captured_rollout_step_equals_its_eager_body_on_card(card, tmp_path):
     for trainer, plain in zip(trainers, (True, False)):
         gumbel_sample.reset_launch_counts()
         with plain_calls() if plain else contextlib.nullcontext():
-            trainer._rollout_programmed()
-            trainer._rollout_programmed()
+            trainer._rollout_programmed(0)
+            trainer._rollout_programmed(0)
         torch.cuda.synchronize()
         assert gumbel_sample.LAUNCH_COUNTS == {"gumbel_sample": 4 * steps}
     eager, captured = trainers

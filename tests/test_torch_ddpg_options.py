@@ -74,7 +74,9 @@ def test_replay_update_matches_jax(option, tmp_path):
     nets = {k: carry[k] for k in keys}
     assert nets["buf"]["shared"]["obs"].dtype == (
         jnp.bfloat16 if bf16 else jnp.float32)
-    port_rows = {k: _t(v) for k, v in rows.items()}
+    # in the dtypes the port's rows store (JAX rounds its float32 rows
+    # into the window's dtype as it appends them)
+    port_rows = {k: _t(v).to(port._rows[k].dtype) for k, v in rows.items()}
     for step, timestep in enumerate((0.0, 80.0)):
         nets, jmetrics = replay_update(nets, rows, jnp.float32(timestep))
         metrics = port._replay_update(port_rows, timestep)["shared"]

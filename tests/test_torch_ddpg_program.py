@@ -3,19 +3,20 @@
 ``core/program.py``) on the CPU, where a program calls its body directly
 with the same static buffers and in-place writes that a card captures:
 
-- the programmed DDPG iteration (noise draw, rollout step, replay append,
-  the full, hot and warm updates) equals the eager one bit for bit over 3
-  iterations across the warm-up gate (nets, targets, Adam moments and
-  counts, window, rows, OU state, env state, episodic sums, generator),
-  on Pendulum and on ContinuousMountainCar with a bf16 window and remat;
+- the DDPG iteration (noise draw, rollout step, replay append, the full,
+  hot and warm updates) with a hot update leaves the carry as a full one
+  bit for bit over 3 iterations across the warm-up gate (nets, targets,
+  Adam moments and counts, window, rows, OU state, env state, episodic
+  sums, generator), on Pendulum and on ContinuousMountainCar with a bf16
+  window and remat;
 - the hot update equals the full one bit for bit;
 - 3 programmed iterations with the JAX package's OU noise written into the
   noise buffer match JAX's rollout and replay update across the gate
   (1e-5, as ``tests/test_torch_ddpg.py`` holds one update);
 - a resume into built programs is bit for bit against a straight run;
 - a rebound window, OU or row buffer raises (``Program.check_buffers``);
-- on the eager host-env backend the update programs (A2C and DDPG) equal
-  the eager update bit for bit.
+- on the eager host-env backend the hot update programs (A2C and DDPG)
+  leave the carry as the full ones bit for bit.
 """
 
 import copy
@@ -130,29 +131,31 @@ def _assert_equal_trees(a, b):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_programmed_ddpg_iteration_equals_the_eager_one(name, tmp_path):
-    """Iteration 1 fills the window part way (the warm program's metrics,
-    nothing moves), 2 runs the hot update, 3 the full one: every carry
-    tensor equal after each, and the full metrics equal the eager ones."""
+    """Two trainers of one config through ``_iteration``, the scheduled
+    one full, hot, full, the other full on all three.  Iteration 1 fills
+    the window part way (the warm program's metrics, nothing moves), 2 runs
+    the hot update against the full one, 3 the full one: every carry
+    tensor equal after each, and the full iterations' metrics equal."""
     config = CONFIGS[name](port_config.load_run_config)
-    programmed = _trainer(tmp_path, "programmed", config)
-    eager = _trainer(tmp_path, "eager", config)
-    assert not programmed._programmed  # the CPU: train() stays eager
-    steps = programmed.training_batch_size_per_env * programmed.num_envs
+    scheduled = _trainer(tmp_path, "scheduled", config)
+    everything = _trainer(tmp_path, "full", config)
+    assert not scheduled._programmed  # the CPU: programs call their bodies
+    steps = scheduled.training_batch_size_per_env * scheduled.num_envs
     for i, full in enumerate((True, False, True)):
         t = i * steps
-        got = programmed._iteration_programmed(t, full=full)
-        want = eager._iteration_eager(t)
+        got = scheduled._iteration(t, full=full)
+        want = everything._iteration(t)
         if full:
             np.testing.assert_equal(reduce_metrics(got),
                                     reduce_metrics(want))
             assert got["shared"]["Buffer full"] == float(i > 0)
         else:
             assert got == {}
-        _assert_equal_trees(_carry(programmed), _carry(eager))
-    assert programmed.optimizers["actor"]["shared"].count == 2
-    for program in programmed._programs.values():
+        _assert_equal_trees(_carry(scheduled), _carry(everything))
+    assert scheduled.optimizers["actor"]["shared"].count == 2
+    for program in scheduled._programs.values():
         program.check_buffers()
-    assert set(programmed._programs) == {
+    assert set(scheduled._programs) == {
         "noise", "rollout", "append", ("shared", "full"),
         ("shared", "hot"), ("shared", "warm")}
 
@@ -330,10 +333,10 @@ def _backend_carry(trainer, kind) -> dict:
 @pytest.mark.parametrize("kind", ["a2c", "ddpg"])
 def test_eager_backend_update_programs_equal_the_eager_update(kind,
                                                               tmp_path):
-    """Two trainers on the eager backend with identically seeded envs: the
-    programmed iteration (the host-stepped rollout into the static batch
-    or rows, then the update programs) against the eager iteration, bit
-    for bit after each of 3 iterations (DDPG across its gate)."""
+    """Two trainers on the eager backend with identically seeded envs,
+    each iteration the host-stepped rollout into the static batch or rows,
+    then the update programs: full, hot, full against full on all three,
+    bit for bit after each of the 3 iterations (DDPG across its gate)."""
     def build(name):
         if kind == "a2c":
             engine = CpuEnvEngine(env_name="TagGridWorld", env_config=_TG,
@@ -347,14 +350,14 @@ def test_eager_backend_update_programs_equal_the_eager_update(kind,
         return TrainerDDPG(env_wrapper=engine, config=_pendulum_ddpg_config(),
                            verbose=False, results_dir=str(tmp_path / name))
 
-    programmed, eager = build("programmed"), build("eager")
+    scheduled, everything = build("scheduled"), build("full")
     for i, full in enumerate((True, False, True)):
         t = i * 24
-        got = programmed._iteration_programmed(t, full=full)
-        want = eager._iteration_eager(t)
+        got = scheduled._iteration(t, full=full)
+        want = everything._iteration(t)
         if full:
             np.testing.assert_equal(reduce_metrics(got),
                                     reduce_metrics(want))
-        _assert_equal_trees(_backend_carry(programmed, kind),
-                            _backend_carry(eager, kind))
-    assert "rollout" not in programmed._programs
+        _assert_equal_trees(_backend_carry(scheduled, kind),
+                            _backend_carry(everything, kind))
+    assert "rollout" not in scheduled._programs

@@ -6,13 +6,16 @@ captures:
 
 - a :class:`Program` keeps its buffers' storages and raises when one is
   rebound; the launch-credit arithmetic on a stub kernel;
-- the programmed iteration equals the eager one bit for bit over 3
-  iterations (parameters, Adam moments and counts, env state, episodic
-  accounting, batch, generator) for five configurations: the
+- an iteration through ``_iteration`` with a hot (metrics-free) update
+  leaves the carry as a full one bit for bit over 3 iterations
+  (parameters, Adam moments and counts, env state, episodic accounting,
+  batch, generator) for five configurations: the
   ``tag_continuous`` run config cut to 5 envs x 20 agents (K2's plain
   version), PPO over 2 epochs x 4 shuffled minibatches with remat and a
   bf16 model and batch, ``update_recompute_obs``, ``single_cartpole`` with
   a reset pool, and ``asymmetric_pursuit`` (Dict observations, masks);
+- ``train()`` runs the programs, hot ones between log points, and logs
+  the metrics of a trainer whose every iteration is full;
 - the hot (metrics-free) update equals the full one bit for bit;
 - two programmed updates match the JAX package's (1e-5, as
   ``test_torch_trainer_a2c.py``);
@@ -29,6 +32,7 @@ captures:
 import copy
 import json
 import logging
+import os
 
 import numpy as np
 import optax
@@ -284,35 +288,71 @@ def _leaves(tree, path=()):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_programmed_iteration_equals_the_eager_one(name, tmp_path):
+    """Two trainers of one config through ``_iteration``: the scheduled
+    one hot on iteration 2, as ``train()`` runs between log points, the
+    other full on all three.  The hot iteration returns no metrics and
+    leaves the carry as the full one does: bit for bit after each
+    iteration, and the full iterations' metrics equal.  The programs are
+    built again after a release."""
     config = CONFIGS[name](port_config.load_run_config)
-    programmed = _trainer(tmp_path, "programmed", config)
-    eager = _trainer(tmp_path, "eager", config)
-    assert not programmed._programmed  # the CPU: train() stays eager
-    steps = programmed.training_batch_size_per_env * programmed.num_envs
+    scheduled = _trainer(tmp_path, "scheduled", config)
+    full = _trainer(tmp_path, "full", config)
+    assert not scheduled._programmed  # the CPU: programs call their bodies
+    steps = scheduled.training_batch_size_per_env * scheduled.num_envs
     for i in range(3):
         t = i * steps
         if i == 2:  # built and captured again after a release
-            programmed.release_programs()
-            assert programmed._programs is None
-        got = programmed._iteration_programmed(t, full=i != 1)
-        want = eager._iteration_eager(t)
-        if i != 1:  # the full programs' metrics, the eager ones'
+            scheduled.release_programs()
+            assert scheduled._programs is None
+        got = scheduled._iteration(t, full=i != 1)
+        want = full._iteration(t)
+        if i != 1:  # the full iterations' metrics
             np.testing.assert_equal(reduce_metrics(got),
                                     reduce_metrics(want))
         else:
             assert got == {}
-        _assert_equal_trees(_carry(programmed), _carry(eager))
-    assert programmed.iters_completed == 0  # nothing but the iterations
+        _assert_equal_trees(_carry(scheduled), _carry(full))
+    assert scheduled.iters_completed == 0  # nothing but the iterations
     # every program's buffers kept their storages through the iterations
-    for program in programmed._programs.values():
+    for program in scheduled._programs.values():
         program.check_buffers()
     expected = {("rollout",)} | {
-        (tag, variant) for tag in programmed.policies_to_train
+        (tag, variant) for tag in scheduled.policies_to_train
         for variant in ("hot", "full")}
     if name == "ppo_bf16_shuffled_remat":
-        expected |= {(tag, "prologue") for tag in programmed.policies}
+        expected |= {(tag, "prologue") for tag in scheduled.policies}
     assert {k if isinstance(k, tuple) else (k,)
-            for k in programmed._programs} == expected
+            for k in scheduled._programs} == expected
+
+
+def test_train_runs_the_programs_on_the_cpu(tmp_path):
+    """``train()`` on the CPU builds and calls the programs, the hot ones
+    between log points, and logs the metrics of a trainer of the same seed
+    whose every iteration is full."""
+    config = _small_tag_continuous(port_config.load_run_config)
+    config["saving"]["metrics_log_freq"] = 2  # logs after iterations 2, 4
+    config["trainer"]["num_episodes"] = 27  # 4 iterations of 80 steps
+    trained, reference = (_trainer(tmp_path, n, config)
+                          for n in ("trained", "reference"))
+    schedule, inner = [], trained._iteration
+    trained._iteration = lambda timestep, full=True: (
+        schedule.append(full) or inner(timestep, full))
+    trained.train()
+    assert schedule == [True, True, False, True]  # as train() chose
+    every = reference._iteration
+    reference._iteration = lambda timestep, full=True: every(timestep)
+    reference.train()
+    assert trained._programs is not None
+    for program in trained._programs.values():
+        program.check_buffers()
+
+    def logged(trainer):
+        with open(os.path.join(trainer.save_dir, "results.json"),
+                  encoding="utf-8") as f:
+            return [json.loads(line)["metrics"] for line in f]
+
+    assert logged(trained) == logged(reference)
+    assert len(logged(trained)) == 2
 
 
 def test_hot_update_equals_the_full_one(tmp_path):
@@ -323,7 +363,7 @@ def test_hot_update_equals_the_full_one(tmp_path):
         neg_pos_env_ratio=0.5)
     hot, full = (_trainer(tmp_path, n, config) for n in ("hot", "full"))
     for trainer in (hot, full):
-        trainer._rollout_programmed()
+        trainer._rollout_programmed(0)
     assert hot._update_programmed(0, full=False) == {}
     metrics = full._update_programmed(0, full=True)
     assert set(metrics) == set(full.policies_to_train)
@@ -358,7 +398,7 @@ def test_two_programmed_updates_match_jax(full, jax_run, tmp_path):
     jtrainer, carry, batch = jax_run
     port = _trainer(tmp_path, "port", _tag_continuous_run_config(
         port_config.load_run_config))
-    port._rollout_programmed()  # builds the programs and the static batch
+    port._rollout_programmed(0)  # builds the programs and the static batch
     params, opt = carry["params"], carry["opt"]
     for tag in port.policies:
         port.models[tag].load_state_dict(params_from_flax(_host(params[tag])))
@@ -435,7 +475,7 @@ def test_schedule_scalars_equal_value_at_bit_for_bit(tmp_path):
         lr=[[0, 0.01], [100, 0.002]], entropy_coeff=[[0, 0.5], [200, 0.05]],
         vf_loss_coeff=[[0, 1.0], [60, 0.25]])
     trainer = _trainer(tmp_path, "sched", config)
-    trainer._rollout_programmed()
+    trainer._rollout_programmed(0)
     update = trainer._update_passes["runner"]
     algo = trainer.algorithms["runner"]
     for t in (0, 10, 55, 130, 400):

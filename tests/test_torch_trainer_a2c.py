@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from warpdrive_tpu.tools.consistency import _assert_all_close
+from warpdrive_tpu.training.scripts import train as jax_train
 from warpdrive_tpu.training.scripts.train import setup_trainer as jax_setup
 from warpdrive_tpu.utils import config as jax_config
 from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
@@ -233,9 +234,9 @@ def test_left_out_features_raise(tmp_path):
     assert trainer.update_options["runner"].remat
     assert {"iteration_ms", "rollout_ms", "update_ms"} <= set(
         trainer.profile_phases(repeats=1))
-    # every run config of the JAX package is ported (asymmetric_pursuit
-    # was the last, ROADMAP queue 1 item 8)
-    assert port_train._NOT_PORTED == {}
+    # every run config of the JAX package's CLI builds through the port's
+    # (asymmetric_pursuit was the last to be ported)
+    assert set(port_train._ENV_SETUPS) == set(jax_train._ENV_SETUPS)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             port_train.setup_trainer(_config(port_config.load_run_config),

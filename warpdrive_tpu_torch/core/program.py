@@ -89,13 +89,17 @@ def storages(tree) -> dict:
 
 def assign_state(static: dict, new: dict):
     """Write a step's new state ``new`` into the static state ``static``
-    (the same entries), in place: the end of a captured step's body."""
+    (the same entries; a nested dict entry by entry), in place: the end of
+    a captured step's body."""
     if new.keys() != static.keys():
         raise ValueError(f"the step returned {sorted(new)}, the static state "
                          f"holds {sorted(static)}")
     for name, buf in static.items():
         value = new[name]
         if value is buf:
+            continue
+        if isinstance(buf, dict):
+            assign_state(buf, value)
             continue
         if value.dtype != buf.dtype or value.shape != buf.shape:
             raise ValueError(f"{name}: the step returned {value.dtype} "

@@ -56,7 +56,7 @@ from warpdrive_tpu_torch.envs.cpu_engine import CpuEnvEngine
 from warpdrive_tpu_torch.envs.engine import EnvEngine
 from warpdrive_tpu_torch.parallel import launch as local_launch
 from warpdrive_tpu_torch.parallel import mesh as pmesh
-from warpdrive_tpu_torch.training.trainer_base import _to_host, not_ported
+from warpdrive_tpu_torch.training.trainer_base import _to_host
 from warpdrive_tpu_torch.utils.config import load_run_config
 from warpdrive_tpu_torch.utils.env_registrar import env_registrar
 
@@ -74,9 +74,6 @@ _ENV_SETUPS = {
     # separate per-policy placeholders (heterogeneous observation spaces)
     "asymmetric_pursuit": ("AsymmetricPursuit", "separate"),
 }
-
-# the JAX package's other run configs, with the ROADMAP item that ports each
-_NOT_PORTED = {}
 
 
 def build_policy_map(kind: str, env) -> dict:
@@ -118,8 +115,6 @@ def setup_trainer(
             "call parallel.mesh.initialize_multihost in each process")
     register_all_envs()
     name = run_config.get("name")
-    if name in _NOT_PORTED:
-        raise not_ported(f"run config {name!r}", _NOT_PORTED[name])
     env_name, policy_kind = (env_setup or _ENV_SETUPS[name])[:2]
 
     backend = run_config["trainer"].get("env_backend")

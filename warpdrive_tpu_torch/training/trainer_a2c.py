@@ -32,22 +32,19 @@ iteration runs on the engine's device:
       ``optax.chain(clip_by_global_norm(max_norm), scale_by_adam(),
       scale(-1))`` times ``lr_t``, read once an update.
 
-On a card ``train()`` runs the rollout step and the update pass as
-captured programs (``core/program.py``), the JAX trainer's jitted
-iteration: the rollout-step program T times, then per policy the host's
-:meth:`UpdatePass.begin`, the PPO prologue program and the pass program
-once a pass, in its hot (metrics-free) or full variant
-(``_iteration_programmed``).  Everything they read and write is a static
-buffer written in place: the env state, episodic sums, batch, parameters,
-Adam moments and count, the schedules' 0-dim scalars and the step and pass
-counters.  The eager host-env backend steps its rollout on the host into
-the same static batch and runs the update programs, as JAX jits this
-backend's update (``_eager_update_fn``); under an NCCL process mesh the
-programs capture the collectives they run (a multi-pass sweep's passes,
-whose rows each rank picks on the host, run as called); a gloo mesh, whose
-collectives run on the host, keeps the eager iteration.  Elsewhere -- the
-CPU -- the eager iteration calls the same bodies op by op
-(``_iteration_eager``), which is the programs' plain version.
+An iteration runs the rollout step and the update pass as programs
+(``core/program.py``), the JAX trainer's jitted iteration: the rollout-step
+program T times, then per policy the host's :meth:`UpdatePass.begin`, the
+PPO prologue program and the pass program once a pass, in its hot
+(metrics-free) or full variant (``TrainerBase._iteration_programmed``).
+Everything they read and write is a static buffer written in place: the
+env state, episodic sums, batch, parameters, Adam moments and count, the
+schedules' 0-dim scalars and the step and pass counters.  The eager
+host-env backend steps its rollout on the host into the same static batch
+and runs the update programs, as JAX jits this backend's update
+(``_eager_update_fn``); under an NCCL process mesh the programs capture the
+collectives they run (a multi-pass sweep's passes, whose rows each rank
+picks on the host, run as called).
 
 Evaluation and episode fetching act through ``_act_fn`` (the most likely
 action, or one drawn from the evaluation generator), and
@@ -84,7 +81,7 @@ from torch.utils.checkpoint import checkpoint
 
 from warpdrive_tpu_torch.algos.policygradient import A2C, PPO, _logp_and_entropy
 from warpdrive_tpu_torch.core import trace
-from warpdrive_tpu_torch.core.program import Program, assign_state
+from warpdrive_tpu_torch.core.program import assign_state
 from warpdrive_tpu_torch.models.factory import ModelFactory
 from warpdrive_tpu_torch.parallel.mesh import MODEL_AXIS, tp_axis, tp_shard
 from warpdrive_tpu_torch.sampling.samplers import sample_heads
@@ -509,34 +506,6 @@ class UpdatePass:
         return {**metrics, "Current timestep": float(timestep),
                 "Learning rate": float(lr)}
 
-    def run(self, timestep, lr, index_table: torch.Tensor = None) -> dict:
-        """Every pass, eagerly, with metrics: :meth:`begin`, the
-        :meth:`prologue` where PPO needs one, then ``passes`` x
-        :meth:`run_pass`.  Returns the metric tensors of the last pass."""
-        self.begin(timestep, lr, index_table)
-        if self.needs_prologue:
-            self.prologue()
-        for _ in range(self.opts.passes):
-            metrics = self.run_pass(full=True)
-        return self.finish(metrics, timestep, lr)
-
-
-def policy_update(model, optimizer: ClippedAdam, algo, batch: dict,
-                  timestep, lr, negative_positive_ratio: float = -1.0,
-                  generator: torch.Generator = None,
-                  options: UpdateOptions = None,
-                  index_table: torch.Tensor = None,
-                  observe=None, mesh=None) -> dict:
-    """One policy's update on its ``batch`` at learning rate ``lr``, every
-    pass of :class:`UpdatePass` run eagerly; a shuffled sweep draws its
-    permutations from ``generator`` unless ``index_table`` ``(passes, E //
-    num_minibatches)`` gives them.  Returns the metric tensors of the last
-    pass, with its own gradient norm."""
-    return UpdatePass(
-        model, optimizer, algo, batch, options, observe=observe, mesh=mesh,
-        negative_positive_ratio=negative_positive_ratio, generator=generator,
-    ).run(timestep, lr, index_table)
-
 
 class TrainerA2C(TrainerBase):
     """A2C/PPO trainer over one or more policies."""
@@ -564,8 +533,8 @@ class TrainerA2C(TrainerBase):
             policy_cfg = config["policy"][tag]
             heads, _, is_det = self._action_heads(tag)
             assert not is_det, (
-                "A2C/PPO need categorical action spaces; DDPG (ROADMAP "
-                "queue 1, item 7) trains Box actions"
+                "A2C/PPO need categorical action spaces; TrainerDDPG trains "
+                "Box actions"
             )
             self._head_dims[tag] = heads
             model_cfg = policy_cfg["model"]
@@ -609,7 +578,7 @@ class TrainerA2C(TrainerBase):
                 remat=bool(policy_cfg.get("remat", False)),
             )
             # accepted as the JAX trainer accepts it; every value runs the
-            # one env-major slice layout of policy_update
+            # one env-major slice layout of UpdatePass
             env_major = policy_cfg.get("env_major", "auto")
             assert env_major in (True, False, "auto"), env_major
             assert self.num_envs % self.update_options[tag].num_minibatches \
@@ -626,18 +595,8 @@ class TrainerA2C(TrainerBase):
                 self.load_model_checkpoint({tag: ckpt})
 
         self._env_state = self._rollout_env_state()
-        self._ep_acc = torch.zeros((self.local_envs, self.engine.n_agents),
-                                   dtype=torch.float32, device=self.device)
-        self._ep_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        self._ep_count = torch.zeros((), dtype=torch.float32,
-                                     device=self.device)
         self._batch = None  # the rollout's buffers, made at first use
-        # the rollout's step counter: the batch row a step writes
-        self._row = torch.zeros((1,), dtype=torch.long, device=self.device)
-        # the programs (built at the first programmed iteration); which
-        # parts run them is TrainerBase's _programmed
-        self._programs = None
-        self._update_passes = None
+        self._update_passes = None  # each policy's, with the programs
 
     # ------------------------------------------------------------ rollout
     def _make_batch(self) -> dict:
@@ -684,19 +643,9 @@ class TrainerA2C(TrainerBase):
             self._batch = self._make_batch()
         if actions is not None and actions.shape[1] != self.local_envs:
             actions = actions[:, self.env_rows]
-        self._row.zero_()
-        for t in range(self.training_batch_size_per_env):
-            self._rollout_step(self._batch,
-                               None if actions is None else actions[t])
-        self._rollout_done()
+        self._rollout_steps(lambda t: self._rollout_step(
+            self._batch, None if actions is None else actions[t]))
         return self._batch
-
-    def _rollout_done(self):
-        """Keep the engine facade on the live state; on the split path
-        observations and actions are not carried and keep their
-        placeholders.  (The eager backend's engine holds the state.)"""
-        if not self._is_eager:
-            self.engine.state = {**self.engine.state, **self._env_state}
 
     @torch.no_grad()
     def _rollout_step(self, batch: dict, actions: torch.Tensor = None):
@@ -708,16 +657,16 @@ class TrainerA2C(TrainerBase):
         T; advances the static env state and the episodic accounting in
         place; and advances the counter.  ``actions`` ``(E, N, C)`` replace
         the draws (eager only).  On the eager backend the engine steps its
-        own state on the host."""
+        own state on the host; the rest of the step is
+        :meth:`_step_and_record`'s."""
         engine = self.engine
         row = self._row
         state = dict(engine.state) if self._is_eager else self._env_state
-        split = engine.has_split_step
         if self._recompute_obs:
             # copies: later steps must not write into the record
             for name, buf in batch["phys"].items():
                 buf.index_copy_(0, row, state[name][None])
-        obs_all = engine.observe(state) if split else None
+        obs_all = engine.observe(state) if engine.has_split_step else None
         per_policy = {}
         for tag in self.policies:
             obs_p, mask_p = self._policy_obs_and_mask(state, obs_all, tag)
@@ -735,37 +684,7 @@ class TrainerA2C(TrainerBase):
             record = batch[f"actions_{tag}"]
             record.index_copy_(0, row, acts[None].to(record.dtype))
             per_policy[tag] = acts
-        actions_all = self._merge_actions(per_policy)
-        if self._is_eager:  # the actions to the host, one host step
-            state = engine.step_all_envs(actions_all)
-        else:
-            state = (engine.step_physics(state, actions_all) if split
-                     else engine.step(state, actions_all))
-
-        rewards = engine.rewards_of(state)
-        done = state[_DONE]
-        for tag in self.policies:
-            policy_rewards = (
-                state[f"{_REWARDS}_{tag}"] if engine.separate_placeholders
-                else torch.index_select(rewards, 1, self._agent_ids[tag]))
-            record = batch[f"rewards_{tag}"]
-            record.index_copy_(0, row, policy_rewards[None].to(record.dtype))
-        batch["done"].index_copy_(0, row, done[None].to(torch.int32))
-
-        # episodic reward bookkeeping, in place
-        acc = self._ep_acc + rewards
-        done_mask = (done > 0).to(torch.float32)
-        self._ep_sum.copy_(self._ep_sum + (acc.mean(dim=1)
-                                           * done_mask).sum())
-        self._ep_count.copy_(self._ep_count + done_mask.sum())
-        self._ep_acc.copy_(acc * (1.0 - done_mask)[:, None])
-
-        if self._is_eager:
-            engine.reset_only_done_envs()
-        else:
-            assign_state(self._env_state,
-                         engine.auto_reset(state, self.generator))
-        row.add_(1)
+        self._step_and_record(state, per_policy, batch)
 
     # ------------------------------------------------------- the programs
     def _build_programs(self):
@@ -773,25 +692,15 @@ class TrainerA2C(TrainerBase):
         episodic accounting, batch, parameters, optimizer states): the
         rollout step, and per trained policy the update pass in its hot
         (metrics-free) and full variants and, for PPO over more than one
-        pass, the prologue.  They share one graph memory pool.  The
-        rollout step computes no metric, so its two variants are one
-        program."""
+        pass, the prologue (:meth:`TrainerBase._program`).  The rollout
+        step computes no metric, so its two variants are one program."""
         if self._batch is None:
             self._batch = self._make_batch()
         batch = self._batch
-        cuda = self.device.type == "cuda"
-        pool = torch.cuda.graph_pool_handle() if cuda else None
-        if cuda and self.mesh is not None:
-            self.mesh.warm_up()  # the communicators, before any capture
-
-        def program(body, buffers, name):
-            return Program(body, buffers, self.device,
-                           generators=[self.generator], pool=pool, name=name)
-
         models = {tag: list(m.parameters()) for tag, m in self.models.items()}
         programs = {}
         if not self._is_eager:  # the device engine
-            programs["rollout"] = program(
+            programs["rollout"] = self._program(
                 lambda: self._rollout_step(batch),
                 {"env_state": self._env_state, "batch": batch,
                  "row": self._row,
@@ -804,53 +713,52 @@ class TrainerA2C(TrainerBase):
             self._update_passes[tag] = update
             buffers = update.buffers()
             for variant in ("hot", "full"):
-                programs[tag, variant] = program(
+                programs[tag, variant] = self._program(
                     lambda u=update, full=variant == "full":
                         u.run_pass(full=full),
                     buffers, f"{tag} update pass ({variant})")
             trace.record_update_passes(programs[tag, "hot"].name,
                                        update.opts.passes)
             if update.needs_prologue:
-                programs[tag, "prologue"] = program(
+                programs[tag, "prologue"] = self._program(
                     update.prologue, buffers, f"{tag} update prologue")
         self._programs = programs
 
     def release_programs(self):
         """Drop the captured programs, and with them their graphs' memory
-        pool and the update passes' hold on the batch; the next programmed
-        iteration builds and captures them again."""
-        self._programs = self._update_passes = None
+        pool and the update passes' hold on the batch; the next iteration
+        builds and captures them again."""
+        self._update_passes = None
         super().release_programs()
 
-    def _rollout_programmed(self) -> dict:
+    def _rollout_programmed(self, timestep):
         """The rollout as ``training_batch_size_per_env`` calls of the
-        rollout-step program (on the eager backend, which steps the host,
-        the eager rollout into the same static batch); returns the static
-        batch."""
+        rollout-step program into the static batch (on the eager backend,
+        which steps the host, the eager rollout).  No schedule of the
+        rollout reads ``timestep``."""
         if self._programs is None:
             self._build_programs()
         if self._is_eager:
-            return self._rollout()
-        self._row.zero_()
+            self._rollout()
+            return
         step = self._programs["rollout"]
-        for _ in range(self.training_batch_size_per_env):
-            step()
-        self._rollout_done()
-        return self._batch
+        self._rollout_steps(lambda t: step())
 
-    def _update_programmed(self, timestep, full: bool = True) -> dict:
+    def _update_programmed(self, timestep, full: bool = True,
+                           index_tables: dict = None) -> dict:
         """Every trained policy's update on the static batch: the host's
-        :meth:`UpdatePass.begin`, the prologue program where PPO needs one,
-        then ``passes`` calls of the hot or the full pass program.  The
-        full variant returns the metric tensors per policy, the hot one
-        ``{}``."""
+        :meth:`UpdatePass.begin` (``index_tables`` ``{tag: (passes,
+        E_mb)}``, where given, replace a shuffled sweep's draws), the
+        prologue program where PPO needs one, then ``passes`` calls of the
+        hot or the full pass program.  The full variant returns the metric
+        tensors per policy, the hot one ``{}``."""
         if self._programs is None:
             self._build_programs()
         metrics = {}
         for tag in self.policies_to_train:
             update = self._update_passes[tag]
             lr = self.lr_schedules[tag].value_at(timestep)
-            update.begin(timestep, lr)
+            update.begin(timestep, lr, (index_tables or {}).get(tag))
             if update.needs_prologue:
                 self._programs[tag, "prologue"]()
             one_pass = self._programs[tag, "full" if full else "hot"]
@@ -863,22 +771,6 @@ class TrainerA2C(TrainerBase):
             if full:
                 metrics[tag] = update.finish(out, timestep, lr)
         return metrics
-
-    def _iteration_programmed(self, timestep, full: bool = True) -> dict:
-        """One iteration through the programs: the counterpart of the JAX
-        trainer's jitted ``_iteration_fn`` (``full``) and metrics-free
-        ``_iteration_fn_fast``, with the phase marks between replays."""
-        return self._marked_phases(
-            self._rollout_programmed,
-            lambda _: self._update_programmed(timestep, full))
-
-    def _phase_fns(self, timestep):
-        if not self._programmed:
-            return super()._phase_fns(timestep)
-        return (lambda: (self._rollout_programmed(),
-                         self._update_programmed(timestep, full=False)),
-                self._rollout_programmed,
-                lambda batch: self._update_programmed(timestep, full=False))
 
     # ------------------------------------------------- acting outside training
     def _act_fn(self, state: dict, use_argmax: bool = True,
@@ -952,12 +844,14 @@ class TrainerA2C(TrainerBase):
 
     def _update(self, batch: dict, timestep, index_tables: dict = None
                 ) -> dict:
-        """Every trained policy's update on ``batch``, eagerly; metric
-        tensors per policy.  ``index_tables`` ``{tag: (passes, E_mb)}``
-        replaces a shuffled sweep's draws."""
-        return {tag: self._update_pass(tag, batch).run(
-                    timestep, self.lr_schedules[tag].value_at(timestep),
-                    (index_tables or {}).get(tag))
-                for tag in self.policies_to_train}
-
-    _update_phase = _update
+        """Every trained policy's full update on ``batch`` (what the
+        rollout records, in the static batch's dtypes and shapes), copied
+        into the static batch and run through the programs as
+        :meth:`_iteration` runs them; metric tensors per policy.
+        ``index_tables`` ``{tag: (passes, E_mb)}`` replace a shuffled
+        sweep's draws."""
+        if self._programs is None:
+            self._build_programs()
+        assign_state(self._batch, batch)
+        with self._program_calls():
+            return self._update_programmed(timestep, True, index_tables)

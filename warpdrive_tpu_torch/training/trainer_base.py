@@ -30,23 +30,23 @@ With the tracer on (``core/trace.py``), ``train()`` records the spans
 ``train.checkpoint``, and every iteration ``rollout`` and ``update``, whose
 device extents are the iteration's three phase marks.
 
-An iteration runs one of two ways.  On a card every trainer but one under
-a gloo process mesh runs programs (``_programmed``): captured CUDA graphs,
-the counterpart of the JAX trainer's jitted iteration -- the metrics-free
-(hot) programs on every iteration but the first and the log points, which
-run the full ones, as the JAX ``train()`` chooses between
+An iteration runs the programs (``_iteration_programmed``): the
+counterpart of the JAX trainer's jitted iteration -- the metrics-free (hot)
+programs on every iteration but the first and the log points, which run
+the full ones, as the JAX ``train()`` chooses between
 ``_iteration_fn_fast`` and ``_iteration_fn``
 (``warpdrive_tpu/training/trainer_base.py:505-519``); on the eager
 host-env backend the rollout steps the host and the update is programmed.
-Every other trainer runs the eager iteration (the same bodies called op by
-op, metrics always built).  Either way the loop reads the metric tensors
-(which waits for the device) at log points only, and waits for the device
-every ``trainer.dispatch_sync_freq`` iterations (default 50, as in JAX), so
-that the host runs at most that far ahead of it.  Evaluation and episode
-fetching step static buffers with a program a step (the JAX package's
-jitted episode scans, cached by mode and by what is recorded), and
-``train()`` builds the evaluator's before the first iteration when
-``trainer.evaluator`` is on.
+On a card the programs are captured CUDA graphs (``_programmed``), but
+under a gloo process mesh, whose collectives run on the host; there, and
+on the CPU, every program calls its body (``core.program.plain_calls``).
+The loop reads the metric tensors (which waits for the device) at log
+points only, and waits for the device every ``trainer.dispatch_sync_freq``
+iterations (default 50, as in JAX), so that the host runs at most that far
+ahead of it.  Evaluation and episode fetching step static buffers with a
+program a step (the JAX package's jitted episode scans, cached by mode and
+by what is recorded), and ``train()`` builds the evaluator's before the
+first iteration when ``trainer.evaluator`` is on.
 
 Every placeholder mode of the engine is read through
 ``_policy_obs_and_mask``: a policy's observations flattened to ``(E, A_p,
@@ -116,13 +116,8 @@ from warpdrive_tpu_torch.utils.spaces import (
 
 _OBS = Constants.OBSERVATIONS
 _ACTIONS = Constants.ACTIONS
-
-
-def not_ported(what: str, item: str):
-    """The error a left-out feature raises."""
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue 1, item {item}"
-    )
+_DONE = Constants.DONE
+_REWARDS = Constants.REWARDS
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -193,9 +188,10 @@ class PerfStats:
 
 
 class TrainerBase:
-    """Common trainer machinery; an algorithm subclass provides
-    ``_rollout()`` (or ``_rollout_phase(timestep)``) and
-    ``_update_phase(batch, timestep)``."""
+    """Common trainer machinery; an algorithm subclass provides its
+    rollout step's head (``_rollout_step``), ``_build_programs``,
+    ``_rollout_programmed(timestep)`` and ``_update_programmed(timestep,
+    full)``."""
 
     def __init__(
         self,
@@ -263,10 +259,10 @@ class TrainerBase:
         # never between log points), as the JAX trainer does
         self.dispatch_sync_freq = int(trainer_cfg.get("dispatch_sync_freq",
                                                       50))
-        # on a card, train() runs captured programs (core/program.py): the
-        # update on every engine, the rollout too on the device engine; a
-        # gloo process mesh alone stays eager, since gloo's collectives run
-        # on the host and no graph can hold them
+        # on a card the programs (core/program.py) are captured: the update
+        # on every engine, the rollout too on the device engine; under a
+        # gloo process mesh alone they call their bodies, since gloo's
+        # collectives run on the host and no graph can hold them
         cuda = self.device.type == "cuda"
         gloo = self.mesh is not None and self.mesh.backend != "nccl"
         self._programmed = cuda and not gloo
@@ -362,10 +358,22 @@ class TrainerBase:
         self.current_timestep = 0
         self.iters_completed = 0
         self.models = {}
-        # the episode programs (evaluation, fetching, logging), their
-        # memory pool and their static episode state, made at first use
-        self._episode_programs = self._episode_pool = None
+        # the rollout's step counter (the batch row a step writes) and the
+        # episodic accounting: the running sums of each env and agent, and
+        # every finished episode's reward and count
+        self._row = torch.zeros((1,), dtype=torch.long, device=self.device)
+        self._ep_acc = torch.zeros((self.local_envs, self.engine.n_agents),
+                                   dtype=torch.float32, device=self.device)
+        self._ep_sum = torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+        self._ep_count = torch.zeros((), dtype=torch.float32,
+                                     device=self.device)
+        # the iteration's programs (built at the first iteration), the
+        # episode programs (evaluation, fetching, logging) and their static
+        # episode state, made at first use, and each kind's graph pool
+        self._programs = self._episode_programs = None
         self._episode_bufs = None
+        self._pools = {}
 
         logging.info(
             "TrainerBase: %d envs x %d agents, batch/env=%d, iters=%d, seed=%d",
@@ -496,47 +504,37 @@ class TrainerBase:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------- training
-    def _rollout_phase(self, timestep):
-        """One rollout from the trainer's env state; returns its batch.  A
-        subclass whose rollout reads the timestep's schedules overrides
-        it."""
-        return self._rollout()
-
-    def _update_phase(self, batch, timestep):  # pragma: no cover
-        """The update on a rollout's batch; returns the metric tensors per
-        policy."""
-        raise NotImplementedError
+    def _program_calls(self):
+        """The context the programs run in: captured and replayed where
+        the trainer captures graphs (``_programmed``), else their bodies
+        called (``plain_calls``) -- on the CPU, where a program calls its
+        body anyway, and under a gloo mesh."""
+        return contextlib.nullcontext() if self._programmed else plain_calls()
 
     def _iteration(self, timestep, full: bool = True) -> dict:
-        """One training iteration: through the captured programs where the
-        trainer runs them (``full``: the full variant, with metrics; else
-        the hot one, which returns ``{}``), else eagerly (always with
-        metrics)."""
-        if self._programmed:
+        """One training iteration through the programs, as they run here
+        (``full``: the full variant, with metrics; else the hot one, which
+        returns ``{}``)."""
+        with self._program_calls():
             return self._iteration_programmed(timestep, full)
-        return self._iteration_eager(timestep)
 
-    def _iteration_eager(self, timestep) -> dict:
-        """The eager iteration: the plain counterpart of the programs."""
-        return self._marked_phases(
-            lambda: self._rollout_phase(timestep),
-            lambda batch: self._update_phase(batch, timestep))
-
-    def _marked_phases(self, rollout, update) -> dict:
-        """``rollout()``, then ``update`` of its result, between the
-        iteration's three clock marks (start, the rollout's end, the
-        update's end), which are also the device extents of the tracer's
-        spans ``rollout`` and ``update``; returns the update's metrics with
-        the episodic reward."""
+    def _iteration_programmed(self, timestep, full: bool = True) -> dict:
+        """One iteration through the programs: the counterpart of the JAX
+        trainer's jitted ``_iteration_fn`` (``full``) and its metrics-free
+        twin ``_iteration_fn_fast``.  The rollout and the update run
+        between the iteration's three clock marks (start, the rollout's
+        end, the update's end), which are also the device extents of the
+        tracer's spans ``rollout`` and ``update``; returns the update's
+        metrics with the episodic reward."""
         start = self.clock.mark()
         span = (trace.begin("rollout", unit=self.iters_completed,
                             event=start) if trace.ON else 0)
-        batch = rollout()
+        self._rollout_programmed(timestep)
         mid = self.clock.mark()
         if span:
             trace.end(span, event=mid)
             span = trace.begin("update", event=mid)
-        metrics = update(batch)
+        metrics = self._update_programmed(timestep, full)
         stop = self.clock.mark()
         if span:
             trace.end(span, event=stop)
@@ -555,11 +553,73 @@ class TrainerBase:
             metrics[tag]["Mean episodic reward"] = mean_ep_reward
         return metrics
 
+    # ------------------------------------------------------------- rollout
+    def _rollout_steps(self, step):
+        """The rollout: ``step(t)`` for each of its
+        ``training_batch_size_per_env`` steps from batch row 0 (the device
+        counter ``_row``, which each step advances), then
+        :meth:`_rollout_done`."""
+        self._row.zero_()
+        for t in range(self.training_batch_size_per_env):
+            step(t)
+        self._rollout_done()
+
+    def _rollout_done(self):
+        """Keep the engine facade on the live state; on the split path
+        observations and actions are not carried and keep their
+        placeholders.  (The eager backend's engine holds the state.)"""
+        if not self._is_eager:
+            self.engine.state = {**self.engine.state, **self._env_state}
+
+    def _step_and_record(self, state: dict, per_policy: dict,
+                         records: dict):
+        """The tail of a rollout step, after the policies have acted on
+        ``state``: their actions ``per_policy`` merged into one env step
+        (on the eager backend a host step of the engine's own state, else
+        the split path's physics or the full step), each policy's rewards
+        and the done flags into row ``_row`` of ``records``
+        (``rewards_<tag>`` and ``done``), the episodic accounting, the
+        done-driven auto-reset into the trainer's env state, and the row
+        counter advanced; all in place."""
+        engine = self.engine
+        row = self._row
+        actions = self._merge_actions(per_policy)
+        if self._is_eager:  # the actions to the host, one host step
+            state = engine.step_all_envs(actions)
+        else:
+            state = (engine.step_physics(state, actions)
+                     if engine.has_split_step else engine.step(state, actions))
+
+        rewards = engine.rewards_of(state)
+        done = state[_DONE]
+        for tag in self.policies:
+            record = records[f"rewards_{tag}"]
+            record.index_copy_(0, row, (
+                state[f"{_REWARDS}_{tag}"] if engine.separate_placeholders
+                else torch.index_select(rewards, 1, self._agent_ids[tag])
+            )[None].to(record.dtype))
+        records["done"].index_copy_(0, row, done[None].to(torch.int32))
+
+        # episodic reward bookkeeping, in place
+        acc = self._ep_acc + rewards
+        done_mask = (done > 0).to(torch.float32)
+        self._ep_sum.copy_(self._ep_sum + (acc.mean(dim=1)
+                                           * done_mask).sum())
+        self._ep_count.copy_(self._ep_count + done_mask.sum())
+        self._ep_acc.copy_(acc * (1.0 - done_mask)[:, None])
+
+        if self._is_eager:
+            engine.reset_only_done_envs()
+        else:
+            assign_state(self._env_state,
+                         engine.auto_reset(state, self.generator))
+        row.add_(1)
+
     def train(self):
         """``num_iters`` iterations, metrics every ``metrics_log_freq``,
-        checkpoints every ``model_params_save_freq`` and at the end.  A
-        programmed trainer runs the full programs on its first iteration
-        and at log points and the hot ones elsewhere."""
+        checkpoints every ``model_params_save_freq`` and at the end: the
+        full programs on the first iteration and at log points, the hot
+        ones elsewhere."""
         steps_per_iter = self.training_batch_size_per_env * self.num_envs
         if self.use_evaluator and not self._is_eager:
             # the evaluator's program is built (and on a card captured)
@@ -874,12 +934,32 @@ class TrainerBase:
         finally:
             self.engine.restore_runtime_state(snap)
 
+    def _program(self, body, buffers, name: str,
+                 episode: bool = False) -> Program:
+        """A program of this trainer's over ``buffers``: one of the
+        iteration's, drawing from ``generator``, or with ``episode`` an
+        evaluation or fetching step, drawing from ``eval_generator``.  Each
+        kind's programs share a graph memory pool of its own, made with its
+        first program; before the iteration's first, a mesh on a card makes
+        its communicators, which no capture can."""
+        if episode not in self._pools:
+            cuda = self.device.type == "cuda"
+            self._pools[episode] = (torch.cuda.graph_pool_handle() if cuda
+                                    else None)
+            if cuda and self.mesh is not None and not episode:
+                self.mesh.warm_up()
+        return Program(body, buffers, self.device,
+                       generators=[self.eval_generator if episode
+                                   else self.generator],
+                       pool=self._pools[episode], name=name)
+
     def release_programs(self):
-        """Drop the captured programs (here the episode programs, their
-        memory pool and static episode state; a subclass drops its
-        iteration's too); each is built and captured again at need."""
-        self._episode_programs = self._episode_pool = None
+        """Drop the captured programs (the iteration's and the episode
+        programs), their memory pools and the static episode state; each is
+        built and captured again at need."""
+        self._programs = self._episode_programs = None
         self._episode_bufs = None
+        self._pools = {}
 
     def _episode_state(self) -> dict:
         """The static state every episode program steps: copies of the
@@ -892,20 +972,15 @@ class TrainerBase:
     def _episode_program(self, key, make) -> Program:
         """The episode program of ``key`` (the counterpart of JAX's
         ``_eval_fns``/``_fetch_fns`` caches), built by ``make() -> (body,
-        buffers)`` at its first use: captured on a card, drawing from
-        ``eval_generator``, in one memory pool with the other episode
-        programs."""
+        buffers)`` at its first use (:meth:`_program`)."""
         if self._episode_programs is None:
             self._episode_programs = {}
-            self._episode_pool = (torch.cuda.graph_pool_handle()
-                                  if self.device.type == "cuda" else None)
         program = self._episode_programs.get(key)
         if program is None:
             body, buffers = make()
-            program = Program(
+            program = self._program(
                 body, {"state": self._episode_state(), **buffers},
-                self.device, generators=[self.eval_generator],
-                pool=self._episode_pool, name=f"episode {key}")
+                f"episode {key}", episode=True)
             self._episode_programs[key] = program
         return program
 
@@ -1168,13 +1243,22 @@ class TrainerBase:
 
     # ------------------------------------------------------------ profiling
     def _phase_fns(self, timestep):
-        """``(iteration, rollout, update(batch))`` as the profilers run
-        them, without phase marks: the eager phases here; a programmed
-        trainer's hot programs."""
-        return (lambda: self._update_phase(self._rollout_phase(timestep),
-                                           timestep),
-                lambda: self._rollout_phase(timestep),
-                lambda batch: self._update_phase(batch, timestep))
+        """``(iteration, rollout, update)`` as the profilers run them,
+        without phase marks: the hot programs, run as :meth:`_iteration`
+        runs them."""
+        def rollout():
+            with self._program_calls():
+                self._rollout_programmed(timestep)
+
+        def update():
+            with self._program_calls():
+                self._update_programmed(timestep, full=False)
+
+        def iteration():
+            rollout()
+            update()
+
+        return iteration, rollout, update
 
     @contextlib.contextmanager
     def _state_restored(self):
@@ -1206,11 +1290,11 @@ class TrainerBase:
         warm-up call and then ``repeats`` times: iterations chained as
         ``train()`` runs them, rollouts chained from the state the last one
         left, and updates chained through their parameters on one real
-        rollout batch.  A programmed trainer times its hot programs, which
-        every non-log iteration runs, as the JAX trainer times its hot
-        program.  Each repeat is timed on the device's clock (CUDA events
-        on a card) and ends with a one-element host fetch.  The best repeat
-        is reported beside every repeat's time, as the JAX trainer's
+        rollout batch.  It times the hot programs, which every non-log
+        iteration runs, as the JAX trainer times its hot program.  Each
+        repeat is timed on the device's clock (CUDA events on a card) and
+        ends with a one-element host fetch.  The best repeat is reported
+        beside every repeat's time, as the JAX trainer's
         ``profile_phases`` reports them:
         ``{"iteration_ms", "rollout_ms", "update_ms",
         "update_ms_residual" (max(iteration - rollout, 0)),
@@ -1245,8 +1329,8 @@ class TrainerBase:
         with self._state_restored():
             iter_ms, iter_reps = timeit(iteration)
             rollout_ms, rollout_reps = timeit(rollout)
-            batch = rollout()
-            update_ms, update_reps = timeit(lambda: update(batch))
+            rollout()
+            update_ms, update_reps = timeit(update)
 
         result = {
             "iteration_ms": iter_ms,
@@ -1271,13 +1355,13 @@ class TrainerBase:
 
     def profile_trace(self, logdir: str, iterations: int = 3) -> str:
         """Write a ``torch.profiler`` trace of ``iterations`` training
-        iterations -- a programmed trainer's hot ones, which every non-log
-        iteration runs -- to ``logdir/trace_<timestep>.json``, a Chrome
-        trace that TensorBoard and Perfetto read; the counterpart of the
-        JAX trainer's ``profile_trace`` (``jax.profiler``).  One iteration
-        runs before the trace (building and capturing the programs there,
-        as JAX compiles outside its trace), and the training state is
-        restored afterwards.  The tracer (``core/trace.py``) is on for the
+        iterations -- the hot ones, which every non-log iteration runs --
+        to ``logdir/trace_<timestep>.json``, a Chrome trace that
+        TensorBoard and Perfetto read; the counterpart of the JAX trainer's
+        ``profile_trace`` (``jax.profiler``).  One iteration runs before
+        the trace (building and capturing the programs there, as JAX
+        compiles outside its trace), and the training state is restored
+        afterwards.  The tracer (``core/trace.py``) is on for the
         profiled iterations, so the trace carries its spans (``program.
         call``, ``update.begin``, ...) beside the kernels.  Returns the
         trace's path."""

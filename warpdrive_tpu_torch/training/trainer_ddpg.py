@@ -29,19 +29,18 @@ Until the window is full neither net, neither target and neither optimizer
 moves, and Adam's step count stays: the window fills by T rows an
 iteration, a count the host knows, so the gate is a Python branch.
 
-On a card ``train()`` runs these as captured programs (``core/program.py``),
-the JAX trainer's jitted iteration and its metrics-free twin: the noise
-draw, the rollout step T times, the replay append and per policy the
-update in its full, hot (metrics-free) or warm (metrics alone, while the
-window fills) variant (``_iteration_programmed``).  Everything they read
-and write is a static buffer written in place -- env state, OU state,
-rows, window, episodic sums, nets, targets, Adam moments and counts, the
-step counter and the OU schedules, learning rates and tau as 0-dim device
+An iteration runs these as programs (``core/program.py``), the JAX
+trainer's jitted iteration and its metrics-free twin: the noise draw, the
+rollout step T times, the replay append and per policy the update in its
+full, hot (metrics-free) or warm (metrics alone, while the window fills)
+variant (``TrainerBase._iteration_programmed``).  Everything they read and
+write is a static buffer written in place -- env state, OU state, rows,
+window, episodic sums, nets, targets, Adam moments and counts, the step
+counter and the OU schedules, learning rates and tau as 0-dim device
 scalars, which the host fills before the rollout (the tracer's span
 ``ddpg.schedules``, one an iteration; each fill counts as a
 ``scalar_writes``).  On the eager host-env backend the rollout steps the
-host and the append and update run as programs.  Elsewhere (the CPU, a
-gloo mesh) the eager iteration calls the same bodies op by op.
+host and the append and update run as programs.
 
 ``trainer.batch_dtype`` (e.g. ``bfloat16``) is the replay window's
 observation dtype; the nets promote such observations against their
@@ -70,7 +69,7 @@ import torch
 
 from warpdrive_tpu_torch.algos.ddpg import DDPG
 from warpdrive_tpu_torch.core import trace
-from warpdrive_tpu_torch.core.program import Program, assign_state
+from warpdrive_tpu_torch.core.program import assign_state
 from warpdrive_tpu_torch.models.factory import ModelFactory
 from warpdrive_tpu_torch.sampling.samplers import sample_ou_process
 from warpdrive_tpu_torch.training.param_scheduler import ParamScheduler
@@ -80,10 +79,7 @@ from warpdrive_tpu_torch.training.trainer_base import (
     _host_state,
     _timestep_of,
 )
-from warpdrive_tpu_torch.utils.constants import Constants
 
-_DONE = Constants.DONE
-_REWARDS = Constants.REWARDS
 _NETS = ("actor", "critic")
 
 
@@ -175,18 +171,6 @@ def finish_metrics(metrics: dict, timestep, lrs: dict, full: bool) -> dict:
             "Critic learning rate": float(lrs["critic"]),
             **norms,
             "Buffer full": float(full)}
-
-
-def ddpg_policy_update(nets: dict, targets: dict, optimizers: dict, algo,
-                       batch: dict, timestep, lrs: dict, tau: float,
-                       step: bool = True, remat: bool = False,
-                       mesh=None) -> dict:
-    """One policy's DDPG update (:func:`ddpg_update_step`) with its full
-    metrics (:func:`finish_metrics`; ``lrs`` host numbers)."""
-    return finish_metrics(
-        ddpg_update_step(nets, targets, optimizers, algo, batch, lrs, tau,
-                         step=step, remat=remat, mesh=mesh),
-        timestep, lrs, step)
 
 
 class TrainerDDPG(TrainerBase):
@@ -298,20 +282,15 @@ class TrainerDDPG(TrainerBase):
         self._window["done"] = zeros((W, E), torch.int32)
         self._rows["done"] = zeros((T, E), torch.int32)
         self.filled = 0  # rows of the window written so far, at most full
-        self._ep_acc = zeros((E, self.engine.n_agents))
-        self._ep_sum = scalar()
-        self._ep_count = scalar()
-        # the rollout's step counter (the row a step writes), the OU
-        # schedules' values, each net's learning rate and each policy's tau
-        # as device scalars, filled on the host before the programs run
-        self._row = torch.zeros((1,), dtype=torch.long, device=self.device)
+        # the OU schedules' values, each net's learning rate and each
+        # policy's tau as device scalars, filled on the host before the
+        # programs run
         self._sched = {name: scalar() for name in ("damping", "stddev",
                                                    "scale")}
         self._lr = {net: {tag: scalar() for tag in self.policies}
                     for net in _NETS}
         self._tau_t = {tag: torch.tensor(np.float32(tau), device=self.device)
                        for tag, tau in self.tau.items()}
-        self._programs = None
 
         for tag in self.policies:
             ckpts = config["policy"][tag]["model"].get("model_ckpt_filepath",
@@ -387,17 +366,8 @@ class TrainerDDPG(TrainerBase):
                 self._sched[name].fill_(float(np.float32(value)))
         for tag, value in (noise or {}).items():
             self._noise[tag].copy_(value)
-        self._row.zero_()
-        for _ in range(self.training_batch_size_per_env):
-            self._rollout_step()
-        self._rollout_done()
+        self._rollout_steps(lambda t: self._rollout_step())
         return self._rows
-
-    def _rollout_done(self):
-        """Keep the engine facade on the live state (the eager backend's
-        engine holds the state itself)."""
-        if not self._is_eager:
-            self.engine.state = {**self.engine.state, **self._env_state}
 
     @torch.no_grad()
     def _rollout_step(self):
@@ -409,13 +379,13 @@ class TrainerDDPG(TrainerBase):
         auto-reset; row ``self._row`` (a device step counter) of every
         static row buffer is written with ``index_copy_``, and the OU
         state, env state and episodic accounting in place.  On the eager
-        backend the engine steps its own state on the host."""
+        backend the engine steps its own state on the host; the rest of the
+        step is :meth:`_step_and_record`'s."""
         engine = self.engine
         row = self._row
-        split = engine.has_split_step
         state = dict(engine.state) if self._is_eager else self._env_state
         sched = self._sched
-        obs_all = engine.observe(state) if split else None
+        obs_all = engine.observe(state) if engine.has_split_step else None
         per_policy = {}
         for tag in self.policies:
             obs_p = self._policy_obs_and_mask(state, obs_all, tag)[0]
@@ -429,37 +399,7 @@ class TrainerDDPG(TrainerBase):
             for key, value in (("obs", obs_p), ("actions", acts)):
                 record = self._rows[f"{key}_{tag}"]
                 record.index_copy_(0, row, value[None].to(record.dtype))
-        actions = self._merge_actions(per_policy)
-        if self._is_eager:  # the actions to the host, one host step
-            state = engine.step_all_envs(actions)
-        else:
-            state = (engine.step_physics(state, actions) if split
-                     else engine.step(state, actions))
-
-        rewards = engine.rewards_of(state)
-        done = state[_DONE]
-        for tag in self.policies:
-            record = self._rows[f"rewards_{tag}"]
-            record.index_copy_(0, row, (
-                state[f"{_REWARDS}_{tag}"] if engine.separate_placeholders
-                else torch.index_select(rewards, 1, self._agent_ids[tag])
-            )[None].to(record.dtype))
-        self._rows["done"].index_copy_(0, row, done[None].to(torch.int32))
-
-        # episodic reward bookkeeping, in place
-        acc = self._ep_acc + rewards
-        done_mask = (done > 0).to(torch.float32)
-        self._ep_sum.copy_(self._ep_sum + (acc.mean(dim=1)
-                                           * done_mask).sum())
-        self._ep_count.copy_(self._ep_count + done_mask.sum())
-        self._ep_acc.copy_(acc * (1.0 - done_mask)[:, None])
-
-        if self._is_eager:
-            engine.reset_only_done_envs()
-        else:
-            assign_state(self._env_state,
-                         engine.auto_reset(state, self.generator))
-        row.add_(1)
+        self._step_and_record(state, per_policy, self._rows)
 
     # ------------------------------------------------------------- update
     def _append(self):
@@ -509,33 +449,18 @@ class TrainerDDPG(TrainerBase):
                 for net in _NETS}
 
     def _replay_update(self, rows: dict, timestep) -> dict:
-        """Append ``rows`` (the static rows, or rows a test passes) to the
-        replay window and update every trained policy, eagerly: the step
-        once the window is full, the metrics always; returns the metric
-        tensors per policy.  Rows a caller passes come without the
-        rollout, whose :meth:`_write_schedules` writes the learning rates:
-        they are written here for them."""
-        if rows is not self._rows:
-            for key, value in rows.items():
-                self._rows[key].copy_(value)
-            for tag in self.policies_to_train:
-                self._write_lrs(tag, timestep)
-        self._append()
-        is_full = self._fill_after_append()
-        metrics = {}
+        """Append ``rows`` (what the rollout records, in the static rows'
+        dtypes and shapes), copied into the static rows, to the replay
+        window and update every trained policy through the programs, as
+        :meth:`_iteration` runs them: the step once the window is full, the
+        metrics always; returns the metric tensors per policy.  The
+        learning rates, which the rollout's :meth:`_write_schedules` writes,
+        are written here."""
+        assign_state(self._rows, rows)
         for tag in self.policies_to_train:
-            lrs = self._lrs_at(tag, timestep)
-            metrics[tag] = finish_metrics(
-                self._update_body(tag, "full" if is_full else "warm"),
-                timestep, lrs, is_full)
-        return metrics
-
-    def _rollout_phase(self, timestep) -> dict:
-        self._write_schedules(timestep)
-        self._draw_noise()
-        return self._rollout()
-
-    _update_phase = _replay_update
+            self._write_lrs(tag, timestep)
+        with self._program_calls():
+            return self._update_programmed(timestep)
 
     # ------------------------------------------------------- the programs
     def _build_programs(self):
@@ -544,30 +469,23 @@ class TrainerDDPG(TrainerBase):
         rollout step; the replay append; per trained policy the update in
         its full, hot (metrics-free) and warm (metrics alone, while the
         window fills) variants.  A program is captured at its first
-        call."""
-        cuda = self.device.type == "cuda"
-        pool = torch.cuda.graph_pool_handle() if cuda else None
-        if cuda and self.mesh is not None:
-            self.mesh.warm_up()  # the communicators, before any capture
-
-        def program(body, buffers, name):
-            return Program(body, buffers, self.device,
-                           generators=[self.generator], pool=pool, name=name)
-
+        call (:meth:`TrainerBase._program`)."""
         programs = {}
         if not self._is_eager:  # the device engine
-            programs["noise"] = program(
+            programs["noise"] = self._program(
                 self._draw_noise, {"noise": self._noise,
                                    "sched": self._sched}, "OU noise draw")
-            programs["rollout"] = program(self._rollout_step, {
-                "env_state": self._env_state, "rows": self._rows,
-                "row": self._row, "ou": self._ou, "noise": self._noise,
-                "sched": self._sched,
-                "episodes": [self._ep_acc, self._ep_sum, self._ep_count],
-                "actors": {tag: list(m.parameters())
-                           for tag, m in self.nets["actor"].items()}},
+            # the step looked up at each call, as a wrapper may replace it
+            programs["rollout"] = self._program(
+                lambda: self._rollout_step(),
+                {"env_state": self._env_state, "rows": self._rows,
+                 "row": self._row, "ou": self._ou, "noise": self._noise,
+                 "sched": self._sched,
+                 "episodes": [self._ep_acc, self._ep_sum, self._ep_count],
+                 "actors": {tag: list(m.parameters())
+                            for tag, m in self.nets["actor"].items()}},
                 "rollout step")
-        programs["append"] = program(
+        programs["append"] = self._program(
             self._append, {"window": self._window, "rows": self._rows},
             "replay append")
         for tag in self.policies_to_train:
@@ -582,7 +500,7 @@ class TrainerDDPG(TrainerBase):
                 "lrs": [self._lr[net][tag] for net in _NETS],
                 "tau": self._tau_t[tag]}
             for variant in ("full", "hot", "warm"):
-                programs[tag, variant] = program(
+                programs[tag, variant] = self._program(
                     lambda tag=tag, variant=variant:
                         self._update_body(tag, variant),
                     buffers, f"{tag} update ({variant})")
@@ -590,30 +508,21 @@ class TrainerDDPG(TrainerBase):
             trace.record_update_passes(programs[tag, "hot"].name, 1)
         self._programs = programs
 
-    def release_programs(self):
-        """Drop the captured programs and their graphs' memory pool; the
-        next programmed iteration builds and captures them again."""
-        self._programs = None
-        super().release_programs()
-
-    def _rollout_programmed(self, timestep) -> dict:
+    def _rollout_programmed(self, timestep):
         """The schedules into their scalars, then on the device engine the
         noise-draw program and ``training_batch_size_per_env`` calls of the
-        rollout-step program (on the eager backend the eager rollout);
-        returns the static rows."""
+        rollout-step program into the static rows (on the eager backend the
+        noise drawn and the eager rollout)."""
         if self._programs is None:
             self._build_programs()
         self._write_schedules(timestep)
         if self._is_eager:
             self._draw_noise()
-            return self._rollout()
+            self._rollout()
+            return
         self._programs["noise"]()
-        self._row.zero_()
         step = self._programs["rollout"]
-        for _ in range(self.training_batch_size_per_env):
-            step()
-        self._rollout_done()
-        return self._rows
+        self._rollout_steps(lambda t: step())
 
     def _update_programmed(self, timestep, full: bool = True) -> dict:
         """The append program, then per trained policy (its learning
@@ -638,22 +547,6 @@ class TrainerDDPG(TrainerBase):
                 metrics[tag] = finish_metrics(
                     out, timestep, self._lrs_at(tag, timestep), is_full)
         return metrics
-
-    def _iteration_programmed(self, timestep, full: bool = True) -> dict:
-        """One iteration through the programs: the counterpart of the JAX
-        trainer's jitted ``_iteration_fn`` (``full``) and its metrics-free
-        twin ``_iteration_fn_fast``, with the phase marks between them."""
-        return self._marked_phases(
-            lambda: self._rollout_programmed(timestep),
-            lambda _: self._update_programmed(timestep, full))
-
-    def _phase_fns(self, timestep):
-        if not self._programmed:
-            return super()._phase_fns(timestep)
-        return (lambda: (self._rollout_programmed(timestep),
-                         self._update_programmed(timestep, full=False)),
-                lambda: self._rollout_programmed(timestep),
-                lambda batch: self._update_programmed(timestep, full=False))
 
     # ------------------------------------------------------- checkpoints
     def save_model_checkpoint(self, timestep: int = None):
