@@ -277,7 +277,13 @@ Phases, each of which raises (and so exits non-zero) on a failure:
    (102,400 and 5,120 rows), each team size at two of them: against
    ``draw_heads_plain`` bit for bit, timed the same way, and captured
    with its uniform draws beside the stacked ``sample_from_logits``
-   (kernel nodes and device time a draw of each).
+   (kernel nodes and device time a draw of each); and the done-driven reset
+   kernel (``csrc/reset.cu``) at the three benchmark cells' shapes (the
+   flagship's 1024 x 105, the training config's 100 x 110, 10,000 Pendulum
+   envs with a pool of 10,000): the reset into the static state against
+   the plain ``where`` chain written back, every byte alike, timed the same
+   way beside its byte bound, and both paths captured (kernel and memcpy
+   nodes and device time a reset).
 
 The last three lines are the card (``nvidia-smi``'s name and power limit),
 one JSON object with a record per kernel, and the result line
@@ -321,12 +327,19 @@ SAMPLER_SHAPES = {"runner": (100, 100), "tagger": (100, 10),
                   "flagship tagger": (1024, 5)}
 SAMPLER_WIDTHS = (21, 21)
 SAMPLER_GRAPH_DRAWS = 20
+# the device function of the done-driven reset kernel, and the resets a
+# captured program of either reset path holds in phase 5
+_RESET_SYMBOL = "reset_when_done_kernel"
+RESET_GRAPH_RESETS = 20
 # the physics kernel's launches on each main path of phases 4a-4l, each
 # path's own count checked against its steps (``_physics_path``); the
 # kernel's record in the kernels line sums them
 _PHYSICS_PATHS: dict = {}
 # the same for the categorical-draw kernel (``_sampler_path``)
 _SAMPLER_PATHS: dict = {}
+# and for the reset kernel, one launch a step on every path
+# (``_reset_path``)
+_RESET_PATHS: dict = {}
 
 DEVICE = "cuda"
 NUM_ENVS = 1024
@@ -996,17 +1009,20 @@ def _drive_knn_loops(rolled):
                           MAIN_PATH_STEPS)
             _sampler_path(f"4e {algo} {loop}", r["sampler_launches"],
                           _draws_a_step(loop) * MAIN_PATH_STEPS)
+            _reset_path(f"4e {algo} {loop}", r["reset_launches"],
+                        MAIN_PATH_STEPS)
             results[algo, loop], launches[algo, loop] = r, counts
     return results, launches
 
 
 def _drive_main_path(system, generator):
     """Both loops at full width; returns per-loop timings (with each
-    loop's draw launches, ``sampler_launches``, counted from 0) and the kNN
-    launches."""
+    loop's draw and reset launches, ``sampler_launches`` and
+    ``reset_launches``, counted from 0) and the kNN launches."""
     import torch
 
     from warpdrive_tpu_torch.ops import gumbel_sample, knn_obs, tag_physics
+    from warpdrive_tpu_torch.ops import reset as reset_ops
 
     env_only = system["env_only_step"]
     full_loop = system["full_loop_step"]
@@ -1024,6 +1040,7 @@ def _drive_main_path(system, generator):
     result = {}
     for name in ("env_only_step", "full_loop_step"):
         gumbel_sample.reset_launch_counts()
+        reset_ops.reset_launch_counts()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -1043,6 +1060,7 @@ def _drive_main_path(system, generator):
             "host_s": host_s,
             "launches_after": dict(knn_obs.LAUNCH_COUNTS),
             "sampler_launches": gumbel_sample.LAUNCH_COUNTS["gumbel_sample"],
+            "reset_launches": reset_ops.LAUNCH_COUNTS["reset_when_done"],
         }
     launches = dict(knn_obs.LAUNCH_COUNTS)
     _check_loop_state(state, checksum,
@@ -1087,16 +1105,27 @@ def _sampler_path(label, launches, want):
     _SAMPLER_PATHS[label] = _SAMPLER_PATHS.get(label, 0) + launches
 
 
+def _reset_path(label, launches, want):
+    """The reset kernel's ``launches`` on the main path ``label``, counted
+    from 0 on that path, must be ``want`` (one a step: every reset on a
+    card, into a static state or into fresh tensors, is one launch); kept
+    for the kernel's record."""
+    assert launches == want, (
+        f"{label}: {launches} reset launches, expected {want}")
+    _RESET_PATHS[label] = _RESET_PATHS.get(label, 0) + launches
+
+
 def _time_loop(system, generator, steps, loop="env_only_step", warmup=5):
     """``warmup`` then ``steps`` steps of ``loop`` (``env_only_step`` or
     ``full_loop_step``); the launch counts, the kNN kernels' and the
-    physics kernel's and the draw kernel's, are set to 0 after the warm-up
-    and read after the timed steps.  Returns the timings (with
-    ``physics_launches`` and ``sampler_launches``), the kNN counts and the
-    final state."""
+    physics kernel's, the draw kernel's and the reset kernel's, are set to
+    0 after the warm-up and read after the timed steps.  Returns the
+    timings (with ``physics_launches``, ``sampler_launches`` and
+    ``reset_launches``), the kNN counts and the final state."""
     import torch
 
     from warpdrive_tpu_torch.ops import gumbel_sample, knn_obs, tag_physics
+    from warpdrive_tpu_torch.ops import reset as reset_ops
 
     step = system[loop]
     state = system["state"]
@@ -1113,6 +1142,7 @@ def _time_loop(system, generator, steps, loop="env_only_step", warmup=5):
     knn_obs.reset_launch_counts()
     tag_physics.reset_launch_counts()
     gumbel_sample.reset_launch_counts()
+    reset_ops.reset_launch_counts()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -1125,6 +1155,7 @@ def _time_loop(system, generator, steps, loop="env_only_step", warmup=5):
     launches = dict(knn_obs.LAUNCH_COUNTS)
     physics = tag_physics.LAUNCH_COUNTS["tag_physics"]
     sampler = gumbel_sample.LAUNCH_COUNTS["gumbel_sample"]
+    resets = reset_ops.LAUNCH_COUNTS["reset_when_done"]
     _check_loop_state(state, checksum,
                       (system["num_envs"], system["num_agents"]))
     ms = start.elapsed_time(stop) / steps
@@ -1133,7 +1164,8 @@ def _time_loop(system, generator, steps, loop="env_only_step", warmup=5):
             "agent_steps_per_s": system["num_envs"] * system["num_agents"]
             / (ms / 1e3),
             "host_s": host_s, "physics_launches": physics,
-            "sampler_launches": sampler}, launches, state
+            "sampler_launches": sampler, "reset_launches": resets}, \
+        launches, state
 
 
 def _drive_many_agents():
@@ -1163,6 +1195,7 @@ def _drive_many_agents():
         assert counts == expected, f"launches {counts}, expected {expected}"
         _physics_path(f"4c {algo}", r["physics_launches"], MANY_AGENT_STEPS)
         _sampler_path(f"4c {algo}", r["sampler_launches"], 0)
+        _reset_path(f"4c {algo}", r["reset_launches"], MANY_AGENT_STEPS)
         systems[algo], results[algo], launches[algo] = system, r, counts
     # the same loops in the reverse order, so that each loop's wall is read
     # both early and late in the run; each system keeps the state of its
@@ -1179,6 +1212,7 @@ def _drive_many_agents():
         assert counts == expected, f"launches {counts}, expected {expected}"
         _physics_path(f"4c {algo}", r["physics_launches"], MANY_AGENT_STEPS)
         _sampler_path(f"4c {algo}", r["sampler_launches"], 0)
+        _reset_path(f"4c {algo}", r["reset_launches"], MANY_AGENT_STEPS)
         launches[f"{algo}, reverse order"] = counts
     return systems, results, launches
 
@@ -1189,13 +1223,14 @@ def _drive_training(run_config, before_train=None):
     kNN kernels' and the physics kernel's, set to 0 just before and read
     just after; ``before_train(trainer)``, when given, runs between the
     two.  Returns the trainer, the kNN counts and the set-up and training
-    seconds with the physics and the draw kernel's launches
-    (``physics_launches``, ``sampler_launches``)."""
+    seconds with the physics, the draw and the reset kernel's launches
+    (``physics_launches``, ``sampler_launches``, ``reset_launches``)."""
     import math
 
     import torch
 
     from warpdrive_tpu_torch.ops import gumbel_sample, knn_obs, tag_physics
+    from warpdrive_tpu_torch.ops import reset as reset_ops
     from warpdrive_tpu_torch.training.scripts.train import setup_trainer
 
     results_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
@@ -1203,6 +1238,7 @@ def _drive_training(run_config, before_train=None):
         knn_obs.reset_launch_counts()
         tag_physics.reset_launch_counts()
         gumbel_sample.reset_launch_counts()
+        reset_ops.reset_launch_counts()
         t0 = time.perf_counter()
         trainer = setup_trainer(run_config, results_dir=results_dir,
                                 verbose=False, device=DEVICE)
@@ -1219,6 +1255,7 @@ def _drive_training(run_config, before_train=None):
         launches = dict(knn_obs.LAUNCH_COUNTS)
         physics = tag_physics.LAUNCH_COUNTS["tag_physics"]
         sampler = gumbel_sample.LAUNCH_COUNTS["gumbel_sample"]
+        resets = reset_ops.LAUNCH_COUNTS["reset_when_done"]
 
         with open(Path(results_dir) / "results.json", encoding="utf-8") as f:
             last = json.loads(f.read().splitlines()[-1])
@@ -1245,7 +1282,8 @@ def _drive_training(run_config, before_train=None):
               f"{steps / ((roll_ms + upd_ms) / 1e3):.0f} env-steps/s")
     return trainer, launches, {"setup_s": setup_s, "train_s": train_s,
                                "physics_launches": physics,
-                               "sampler_launches": sampler}
+                               "sampler_launches": sampler,
+                               "reset_launches": resets}
 
 
 def _one_update(model, optimizer, algo, batch, timestep, lr,
@@ -1455,6 +1493,7 @@ def _drive_env_loops():
               f"{r['host_s']:.3f} s; {settings}); launches {counts}")
         assert counts == no_launches, f"{label}: launches {counts}"
         assert r["physics_launches"] == 0, r
+        _reset_path(f"4f {label}", r["reset_launches"], ENV_LOOP_STEPS)
         systems[label], results[label] = system, r
     return systems, results
 
@@ -1482,6 +1521,8 @@ def _drive_full_step_training():
         assert trainer.num_iters == FULL_STEP_TRAIN_ITERS
         assert launches == no_launches, f"{name}: launches {launches}"
         assert times["physics_launches"] == 0, times
+        _reset_path(f"4g {name}", times["reset_launches"],
+                    trainer.num_iters * trainer.training_batch_size_per_env)
         pools = {t: tuple(p.shape)
                  for t, p in trainer.engine.store.pools.items()}
         if "reset_pool_size" in cfg["env"] or "with_reset_pool" in name:
@@ -1803,6 +1844,139 @@ def _time_sampler(lead, label):
             "graphs": {n: list(v) for n, v in graphs.items()}}
 
 
+def _reset_case(cell):
+    """A state of ``cell``'s env as its rollout step hands it to the reset
+    (the three benchmark cells: ``flagship`` 1024 x 105, ``training`` 100
+    x 110, ``pendulum`` 10,000 envs with a pool of 10,000): the engine, the
+    static state it resets into and the state after a step (the split
+    path's physics, else the whole step), a done flag on every third env."""
+    import torch
+
+    from warpdrive_tpu_torch.envs.classic_control.pendulum import (
+        TorchClassicControlPendulumEnv,
+    )
+    from warpdrive_tpu_torch.envs.engine import EnvEngine
+    from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
+    from warpdrive_tpu_torch.presets import build_flagship, random_actions_fn
+    from warpdrive_tpu_torch.utils.config import load_run_config
+
+    if cell == "flagship":
+        engine = build_flagship(num_envs=NUM_ENVS, fc_dims=(32, 32), seed=3,
+                                device=DEVICE)["engine"]
+    elif cell == "training":
+        env = TorchTagContinuous(
+            **dict(load_run_config("tag_continuous")["env"], seed=3))
+        engine = EnvEngine(env_obj=env, num_envs=100, seed=3, device=DEVICE)
+    else:
+        env = TorchClassicControlPendulumEnv(reset_pool_size=10_000, seed=3)
+        engine = EnvEngine(env_obj=env, num_envs=10_000, seed=3,
+                           device=DEVICE)
+    actions = random_actions_fn(engine, DEVICE)(
+        torch.Generator(device=DEVICE).manual_seed(5))
+    split = engine.has_split_step
+    static = {k: v.clone() for k, v in engine.state.items()
+              if not (split and k in ("observations", "sampled_actions"))}
+    state = (engine.step_physics(static, actions) if split
+             else engine.step(static, actions))
+    envs = state["_done_"].shape[0]
+    state["_done_"] = (torch.arange(envs, device=DEVICE) % 3 == 0).to(
+        torch.int32)
+    return engine, static, state
+
+
+def _time_reset(cell):
+    """The reset kernel at ``cell``'s shape (:func:`_reset_case`), the
+    env's reset without the engine's observation refresh
+    (``core/reset.make_auto_reset_fn`` over its snapshot and pools): the
+    reset into the static state against the plain ``where`` chain
+    (``core/reset.reset_plain``, the pool rows drawn alike) written back by
+    ``assign_state``, every byte alike and the generator left alike; then
+    the kernel path's time back to back (21 x 50 calls, the pool's row
+    draw included), the kernel's own device time (profiler, 50 calls) and
+    the plain path's (11 x 5), beside the byte bound; and both paths
+    captured as programs of ``RESET_GRAPH_RESETS`` resets, so that the
+    card paces a replay: kernel and memcpy nodes and device time a reset
+    (median of 21 x 10)."""
+    import torch
+
+    from warpdrive_tpu_torch.core.program import Program, assign_state
+    from warpdrive_tpu_torch.core.reset import make_auto_reset_fn, reset_plain
+    from warpdrive_tpu_torch.ops import reset as reset_ops
+
+    engine, static, state = _reset_case(cell)
+    snapshot, pools = engine.store.snapshot, engine.store.pools
+    reset_fn = make_auto_reset_fn(snapshot, pools)
+    envs = state["_done_"].shape[0]
+
+    def plain_reset(generator):
+        rows = {t: torch.randint(0, pool.shape[0], (envs,),
+                                 generator=generator, device=DEVICE)
+                for t, pool in sorted(pools.items())}
+        return reset_plain(state, snapshot, pools, rows)
+
+    gens = [torch.Generator(device=DEVICE).manual_seed(9) for _ in range(2)]
+    ours = {k: v.clone() for k, v in static.items()}
+    want = {k: v.clone() for k, v in static.items()}
+    before = reset_ops.LAUNCH_COUNTS["reset_when_done"]
+    reset_fn(state, gens[0], out=ours)
+    assert reset_ops.LAUNCH_COUNTS["reset_when_done"] == before + 1
+    assign_state(want, plain_reset(gens[1]))
+    torch.cuda.synchronize()
+    for name in ours:
+        a, b = (t.reshape(-1).view(torch.uint8)
+                for t in (ours[name], want[name]))
+        bad = int((a != b).sum())
+        assert bad == 0, f"reset [{cell}]: {bad} bytes of {name} differ"
+    assert torch.equal(*(torch.rand(8, generator=g, device=DEVICE)
+                         for g in gens)), f"reset [{cell}]: generators"
+
+    gen = gens[0]
+
+    def call():
+        reset_fn(state, gen, out=ours)
+
+    def plain():
+        assign_state(want, plain_reset(gen))
+
+    kernel_b2b = _cuda_ms(call, repeats=21, inner=50)
+    kernel_dev = _kernel_device_ms(call, symbols=(_RESET_SYMBOL,))
+    plain_ms = _cuda_ms(plain, repeats=11, inner=5)
+    rows = {t: torch.zeros((envs,), dtype=torch.long, device=DEVICE)
+            for t in pools}
+    entries = reset_ops.plan(ours, state, snapshot, pools, rows)
+    nbytes = (2 * sum(dst.numel() * dst.element_size()
+                      for _, _, dst, *_ in entries)
+              + 4 * envs + 8 * envs * len(rows))
+    bound_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+
+    graphs = {}
+    for name, reset in (("kernel", call), ("plain", plain)):
+        def body(reset=reset):
+            for _ in range(RESET_GRAPH_RESETS):
+                reset()
+
+        program = Program(body, {"state": state, "static": ours,
+                                 "want": want}, DEVICE, generators=(gen,),
+                          name=f"reset {name}")
+        program()
+        nodes = program.graph_nodes
+        graphs[name] = (
+            nodes["kernel"] / RESET_GRAPH_RESETS,
+            nodes["memcpy"] / RESET_GRAPH_RESETS,
+            _cuda_ms(program, repeats=21, inner=10) / RESET_GRAPH_RESETS)
+    print(f"reset_when_done [{cell}] at {envs} envs, {len(entries)} "
+          f"entries: bit for bit with the plain reset; kernel "
+          f"{kernel_b2b:.5f} ms back to back, {kernel_dev:.5f} ms device, "
+          f"plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms (bytes: "
+          f"{nbytes}); {100 * bound_ms / kernel_dev:.1f}% of bound; "
+          "captured, a reset: "
+          + ", ".join(f"{n} {k:g} kernel and {m:g} memcpy nodes {ms:.5f} ms"
+                      for n, (k, m, ms) in graphs.items()))
+    return {"max_abs_err": 0.0, "ms": kernel_b2b, "device_ms": kernel_dev,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "graphs": {n: list(v) for n, v in graphs.items()}}
+
+
 def _ddpg_config(name):
     """A DDPG run config at full width, cut to ``DDPG_TRAIN_ITERS``
     iterations, trainer and env seeds 0 (the env draws its initial state
@@ -1862,6 +2036,7 @@ def _drive_ddpg_training():
     import torch
 
     from warpdrive_tpu_torch.ops import knn_obs
+    from warpdrive_tpu_torch.ops import reset as reset_ops
     from warpdrive_tpu_torch.training.scripts.train import setup_trainer
     from warpdrive_tpu_torch.training.trainer_ddpg import TrainerDDPG
 
@@ -1872,6 +2047,7 @@ def _drive_ddpg_training():
         results_dir = tempfile.mkdtemp(prefix="chip_smoke_ddpg_")
         try:
             knn_obs.reset_launch_counts()
+            reset_ops.reset_launch_counts()
             t0 = time.perf_counter()
             trainer = setup_trainer(cfg, results_dir=results_dir,
                                     verbose=False, device=DEVICE)
@@ -1897,6 +2073,9 @@ def _drive_ddpg_training():
             del trainer._iteration  # the class's method again
             launches = dict(knn_obs.LAUNCH_COUNTS)
             assert launches == no_launches, f"{name}: launches {launches}"
+            _reset_path(f"4h {name}",
+                        reset_ops.LAUNCH_COUNTS["reset_when_done"],
+                        DDPG_TRAIN_ITERS * trainer.training_batch_size_per_env)
             first_moved = _nets_diff(after_first, built)
             assert first_moved == 0.0, \
                 f"{name}: iteration 1 moved the nets by {first_moved}"
@@ -2095,6 +2274,8 @@ def _drive_tuned_training():
                   TUNED_ITERS * TUNED_STEPS)
     _sampler_path("4j tuned flagship training", times["sampler_launches"],
                   len(trainer.policies) * TUNED_ITERS * TUNED_STEPS)
+    _reset_path("4j tuned flagship training", times["reset_launches"],
+                TUNED_ITERS * TUNED_STEPS)
     for tag, model in trainer.models.items():
         opts = trainer.update_options[tag]
         assert model.dtype == torch.bfloat16, tag
@@ -2146,6 +2327,8 @@ def _drive_tuned_training():
     _sampler_path("4j tuned flagship, update_recompute_obs",
                   rec_times["sampler_launches"],
                   len(rec.policies) * TUNED_STEPS)
+    _reset_path("4j tuned flagship, update_recompute_obs",
+                rec_times["reset_launches"], TUNED_STEPS)
     batch = rec._batch
     assert not any(key.startswith("obs_") for key in batch)
     phys_gb = sum(v.numel() * v.element_size()
@@ -2462,6 +2645,8 @@ def _drive_full_obs_training():
     _sampler_path("4l tag_continuous, full observation",
                   times["sampler_launches"],
                   len(trainer.policies) * trainer.num_iters * T)
+    _reset_path("4l tag_continuous, full observation",
+                times["reset_launches"], trainer.num_iters * T)
     obs_bytes = sum(v.numel() * v.element_size()
                     for k, v in trainer._batch.items()
                     if k.startswith("obs_"))
@@ -4595,6 +4780,7 @@ def main(argv=None) -> int:
         knn_obs,
         tag_physics,
     )
+    from warpdrive_tpu_torch.ops import reset as reset_ops
     from warpdrive_tpu_torch.presets import build_flagship, build_many_agents
     from warpdrive_tpu_torch.utils.config import load_run_config
 
@@ -4692,6 +4878,8 @@ def main(argv=None) -> int:
     for name, r in loops.items():
         _sampler_path(f"4a flagship {name}", r["sampler_launches"],
                       _draws_a_step(name) * MAIN_PATH_STEPS)
+        _reset_path(f"4a flagship {name}", r["reset_launches"],
+                    MAIN_PATH_STEPS)
 
     # 4b. the training path, counts from 0
     trainer, train_launches, train_times = _drive_training(run_config)
@@ -4712,6 +4900,8 @@ def main(argv=None) -> int:
                   train_times["sampler_launches"],
                   len(trainer.policies) * trainer.num_iters
                   * trainer.training_batch_size_per_env)
+    _reset_path("4b tag_continuous training", train_times["reset_launches"],
+                trainer.num_iters * trainer.training_batch_size_per_env)
     later = trainer.phase_ms[1:]
     roll_ms = statistics.mean(r for r, _ in later)
     upd_ms = statistics.mean(u for _, u in later)
@@ -4738,6 +4928,8 @@ def main(argv=None) -> int:
                   fast_loop["physics_launches"], MAIN_PATH_STEPS)
     _sampler_path("4d pallas_flat env_only_step",
                   fast_loop["sampler_launches"], 0)
+    _reset_path("4d pallas_flat env_only_step",
+                fast_loop["reset_launches"], MAIN_PATH_STEPS)
 
     # 4e. the flagship loops of K6-K9, counts from 0 before each
     knn_loops, knn_launches = _drive_knn_loops(knn_rolled)
@@ -4834,6 +5026,9 @@ def main(argv=None) -> int:
     sampler_launches = sum(_SAMPLER_PATHS.values())
     print(f"draw launches on the main paths: {sampler_launches} "
           f"({_SAMPLER_PATHS})")
+    reset_launches = sum(_RESET_PATHS.values())
+    print(f"reset launches on the main paths: {reset_launches} "
+          f"({_RESET_PATHS})")
 
     # 5. kernel vs plain and their times at the main paths' shapes
     many_args = _knn_args(many["pallas_flat_exact"]["env"],
@@ -4926,6 +5121,9 @@ def main(argv=None) -> int:
     # the categorical-draw kernel at the training rollout's shapes
     sampler = {policy: _time_sampler(lead, policy)
                for policy, lead in SAMPLER_SHAPES.items()}
+    # the reset kernel at the benchmark cells' shapes
+    resets = {cell: _time_reset(cell)
+              for cell in ("flagship", "training", "pendulum")}
     for variant in ("tiled", "tiled_mxudist_exact"):  # K5's other modes
         max_abs["knn_obs_tiled"] = max(max_abs["knn_obs_tiled"], _compare_knn(
             many_label, *many_args, variant, tol=EXACT_TOL))
@@ -5068,6 +5266,24 @@ def main(argv=None) -> int:
                      for key in ("ms", "device_ms", "plain_ms", "bound_ms",
                                  "graphs")}
             for policy in SAMPLER_SHAPES if policy != "runner"},
+        "library_ms": None,
+    })
+    # the reset kernel: its launches on the main paths (each path's own
+    # count held against its steps) and its times at the flagship's shape
+    # (the other cells' in their own records)
+    kernels.append({
+        "name": "reset_when_done",
+        **reset_ops.KERNEL,
+        "launches": reset_launches,
+        "max_abs_err": 0.0,
+        **{key: resets["flagship"][key]
+           for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                       "graphs")},
+        "other_shapes": {
+            cell: {key: resets[cell][key]
+                   for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                               "graphs")}
+            for cell in ("training", "pendulum")},
         "library_ms": None,
     })
     print(card)

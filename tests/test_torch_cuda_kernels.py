@@ -14,7 +14,10 @@ and the flagship step and the training rollout launching it once a step;
 the categorical-draw kernel (``sample_heads``) against the stacked
 ``sample_from_logits`` at the rollout's shapes, on masked heads, planted
 ties and NaN logits, and the captured rollout step against its eager body
-with two draw launches a replay.
+with two draw launches a replay; the done-driven reset kernel against the
+plain reset written back, at the three benchmark cells' shapes and on
+mixed dtypes, misaligned and aliased buffers, and one launch a step of the
+captured flagship step and of the A2C and DDPG rollouts.
 
 These tests need an NVIDIA GPU and skip elsewhere.  The file imports no JAX,
 so on a machine with a card and no JAX it runs without the repo's
@@ -36,10 +39,17 @@ import pytest
 import torch
 
 from test_torch_knn_warp_order import near_tie_coords
+from test_torch_reset_into import mixed_case, stepped
 from warpdrive_tpu_torch.envs.classic_control.cartpole import (
     TorchClassicControlCartPoleEnv,
 )
-from warpdrive_tpu_torch.core.program import Program, _leaves, plain_calls
+from warpdrive_tpu_torch.core.program import (
+    Program,
+    _leaves,
+    assign_state,
+    plain_calls,
+)
+from warpdrive_tpu_torch.core.reset import make_auto_reset_fn, reset_plain
 from warpdrive_tpu_torch.envs.engine import EnvEngine
 from warpdrive_tpu_torch.envs.tag_continuous import TorchTagContinuous
 from warpdrive_tpu_torch.envs.tag_gridworld import (
@@ -48,6 +58,7 @@ from warpdrive_tpu_torch.envs.tag_gridworld import (
 )
 from warpdrive_tpu_torch.models.fully_connected import apply_logit_mask
 from warpdrive_tpu_torch.ops import gumbel_sample, knn_obs, tag_physics
+from warpdrive_tpu_torch.ops import reset as reset_ops
 from warpdrive_tpu_torch.presets import (
     build_flagship,
     build_many_agents,
@@ -1303,3 +1314,200 @@ def test_captured_rollout_step_equals_its_eager_body_on_card(card, tmp_path):
     assert torch.equal(
         torch.rand(8, generator=eager.generator, device=card),
         torch.rand(8, generator=captured.generator, device=card))
+
+
+# ------------------------------------------------- the done-driven reset
+_RESET_CELLS = {  # the three cells' steps: env, replicas
+    "flagship": ("flagship", 1024),
+    "training": ("tag_continuous", 100),
+    "pendulum": ("pendulum", 10_000),
+}
+
+
+def _as_bytes(t):
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _plain_reset(snapshot, pools, state, generator, force=False,
+                 pool_idx=None):
+    """The plain ``where`` chain on the card (``core/reset.reset_plain``),
+    the pool rows given or drawn as ``auto_reset`` draws them."""
+    envs = state["_done_"].shape[0]
+    rows = {t: (pool_idx[t].long() if pool_idx and t in pool_idx
+                else torch.randint(0, pool.shape[0], (envs,),
+                                   generator=generator, device=pool.device))
+            for t, pool in sorted(pools.items())}
+    return reset_plain(state, snapshot, pools, rows, force)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["done", "force", "pool_idx", "none_done"])
+@pytest.mark.parametrize("cell", sorted(_RESET_CELLS))
+def test_reset_kernel_matches_plain_on_card(card, cell, mode):
+    """At the three cells' shapes (1024 x 105, 100 x 110, 10,000 Pendulum
+    envs with a pool of 10,000): the reset into the static state, one
+    launch, equals the plain ``where`` chain written back by
+    ``assign_state`` bit for bit (every byte of every entry), with done
+    flags on every third env, ``force``, given pool rows and no env done;
+    the generator's next draw is the plain path's.  The engine's reset
+    (with Pendulum's observation refresh) into the static state equals
+    its functional reset, one launch each."""
+    env, envs = _RESET_CELLS[cell]
+    engine, carried, state = stepped(env, envs, card)
+    store = engine.store
+    kwargs = {"force": mode == "force"}
+    if mode == "none_done":
+        state["_done_"] = torch.zeros_like(state["_done_"])
+    if mode == "pool_idx":
+        kwargs["pool_idx"] = {
+            target: torch.randperm(envs, device=card) % pool.shape[0]
+            for target, pool in store.pools.items()}
+    ours, theirs = (torch.Generator(device=card).manual_seed(21)
+                    for _ in range(2))
+    static = {k: v.clone() for k, v in carried.items()}
+    want = {k: v.clone() for k, v in carried.items()}
+    base = make_auto_reset_fn(store.snapshot, store.pools)
+    before = reset_ops.LAUNCH_COUNTS["reset_when_done"]
+    got = base(state, ours, out=static, **kwargs)
+    assert reset_ops.LAUNCH_COUNTS["reset_when_done"] == before + 1
+    assign_state(want, _plain_reset(store.snapshot, store.pools, state,
+                                    theirs, **kwargs))
+    torch.cuda.synchronize()
+    for name in static:
+        assert got[name] is static[name]
+        assert torch.equal(_as_bytes(static[name]), _as_bytes(want[name])), \
+            name
+    assert torch.equal(torch.rand(8, generator=ours, device=card),
+                       torch.rand(8, generator=theirs, device=card))
+    into, functional = ({k: v.clone() for k, v in carried.items()}
+                        for _ in range(2))
+    before = reset_ops.LAUNCH_COUNTS["reset_when_done"]
+    engine.auto_reset(state, ours, out=into, **kwargs)
+    assign_state(functional, engine.auto_reset(state, theirs, **kwargs))
+    torch.cuda.synchronize()
+    assert reset_ops.LAUNCH_COUNTS["reset_when_done"] == before + 2
+    for name in into:
+        assert torch.equal(_as_bytes(into[name]),
+                           _as_bytes(functional[name])), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["aligned", "misaligned", "aliased",
+                                  "pool_idx"])
+@pytest.mark.parametrize("force", [False, True], ids=["done", "force"])
+def test_reset_kernel_takes_any_dtype_alignment_and_alias_on_card(
+        card, case, force):
+    """int32, float32, bool and bfloat16 entries of odd row widths and two
+    pools, in static buffers on 16-byte boundaries or one element past
+    them, or a destination that is its own source (the done flags among
+    them, read from a copy); given pool rows, one negative: one launch
+    equals the plain reset written back, bit for bit."""
+    snapshot, pools, state, out = mixed_case(
+        misaligned=case == "misaligned", device=card)
+    if case == "aliased":
+        for name, value in state.items():
+            out[name].copy_(value)
+        state = dict(out)
+    if case == "misaligned":
+        assert out["c_bool"].data_ptr() % 2 == 1
+    pool_idx = ({"p_float": torch.tensor([0, -1, 2, 3, 4, 5, 0, 1, 2, 3],
+                                         device=card),
+                 "q_bf16": torch.arange(10, device=card) % 6}
+                if case == "pool_idx" else None)
+    auto_reset = make_auto_reset_fn(snapshot, pools)
+    want = {k: torch.zeros_like(v) for k, v in out.items()}
+    assign_state(want, _plain_reset(
+        snapshot, pools, {k: v.clone() for k, v in state.items()},
+        torch.Generator(device=card).manual_seed(2), force=force,
+        pool_idx=pool_idx))
+    before = reset_ops.LAUNCH_COUNTS["reset_when_done"]
+    got = auto_reset(state, torch.Generator(device=card).manual_seed(2),
+                     force=force, pool_idx=pool_idx, out=out)
+    torch.cuda.synchronize()
+    assert reset_ops.LAUNCH_COUNTS["reset_when_done"] == before + 1
+    for name in out:
+        assert got[name] is out[name]
+        assert torch.equal(_as_bytes(out[name]), _as_bytes(want[name])), name
+
+
+@pytest.mark.cuda
+def test_reset_kernel_refuses_what_it_does_not_take_on_card(card):
+    """A non-contiguous value, with a destination or without, and a value
+    on the CPU raise before any launch, and nothing falls back to the
+    plain path."""
+    snapshot, pools, state, out = mixed_case(device=card)
+    auto_reset = make_auto_reset_fn(snapshot, pools)
+    before = reset_ops.LAUNCH_COUNTS["reset_when_done"]
+    wide = torch.zeros((10, 6), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="a_int is not contiguous"):
+        auto_reset(dict(state, a_int=wide[:, ::2]), out=out)
+    with pytest.raises(ValueError, match="a_int is not contiguous"):
+        auto_reset(dict(state, a_int=wide[:, ::2]))  # no destination
+    with pytest.raises(ValueError, match="b_float lies on cpu"):
+        auto_reset(dict(state, b_float=state["b_float"].cpu()), out=out)
+    with pytest.raises(ValueError, match="e_kept .static. lies on cpu"):
+        auto_reset(state, out=dict(out, e_kept=out["e_kept"].cpu()))
+    assert reset_ops.LAUNCH_COUNTS["reset_when_done"] == before
+
+
+@pytest.mark.cuda
+def test_flagship_step_launches_the_reset_kernel_once_per_step(card):
+    """The flagship's captured env-only step resets into its carry in one
+    reset launch a step, the replays credited, and its states equal the
+    eager functional steps' from the same seed, bit for bit; the eager
+    steps, which take no destination, launch one a step too, into fresh
+    tensors."""
+    system = build_flagship(num_envs=64, fc_dims=(32, 32), seed=2,
+                            device=card)
+    start = {k: v.clone() for k, v in system["state"].items()}
+    # every episode ends (at 500 steps) within the first 30 steps
+    start["_timestep_"] = 470 + torch.arange(
+        64, dtype=torch.int32, device=card) % 30
+    gen = torch.Generator(device=card).manual_seed(0)
+    reset_ops.reset_launch_counts()
+    state, checksum = dict(start), torch.zeros((), device=card)
+    for _ in range(40):
+        state, checksum = system["env_only_step"]((state, checksum), gen)
+    torch.cuda.synchronize()
+    assert reset_ops.LAUNCH_COUNTS == {"reset_when_done": 40}
+    assert int(state["_timestep_"].max()) <= 40  # every env was reset
+    reset_ops.reset_launch_counts()
+    loop = captured_loop(system, "env_only_step",
+                         torch.Generator(device=card).manual_seed(0),
+                         state=start)
+    for _ in range(40):
+        loop()
+    torch.cuda.synchronize()
+    assert loop.graph is not None and loop.replays == 39
+    assert loop.launches["reset_when_done"] == 1
+    assert reset_ops.LAUNCH_COUNTS == {"reset_when_done": 40}
+    for name, value in state.items():
+        assert torch.equal(loop.buffers["state"][name], value), name
+    assert torch.equal(loop.buffers["checksum"], checksum)
+
+
+@pytest.mark.cuda
+def test_training_rollouts_launch_the_reset_kernel_once_per_step(
+        card, tmp_path):
+    """One iteration of the ``tag_continuous`` run config at 8 envs (50
+    rollout steps) and two of ``single_pendulum`` at 64 envs (10 steps
+    each): one reset launch a rollout step, the rollout program's capture
+    counting one."""
+    cfg = load_run_config("tag_continuous")
+    cfg["trainer"].update({"num_envs": 8, "train_batch_size": 400,
+                           "num_episodes": 1, "seed": 1})
+    for policy in ("runner", "tagger"):
+        cfg["policy"][policy]["model"]["fc_dims"] = [32, 32]
+    reset_ops.reset_launch_counts()
+    trainer = setup_trainer_and_train(cfg, verbose=False,
+                                      results_dir=str(tmp_path / "a2c"))
+    torch.cuda.synchronize()
+    assert trainer.iters_completed == 1
+    assert reset_ops.LAUNCH_COUNTS == {"reset_when_done": 50}
+    assert trainer._programs["rollout"].launches["reset_when_done"] == 1
+    ddpg = _ddpg_trainer("single_pendulum", tmp_path)
+    reset_ops.reset_launch_counts()
+    ddpg._iteration(0)
+    ddpg._iteration(640)
+    torch.cuda.synchronize()
+    assert reset_ops.LAUNCH_COUNTS == {"reset_when_done": 20}

@@ -18,6 +18,7 @@ from warpdrive_tpu.envs.engine import EnvEngine as JaxEnvEngine
 from warpdrive_tpu.training.trainer_a2c import TrainerA2C as JaxTrainerA2C
 from warpdrive_tpu_torch.envs.base import TorchEnvironmentContext
 from warpdrive_tpu_torch.envs.engine import EnvEngine
+from warpdrive_tpu_torch.ops import reset as reset_kernel
 from warpdrive_tpu_torch.models.fully_connected import (
     adam_state_from_optax,
     params_from_flax,
@@ -215,6 +216,22 @@ def test_trains_and_evaluates(case, tmp_path):
     rew, _ = ptr.evaluate_episodes()
     assert rew["shared"].shape == (peng.n_envs, peng.n_agents)
     assert np.isfinite(rew["shared"]).all()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_reset_kernel_plan_takes_either_layouts_state(case, tmp_path):
+    """The store keeps every at-reset snapshot row-major whatever layout it
+    was handed (the agent-dim-last observations arrive transposed), so
+    the reset kernel's plan (``ops/reset.plan``, which a card runs before
+    its launch) takes the trainer's env state after a step."""
+    _, peng, _, ptr = _pair(case, tmp_path)
+    assert all(t.is_contiguous() for t in peng.store.snapshot.values())
+    state = dict(ptr._env_state)
+    actions = torch.zeros_like(state[_ACTIONS])
+    new = peng.step(state, actions)
+    entries = reset_kernel.plan(ptr._env_state, new, peng.store.snapshot,
+                                peng.store.pools, {})
+    assert {name for name, *_ in entries} >= set(peng.store.snapshot)
 
 
 def test_trainer_engine_flag_mismatch_raises(tmp_path):

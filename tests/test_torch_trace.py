@@ -635,3 +635,32 @@ def test_counters_keep_the_sampler_launches_apart_from_the_knn_ones():
             knn_obs.LAUNCH_COUNTS, 0)
     finally:
         gumbel_sample.reset_launch_counts()
+
+
+def test_counters_keep_the_reset_launches_apart_from_the_others():
+    """The reset kernel's family ``reset`` is registered on its own, apart
+    from ``knn``, ``physics`` and ``sampler``, and the tracer's summary
+    lists ``reset_launches``."""
+    from warpdrive_tpu_torch.ops import (
+        cuda_build,
+        gumbel_sample,
+        knn_obs,
+        reset,
+        tag_physics,
+    )
+
+    assert cuda_build.LAUNCH_COUNTS["reset"] is reset.LAUNCH_COUNTS
+    for other in (knn_obs, tag_physics, gumbel_sample):
+        assert not set(reset.LAUNCH_COUNTS) & set(other.LAUNCH_COUNTS)
+        other.reset_launch_counts()
+    reset.reset_launch_counts()
+    reset.LAUNCH_COUNTS["reset_when_done"] += 4
+    try:
+        counters = trace.summary()["counters"]
+        assert counters["reset_launches"] == {"reset_when_done": 4}
+        assert counters["knn_launches"] == dict.fromkeys(
+            knn_obs.LAUNCH_COUNTS, 0)
+        assert counters["physics_launches"] == {"tag_physics": 0}
+        assert counters["sampler_launches"] == {"gumbel_sample": 0}
+    finally:
+        reset.reset_launch_counts()

@@ -115,7 +115,9 @@ class StateStore:
                 self.meta[name] = value.item()
                 continue
 
-            arr = cast_to_32bit(np.asarray(data))
+            # row-major, whatever the layout handed in: the reset kernel
+            # (ops/reset.py) reads a snapshot row as contiguous bytes
+            arr = np.ascontiguousarray(cast_to_32bit(np.asarray(data)))
             single = torch.as_tensor(arr, device=self.device).clone()
             assert name not in self.state, f"array {name!r} already on store"
             self.state[name] = single.unsqueeze(0).repeat(
@@ -130,7 +132,7 @@ class StateStore:
 
     def _add_reset_pool(self, name: str, entry: dict):
         target = entry["reset_target"]
-        pool = cast_to_32bit(np.asarray(entry["data"]))
+        pool = np.ascontiguousarray(cast_to_32bit(np.asarray(entry["data"])))
         assert target is not None
         if target in self._specs:
             spec = self._specs[target]

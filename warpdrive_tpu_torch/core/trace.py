@@ -264,7 +264,7 @@ def counters() -> dict:
     ``replays`` (``Program.replays`` of each captured program still alive,
     by name: the latest of a name) and ``<family>_launches`` for each
     family of registered launch counts (``knn_launches``,
-    ``physics_launches``, ``sampler_launches``:
+    ``physics_launches``, ``sampler_launches``, ``reset_launches``:
     ``ops/cuda_build.py:LAUNCH_COUNTS``)."""
     from warpdrive_tpu_torch.ops import cuda_build  # which imports this one
 

@@ -15,8 +15,10 @@ The port's counterpart of ``warpdrive_tpu/envs/engine.py``.  It
 * exposes the functions a rollout composes, each taking and returning a
   dict of batched tensors without touching its input: ``step`` (write the
   actions, then the env's whole ``step_fn``, or on the split path
-  ``step_physics`` then ``observe``), ``auto_reset``, and on the split path
-  ``step_physics`` and ``observe`` (``None`` on the full-step path),
+  ``step_physics`` then ``observe``), ``auto_reset`` (which, given the
+  static state as its ``out``, writes the new state into it instead), and
+  on the split path ``step_physics`` and ``observe`` (``None`` on the
+  full-step path),
 * refreshes, after a reset that drew reset-pool rows, the observations of
   the reset replicas from the env's ``observe_fn`` (restoring the
   at-reset snapshot would leave them one step stale),
@@ -274,7 +276,9 @@ class EnvEngine:
     def _make_auto_reset(self):
         """The done-driven reset, which restores every snapshot-flagged
         array (every observation placeholder among them); with reset pools,
-        followed by the observation refresh of the replicas it reset."""
+        followed by the observation refresh of the replicas it reset.  Its
+        ``out``, the static state, takes the new state in place
+        (``core/reset.py``)."""
         base_auto_reset = make_auto_reset_fn(
             self.store.snapshot, self.store.pools
         )
@@ -291,18 +295,21 @@ class EnvEngine:
             )
 
         def auto_reset(state: dict, generator: torch.Generator = None,
-                       force: bool = False, pool_idx: dict = None) -> dict:
+                       force: bool = False, pool_idx: dict = None,
+                       out: dict = None) -> dict:
             done = state[Constants.DONE] > 0
             if force:
                 done = torch.ones_like(done)
             new_state = base_auto_reset(state, generator, force=force,
-                                        pool_idx=pool_idx)
+                                        pool_idx=pool_idx, out=out)
             if _OBS in new_state:
                 fresh = observe_fn(dict(new_state))
                 mask = done.reshape(done.shape + (1,) * (fresh.ndim - 1))
+                obs = new_state[_OBS]
+                # into the destination's own buffer, where there is one
                 new_state[_OBS] = torch.where(
-                    mask, fresh.to(new_state[_OBS].dtype), new_state[_OBS]
-                )
+                    mask, fresh.to(obs.dtype), obs,
+                    **({} if out is None else {"out": obs}))
             return new_state
 
         return auto_reset
@@ -411,8 +418,8 @@ class EnvEngine:
                     assign_state(state, self.step(state))
             else:
                 def body():
-                    assign_state(state, self.auto_reset(
-                        state, generator, force=kind == "force"))
+                    self.auto_reset(state, generator, force=kind == "force",
+                                    out=state)
             if self._facade_pool is None and self.device.type == "cuda":
                 self._facade_pool = torch.cuda.graph_pool_handle()
             program = Program(body, {"state": state}, self.device,

@@ -5,10 +5,13 @@ TagContinuous with 5 taggers and 100 runners, k = 10 neighbour observations
 and two ``FullyConnected`` policies (runner and tagger), built as functions
 over batched tensors:
 
-* ``env_only_step((state, checksum), generator)`` -- random actions, then
-  observe, physics and auto-reset (the env simulation rate);
-* ``full_loop_step(models, state, generator)`` -- observe, the two policy
-  forward passes, categorical sampling, physics and auto-reset.
+* ``env_only_step((state, checksum), generator, out=None)`` -- random
+  actions, then observe, physics and auto-reset (the env simulation rate);
+* ``full_loop_step(models, state, generator, out=None)`` -- observe, the
+  two policy forward passes, categorical sampling, physics and auto-reset;
+
+each resetting into ``out``, the static state, where it is given
+(``core/reset.py``; on a card one launch of the reset kernel).
 
 Each step runs the kNN observation once, so on a CUDA device each launches
 the kNN kernel once.
@@ -34,6 +37,8 @@ bench's ``tag_gridworld_env_steps_per_sec`` and
 """
 
 from __future__ import annotations
+
+import inspect
 
 import numpy as np
 import torch
@@ -125,14 +130,15 @@ def _env_only_step_fn(engine, device):
     random_actions = random_actions_fn(engine, device)
 
     @torch.no_grad()
-    def env_only_step(carry, generator):
-        """Random-action env step + observation + auto-reset.  The obs
-        checksum keeps the observation an output of the step."""
+    def env_only_step(carry, generator, out=None):
+        """Random-action env step + observation + auto-reset (into ``out``,
+        the static state, where given).  The obs checksum keeps the
+        observation an output of the step."""
         state, checksum = carry
         actions = random_actions(generator)
         checksum = checksum + engine.observe(state).sum()
         state = engine.step_physics(state, actions)
-        return engine.auto_reset(state, generator), checksum
+        return engine.auto_reset(state, generator, out=out), checksum
 
     return env_only_step
 
@@ -194,12 +200,13 @@ def build_flagship(num_envs: int = 64, fc_dims=(256, 256), seed: int = 0,
         return actions
 
     @torch.no_grad()
-    def full_loop_step(models, state, generator):
-        """One full loop step: obs + policy + sample + step + reset."""
+    def full_loop_step(models, state, generator, out=None):
+        """One full loop step: obs + policy + sample + step + reset (into
+        ``out``, the static state, where given)."""
         obs_all = engine.observe(state)
         actions = _policy_actions(models, obs_all, generator)
         state = engine.step_physics(state, actions)
-        return engine.auto_reset(state, generator)
+        return engine.auto_reset(state, generator, out=out)
 
     env_only_step = _env_only_step_fn(engine, device)
 
@@ -275,13 +282,14 @@ def build_env_only_loop(env_name: str, num_envs: int, seed: int = 0,
     random_actions = random_actions_fn(engine, device)
 
     @torch.no_grad()
-    def env_only_step(carry, generator):
-        """Random-action step + auto-reset; the obs checksum keeps the
-        observation write an output of the step."""
+    def env_only_step(carry, generator, out=None):
+        """Random-action step + auto-reset (into ``out``, the static state,
+        where given); the obs checksum keeps the observation write an
+        output of the step."""
         state, checksum = carry
         state = engine.step(state, random_actions(generator))
         checksum = checksum + state[_OBS].sum()
-        return engine.auto_reset(state, generator), checksum
+        return engine.auto_reset(state, generator, out=out), checksum
 
     return {
         "engine": engine,
@@ -305,7 +313,13 @@ def captured_loop(system: dict, loop: str, generator: torch.Generator,
     The carry's state is the engine's own, pinned
     (``EnvEngine.pin_state``): the program and the engine's facade share
     it.  ``state``, when given, is written into it first; the checksum
-    starts at 0 (``full_loop_step`` leaves it there)."""
+    starts at 0 (``full_loop_step`` leaves it there).
+
+    A step that takes ``out`` (every step of this module) resets straight
+    into the carry's state, which the write-back then finds in place.  A
+    step without it is written back entry by entry: the only such step is
+    the one ``portbench/tests/test_portbench_faults.py`` plants in place of
+    ``env_only_step``, and once it takes ``out`` this fork goes."""
     engine = system["engine"]
     step = system[loop]
     carry = {"state": engine.pin_state(list(system["state"])),
@@ -314,6 +328,8 @@ def captured_loop(system: dict, loop: str, generator: torch.Generator,
     if state is not None:
         assign_state(carry["state"], state)
     buffers = dict(carry)
+    into = ({"out": carry["state"]}
+            if "out" in inspect.signature(step).parameters else {})
     if loop == "full_loop_step":
         models = system["models"]
         buffers["models"] = {tag: list(m.parameters())
@@ -321,11 +337,11 @@ def captured_loop(system: dict, loop: str, generator: torch.Generator,
 
         def body():
             assign_state(carry["state"],
-                         step(models, carry["state"], generator))
+                         step(models, carry["state"], generator, **into))
     elif loop == "env_only_step":
         def body():
             new, checksum = step((carry["state"], carry["checksum"]),
-                                 generator)
+                                 generator, **into)
             assign_state(carry["state"], new)
             carry["checksum"].copy_(checksum)
     else:

@@ -611,8 +611,7 @@ class TrainerBase:
         if self._is_eager:
             engine.reset_only_done_envs()
         else:
-            assign_state(self._env_state,
-                         engine.auto_reset(state, self.generator))
+            engine.auto_reset(state, self.generator, out=self._env_state)
         row.add_(1)
 
     def train(self):
